@@ -1,0 +1,52 @@
+"""Plain PyTorch flash-attention oracle: dense masked softmax attention on
+the kernel layout of ``repro.kernels.flash_attention.ref``."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (BKG, S, D)
+    k: torch.Tensor,  # (BK, Skv, D)
+    v: torch.Tensor,
+    *,
+    group: int,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    _, S, D = q.shape
+    Skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kx = k.repeat_interleave(group, dim=0).float()
+    vx = v.repeat_interleave(group, dim=0).float()
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kx) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask[None], -1.0e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bqk,bkd->bqd", p, vx).to(q.dtype)
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, softcap=None) -> torch.Tensor:
+    """The same function on the model layout: q ``(B, S, Hq, D)``, k/v
+    ``(B, Skv, Hkv, D)``, through the reference's transposes."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(B * Hkv * G, S, D)
+    kf = k.permute(0, 2, 1, 3).reshape(B * Hkv, -1, D)
+    vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, -1, D)
+    of = flash_attention_ref(qf, kf, vf, group=G, causal=causal, window=window, softcap=softcap)
+    return of.reshape(B, Hkv, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)

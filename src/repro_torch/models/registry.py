@@ -1,0 +1,62 @@
+"""Public model API: build once from an ArchConfig, get functions on tensors
+(``repro.models.registry``). Entry points run on ``"cuda"`` unless the
+caller asks for ``device="cpu"``; asking for CUDA without a card raises."""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device(device)``, refusing CUDA on a machine without it (the
+    port never drops to the CPU on its own)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was asked for (the default) but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+class ModelApi(NamedTuple):
+    cfg: ArchConfig
+    device: torch.device
+    init: Callable[[int], Any]  # (seed) -> params
+    prefill: Callable[[Any, Any], Any]  # (params, batch) -> (last logits, caches)
+    decode: Callable[[Any, Any, Any, Any], Any]  # (params, caches, tok, pos)
+    init_cache: Callable[[int, int], Any]  # (batch, max_len) -> caches
+
+
+def build_model(cfg: ArchConfig, device="cuda") -> ModelApi:
+    dev = resolve_device(device)
+
+    def init(seed: int):
+        return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+    def prefill(params, batch):
+        hidden, _, caches = T.forward(params, cfg, batch, "prefill")
+        # only the last position's logits are needed to start decoding
+        return T.full_logits(params, cfg, hidden[:, -1:, :])[:, 0, :], caches
+
+    def decode(params, caches, tokens, positions):
+        return T.decode_step(params, cfg, caches, tokens, positions)
+
+    def init_cache(batch, max_len):
+        return T.init_cache(cfg, batch, max_len, dev)
+
+    return ModelApi(cfg, dev, init, prefill, decode, init_cache)
+
+
+def materialize_batch(cfg: ArchConfig, B: int, S: int, seed: int = 0, device="cuda") -> dict:
+    """Random token batch ``(B, S)`` drawn with numpy from ``seed`` (the
+    same law as the reference's, not the same numbers)."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"{cfg.family} inputs are not ported yet")
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}

@@ -1,0 +1,313 @@
+"""Serving engines, in PyTorch (``repro.serve.engine``): batched prefill and
+decode with a KV cache, a request queue and a sampler.
+
+``ServeEngine`` admits up to ``max_batch`` requests, prefills them together
+(left-padded to the longest prompt) and decodes them in lock step.
+``ContinuousBatchingEngine`` keeps a fixed pool of decode slots, prefills
+each admitted request alone into its slot's rows of the shared cache and
+decodes all slots in lock step. Both share a ``_ModelRunner`` that owns the
+parameters, the model functions and the sampling generator.
+
+Engines run on ``"cuda"`` unless ``device="cpu"`` is passed. Not ported
+yet: ``mesh=`` (the distribution slice), ``tuned=``/``audit=`` and
+``admission="predicted"`` (the prediction slice).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.registry import build_model
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (L,) int
+    max_new: int = 16
+    temperature: float = 0.0
+
+
+@dataclasses.dataclass
+class Result:
+    rid: int
+    tokens: list
+    prefill_s: float
+    decode_s: float
+    #: scheduler steps the request was resident for (its admission prefill
+    #: plus every decode tick it took a token in)
+    ticks: int = 0
+    #: admission-to-retire wall-clock of this process
+    latency_s: float = 0.0
+
+
+class _ModelRunner:
+    """Shared prefill/decode/sample machinery for the serving engines.
+
+    Keeps ``params`` as given (``param_dtype``) and, beside them, the copy
+    the forward pass reads (``transformer.cast_for_compute``)."""
+
+    def __init__(self, cfg: ArchConfig, *, params=None, seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        self.api = build_model(cfg, device)
+        self.device = self.api.device
+        self.params = self.api.init(seed) if params is None else params
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value):
+        self._params = value.to(self.device)
+        self._compute = T.cast_for_compute(self._params, self.cfg)
+
+    def sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def prefill(self, batch):
+        return self.api.prefill(self._compute, batch)
+
+    @torch.no_grad()
+    def decode(self, caches, tokens, positions):
+        return self.api.decode(self._compute, caches, tokens, positions)
+
+    def grow_cache(self, caches, max_len: int):
+        return T.pad_cache(caches, self.cfg, max_len)
+
+    def init_cache(self, batch: int, max_len: int):
+        return self.api.init_cache(batch, max_len)
+
+    @torch.no_grad()
+    def sample(self, logits, temperatures, generator: torch.Generator) -> torch.Tensor:
+        """Greedy/categorical per row: ``logits (B, V_padded) -> (B,)``.
+        Rows with temperature 0 take the argmax; the others sample by the
+        Gumbel-max rule with noise from ``generator``."""
+        logits = logits[:, : self.cfg.vocab_size].float()
+        greedy = logits.argmax(dim=-1)
+        if not any(t > 0 for t in temperatures):
+            return greedy
+        temps = torch.tensor(temperatures, dtype=torch.float32, device=logits.device)[:, None]
+        u = torch.rand(logits.shape, generator=generator, device=logits.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+        sampled = (logits / temps.clamp_min(1e-3) + gumbel).argmax(dim=-1)
+        return torch.where(temps[:, 0] > 0, sampled, greedy)
+
+
+class _EngineBase:
+    def __init__(self, cfg: ArchConfig, *, params, seed, recorder, device):
+        self.cfg = cfg
+        self._runner = _ModelRunner(cfg, params=params, seed=seed, device=device)
+        self.api = self._runner.api
+        self.queue: deque[Request] = deque()
+        # optional trace recorder (duck-typed: record_step, mark_measured);
+        # each step is stamped with its wall-clock after a device sync
+        self.recorder = recorder
+
+    @property
+    def params(self):
+        return self._runner.params
+
+    @params.setter
+    def params(self, value):
+        self._runner.params = value
+
+    @property
+    def device(self) -> torch.device:
+        return self._runner.device
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _measured(self, seconds_since):
+        if self.recorder is not None:
+            self._runner.sync()
+            self.recorder.mark_measured(time.perf_counter() - seconds_since)
+
+
+class ServeEngine(_EngineBase):
+    def __init__(self, cfg: ArchConfig, params=None, seed: int = 0, max_batch: int = 8,
+                 recorder=None, device="cuda"):
+        super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device)
+        self.max_batch = max_batch
+
+    def _pad_batch(self, prompts: list[np.ndarray]):
+        B = len(prompts)
+        L = max(len(p) for p in prompts)
+        toks = np.zeros((B, L), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, L - len(p):] = p  # left-pad so last token aligns
+        return torch.from_numpy(toks).to(self.device), L
+
+    def step_batch(self) -> list[Result]:
+        """Admit up to max_batch requests, serve them to completion."""
+        if not self.queue:
+            return []
+        batch_reqs = [self.queue.popleft() for _ in range(min(self.max_batch, len(self.queue)))]
+        B = len(batch_reqs)
+        toks, L = self._pad_batch([r.prompt for r in batch_reqs])
+        max_new = max(r.max_new for r in batch_reqs)
+        temps = [r.temperature for r in batch_reqs]
+        gen = self._runner.generator
+
+        t0 = time.perf_counter()
+        if self.recorder is not None:
+            self.recorder.record_step(f"prefill[b{B}xL{L}]", self.cfg, B, L, L, phase="prefill")
+        logits, caches = self._runner.prefill({"tokens": toks})
+        caches = self._runner.grow_cache(caches, L + max_new)
+        self._runner.sync()
+        prefill_s = time.perf_counter() - t0
+        if self.recorder is not None:
+            self.recorder.mark_measured(prefill_s)
+
+        outputs: list[list[int]] = [[] for _ in range(B)]
+        t0 = time.perf_counter()
+        cur = self._runner.sample(logits, temps, gen)
+        for i, tok in enumerate(cur.tolist()):
+            outputs[i].append(tok)
+        for step in range(max_new - 1):
+            pos = torch.full((B,), L + step, dtype=torch.int64, device=self.device)
+            if self.recorder is not None:
+                still = sum(1 for i in range(B) if len(outputs[i]) < batch_reqs[i].max_new)
+                self.recorder.record_step(
+                    f"decode@{L + step}", self.cfg, B, 1, L + step + 1,
+                    phase="decode", active=still,
+                )
+            t_step = time.perf_counter()
+            logits, caches = self._runner.decode(caches, cur, pos)
+            cur = self._runner.sample(logits, temps, gen)
+            for i, tok in enumerate(cur.tolist()):
+                if len(outputs[i]) < batch_reqs[i].max_new:
+                    outputs[i].append(tok)
+            self._measured(t_step)
+        self._runner.sync()
+        decode_s = time.perf_counter() - t0
+        return [
+            Result(r.rid, outputs[i], prefill_s, decode_s,
+                   ticks=len(outputs[i]), latency_s=prefill_s + decode_s)
+            for i, r in enumerate(batch_reqs)
+        ]
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Optional[Request] = None
+    pos: int = 0  # next write position (absolute)
+    emitted: Optional[list] = None
+    cur: int = 0  # last sampled token
+    t_admit: float = 0.0
+    prefill_s: float = 0.0
+    ticks: int = 0
+
+    @property
+    def free(self) -> bool:
+        return self.req is None
+
+
+class ContinuousBatchingEngine(_EngineBase):
+    """In-flight batching: a fixed pool of decode slots steps in lock step;
+    finished requests free their slot and waiting requests are admitted at
+    the next step boundary. Each admission prefills its prompt alone, at its
+    own length, and copies its KV rows into its slot of the shared cache
+    ``(n_layers, slots, max_len, Hkv, D)``; running slots are never
+    interrupted. Every decode tick launches the full slot pool.
+
+    Only ``admission="fixed"`` (admit whenever a slot is free) is ported."""
+
+    def __init__(self, cfg: ArchConfig, *, slots: int = 4, max_len: int = 128,
+                 params=None, seed: int = 0, recorder=None, admission: str = "fixed",
+                 device="cuda"):
+        if cfg.family in ("ssm", "hybrid", "audio", "vlm"):
+            raise ValueError("the continuous-batching engine supports KV-cache LMs")
+        if admission == "predicted":
+            raise NotImplementedError(
+                "admission='predicted' needs the predictor (repro.predict, core/e2e), "
+                "which the port's prediction slice brings"
+            )
+        if admission != "fixed":
+            raise ValueError(f"admission must be 'fixed' or 'predicted', got {admission!r}")
+        super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device)
+        self.max_len = max_len
+        self.admission = admission
+        self.slots = [_Slot() for _ in range(slots)]
+        self.caches = self._runner.init_cache(slots, max_len)
+        self.done: list[Result] = []
+        self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def _admit(self):
+        for i, slot in enumerate(self.slots):
+            if not slot.free or not self.queue:
+                continue
+            req = self.queue.popleft()
+            L = len(req.prompt)
+            t0 = time.perf_counter()
+            if self.recorder is not None:
+                self.recorder.record_step(f"admit#{req.rid}[L{L}]", self.cfg, 1, L, L,
+                                          phase="prefill")
+            tokens = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)
+            logits, cache1 = self._runner.prefill({"tokens": tokens[None, :]})
+            cache1 = self._runner.grow_cache(cache1, self.max_len)
+            # copy this request's KV rows into slot i of the shared cache
+            for full, one in zip(self.caches, cache1):
+                for name in full:
+                    full[name][:, i] = one[name][:, 0]
+            tok = self._runner.sample(logits, [req.temperature], self._gen).item()
+            self._runner.sync()
+            now = time.perf_counter()
+            slot.req, slot.pos, slot.emitted, slot.cur = req, L, [tok], tok
+            slot.t_admit, slot.prefill_s, slot.ticks = t0, now - t0, 1
+            if self.recorder is not None:
+                self.recorder.mark_measured(slot.prefill_s)
+
+    def step(self) -> bool:
+        """One scheduler tick: admit, decode all active slots, retire."""
+        self._admit()
+        active = [i for i, s in enumerate(self.slots) if not s.free]
+        if not active:
+            return False
+        toks = torch.tensor([s.cur if not s.free else 0 for s in self.slots],
+                            dtype=torch.int64, device=self.device)
+        pos = torch.tensor([min(s.pos, self.max_len - 1) for s in self.slots],
+                           dtype=torch.int64, device=self.device)
+        if self.recorder is not None:
+            kv = max(min(self.slots[i].pos, self.max_len - 1) for i in active) + 1
+            self.recorder.record_step(
+                f"tick[{len(active)}/{len(self.slots)}]", self.cfg, len(self.slots), 1, kv,
+                phase="decode", active=len(active),
+            )
+        t_tick = time.perf_counter()
+        logits, self.caches = self._runner.decode(self.caches, toks, pos)
+        temps = [s.req.temperature if not s.free else 0.0 for s in self.slots]
+        sampled = self._runner.sample(logits, temps, self._gen).tolist()
+        for i in active:
+            s = self.slots[i]
+            s.emitted.append(sampled[i])
+            s.pos += 1
+            s.cur = sampled[i]
+            s.ticks += 1
+            if len(s.emitted) >= s.req.max_new or s.pos >= self.max_len - 1:
+                now = time.perf_counter()
+                self.done.append(
+                    Result(s.req.rid, s.emitted, s.prefill_s,
+                           max(now - s.t_admit - s.prefill_s, 0.0),
+                           ticks=s.ticks, latency_s=now - s.t_admit)
+                )
+                self.slots[i] = _Slot()
+        self._measured(t_tick)
+        return True
+
+    def run_to_completion(self) -> list[Result]:
+        while self.queue or any(not s.free for s in self.slots):
+            self.step()
+        out, self.done = self.done, []
+        return out
