@@ -5,27 +5,38 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: compile the flash-attention CUDA source with nvcc and the Triton
-   kernels (rmsnorm, silu_mul), from the sources in this checkout;
+1. build: compile the CUDA sources (flash attention, fused MoE, scaled_mm)
+   with nvcc, one process each, all at once, and the Triton kernels
+   (rmsnorm, silu_mul), from the sources in this checkout;
 2. kernel parity: each kernel against its plain PyTorch version on the
-   card, at the reference's test shapes and the main path's shapes
-   (f32 2e-5, bf16 2e-2, the reference's kernel tolerances);
+   card, at the reference's test shapes and the main paths' shapes
+   (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
+   reference's kernel tolerances; full-width f32 MoE sums relative to
+   max|ref|); fused MoE and scaled_mm at every config the tuner's
+   prefilter passes on its default workloads, and at dbrx-132b width;
 3. whole-model parity: full-width qwen3-0.6b, f32 compute, random weights
    from one seed: prefill of a 64-token prompt and 8 greedy decode steps on
    the card (kernels) and on the CPU (plain versions), same weights;
 4. serving, the main path: full-width qwen3-0.6b with bf16 compute through
    ``ServeEngine`` and ``ContinuousBatchingEngine``; every kernel's launch
    count must move by exactly what the path implies;
-5. kernel times with CUDA events at the main path's shapes (device time
+5. kernel times with CUDA events at the main paths' shapes (device time
    from a CUDA-graph replay; the eager time, launched from Python, is
    logged beside it), beside the plain version's time, one PyTorch library
    call's time where one exists (timed here only; the port never calls it)
-   and the least time the card could take (its bound);
+   and the least time the card could take (its bound); fused MoE and
+   scaled_mm at dbrx-132b width;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``; for each it prints the wall-clock of the
    profiled window, the device's busy time and idle share in that same
-   window, the launches and the kernels that take the most device time.
+   window, the launches and the kernels that take the most device time;
+7. the tuner, the second main path: ``repro_torch.tune.tune`` ranks
+   fused MoE and scaled_mm configs with the roofline predictor for a
+   registry TPU and times the top 4 and the default on the card, at the
+   tuner's default workloads and at dbrx-132b width; every measured
+   config's launched grid must equal its ``grid_shape`` and the launch
+   counts must move by exactly (1 + repeats) per measured config.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -46,12 +57,18 @@ F32_TOL, BF16_TOL = 2e-5, 2e-2
 # of max|logit|: f32 sums in another order on the card and on the CPU; the gap
 # measured on an H100 is about 1.6e-6 of max|logit|
 MODEL_TOL = 1e-4
-# published dense peaks: (device memory bytes/s, bf16 tensor-core FLOP/s)
+# of max|ref|: the full-width f32 MoE sums run over D=6144 and F=10752 in
+# another order on the card than in cuBLAS; the gap measured on an H100 is
+# about 5e-6 of max|ref|
+MOE_F32_TOL = 1e-4
+SMM_TOL = 1e-2
+# published dense peaks: device memory bytes/s; bf16 tensor-core FLOP/s;
+# f32 FLOP/s outside the tensor cores; int8 tensor-core ops/s
 PEAKS = [
-    ("H100 NVL", 3.9e12, 835e12),
-    ("H100 PCIe", 2.0e12, 756e12),
-    ("H100", 3.35e12, 989e12),  # SXM, "H100 80GB HBM3"
-    ("H200", 4.8e12, 989e12),
+    ("H100 NVL", 3.9e12, 835e12, 60e12, 1670e12),
+    ("H100 PCIe", 2.0e12, 756e12, 51e12, 1513e12),
+    ("H100", 3.35e12, 989e12, 67e12, 1979e12),  # SXM, "H100 80GB HBM3"
+    ("H200", 4.8e12, 989e12, 67e12, 1979e12),
 ]
 
 
@@ -60,10 +77,17 @@ def log(msg):
 
 
 def card_peaks(name):
-    for key, bw, flops in PEAKS:
+    for key, bw, bf16, f32, int8 in PEAKS:
         if key in name:
-            return bw, flops
+            return {"bytes": bw, "bfloat16": bf16, "float32": f32, "int8": int8}
     raise RuntimeError(f"no published peaks known for {name!r}")
+
+
+def bound(peaks, nbytes, ops, kind):
+    """``(bound_ms, bound_by)``: the larger of moving ``nbytes`` at the
+    memory rate and doing ``ops`` at the peak rate of ``kind``."""
+    by_bytes, by_ops = 1e3 * nbytes / peaks["bytes"], 1e3 * ops / peaks[kind]
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
 def main():
@@ -82,27 +106,35 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.fused_moe import kernel as moe_k
     from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.scaled_mm import kernel as smm_k
     from repro_torch.kernels.silu_mul import kernel as silu_k
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    bw, bf16_flops = card_peaks(name)
+    peaks = card_peaks(name)
     kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k}
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    fa_k.library()
-    x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
-    rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
-    silu_k.silu_mul_cuda(x, x)
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per CUDA source, all at once
+        builds = [pool.submit(k.library) for k in (fa_k, moe_k, smm_k)]
+        x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
+        rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
+        silu_k.silu_mul_cuda(x, x)
+        for b in builds:
+            b.result()
     torch.cuda.synchronize()
     log(f"[1 build] nvcc + triton: {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
     max_err = kernel_parity(torch, dev)
+    max_err.update(tuner_kernel_parity(torch, dev))
     log(f"[2 kernel parity] passed in {time.perf_counter() - t0:.1f}s; "
         f"max abs err at main-path shapes: {max_err}")
 
@@ -118,7 +150,7 @@ def main():
 
     # ---------------------------------------------------------------- 5
     t0 = time.perf_counter()
-    rows = kernel_times(torch, dev, bw, bf16_flops)
+    rows = kernel_times(torch, dev, peaks)
     log(f"[5 kernel times] done in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 6
@@ -128,6 +160,12 @@ def main():
     torch.cuda.empty_cache()
     log(f"[6 where the time goes] done in {time.perf_counter() - t0:.1f}s")
 
+    # ---------------------------------------------------------------- 7
+    t0 = time.perf_counter()
+    launches.update(tuner(torch, dev))
+    log(f"[7 tuner] passed in {time.perf_counter() - t0:.1f}s; launches "
+        f"{ {k: launches[k] for k in ('fused_moe', 'scaled_mm')} }")
+
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
                     "src/repro/kernels/rmsnorm/kernel.py:13"),
@@ -135,6 +173,10 @@ def main():
                      "src/repro/kernels/silu_mul/kernel.py:13"),
         "flash_attention": ("cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:30"),
+        "fused_moe": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe.cu",
+                      "src/repro/kernels/fused_moe/kernel.py:27"),
+        "scaled_mm": ("cuda", "src/repro_torch/kernels/scaled_mm/csrc/scaled_mm.cu",
+                      "src/repro/kernels/scaled_mm/kernel.py:20"),
     }
     kernels = []
     for k, (route, source, replaces) in sources.items():
@@ -217,6 +259,123 @@ def kernel_parity(torch, dev):
         ref = attention_ref(q, k, v, **kw)
         check(f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
               f"window={window} softcap={softcap} {dt}", "flash_attention", out, ref, dt, main)
+    return max_err
+
+
+def tuner_kernel_parity(torch, dev):
+    """Fused MoE and scaled_mm against their plain versions: the reference's
+    test cases, every config the tuner's prefilter passes on its default
+    workloads (on the tuner's own inputs), and dbrx-132b width."""
+    from repro_torch.kernels.fused_moe import kernel as moe_k
+    from repro_torch.kernels.fused_moe import ops as moe_ops
+    from repro_torch.kernels.fused_moe.ref import fused_moe_ref
+    from repro_torch.kernels.scaled_mm import kernel as smm_k
+    from repro_torch.kernels.scaled_mm import ops as smm_ops
+    from repro_torch.kernels.scaled_mm.ref import quantize_rowwise, scaled_mm_acc_ref, scaled_mm_ref
+    from repro_torch.tune import (DEFAULT_WORKLOADS, arch_workload, enumerate_candidates,
+                                  make_inputs, prefilter)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    max_err = {"fused_moe": 0.0, "scaled_mm": 0.0}
+
+    def randn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    def moe(label, kw, blocks, args, rel_tol=None, main=False):
+        """One launch against the plain version: within the reference's
+        tolerances, or within ``rel_tol`` of max|ref| where given."""
+        out = moe_k.fused_moe_cuda(*args, **blocks)
+        assert moe_k.last_grid == moe_ops.grid_shape(**kw, **blocks), (label, moe_k.last_grid)
+        ref = fused_moe_ref(*args)
+        torch.cuda.synchronize()
+        assert out.dtype == args[0].dtype and bool(torch.isfinite(out).all()), label
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if rel_tol is None:
+            tol = F32_TOL if out.dtype == f32 else BF16_TOL
+            torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
+                                       msg=lambda m: f"{label}: {m}")
+            log(f"  {label}: max abs err {err:.3g} (tol {tol})")
+        else:
+            log(f"  {label}: max abs err {err:.3g} = {err / scale:.3g} of max|ref| {scale:.4g} "
+                f"(tol {rel_tol} of it)")
+            assert err <= rel_tol * scale, f"{label}: card and plain version disagree"
+        if main:
+            max_err["fused_moe"] = max(max_err["fused_moe"], err)
+
+    def smm(label, kw, blocks, args, main=False):
+        """One launch against the plain version; the int32 sum is read
+        through unit scales into f32, exact while |acc| < 2**24."""
+        x, w, sx, sw = args
+        out = smm_k.scaled_mm_cuda(x, w, sx, sw, **blocks)
+        assert smm_k.last_grid == smm_ops.grid_shape(**kw, **blocks), (label, smm_k.last_grid)
+        unit = smm_k.scaled_mm_cuda(x, w, torch.ones_like(sx), torch.ones_like(sw),
+                                    out_dtype=f32, **blocks)
+        acc = scaled_mm_acc_ref(x, w)
+        ref = scaled_mm_ref(x, w, sx, sw)
+        torch.cuda.synchronize()
+        assert int(acc.abs().max()) < 2**24 and torch.equal(unit, acc.float()), f"{label}: int32 sum"
+        err = float((out.float() - ref.float()).abs().max())
+        torch.testing.assert_close(out.float(), ref.float(), rtol=SMM_TOL, atol=SMM_TOL,
+                                   msg=lambda m: f"{label}: {m}")
+        if main:
+            max_err["scaled_mm"] = max(max_err["scaled_mm"], err)
+        return torch.equal(out, ref), err
+
+    # the reference's cases (tests/test_kernels.py), f32 and bf16
+    for E, C, D, F, bm, bf in [(4, 32, 64, 128, 16, 64), (2, 64, 32, 64, 32, 32),
+                               (8, 16, 48, 96, 16, 96), (3, 100, 200, 300, 50, 150)]:
+        for dt in (f32, bf16):
+            args = (randn((E, C, D), dt, 0.5), randn((E, D, F), dt, 0.1),
+                    randn((E, D, F), dt, 0.1), randn((E, F, D), dt, 0.1))
+            moe(f"fused_moe E{E} C{C} D{D} F{F} bm{bm} bf{bf} {dt}", dict(E=E, C=C, D=D, F=F),
+                dict(block_m=bm, block_f=bf), args)
+    for M, K, N in [(64, 128, 96), (128, 64, 128)]:
+        x, sx = quantize_rowwise(randn((M, K), f32))
+        wq, sw = quantize_rowwise(randn((N, K), f32))
+        for bm, bn, bk in [(32, 32, 64), (64, 64, 32)]:
+            same, err = smm(f"scaled_mm M{M} K{K} N{N}", dict(M=M, K=K, N=N),
+                            dict(block_m=bm, block_n=bn, block_k=bk), (x, wq.t().contiguous(), sx, sw))
+            log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}): int32 sum exact, "
+                f"max abs err {err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
+
+    # the tuner's default workloads, every config its prefilter passes
+    for kernel in ("fused_moe", "scaled_mm"):
+        kw = DEFAULT_WORKLOADS[kernel]
+        survivors, _ = prefilter(kernel, kw, enumerate_candidates(kernel))
+        args = make_inputs(kernel, kw, device="cuda")
+        equal, worst = 0, 0.0
+        for c in survivors:
+            label = f"{kernel} {kw} {c.blocks}"
+            if kernel == "fused_moe":
+                moe(label, kw, c.blocks, args, rel_tol=MOE_F32_TOL, main=True)
+            else:
+                same, err = smm(label, kw, c.blocks, args, main=True)
+                equal, worst = equal + same, max(worst, err)
+        if kernel == "scaled_mm":
+            log(f"  scaled_mm {kw}: {len(survivors)} configs, int32 sums exact, max abs err "
+                f"{worst:.3g}, bf16 output bit-equal in {equal} of {len(survivors)}")
+        del args
+
+    # dbrx-132b width: the default blocks and two others
+    kw = arch_workload("fused_moe", "dbrx-132b")
+    E, C, D, F = (kw[k] for k in "ECDF")
+    for dt in (f32, bf16):
+        args = (randn((E, C, D), dt), randn((E, D, F), dt, D ** -0.5),
+                randn((E, D, F), dt, D ** -0.5), randn((E, F, D), dt, F ** -0.5))
+        for blocks in ({}, dict(block_m=512, block_f=512), dict(block_m=32, block_f=64)):
+            moe(f"fused_moe {kw} {blocks or 'default blocks'} {dt}", kw, blocks, args,
+                rel_tol=MOE_F32_TOL if dt == f32 else BF16_TOL, main=True)
+        del args
+        torch.cuda.empty_cache()
+    kw = arch_workload("scaled_mm", "dbrx-132b")
+    args = make_inputs("scaled_mm", kw, device="cuda")
+    for blocks in ({}, dict(block_m=512, block_n=512, block_k=512),
+                   dict(block_m=32, block_n=64, block_k=32)):
+        same, err = smm(f"scaled_mm {kw} {blocks}", kw, blocks, args, main=True)
+        log(f"  scaled_mm {kw} {blocks or 'default blocks'}: int32 sum exact, max abs err "
+            f"{err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
     return max_err
 
 
@@ -423,21 +582,27 @@ def cuda_ms(torch, fn, inputs, iters):
     return device, eager
 
 
-def kernel_times(torch, dev, bw, bf16_flops):
+def kernel_times(torch, dev, peaks):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.fused_moe.kernel import fused_moe_cuda
+    from repro_torch.kernels.fused_moe.ref import fused_moe_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.scaled_mm.kernel import scaled_mm_cuda
+    from repro_torch.kernels.scaled_mm.ref import scaled_mm_ref
     from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
     from repro_torch.kernels.silu_mul.ref import silu_mul_ref
+    from repro_torch.tune import arch_workload
 
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    bw = peaks["bytes"]
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def randn(*shape, scale=1.0):
-        return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf16)
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
     rows, eager = {}, {}
 
@@ -477,9 +642,46 @@ def kernel_times(torch, dev, bw, bf16_flops):
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True, enable_gqa=True)
     row("flash_attention", lambda a, b, c: flash_attention_cuda(a, b, c, causal=True),
         lambda a, b, c: attention_ref(a, b, c, causal=True), (sdpa, [(qt, kt, vt)]),
-        [(q, k, v)], 20, max(1e3 * flops / bf16_flops, 1e3 * nbytes / bw),
-        "operations" if flops / bf16_flops >= nbytes / bw else "bytes")
+        [(q, k, v)], 20, *bound(peaks, nbytes, flops, "bfloat16"))
     log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+    del q, k, v, qt, kt, vt
+
+    # fused MoE at dbrx-132b width, default blocks: f32 (the tuner's inputs,
+    # the JSON row) and bf16; library yardstick: three bmm's with silu * mul
+    E, C, D, Fm = (arch_workload("fused_moe", "dbrx-132b")[k] for k in "ECDF")
+
+    def bmm_moe(x, wg, wu, wd):
+        return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+    for kname, dt in (("fused_moe", f32), ("fused_moe bf16", bf16)):
+        args = (randn(E, C, D, dtype=dt), randn(E, D, Fm, scale=D ** -0.5, dtype=dt),
+                randn(E, D, Fm, scale=D ** -0.5, dtype=dt), randn(E, Fm, D, scale=Fm ** -0.5, dtype=dt))
+        nbytes = args[0].element_size() * (2 * E * C * D + 3 * E * D * Fm)
+        row(kname, fused_moe_cuda, fused_moe_ref, (bmm_moe, [args]), [args], 2,
+            *bound(peaks, nbytes, 6 * E * C * D * Fm, "float32" if dt == f32 else "bfloat16"))
+        log(f"  fused_moe E{E} C{C} D{D} F{Fm} {dt}: {6 * E * C * D * Fm / 1e12:.4f} TFLOP, "
+            f"{nbytes / 1e9:.2f} GB")
+        del args
+        torch.cuda.empty_cache()
+
+    # scaled_mm at dbrx-132b width (its FFN projection), default blocks, bf16
+    # out; library yardstick: torch._int_mm and the same epilogue
+    M, K, N = (arch_workload("scaled_mm", "dbrx-132b")[k] for k in "MKN")
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def scales(n):
+        return 0.5 + 1.5 * torch.rand(n, generator=gen, device=dev)
+
+    def int_mm(x, w, sx, sw):
+        return (torch._int_mm(x, w).float() * sx[:, None] * sw[None, :]).to(bf16)
+
+    smm_args = [(int8(M, K), int8(K, N), scales(M), scales(N)) for _ in range(2)]  # 2 x 72 MB > L2
+    nbytes = M * K + K * N + 4 * (M + N) + 2 * M * N
+    row("scaled_mm", scaled_mm_cuda, scaled_mm_ref, (int_mm, smm_args), smm_args, 10,
+        *bound(peaks, nbytes, 2 * M * K * N, "int8"))
+    log(f"  scaled_mm M{M} K{K} N{N}: {2 * M * K * N / 1e12:.4f} Tops, {nbytes / 1e6:.1f} MB")
     for kname, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
@@ -560,6 +762,71 @@ def where_time_goes(torch, dev, params):
             f"unprofiled wall {float(np.median(walls)):.3f} ms")
         for name, n, ms in r["top"]:
             log(f"    {ms:9.4f} ms  x{n:<6g} {name}")
+
+
+# ======================================================================
+# phase 7: the tuner
+# ======================================================================
+
+
+def tuner(torch, dev):
+    """``tune()`` on the card for fused MoE and scaled_mm, at the tuner's
+    default workloads and at dbrx-132b width, ranked with the roofline
+    predictor of a registry TPU. The predictions price that TPU; the times
+    are the H100's, and their rank correlation is logged, not judged."""
+    from repro_torch.analysis.kernels import check_blocks
+    from repro_torch.core.hardware import REGISTRY
+    from repro_torch.kernels.fused_moe import kernel as moe_k
+    from repro_torch.kernels.fused_moe import ops as moe_ops
+    from repro_torch.kernels.scaled_mm import kernel as smm_k
+    from repro_torch.kernels.scaled_mm import ops as smm_ops
+    from repro_torch.predict.backends import get_predictor
+    from repro_torch.tune import DEFAULT_WORKLOADS, arch_workload, make_inputs, measure, tune
+    from repro_torch.tune.__main__ import report_lines
+
+    hw = REGISTRY["tpu-v4"]
+    predictor = get_predictor("roofline", hw)
+    kernels = {"fused_moe": (moe_k, moe_ops), "scaled_mm": (smm_k, smm_ops)}
+    runs = [(k, kw) for k in kernels
+            for kw in (DEFAULT_WORKLOADS[k], arch_workload(k, "dbrx-132b"))]
+    repeats = 3
+    inputs = [make_inputs(k, kw, device="cuda") for k, kw in runs]  # the tuner's inputs
+    torch.cuda.synchronize()
+    for mod, _ in kernels.values():
+        mod.launches = 0
+    for (kernel, kw), args in zip(runs, inputs):
+        mod, ops = kernels[kernel]
+        grids = []
+
+        def timed(kernel, kw, blocks, *, args=None, repeats, device, _args=args, _mod=mod):
+            s = measure(kernel, kw, blocks, args=_args, repeats=repeats, device=device)
+            grids.append((dict(blocks), _mod.last_grid))
+            return s
+
+        before = mod.launches
+        t0 = time.perf_counter()
+        report = tune(kernel, hw, workload=kw, predictor=predictor, predictor_name="roofline",
+                      top_k=4, repeats=repeats, device="cuda", measure_fn=timed)
+        wall = time.perf_counter() - t0
+        for line in report_lines(report):
+            log("  " + line)
+        distinct = {tuple(sorted(c.blocks.items())) for c in report.measured}
+        distinct.add(tuple(sorted(report.default_blocks.items())))
+        moved = mod.launches - before
+        assert moved == (1 + repeats) * len(distinct) == (1 + repeats) * len(grids), (
+            f"{kernel} {kw}: {moved} launches for {len(distinct)} configs")
+        for blocks, grid in grids:
+            assert grid == ops.grid_shape(**kw, **blocks), (kernel, kw, blocks, grid)
+        assert not report.interpret and report.t_default > 0
+        assert all(0 < c.measured_s < float("inf") for c in report.measured)
+        assert not check_blocks(kernel, kw, report.best.blocks)
+        log(f"    {len(grids)} configs measured in {wall:.1f}s, {moved} launches, every launched "
+            f"grid equal to grid_shape")
+    del inputs
+    torch.cuda.empty_cache()
+    launches = {k: mod.launches for k, (mod, _) in kernels.items()}
+    assert all(v > 0 for v in launches.values()), launches
+    return launches
 
 
 if __name__ == "__main__":

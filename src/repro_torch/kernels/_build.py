@@ -8,7 +8,8 @@ unchanged one loads the library already built. ``import_triton()`` points
 Triton's own kernel cache into the same directory before importing it.
 
 Nothing here runs at import time; a missing ``nvcc`` or a failed build
-raises, and no caller falls back to a plain version.
+raises, and no caller falls back to a plain version. Libraries of different
+names build concurrently when loaded from several threads.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -51,6 +53,8 @@ def library_path(name: str, sources: list[Path]) -> Path:
 def load_cuda_library(name: str, sources: list[Path]) -> ctypes.CDLL:
     """Compile (once per source hash) and load ``sources`` as one library."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         out = library_path(name, sources)

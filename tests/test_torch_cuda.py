@@ -14,6 +14,11 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.fused_moe import kernel as moe_kernel
+from repro_torch.kernels.fused_moe import ops as moe_ops
+from repro_torch.kernels.scaled_mm import kernel as smm_kernel
+from repro_torch.kernels.scaled_mm import ops as smm_ops
+from repro_torch.kernels.scaled_mm.ref import scaled_mm_acc_ref
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.silu_mul import kernel as silu_kernel
@@ -101,6 +106,100 @@ def test_silu_mul_kernel_matches_plain(dev, act, dtype, shape):
     _close(out.cpu(), silu_ops.act_mul(g.cpu(), u.cpu(), act=act), dtype)
 
 
+MOE_CASES = [
+    # (E, C, D, F, block_m, block_f): the reference's cases, the tuner's
+    # default workload at lattice corners, and ragged sub-tiles
+    (4, 32, 64, 128, 16, 64),
+    (2, 64, 32, 64, 32, 32),
+    (8, 16, 48, 96, 16, 96),
+    (8, 512, 256, 512, 128, 256),
+    (8, 512, 256, 512, 512, 512),
+    (8, 512, 256, 512, 32, 32),
+    (3, 100, 200, 300, 50, 150),
+]
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_moe_kernel_matches_plain(dev, case, dtype):
+    E, C, D, F, bm, bf = case
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (E, C, D), dtype, dev, 0.5)
+    wg, wu = _randn(rng, (E, D, F), dtype, dev, 0.1), _randn(rng, (E, D, F), dtype, dev, 0.1)
+    wd = _randn(rng, (E, F, D), dtype, dev, 0.1)
+    n0 = moe_kernel.launches
+    out = moe_ops.fused_moe(x, wg, wu, wd, block_m=bm, block_f=bf)
+    assert moe_kernel.launches == n0 + 1
+    assert moe_kernel.last_grid == moe_ops.grid_shape(E, C, D, F, block_m=bm, block_f=bf)
+    ref = moe_ops.fused_moe(*(t.cpu() for t in (x, wg, wu, wd)))
+    _close(out.cpu(), ref, dtype)
+
+
+SMM_CASES = [
+    # (M, K, N, block_m, block_n, block_k)
+    (64, 128, 96, 32, 32, 64),
+    (128, 64, 128, 64, 64, 32),
+    (1024, 512, 512, 128, 128, 256),
+    (1024, 512, 512, 512, 512, 512),
+    (1024, 512, 512, 32, 32, 32),
+    (7, 100, 13, 3, 5, 7),
+]
+
+
+@pytest.mark.parametrize("case", SMM_CASES)
+def test_scaled_mm_kernel_matches_plain(dev, case):
+    """The int32 sum is exact (read through unit scales and an f32 output,
+    exact below 2**24), and the bf16 output equals the plain version's."""
+    M, K, N, bm, bn, bk = case
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
+    sx = torch.from_numpy(rng.uniform(0.5, 2.0, M).astype(np.float32)).to(dev)
+    sw = torch.from_numpy(rng.uniform(0.5, 2.0, N).astype(np.float32)).to(dev)
+    blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+    n0 = smm_kernel.launches
+    out = smm_ops.scaled_mm(x, w, sx, sw, **blocks)
+    assert smm_kernel.launches == n0 + 1
+    assert smm_kernel.last_grid == smm_ops.grid_shape(M, K, N, **blocks)
+    unit = smm_ops.scaled_mm(x, w, torch.ones_like(sx), torch.ones_like(sw),
+                             out_dtype=torch.float32, **blocks)
+    torch.cuda.synchronize()
+    acc = scaled_mm_acc_ref(x.cpu(), w.cpu())
+    assert int(acc.abs().max()) < 2**24
+    assert torch.equal(unit.cpu(), acc.float())
+    ref = smm_ops.scaled_mm(x.cpu(), w.cpu(), sx.cpu(), sw.cpu())
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_tuner_times_the_kernels_on_the_card(dev):
+    """One small tune() per new kernel on the card: every measured config
+    launched (1 + repeats) times with the grid its blocks give."""
+    from repro_torch.core.hardware import REGISTRY
+    from repro_torch.predict.backends import get_predictor
+    from repro_torch.tune import measure, tune
+
+    hw = REGISTRY["tpu-v4"]
+    for kernel, mod, ops, kw in [
+        ("fused_moe", moe_kernel, moe_ops, {"E": 2, "C": 64, "D": 64, "F": 128}),
+        ("scaled_mm", smm_kernel, smm_ops, {"M": 128, "K": 256, "N": 128}),
+    ]:
+        grids = []
+
+        def timed(kernel, kw, blocks, **k):
+            s = measure(kernel, kw, blocks, **k)
+            grids.append((mod.last_grid, ops.grid_shape(**kw, **blocks)))
+            return s
+
+        n0 = mod.launches
+        report = tune(kernel, hw, workload=kw, predictor=get_predictor("roofline", hw),
+                      top_k=3, repeats=2, measure_fn=timed)
+        distinct = {tuple(sorted(c.blocks.items())) for c in report.measured}
+        distinct.add(tuple(sorted(report.default_blocks.items())))
+        assert mod.launches - n0 == 3 * len(distinct) == 3 * len(grids)
+        assert all(a == b for a, b in grids)
+        assert not report.interpret and report.t_default > 0
+
+
 def test_kernels_reject_bad_inputs(dev):
     x = torch.zeros(4, 8, device=dev)
     with pytest.raises(ValueError):
@@ -112,3 +211,13 @@ def test_kernels_reject_bad_inputs(dev):
     q = torch.zeros(1, 8, 2, 24, device=dev)
     with pytest.raises(ValueError):
         fa_ops.attention(q, q, q)
+    x = torch.zeros(2, 32, 16, device=dev)
+    wg, wd = torch.zeros(2, 16, 64, device=dev), torch.zeros(2, 64, 16, device=dev)
+    with pytest.raises(ValueError):
+        moe_ops.fused_moe(x, wg, wg, wd, block_m=24)  # 24 does not divide C=32
+    with pytest.raises(TypeError):
+        moe_ops.fused_moe(x, wg.bfloat16(), wg, wd)
+    a = torch.zeros(8, 16, dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        smm_ops.scaled_mm(a.float(), a.t().contiguous(), torch.ones(8, device=dev),
+                          torch.ones(8, device=dev))

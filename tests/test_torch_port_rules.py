@@ -15,6 +15,8 @@ from repro_torch.configs import base
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+from repro_torch.core.hardware import REGISTRY
+from repro_torch.tune import make_inputs, measure, tune
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -45,9 +47,33 @@ def test_port_files_exist():
                 "kernels/rmsnorm/ops.py", "kernels/silu_mul/ops.py",
                 "kernels/flash_attention/ops.py", "models/layers.py",
                 "models/transformer.py", "models/registry.py", "convert.py",
-                "serve/engine.py", "launch/serve.py"):
+                "serve/engine.py", "launch/serve.py",
+                "kernels/fused_moe/ops.py", "kernels/fused_moe/kernel.py",
+                "kernels/fused_moe/ref.py", "kernels/scaled_mm/ops.py",
+                "kernels/scaled_mm/kernel.py", "kernels/scaled_mm/ref.py",
+                "core/hardware.py", "core/decomposer.py", "core/scheduler.py",
+                "core/features.py", "core/hwsim.py", "core/dataset.py", "core/tuner.py",
+                "predict/api.py", "predict/batching.py", "predict/comm.py",
+                "predict/backends.py", "analysis/diagnostics.py", "analysis/kernels.py",
+                "tune/space.py", "tune/tuner.py", "tune/__main__.py"):
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
+    for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu"):
+        assert (ROOT / "src" / "repro_torch" / cu).is_file()
+
+
+LIBRARY_PRODUCTS = ("torch.matmul", "bmm", "einsum", "_int_mm", "cublas")
+
+
+@pytest.mark.parametrize("kernel", ["fused_moe", "scaled_mm"])
+def test_kernels_compute_their_own_products(kernel):
+    """The kernel and its binding call no library product: the plain
+    version (``ref.py``) may, the kernel may not."""
+    pkg = ROOT / "src" / "repro_torch" / "kernels" / kernel
+    for path in [pkg / "kernel.py", *sorted((pkg / "csrc").glob("*.cu"))]:
+        text = path.read_text().lower()
+        found = [name for name in LIBRARY_PRODUCTS if name.lower() in text]
+        assert not found, f"{path.name} names {found}"
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
@@ -60,6 +86,21 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     assert ServeEngine(cfg, device="cpu").device.type == "cpu"
+
+
+def test_tuner_measures_on_cuda_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {"E": 2, "C": 32, "D": 16, "F": 32}
+    blocks = {"block_m": 32, "block_f": 32}
+    hw = REGISTRY["tpu-v4"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tune("fused_moe", hw, workload=kw, top_k=1, repeats=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure("fused_moe", kw, blocks, repeats=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_inputs("fused_moe", kw)
+    assert measure("fused_moe", kw, blocks, repeats=1, device="cpu") > 0
+    assert tune("fused_moe", hw, workload=kw, top_k=1, repeats=1, device="cpu").interpret
 
 
 @pytest.mark.parametrize("name", ref_list_archs())
