@@ -12,8 +12,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
    reference's kernel tolerances; full-width f32 MoE sums relative to
-   max|ref|); fused MoE and scaled_mm at every config the tuner's
-   prefilter passes on its default workloads, and at dbrx-132b width;
+   max|ref|; bf16 attention at the main shapes also row by row, within
+   2e-2 of each row's max|ref| plus one ulp); flash attention at the
+   lattice's block corners (bf16, the main shape) with its launched grid,
+   and rows that see no key; fused MoE and scaled_mm at every
+   config the tuner's prefilter passes on its default workloads (fused MoE
+   also in bf16), flash attention and silu_mul at every config it passes
+   on their qwen3-0.6b workloads, and fused MoE and scaled_mm at dbrx-132b
+   width;
 3. whole-model parity: full-width qwen3-0.6b, f32 compute, random weights
    from one seed: prefill of a 64-token prompt and 8 greedy decode steps on
    the card (kernels) and on the CPU (plain versions), same weights;
@@ -25,18 +31,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    logged beside it), beside the plain version's time, one PyTorch library
    call's time where one exists (timed here only; the port never calls it)
    and the least time the card could take (its bound); fused MoE and
-   scaled_mm at dbrx-132b width;
+   scaled_mm at dbrx-132b width (f32 MoE bounded as 3xTF32, the path its
+   kernel runs); silu_mul also at phase 4's prompt lengths;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``; for each it prints the wall-clock of the
    profiled window, the device's busy time and idle share in that same
    window, the launches and the kernels that take the most device time;
 7. the tuner, the second main path: ``repro_torch.tune.tune`` ranks
-   fused MoE and scaled_mm configs with the roofline predictor for a
-   registry TPU and times the top 4 and the default on the card, at the
-   tuner's default workloads and at dbrx-132b width; every measured
-   config's launched grid must equal its ``grid_shape`` and the launch
-   counts must move by exactly (1 + repeats) per measured config.
+   configs with the roofline predictor for a registry TPU and times the
+   top 4 and the default on the card: fused MoE and scaled_mm at the
+   tuner's default workloads and at dbrx-132b width, flash attention and
+   silu_mul at their qwen3-0.6b workloads; every measured config's
+   launched grid must equal its ``grid_shape`` and the launch counts must
+   move by exactly (1 + repeats) per measured config.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -63,12 +71,13 @@ MODEL_TOL = 1e-4
 MOE_F32_TOL = 1e-4
 SMM_TOL = 1e-2
 # published dense peaks: device memory bytes/s; bf16 tensor-core FLOP/s;
-# f32 FLOP/s outside the tensor cores; int8 tensor-core ops/s
+# f32 FLOP/s outside the tensor cores; int8 tensor-core ops/s; TF32
+# tensor-core FLOP/s
 PEAKS = [
-    ("H100 NVL", 3.9e12, 835e12, 60e12, 1670e12),
-    ("H100 PCIe", 2.0e12, 756e12, 51e12, 1513e12),
-    ("H100", 3.35e12, 989e12, 67e12, 1979e12),  # SXM, "H100 80GB HBM3"
-    ("H200", 4.8e12, 989e12, 67e12, 1979e12),
+    ("H100 NVL", 3.9e12, 835e12, 60e12, 1670e12, 418e12),
+    ("H100 PCIe", 2.0e12, 756e12, 51e12, 1513e12, 378e12),
+    ("H100", 3.35e12, 989e12, 67e12, 1979e12, 495e12),  # SXM, "H100 80GB HBM3"
+    ("H200", 4.8e12, 989e12, 67e12, 1979e12, 495e12),
 ]
 
 
@@ -77,9 +86,9 @@ def log(msg):
 
 
 def card_peaks(name):
-    for key, bw, bf16, f32, int8 in PEAKS:
+    for key, bw, bf16, f32, int8, tf32 in PEAKS:
         if key in name:
-            return {"bytes": bw, "bfloat16": bf16, "float32": f32, "int8": int8}
+            return {"bytes": bw, "bfloat16": bf16, "float32": f32, "int8": int8, "tf32": tf32}
     raise RuntimeError(f"no published peaks known for {name!r}")
 
 
@@ -201,6 +210,8 @@ def main():
 
 
 def kernel_parity(torch, dev):
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
@@ -215,13 +226,26 @@ def kernel_parity(torch, dev):
         a = (scale * rng.standard_normal(shape)).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
-    def check(label, kname, out, ref, dtype, main):
+    def check(label, kname, out, ref, dtype, main, per_row=False):
+        """Within the reference's tolerance; with ``per_row``, also each
+        output row within BF16_TOL of its own max|ref| plus one bf16 ulp of
+        it, which holds long rows (outputs far below 1) to their scale."""
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
         tol = F32_TOL if dtype == f32 else BF16_TOL
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
                                    msg=lambda m: f"{label}: {m}")
-        log(f"  {label}: max abs err {err:.3g} (tol {tol})")
+        note = ""
+        if per_row:
+            scale = ref.float().abs().amax(-1)
+            ulp = torch.exp2(torch.floor(torch.log2(scale.clamp_min(1e-30))) - 7)
+            ratio = diff.amax(-1) / (BF16_TOL * scale + ulp)
+            worst = float(ratio.max())
+            assert worst <= 1.0, f"{label}: a row is off by {worst:.3g} of its tolerance"
+            note = (f"; per row at most {worst:.3g} of {BF16_TOL} x max|ref row| + 1 ulp "
+                    f"(median max|ref row| {float(scale.median()):.3g})")
+        log(f"  {label}: max abs err {err:.3g} (tol {tol}){note}")
         if main:
             max_err[kname] = max(max_err[kname], err)
 
@@ -251,6 +275,9 @@ def kernel_parity(torch, dev):
         (1, 32, 128, 2, 2, 16, False, None, None, f32, False),
         (1, 64, 64, 2, 1, 16, True, 32, None, f32, False),
         (2, 128, 128, 4, 2, 32, True, None, None, f32, False),
+        # rows q >= Skv + window - 1 see no key and average v over every key
+        (1, 200, 50, 2, 1, 64, False, 10, None, bf16, False),
+        (1, 200, 50, 2, 1, 64, True, 10, None, f32, False),
     ]
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in fa_cases:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
@@ -258,7 +285,17 @@ def kernel_parity(torch, dev):
         out = flash_attention_cuda(q, k, v, **kw)
         ref = attention_ref(q, k, v, **kw)
         check(f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
-              f"window={window} softcap={softcap} {dt}", "flash_attention", out, ref, dt, main)
+              f"window={window} softcap={softcap} {dt}", "flash_attention", out, ref, dt, main,
+              per_row=main)
+    # the block knobs' corners at the main shape: each launches the grid it names
+    B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
+    q, k, v = randn((B, S, Hq, D), bf16), randn((B, S, Hkv, D), bf16), randn((B, S, Hkv, D), bf16)
+    ref = attention_ref(q, k, v, causal=True)
+    for bq, bk in ((32, 32), (32, 512), (512, 32), (512, 512), (64, 256)):
+        out = flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk)
+        assert fa_k.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
+        check(f"flash_attention main shape blocks ({bq}, {bk}) grid {fa_k.last_grid}",
+              "flash_attention", out, ref, bf16, True, per_row=True)
     return max_err
 
 
@@ -272,8 +309,15 @@ def tuner_kernel_parity(torch, dev):
     from repro_torch.kernels.scaled_mm import kernel as smm_k
     from repro_torch.kernels.scaled_mm import ops as smm_ops
     from repro_torch.kernels.scaled_mm.ref import quantize_rowwise, scaled_mm_acc_ref, scaled_mm_ref
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref as fa_ref
+    from repro_torch.kernels.silu_mul import kernel as silu_k
+    from repro_torch.kernels.silu_mul import ops as silu_ops
+    from repro_torch.kernels.silu_mul.ref import silu_mul_ref as silu_ref
     from repro_torch.tune import (DEFAULT_WORKLOADS, arch_workload, enumerate_candidates,
                                   make_inputs, prefilter)
+    from repro_torch.tune.space import kernel_entry
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -356,6 +400,31 @@ def tuner_kernel_parity(torch, dev):
         if kernel == "scaled_mm":
             log(f"  scaled_mm {kw}: {len(survivors)} configs, int32 sums exact, max abs err "
                 f"{worst:.3g}, bf16 output bit-equal in {equal} of {len(survivors)}")
+        del args
+    # the bf16 tensor-core path at the default workload's lattice corners
+    kw = DEFAULT_WORKLOADS["fused_moe"]
+    E, C, D, F = (kw[k] for k in "ECDF")
+    args = (randn((E, C, D), bf16, 0.5), randn((E, D, F), bf16, 0.1),
+            randn((E, D, F), bf16, 0.1), randn((E, F, D), bf16, 0.1))
+    for blocks in ({}, dict(block_m=32, block_f=32), dict(block_m=512, block_f=512)):
+        moe(f"fused_moe {kw} {blocks or 'default blocks'} bf16", kw, blocks, args, main=True)
+    # flash attention and silu_mul on the tuner's inputs at their qwen3-0.6b
+    # workloads: every config the prefilter passes launches its grid_shape
+    for kernel, mod, ops in (("flash_attention", fa_k, fa_ops), ("silu_mul", silu_k, silu_ops)):
+        kw = arch_workload(kernel, "qwen3-0.6b")
+        survivors, _ = prefilter(kernel, kw, enumerate_candidates(kernel))
+        args = make_inputs(kernel, kw, device="cuda")
+        ref = fa_ref(*args) if kernel == "flash_attention" else silu_ref(*args)
+        worst = 0.0
+        for c in survivors:
+            out = kernel_entry(kernel)(*args, **c.blocks)
+            assert mod.last_grid == ops.grid_shape(**kw, **c.blocks), (kernel, c.blocks)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, rtol=F32_TOL, atol=F32_TOL,
+                                       msg=lambda m: f"{kernel} {kw} {c.blocks}: {m}")
+            worst = max(worst, float((out - ref).abs().max()))
+        log(f"  {kernel} {kw}: {len(survivors)} configs, each its grid_shape, max abs err "
+            f"{worst:.3g} (tol {F32_TOL})")
         del args
 
     # dbrx-132b width: the default blocks and two others
@@ -595,6 +664,7 @@ def kernel_times(torch, dev, peaks):
     from repro_torch.kernels.scaled_mm.ref import scaled_mm_ref
     from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
     from repro_torch.kernels.silu_mul.ref import silu_mul_ref
+    from repro_torch.kernels.silu_mul import kernel as silu_k
     from repro_torch.tune import arch_workload
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -627,11 +697,26 @@ def kernel_times(torch, dev, peaks):
     qk_ms, qk_eager = cuda_ms(torch, rmsnorm_cuda, qk, 100)
     log(f"  rmsnorm (131072, 128) bf16 (q norm): {qk_ms:.4f} ms (eager {qk_eager:.4f}), "
         f"bound {1e3 * (2 * R * 16 * 128 * 2) / bw:.4f} ms")
-    # silu_mul: gate and up of the same prefill, (8192, 3072) bf16
+    # silu_mul: gate and up of the same prefill, (8192, 3072) bf16, with the
+    # rows a program owns on the serving path (SERVING_BLOCK_ROWS); logged
+    # beside it: the reference's default of 128 rows, and the single
+    # prompts of phase 4's continuous engine (781-2004 tokens, some prime)
+    # at 1, 8 and 128 rows a program
     F_ = 3072
     gs = [(randn(R, F_, scale=3.0), randn(R, F_)) for _ in range(2)]
-    row("silu_mul", silu_mul_cuda, silu_mul_ref, None, gs, 200,
-        1e3 * (3 * R * F_ * 2) / bw, "bytes")
+    row("silu_mul", lambda g, u: silu_mul_cuda(g, u, block_rows=silu_k.SERVING_BLOCK_ROWS),
+        silu_mul_ref, None, gs, 200, 1e3 * (3 * R * F_ * 2) / bw, "bytes")
+    for n_rows in (8192, 781, 1024, 1444, 1633, 2004):
+        small = [(randn(n_rows, F_, scale=3.0), randn(n_rows, F_)) for _ in range(8)]
+        times = []
+        for rows_ in sorted({silu_k.SERVING_BLOCK_ROWS, 8, 128}):
+            t, _ = cuda_ms(torch, lambda g, u, r=rows_: silu_mul_cuda(g, u, block_rows=r),
+                           small, 100)
+            programs = silu_k.launch_plan(n_rows, F_, block_rows=rows_).grid[0]
+            times.append(f"block_rows={rows_} ({programs} programs) {t:.4f} ms")
+        log(f"  silu_mul ({n_rows}, {F_}) bf16: " + ", ".join(times)
+            + f"; bound {1e3 * 3 * n_rows * F_ * 2 / bw:.4f} ms")
+        del small
     # flash attention: causal prefill B=4, S=2048, 16/8 heads of 128, bf16
     B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
     q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
@@ -653,14 +738,31 @@ def kernel_times(torch, dev, peaks):
     def bmm_moe(x, wg, wu, wd):
         return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
 
+    # The f32 kernel runs 3xTF32 on the tensor cores, three TF32 products for
+    # each one, so its bound is that of 3 x the operations at the TF32 peak;
+    # the f32 FMA units' bound, which a kernel of this design can beat, is
+    # logged beside it.
     for kname, dt in (("fused_moe", f32), ("fused_moe bf16", bf16)):
         args = (randn(E, C, D, dtype=dt), randn(E, D, Fm, scale=D ** -0.5, dtype=dt),
                 randn(E, D, Fm, scale=D ** -0.5, dtype=dt), randn(E, Fm, D, scale=Fm ** -0.5, dtype=dt))
         nbytes = args[0].element_size() * (2 * E * C * D + 3 * E * D * Fm)
+        flops = 6 * E * C * D * Fm
         row(kname, fused_moe_cuda, fused_moe_ref, (bmm_moe, [args]), [args], 2,
-            *bound(peaks, nbytes, 6 * E * C * D * Fm, "float32" if dt == f32 else "bfloat16"))
-        log(f"  fused_moe E{E} C{C} D{D} F{Fm} {dt}: {6 * E * C * D * Fm / 1e12:.4f} TFLOP, "
+            *(bound(peaks, nbytes, 3 * flops, "tf32") if dt == f32
+              else bound(peaks, nbytes, flops, "bfloat16")))
+        log(f"  fused_moe E{E} C{C} D{D} F{Fm} {dt}: {flops / 1e12:.4f} TFLOP, "
             f"{nbytes / 1e9:.2f} GB")
+        if dt == f32:
+            fma_ms, fma_by = bound(peaks, nbytes, flops, "float32")
+            log(f"  fused_moe f32: bound {rows[kname]['bound_ms']:.4f} ms as 3xTF32 (the row's), "
+                f"{fma_ms:.4f} ms by {fma_by} on the f32 FMA units")
+        # the split between its two launches, from the profiler's kernel
+        # times (a launch a call each: a count below 1 means the profiler
+        # lost events, and the split is not to be read)
+        split = profiled(torch, lambda: fused_moe_cuda(*args), 2)["top"]
+        log(f"  {kname} launches, ms a call: " + "; ".join(
+            f"{name.replace('void (anonymous namespace)::', '')[:40]} x{n:g} {ms:.3f} ms"
+            for name, n, ms in split))
         del args
         torch.cuda.empty_cache()
 
@@ -771,24 +873,31 @@ def where_time_goes(torch, dev, params):
 
 def tuner(torch, dev):
     """``tune()`` on the card for fused MoE and scaled_mm, at the tuner's
-    default workloads and at dbrx-132b width, ranked with the roofline
+    default workloads and at dbrx-132b width, and for flash attention and
+    silu_mul at their qwen3-0.6b workloads, ranked with the roofline
     predictor of a registry TPU. The predictions price that TPU; the times
     are the H100's, and their rank correlation is logged, not judged."""
     from repro_torch.analysis.kernels import check_blocks
     from repro_torch.core.hardware import REGISTRY
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_moe import kernel as moe_k
     from repro_torch.kernels.fused_moe import ops as moe_ops
     from repro_torch.kernels.scaled_mm import kernel as smm_k
     from repro_torch.kernels.scaled_mm import ops as smm_ops
+    from repro_torch.kernels.silu_mul import kernel as silu_k
+    from repro_torch.kernels.silu_mul import ops as silu_ops
     from repro_torch.predict.backends import get_predictor
     from repro_torch.tune import DEFAULT_WORKLOADS, arch_workload, make_inputs, measure, tune
     from repro_torch.tune.__main__ import report_lines
 
     hw = REGISTRY["tpu-v4"]
     predictor = get_predictor("roofline", hw)
-    kernels = {"fused_moe": (moe_k, moe_ops), "scaled_mm": (smm_k, smm_ops)}
-    runs = [(k, kw) for k in kernels
+    kernels = {"fused_moe": (moe_k, moe_ops), "scaled_mm": (smm_k, smm_ops),
+               "flash_attention": (fa_k, fa_ops), "silu_mul": (silu_k, silu_ops)}
+    runs = [(k, kw) for k in ("fused_moe", "scaled_mm")
             for kw in (DEFAULT_WORKLOADS[k], arch_workload(k, "dbrx-132b"))]
+    runs += [(k, arch_workload(k, "qwen3-0.6b")) for k in ("flash_attention", "silu_mul")]
     repeats = 3
     inputs = [make_inputs(k, kw, device="cuda") for k, kw in runs]  # the tuner's inputs
     torch.cuda.synchronize()
@@ -826,7 +935,9 @@ def tuner(torch, dev):
     torch.cuda.empty_cache()
     launches = {k: mod.launches for k, (mod, _) in kernels.items()}
     assert all(v > 0 for v in launches.values()), launches
-    return launches
+    log(f"    launches in the tuner's runs: {launches}")
+    # the JSON line's counts: the tuner is the main path of these two
+    return {k: launches[k] for k in ("fused_moe", "scaled_mm")}
 
 
 if __name__ == "__main__":

@@ -5,12 +5,17 @@ Replaces ``_fa_kernel`` / ``flash_attention_pallas`` of
 what bounds the kernel and how it is laid out. The library is compiled with
 ``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and called through
 ctypes on PyTorch's current stream. A failed build or launch raises.
+
+``launch_plan`` computes the launch geometry in Python, so the CPU tests
+reach it: ``block_q`` sets the q rows a CTA owns and ``block_k`` the keys of
+one online-softmax step, after the reference's ``min(block, dim)`` clamp.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -18,19 +23,55 @@ from repro_torch.kernels._build import load_cuda_library
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: ``(B*Hq, ceil(S/bq), ceil(Skv/bk))`` of the last launch: the CUDA grid is
+#: the first two; each CTA walks the third, its softmax steps, in order
+last_grid: tuple | None = None
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class LaunchPlan(NamedTuple):
+    grid: tuple  # (B*Hq, q blocks, softmax steps): the reference's grid_shape
+    block_q: int  # q rows a CTA owns (clamped to S)
+    block_k: int  # keys of one softmax step (clamped to Skv)
+    kt: int  # keys of a register sub-tile
+    warps: int  # warps a CTA; it walks its block_q rows a sub-block at a time
+
+
+def launch_plan(
+    B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int,
+    *, block_q: int = 128, block_k: int = 128, dtype: torch.dtype = torch.bfloat16,
+) -> LaunchPlan:
+    """The kernel's launch geometry for these shapes and knobs. Lengths
+    need not divide the blocks (the kernel masks ragged edges); where they
+    do, ``grid`` equals the reference's ``grid_shape``. Raises on a
+    knob or shape the kernel cannot take; it never clamps a knob beyond
+    the reference's ``min(block, dim)``."""
+    if block_q <= 0 or block_k <= 0:
+        raise ValueError(f"flash_attention: blocks must be positive, got {block_q}, {block_k}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    bq, bk = min(block_q, S), min(block_k, Skv)
+    if dtype == torch.float32:
+        kt, warps = 64, 8  # the FMA path: 256 threads over 64 rows x 64 keys
+    else:
+        kt_max = 128 if D <= 128 else 64  # S and the output must fit in registers
+        kt = kt_max if bk >= kt_max else next(t for t in (32, 64, 128) if t >= bk)
+        warps = min(8, -(-bq // 16))  # 16 q rows a warp
+    grid = (B * Hq, -(-S // bq), -(-Skv // bk))
+    return LaunchPlan(grid, bq, bk, kt, warps)
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("flash_attention", SOURCES)
     fn = lib.fa_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p
-    ]
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return lib
 
@@ -44,8 +85,10 @@ def flash_attention_cuda(
     window: int | None = None,
     softcap: float | None = None,
     scale: float | None = None,
+    block_q: int = 128,
+    block_k: int = 128,
 ) -> torch.Tensor:
-    global launches
+    global launches, last_grid
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k, v must be CUDA tensors on one device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -59,26 +102,31 @@ def flash_attention_cuda(
     _, Skv, Hkv, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_cuda: window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention_cuda: softcap must be positive, got {softcap}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
     if q.numel() == 0 or Skv == 0:
         return out
-    fn = library().fa_forward
+    plan = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k, dtype=q.dtype)
+    if q.dtype == torch.bfloat16:  # 16-byte asynchronous copies need aligned rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(
+        err = lib.fa_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype],
             B, S, Skv, Hq, Hkv, D, int(causal), window or 0, float(softcap or 0.0),
-            scale if scale is not None else 1.0 / math.sqrt(D), stream,
+            scale if scale is not None else 1.0 / math.sqrt(D),
+            plan.block_q, plan.block_k, plan.kt, plan.warps, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed with cudaError {err}")
     launches += 1
+    last_grid = plan.grid
     return out

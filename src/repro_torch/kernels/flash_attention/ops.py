@@ -2,9 +2,10 @@
 tensors, the plain version for CPU tensors. Same signature as
 ``repro.kernels.flash_attention.ops.attention``.
 
-``block_q``/``block_k`` are the reference's tiling knobs, kept for the
-signature; the Hopper kernel tiles 64 x 64 and masks ragged edges itself,
-so no length has to divide a block."""
+``block_q``/``block_k`` reach the kernel's launch: the q rows a CTA owns
+and the keys of one online-softmax step (``kernel.last_grid ==
+grid_shape(...)`` wherever the lengths divide the blocks). The kernel masks
+ragged edges itself, so no length has to divide a block."""
 from __future__ import annotations
 
 import torch
@@ -61,4 +62,5 @@ def attention(
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
-    return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
+                                block_q=block_q, block_k=block_k)

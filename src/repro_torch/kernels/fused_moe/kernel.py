@@ -5,33 +5,60 @@ Replaces ``_moe_kernel`` / ``fused_moe_pallas`` of
 bounds the kernel and how it is laid out. The library is compiled with
 ``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and called through
 ctypes on PyTorch's current stream. A failed build or launch raises.
+
+``launch_plan`` computes both launches' geometry in Python, so the CPU
+tests reach it.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels._build import load_cuda_library
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0 (one a wrapper call,
+#: which launches the gate/up and the down kernels)
 launches = 0
-#: ``(E, C/block_m, F/block_f)`` of the last launch: the CUDA grid is
-#: ``(C/block_m, E)`` and each CTA walks the ``F/block_f`` axis in order
+#: ``(E, C/block_m, F/block_f)`` of the last launch: the gate/up launch's
+#: grid; the down launch covers ``(E, C/block_m, ceil(D/128))`` output tiles
+#: and walks the ``F/block_f`` steps in order
 last_grid: tuple | None = None
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe.cu"]
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+D_TILE = 128  # output columns of a down-launch CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class LaunchPlan(NamedTuple):
+    grid: tuple  # (E, C/bm, F/bf): the gate/up grid, the reference's grid_shape
+    down_grid: tuple  # (E, C/bm, ceil(D/128)): the down launch's output tiles
+    block_m: int  # rows a CTA owns (clamped to C)
+    block_f: int  # F columns of a gate/up CTA and F per summation step (clamped to F)
+    sub_rows: int  # rows a CTA computes at a time: 32, 64 or 128
+
+
+def launch_plan(E: int, C: int, D: int, F: int, *, block_m: int = 128,
+                block_f: int = 256) -> LaunchPlan:
+    """The two launches' geometry for these shapes and knobs, after the
+    reference's ``min(block, dim)`` clamp; raises where a block does not
+    divide its dimension, as the reference's ``grid_shape`` does."""
+    bm, bf = min(block_m, C), min(block_f, F)
+    if bm <= 0 or bf <= 0 or C % bm or F % bf:
+        raise ValueError(f"fused_moe_cuda: C={C} % block_m={bm} or F={F} % block_f={bf} != 0")
+    sub_rows = 32 if bm <= 32 else 64 if bm <= 64 else 128
+    return LaunchPlan((E, C // bm, F // bf), (E, C // bm, -(-D // D_TILE)), bm, bf, sub_rows)
 
 
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("fused_moe", SOURCES)
-    lib.fused_moe_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.fused_moe_forward.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.fused_moe_forward.restype = ctypes.c_int
-    lib.fused_moe_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_moe_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fused_moe_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -45,7 +72,7 @@ def fused_moe_cuda(
     block_m: int = 128,
     block_f: int = 256,
 ) -> torch.Tensor:
-    """Launch the kernel: ``(silu(x Wg) * (x Wu)) Wd`` per expert, in x's type."""
+    """Launch the kernels: ``(silu(x Wg) * (x Wu)) Wd`` per expert, in x's type."""
     global launches, last_grid
     ts = (x, w_gate, w_up, w_down)
     if not all(t.is_cuda and t.device == x.device for t in ts):
@@ -65,28 +92,32 @@ def fused_moe_cuda(
         )
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("fused_moe_cuda: x and the weights must be contiguous")
-    bm, bf = min(block_m, C), min(block_f, F)
-    if bm <= 0 or bf <= 0 or C % bm or F % bf:
-        raise ValueError(f"fused_moe_cuda: C={C} % block_m={bm} or F={F} % block_f={bf} != 0")
     out = torch.empty_like(x)
     if x.numel() == 0 or F == 0:
         return out
+    plan = launch_plan(E, C, D, F, block_m=block_m, block_f=block_f)
     lib = library()
-    smem = lib.fused_moe_smem_bytes(bf)
+    code = _DTYPE_CODE[x.dtype]
+    smem = lib.fused_moe_smem_bytes(code, plan.sub_rows // 32)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"fused_moe_cuda: block_f={bf} needs {smem} bytes of shared memory a block, "
+            f"fused_moe_cuda: {plan} needs {smem} bytes of shared memory a block, "
             f"more than {SMEM_LIMIT}"
         )
-    acc = torch.empty((E, C, D), dtype=torch.float32, device=x.device)
+    h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)  # silu(x Wg) * (x Wu)
+    size = x.element_size()
+    vec = all(t.data_ptr() % 16 == 0 for t in (*ts, h, out)) and all(
+        n * size % 16 == 0 for n in (D, F, plan.block_f)
+    )
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.fused_moe_forward(
             x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-            acc.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], E, C, D, F, bm, bf, stream,
+            h.data_ptr(), out.data_ptr(), code, E, C, D, F, plan.block_m, plan.block_f,
+            plan.sub_rows // 32, int(vec), stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_moe_cuda: launch failed with cudaError {err}")
     launches += 1
-    last_grid = (E, C // bm, F // bf)
+    last_grid = plan.grid
     return out

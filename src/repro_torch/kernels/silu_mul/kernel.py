@@ -6,27 +6,66 @@ projections of every FFN (d_ff=3072).
 
 What bounds it on the card: device-memory bytes. Two inputs are read once
 and one output written once, with about ten operations a element, so the
-bound is ``3 R d * itemsize / bandwidth``. The function is elementwise, so
-the kernel walks the flattened tensors in masked blocks of 1024 values:
-every load is contiguous and no row shape needs to divide anything. The
-activation is computed in f32 as the reference does.
+bound is ``3 R d * itemsize / bandwidth``. The activation is computed in
+f32 as the reference does.
+
+``block_rows`` reaches the launch: a program owns
+``largest_divisor_block(R, block_rows)`` rows (R the rows of the flattened
+leading dimensions), so the grid is the reference's ``grid_shape(R, d,
+block_rows=...)``; it walks those rows' contiguous values in chunks of
+``block``, with the next chunk's loads in flight while this one is stored.
+``block`` is the span rounded up to a power of two, within ``MIN_BLOCK``
+and ``MAX_BLOCK``, so that a program of few rows launches few masked lanes.
+``launch_plan`` computes the geometry in Python, so the CPU tests reach it.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch.kernels import largest_divisor_block
 from repro_torch.kernels._build import import_triton
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: ``(R/rows,)`` of the last launch: one program per block of rows
+last_grid: tuple | None = None
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_BLOCK = 1024
+MAX_BLOCK = 16384  # values a program handles at a time, at most
+MIN_BLOCK = 512
+VALUES_PER_THREAD = 16
+
+#: rows a program owns on the serving path (``models.layers.ffn``): one, so
+#: that a prompt of R tokens gets R programs whatever R's divisors are. The
+#: reference's default of 128 gives a 1024-token prefill 8 programs for 132
+#: SMs, and a prime length R one program of R rows; ``chip_smoke.py``
+#: phase 5 times the serving path's prompt lengths at 1, 8 and 128.
+SERVING_BLOCK_ROWS = 1
 
 
-def silu_mul_cuda(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+class LaunchPlan(NamedTuple):
+    grid: tuple  # (R/rows,): the reference's grid_shape
+    rows: int  # rows a program owns
+    block: int  # values of one chunk: a power of two
+    num_warps: int
+
+
+def launch_plan(R: int, d: int, *, block_rows: int = 128) -> LaunchPlan:
+    """One program per ``largest_divisor_block(R, block_rows)`` rows."""
+    if block_rows <= 0:
+        raise ValueError(f"silu_mul: block_rows must be positive, got {block_rows}")
+    rows = largest_divisor_block(R, block_rows)
+    block = min(MAX_BLOCK, max(MIN_BLOCK, 1 << (rows * d - 1).bit_length()))
+    num_warps = min(32, max(4, block // (32 * VALUES_PER_THREAD)))
+    return LaunchPlan((R // rows,), rows, block, num_warps)
+
+
+def silu_mul_cuda(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu",
+                  block_rows: int = 128) -> torch.Tensor:
     """Launch the kernel on ``g``, ``u`` of one shape and type on the card."""
-    global launches
+    global launches, last_grid
     if act not in ("silu", "geglu"):
         raise ValueError(f"silu_mul_cuda: unknown activation {act!r}")
     if not (g.is_cuda and u.is_cuda and g.device == u.device):
@@ -38,14 +77,17 @@ def silu_mul_cuda(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu") -> tor
     if not (g.is_contiguous() and u.is_contiguous()):
         raise ValueError("silu_mul_cuda: g and u must be contiguous")
     out = torch.empty_like(g)
-    n = g.numel()
-    if n == 0:
+    if g.numel() == 0:
         return out
+    d = g.shape[-1]
+    plan = launch_plan(g.numel() // d, d, block_rows=block_rows)
     import_triton()
     from repro_torch.kernels.silu_mul._triton import act_mul_kernel
 
-    act_mul_kernel[((n + _BLOCK - 1) // _BLOCK,)](
-        g, u, out, n, GEGLU=(act == "geglu"), BLOCK=_BLOCK, num_warps=4,
+    act_mul_kernel[plan.grid](
+        g, u, out, plan.rows * d, GEGLU=(act == "geglu"), BLOCK=plan.block,
+        num_warps=plan.num_warps,
     )
     launches += 1
+    last_grid = plan.grid
     return out

@@ -1,5 +1,6 @@
 """act(g) * u entry point: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors. Same signature as ``repro.kernels.silu_mul.ops``."""
+version for CPU tensors. Same signature as ``repro.kernels.silu_mul.ops``;
+``block_rows`` reaches the launch (``kernel.last_grid == grid_shape(...)``)."""
 from __future__ import annotations
 
 import torch
@@ -29,4 +30,4 @@ def act_mul(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu",
             block_rows: int = 128) -> torch.Tensor:
     if g.device.type == "cpu":
         return silu_mul_ref(g, u, act=act)
-    return silu_mul_cuda(g, u, act=act)
+    return silu_mul_cuda(g, u, act=act, block_rows=block_rows)

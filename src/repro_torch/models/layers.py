@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.silu_mul import ops as silu_ops
+from repro_torch.kernels.silu_mul.kernel import SERVING_BLOCK_ROWS
 
 # ----------------------------------------------------------------------
 # initialisation helpers (the reference's distributions, drawn from a
@@ -260,7 +261,8 @@ def ffn(p, x, cfg: ArchConfig):
     reference's ``use_pallas`` path, taken unconditionally here)."""
     if cfg.act not in ("silu", "geglu"):
         raise NotImplementedError(f"act={cfg.act!r} is not ported yet")
-    h = silu_ops.act_mul(x @ p["w_gate"], x @ p["w_up"], act=cfg.act)
+    h = silu_ops.act_mul(x @ p["w_gate"], x @ p["w_up"], act=cfg.act,
+                         block_rows=SERVING_BLOCK_ROWS)
     return h @ p["w_down"]
 
 

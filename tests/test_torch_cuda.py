@@ -61,6 +61,9 @@ FA_CASES = [
     (1, 77, 200, 2, 1, 64, False, 50, 20.0),
     (1, 40, 40, 2, 2, 8, True, None, None),
     (1, 130, 130, 2, 1, 256, True, 64, 50.0),
+    # rows q >= Skv + window - 1 see no key: they average v over every key
+    (1, 200, 50, 2, 1, 64, False, 10, None),
+    (1, 200, 50, 2, 1, 64, True, 10, None),
 ]
 
 
@@ -78,6 +81,42 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     assert fa_kernel.launches == n0 + 1
     ref = fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw)
     _close(out.cpu(), ref, dtype)
+
+
+FA_BF16_HEAD_DIMS = [64, 128, 256]
+
+
+@pytest.mark.parametrize("D", FA_BF16_HEAD_DIMS)
+def test_flash_attention_bf16_tensor_core_head_dims(dev, D):
+    """The tensor-core path at the head dims of the model zoo, with a
+    ragged length and GQA."""
+    B, S, Hq, Hkv = 2, 300, 8, 2
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (B, S, Hq, D), torch.bfloat16, dev)
+    k, v = (_randn(rng, (B, S, Hkv, D), torch.bfloat16, dev) for _ in range(2))
+    out = fa_ops.attention(q, k, v)
+    assert fa_kernel.last_grid == (B * Hq, 3, 3)
+    _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu()), torch.bfloat16)
+
+
+FA_BLOCK_CORNERS = [(32, 32), (32, 512), (512, 32), (512, 512), (128, 256)]
+
+
+@pytest.mark.parametrize("blocks", FA_BLOCK_CORNERS, ids=lambda b: f"q{b[0]}-k{b[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_block_corners(dev, blocks, dtype):
+    """Each (block_q, block_k) corner of the tuner's lattice launches the
+    grid it names and computes the same function (two-pass steps where
+    block_k is wider than the register tile)."""
+    bq, bk = blocks
+    B, S, Hq, Hkv, D = 2, 512, 4, 2, 64
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (B, S, Hq, D), dtype, dev)
+    k, v = (_randn(rng, (B, S, Hkv, D), dtype, dev) for _ in range(2))
+    for kw in (dict(causal=True), dict(causal=True, window=100), dict(causal=False)):
+        out = fa_ops.attention(q, k, v, block_q=bq, block_k=bk, **kw)
+        assert fa_kernel.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
+        _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw), dtype)
 
 
 @pytest.mark.parametrize("shape", [(4, 32, 64), (2, 7, 48), (128, 16), (300, 1024), (33, 128)])
@@ -106,6 +145,16 @@ def test_silu_mul_kernel_matches_plain(dev, act, dtype, shape):
     _close(out.cpu(), silu_ops.act_mul(g.cpu(), u.cpu(), act=act), dtype)
 
 
+@pytest.mark.parametrize("block_rows", [32, 128, 512, 7])
+def test_silu_mul_block_rows_reach_the_launch(dev, block_rows):
+    R, d = 1024, 3072
+    rng = np.random.default_rng(6)
+    g, u = _randn(rng, (R, d), torch.bfloat16, dev, 3.0), _randn(rng, (R, d), torch.bfloat16, dev)
+    out = silu_ops.act_mul(g, u, block_rows=block_rows)
+    assert silu_kernel.last_grid == silu_ops.grid_shape(R, d, block_rows=block_rows)
+    _close(out.cpu(), silu_ops.act_mul(g.cpu(), u.cpu()), torch.bfloat16)
+
+
 MOE_CASES = [
     # (E, C, D, F, block_m, block_f): the reference's cases, the tuner's
     # default workload at lattice corners, and ragged sub-tiles
@@ -116,6 +165,10 @@ MOE_CASES = [
     (8, 512, 256, 512, 512, 512),
     (8, 512, 256, 512, 32, 32),
     (3, 100, 200, 300, 50, 150),
+    # several row sub-blocks and F steps a CTA, at the lattice's corners
+    (2, 1024, 384, 1024, 32, 32),
+    (2, 1024, 384, 1024, 128, 256),
+    (2, 1024, 384, 1024, 512, 512),
 ]
 
 
@@ -172,8 +225,9 @@ def test_scaled_mm_kernel_matches_plain(dev, case):
 
 
 def test_tuner_times_the_kernels_on_the_card(dev):
-    """One small tune() per new kernel on the card: every measured config
-    launched (1 + repeats) times with the grid its blocks give."""
+    """One small tune() per tunable kernel with a launch grid on the card:
+    every measured config launched (1 + repeats) times with the grid its
+    blocks give."""
     from repro_torch.core.hardware import REGISTRY
     from repro_torch.predict.backends import get_predictor
     from repro_torch.tune import measure, tune
@@ -182,6 +236,9 @@ def test_tuner_times_the_kernels_on_the_card(dev):
     for kernel, mod, ops, kw in [
         ("fused_moe", moe_kernel, moe_ops, {"E": 2, "C": 64, "D": 64, "F": 128}),
         ("scaled_mm", smm_kernel, smm_ops, {"M": 128, "K": 256, "N": 128}),
+        ("flash_attention", fa_kernel, fa_ops,
+         {"B": 1, "S": 256, "Skv": 256, "Hq": 4, "Hkv": 2, "D": 64}),
+        ("silu_mul", silu_kernel, silu_ops, {"R": 512, "d": 256}),
     ]:
         grids = []
 

@@ -3,6 +3,7 @@ the reference's Pallas kernels run in interpret mode, on the same numpy
 inputs. Cases are the reference's (``tests/test_kernels.py``); tolerances
 are its kernel tolerances: f32 2e-5, bf16 2e-2. The kernels themselves are
 held against these plain versions on the card in ``test_torch_cuda.py``."""
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -254,3 +255,110 @@ def test_flash_attention_sources_are_in_the_package():
 def test_moe_and_scaled_mm_sources_are_in_the_package(name, mod):
     assert all(p.is_file() and p.suffix == ".cu" for p in mod.SOURCES)
     assert _build.library_path(name, mod.SOURCES).suffix == ".so"
+
+
+# ----------------------------------------------------------------------
+# launch geometry: every knob reaches the launch
+# ----------------------------------------------------------------------
+
+
+def _lattice_workloads():
+    from repro_torch.tune import DEFAULT_WORKLOADS, arch_workload
+
+    cases = []
+    for kernel in ("flash_attention", "fused_moe", "silu_mul"):
+        cases.append((kernel, "default", DEFAULT_WORKLOADS[kernel]))
+        for arch in ("qwen3-0.6b", "dbrx-132b"):
+            if kernel == "fused_moe" and arch == "qwen3-0.6b":
+                continue  # a dense arch launches no fused_moe
+            cases.append((kernel, arch, arch_workload(kernel, arch)))
+    return cases
+
+
+LATTICE_CASES = _lattice_workloads()
+
+
+def _plan_grid(kernel, kw, blocks):
+    if kernel == "flash_attention":
+        return fa_kernel.launch_plan(**kw, **blocks).grid
+    if kernel == "fused_moe":
+        return moe_kernel.launch_plan(**kw, **blocks).grid
+    return silu_kernel.launch_plan(**kw, **blocks).grid
+
+
+@pytest.mark.parametrize("kernel, name, kw", LATTICE_CASES,
+                         ids=[f"{k}-{n}" for k, n, _ in LATTICE_CASES])
+def test_launch_geometry_equals_reference_grid_over_the_lattice(kernel, name, kw):
+    """For every config the tuner's SP2xx prefilter passes, the wrapper's
+    launch geometry is the reference's ``grid_shape``: each knob changes
+    the launch, none is clamped beyond ``min(block, dim)``."""
+    from repro_torch.tune import enumerate_candidates, prefilter
+
+    ref_helpers = {"flash_attention": ref_fa, "fused_moe": ref_moe, "silu_mul": ref_silu}
+    survivors, _ = prefilter(kernel, kw, enumerate_candidates(kernel))
+    assert survivors
+    for c in survivors:
+        grid = _plan_grid(kernel, kw, c.blocks)
+        assert grid == ref_helpers[kernel].grid_shape(**kw, **c.blocks), (kw, c.blocks)
+
+
+@pytest.mark.parametrize("D", fa_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_plan_takes_every_lattice_pair(D, dtype):
+    """Every (block_q, block_k) of the lattice that divides the shape has a
+    plan the kernel takes: a register sub-tile it was built for (a step
+    wider than it runs in two passes) and at most 8 warps."""
+    from repro_torch.tune.space import BLOCK_VALUES
+
+    B, S, Hq, Hkv = 2, 512, 4, 2
+    for bq in BLOCK_VALUES:
+        for bk in BLOCK_VALUES:
+            plan = fa_kernel.launch_plan(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk, dtype=dtype)
+            assert plan.grid == ref_fa.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
+            assert (plan.block_q, plan.block_k) == (bq, bk)
+            if dtype == torch.float32:
+                assert (plan.kt, plan.warps) == (64, 8)
+            else:
+                assert plan.kt in ((32, 64, 128) if D <= 128 else (32, 64))
+                assert plan.warps == min(8, bq // 16)
+
+
+def test_flash_attention_plan_masks_ragged_lengths():
+    """Serving lengths need not divide a block: the grid rounds up and the
+    kernel masks the rest (prompts of 781-2004 tokens)."""
+    plan = fa_kernel.launch_plan(1, 781, 781, 16, 8, 128)
+    assert plan.grid == (16, 7, 7) and plan.block_q == plan.block_k == 128
+    small = fa_kernel.launch_plan(1, 40, 40, 2, 2, 8)
+    assert small.grid == (2, 1, 1) and (small.block_q, small.kt, small.warps) == (40, 64, 3)
+    with pytest.raises(ValueError):
+        fa_kernel.launch_plan(1, 64, 64, 2, 2, 24)
+
+
+def test_fused_moe_plan_fills_the_card_at_dbrx_width():
+    """Both launches put at least one CTA on each of the H100's 132 SMs at
+    the default blocks, and both knobs change both launches."""
+    plan = moe_kernel.launch_plan(16, 256, 6144, 10752)
+    assert plan.grid == (16, 2, 42) and plan.down_grid == (16, 2, 48)
+    assert math.prod(plan.grid) >= 132 and math.prod(plan.down_grid) >= 132
+    other = moe_kernel.launch_plan(16, 256, 6144, 10752, block_m=64, block_f=512)
+    assert other.grid == (16, 4, 21) and other.down_grid == (16, 4, 48)
+    assert (other.sub_rows, other.block_f) == (64, 512)
+    with pytest.raises(ValueError):
+        moe_kernel.launch_plan(2, 32, 16, 64, block_m=24)
+
+
+def test_silu_mul_plan_owns_whole_row_blocks():
+    """A program owns whole rows; its chunk is the span rounded up to a
+    power of two, within MIN_BLOCK and MAX_BLOCK, so one-row programs (a prime prompt
+    length) launch few masked lanes."""
+    plan = silu_kernel.launch_plan(8192, 3072)
+    assert plan == silu_kernel.LaunchPlan((64,), 128, 16384, 32)
+    assert silu_kernel.launch_plan(100, 48, block_rows=32).rows == largest_divisor_block(100, 32)
+    assert silu_kernel.launch_plan(781, 3072, block_rows=8) == silu_kernel.LaunchPlan(
+        (781,), 1, 4096, 8)
+    for R, d, br in ((1024, 3072, 8), (7, 33, 128), (1, 1, 1), (2004, 3072, 16)):
+        p = silu_kernel.launch_plan(R, d, block_rows=br)
+        span = p.rows * d
+        assert p.block & (p.block - 1) == 0 and 4 <= p.num_warps <= 32
+        lo, hi = min(span, silu_kernel.MAX_BLOCK), max(silu_kernel.MIN_BLOCK, 2 * span - 1)
+        assert lo <= p.block <= hi
