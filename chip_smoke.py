@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    config the tuner's prefilter passes on its default workloads (fused MoE
    also in bf16), flash attention and silu_mul at every config it passes
    on their qwen3-0.6b workloads, and fused MoE and scaled_mm at dbrx-132b
-   width;
+   width (scaled_mm also with 32-deep steps, and at shapes it stages byte
+   by byte);
 3. whole-model parity: full-width qwen3-0.6b, f32 compute, random weights
    from one seed: prefill of a 64-token prompt and 8 greedy decode steps on
    the card (kernels) and on the CPU (plain versions), same weights;
@@ -32,7 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    call's time where one exists (timed here only; the port never calls it)
    and the least time the card could take (its bound); fused MoE and
    scaled_mm at dbrx-132b width (f32 MoE bounded as 3xTF32, the path its
-   kernel runs); silu_mul also at phase 4's prompt lengths;
+   kernel runs); silu_mul also at phase 4's prompt lengths, scaled_mm also
+   at the tuner's default workload beside ``torch._int_mm``;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``; for each it prints the wall-clock of the
@@ -383,6 +385,16 @@ def tuner_kernel_parity(torch, dev):
                             dict(block_m=bm, block_n=bn, block_k=bk), (x, wq.t().contiguous(), sx, sw))
             log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}): int32 sum exact, "
                 f"max abs err {err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
+    # rows or blocks that are not 16-byte multiples: the kernel stages them byte by byte
+    for M, K, N, bm, bn, bk in [(64, 96, 50, 32, 25, 32), (7, 100, 13, 3, 5, 7)]:
+        x, sx = quantize_rowwise(randn((M, K), f32))
+        wq, sw = quantize_rowwise(randn((N, K), f32))
+        blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+        assert not smm_k.launch_plan(M, K, N, **blocks).vectorized
+        same, err = smm(f"scaled_mm M{M} K{K} N{N}", dict(M=M, K=K, N=N), blocks,
+                        (x, wq.t().contiguous(), sx, sw))
+        log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}), byte-by-byte staging: int32 "
+            f"sum exact, max abs err {err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
 
     # the tuner's default workloads, every config its prefilter passes
     for kernel in ("fused_moe", "scaled_mm"):
@@ -441,7 +453,8 @@ def tuner_kernel_parity(torch, dev):
     kw = arch_workload("scaled_mm", "dbrx-132b")
     args = make_inputs("scaled_mm", kw, device="cuda")
     for blocks in ({}, dict(block_m=512, block_n=512, block_k=512),
-                   dict(block_m=32, block_n=64, block_k=32)):
+                   dict(block_m=32, block_n=64, block_k=32),
+                   dict(block_m=128, block_n=128, block_k=32)):
         same, err = smm(f"scaled_mm {kw} {blocks}", kw, blocks, args, main=True)
         log(f"  scaled_mm {kw} {blocks or 'default blocks'}: int32 sum exact, max abs err "
             f"{err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
@@ -628,6 +641,8 @@ def cuda_ms(torch, fn, inputs, iters):
         for a in inputs[:2]:
             fn(*a)
     torch.cuda.current_stream().wait_stream(side)
+    for a in inputs[:2]:  # and on this stream, whose allocator pool the eager calls draw from
+        fn(*a)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -665,7 +680,7 @@ def kernel_times(torch, dev, peaks):
     from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
     from repro_torch.kernels.silu_mul.ref import silu_mul_ref
     from repro_torch.kernels.silu_mul import kernel as silu_k
-    from repro_torch.tune import arch_workload
+    from repro_torch.tune import DEFAULT_WORKLOADS, arch_workload
 
     bf16, f32 = torch.bfloat16, torch.float32
     bw = peaks["bytes"]
@@ -783,7 +798,20 @@ def kernel_times(torch, dev, peaks):
     nbytes = M * K + K * N + 4 * (M + N) + 2 * M * N
     row("scaled_mm", scaled_mm_cuda, scaled_mm_ref, (int_mm, smm_args), smm_args, 10,
         *bound(peaks, nbytes, 2 * M * K * N, "int8"))
-    log(f"  scaled_mm M{M} K{K} N{N}: {2 * M * K * N / 1e12:.4f} Tops, {nbytes / 1e6:.1f} MB")
+    r = rows["scaled_mm"]
+    log(f"  scaled_mm M{M} K{K} N{N}: {2 * M * K * N / 1e12:.4f} Tops, {nbytes / 1e6:.1f} MB; "
+        f"{2 * M * K * N / r['ms'] / 1e9:.1f} TOPS achieved, {r['bound_ms'] / r['ms']:.3f} of the "
+        f"bound, {r['library_ms'] / r['ms']:.2f}x faster than _int_mm + epilogue")
+    del smm_args
+    # the tuner's default workload, where its inputs stay in L2 as they do in tune()
+    M, K, N = (DEFAULT_WORKLOADS["scaled_mm"][k] for k in "MKN")
+    small = [(int8(M, K), int8(K, N), scales(M), scales(N)) for _ in range(2)]
+    ms, _ = cuda_ms(torch, scaled_mm_cuda, small, 100)
+    lib_ms, _ = cuda_ms(torch, int_mm, small, 100)
+    b_ms, b_by = bound(peaks, M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N, "int8")
+    log(f"  scaled_mm M{M} K{K} N{N} (tuner default), default blocks: {ms:.4f} ms, "
+        f"_int_mm + epilogue {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
+        f"{2 * M * K * N / ms / 1e9:.1f} TOPS")
     for kname, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
@@ -931,6 +959,8 @@ def tuner(torch, dev):
         assert not check_blocks(kernel, kw, report.best.blocks)
         log(f"    {len(grids)} configs measured in {wall:.1f}s, {moved} launches, every launched "
             f"grid equal to grid_shape")
+        log(f"    {kernel} {kw}: default {report.default_blocks} {report.t_default * 1e3:.4f} ms, "
+            f"picked {report.best.blocks} {report.best.measured_s * 1e3:.4f} ms")
     del inputs
     torch.cuda.empty_cache()
     launches = {k: mod.launches for k, (mod, _) in kernels.items()}

@@ -196,6 +196,12 @@ SMM_CASES = [
     (1024, 512, 512, 512, 512, 512),
     (1024, 512, 512, 32, 32, 32),
     (7, 100, 13, 3, 5, 7),
+    # a long K at the default blocks (|acc| stays below 2**24)
+    (256, 6144, 512, 128, 128, 256),
+    # an unaligned N: rows staged byte by byte
+    (64, 96, 50, 32, 25, 32),
+    # a block that walks 16 tensor-core sub-tiles
+    (1024, 512, 512, 512, 512, 64),
 ]
 
 
@@ -221,6 +227,25 @@ def test_scaled_mm_kernel_matches_plain(dev, case):
     assert int(acc.abs().max()) < 2**24
     assert torch.equal(unit.cpu(), acc.float())
     ref = smm_ops.scaled_mm(x.cpu(), w.cpu(), sx.cpu(), sw.cpu())
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_scaled_mm_kernel_float16_output(dev):
+    """An f16 output, scales small enough to keep it finite: within 1e-2 of
+    the plain version, through one launch of the reference's grid."""
+    M, K, N = 256, 512, 384
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
+    sx = torch.from_numpy(rng.uniform(0.5e-3, 2e-3, M).astype(np.float32)).to(dev)
+    sw = torch.from_numpy(rng.uniform(0.5e-3, 2e-3, N).astype(np.float32)).to(dev)
+    n0 = smm_kernel.launches
+    out = smm_ops.scaled_mm(x, w, sx, sw, out_dtype=torch.float16)
+    assert smm_kernel.launches == n0 + 1
+    assert smm_kernel.last_grid == smm_ops.grid_shape(M, K, N)
+    ref = smm_ops.scaled_mm(x.cpu(), w.cpu(), sx.cpu(), sw.cpu(), out_dtype=torch.float16)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16 and bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 

@@ -266,7 +266,7 @@ def _lattice_workloads():
     from repro_torch.tune import DEFAULT_WORKLOADS, arch_workload
 
     cases = []
-    for kernel in ("flash_attention", "fused_moe", "silu_mul"):
+    for kernel in ("flash_attention", "fused_moe", "silu_mul", "scaled_mm"):
         cases.append((kernel, "default", DEFAULT_WORKLOADS[kernel]))
         for arch in ("qwen3-0.6b", "dbrx-132b"):
             if kernel == "fused_moe" and arch == "qwen3-0.6b":
@@ -283,6 +283,8 @@ def _plan_grid(kernel, kw, blocks):
         return fa_kernel.launch_plan(**kw, **blocks).grid
     if kernel == "fused_moe":
         return moe_kernel.launch_plan(**kw, **blocks).grid
+    if kernel == "scaled_mm":
+        return smm_kernel.launch_plan(**kw, **blocks).grid
     return silu_kernel.launch_plan(**kw, **blocks).grid
 
 
@@ -294,7 +296,8 @@ def test_launch_geometry_equals_reference_grid_over_the_lattice(kernel, name, kw
     the launch, none is clamped beyond ``min(block, dim)``."""
     from repro_torch.tune import enumerate_candidates, prefilter
 
-    ref_helpers = {"flash_attention": ref_fa, "fused_moe": ref_moe, "silu_mul": ref_silu}
+    ref_helpers = {"flash_attention": ref_fa, "fused_moe": ref_moe, "silu_mul": ref_silu,
+                   "scaled_mm": ref_smm}
     survivors, _ = prefilter(kernel, kw, enumerate_candidates(kernel))
     assert survivors
     for c in survivors:
@@ -345,6 +348,46 @@ def test_fused_moe_plan_fills_the_card_at_dbrx_width():
     assert (other.sub_rows, other.block_f) == (64, 512)
     with pytest.raises(ValueError):
         moe_kernel.launch_plan(2, 32, 16, 64, block_m=24)
+
+
+SMM_PLAN_SHAPES = [(1024, 512, 512), (1024, 1024, 3072), (1024, 6144, 10752)]
+
+
+@pytest.mark.parametrize("M, K, N", SMM_PLAN_SHAPES, ids=lambda v: str(v))
+def test_scaled_mm_plan_fits_every_lattice_point(M, K, N):
+    """At the default, qwen3-0.6b and dbrx-132b workloads, every point of
+    the block lattice plans the reference's grid, fits the H100's 227 KB of
+    shared memory a block, walks its block in a sub-tile no larger than it,
+    and stages 64 bytes of k (32 where block_k is 32)."""
+    from repro_torch.tune.space import BLOCK_VALUES
+
+    for bm in BLOCK_VALUES:
+        for bn in BLOCK_VALUES:
+            for bk in BLOCK_VALUES:
+                blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+                plan = smm_kernel.launch_plan(M, K, N, **blocks)
+                assert plan.grid == ref_smm.grid_shape(M, K, N, **blocks)
+                assert plan.smem_bytes <= smm_kernel.SMEM_LIMIT
+                assert plan.sub_tile <= min(plan.block_m, plan.block_n)
+                assert plan.stage_k == (32 if plan.block_k <= 32 else 64)
+                assert plan.vectorized
+
+
+def test_scaled_mm_plan_stages_unaligned_rows_byte_by_byte():
+    """Rows or blocks that are not 16-byte multiples take the element-wise
+    staging of the same kernel; the default dbrx plan is 128 x 128 on 8
+    warps with a 4-stage ring of 64-byte steps."""
+    assert not smm_kernel.launch_plan(7, 100, 13).vectorized
+    assert not smm_kernel.launch_plan(64, 96, 50).vectorized
+    assert not smm_kernel.launch_plan(64, 96, 50, block_m=32, block_n=25, block_k=32).vectorized
+    small = smm_kernel.launch_plan(7, 100, 13, block_m=3, block_n=5, block_k=7)
+    assert small.grid == (7, 13, 20) and (small.sub_tile, small.stage_k) == (32, 32)
+    plan = smm_kernel.launch_plan(1024, 6144, 10752)
+    assert plan.grid == (8, 84, 24) and plan.vectorized
+    assert (plan.sub_tile, plan.warps, plan.stage_k, plan.stages) == (128, 8, 64, 4)
+    assert plan.smem_bytes == 4 * (128 * 80 + 64 * 128)
+    with pytest.raises(TypeError):
+        smm_kernel.launch_plan(64, 64, 64, out_dtype=torch.int32)
 
 
 def test_silu_mul_plan_owns_whole_row_blocks():
