@@ -20,26 +20,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    also in bf16), flash attention and silu_mul at every config it passes
    on their qwen3-0.6b workloads, and fused MoE and scaled_mm at dbrx-132b
    width (scaled_mm also with 32-deep steps, and at shapes it stages byte
-   by byte);
-3. whole-model parity: full-width qwen3-0.6b, f32 compute, random weights
-   from one seed: prefill of a 64-token prompt and 8 greedy decode steps on
-   the card (kernels) and on the CPU (plain versions), same weights;
-4. serving, the main path: full-width qwen3-0.6b with bf16 compute through
-   ``ServeEngine`` and ``ContinuousBatchingEngine``; every kernel's launch
-   count must move by exactly what the path implies;
+   by byte); fused MoE in bf16 at dbrx-132b's serving shapes, through the
+   model's ``expert_ffn``: a decode tick of 4 slots (4 rows an expert) and
+   the prefill of a prime-length prompt (8012 rows, padded to 8064);
+3. whole-model parity, random weights from one seed, f32 compute: prefill
+   of a 64-token prompt and 8 greedy decode steps on the card (kernels) and
+   on the CPU (plain versions), same weights: full-width qwen3-0.6b, and
+   full-width dbrx-132b cut to 1 layer (18 GB of parameters);
+4. serving, the main paths, through ``serve.trace.TraceRecorder``:
+   full-width qwen3-0.6b with bf16 compute through ``ServeEngine`` and
+   ``ContinuousBatchingEngine`` (every step recorded and stamped, each
+   ``StepMeta`` re-lowered by ``step_calls`` to exactly the recorded calls,
+   one residual per measured step), one ``ContinuousBatchingEngine`` with
+   ``admission="predicted"`` priced by the roofline predictor of a registry
+   TPU, with an SLO that defers some admissions; then full-width dbrx-132b
+   cut to 2 layers, bf16 compute, through both engines. Each run sets the
+   launch counts to 0 before it and reads them after: every kernel's count
+   must move by exactly what the path implies (fused MoE once per MoE layer
+   a step). Predicted seconds are printed on lines of their own, labelled
+   as predictions for the registry TPU;
 5. kernel times with CUDA events at the main paths' shapes (device time
    from a CUDA-graph replay; the eager time, launched from Python, is
    logged beside it), beside the plain version's time, one PyTorch library
    call's time where one exists (timed here only; the port never calls it)
-   and the least time the card could take (its bound); fused MoE and
-   scaled_mm at dbrx-132b width (f32 MoE bounded as 3xTF32, the path its
-   kernel runs); silu_mul also at phase 4's prompt lengths, scaled_mm also
+   and the least time the card could take (its bound); fused MoE in bf16 at
+   dbrx-132b's decode and prefill serving shapes, and at the tuner's
+   dbrx-132b workload (f32, bounded as 3xTF32, the path its kernel runs;
+   and bf16); silu_mul also at phase 4's prompt lengths, scaled_mm also
    at the tuner's default workload beside ``torch._int_mm``;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
-   under ``torch.profiler``; for each it prints the wall-clock of the
-   profiled window, the device's busy time and idle share in that same
-   window, the launches and the kernels that take the most device time;
+   under ``torch.profiler``, for qwen3-0.6b and for 2-layer dbrx-132b; for
+   each it prints the wall-clock of the profiled window, the device's busy
+   time and idle share in that same window, the launches and the kernels
+   that take the most device time; and the time one dbrx layer's f32 to
+   bf16 parameter cast takes, which the engines do once, not every step;
 7. the tuner, the second main path: ``repro_torch.tune.tune`` ranks
    configs with the roofline predictor for a registry TPU and times the
    top 4 and the default on the card: fused MoE and scaled_mm at the
@@ -58,6 +73,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -128,7 +144,7 @@ def main():
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
-    kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k}
+    kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k, "fused_moe": moe_k}
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
@@ -146,12 +162,15 @@ def main():
     t0 = time.perf_counter()
     max_err = kernel_parity(torch, dev)
     max_err.update(tuner_kernel_parity(torch, dev))
+    moe_serving_parity(torch, dev, max_err)
     log(f"[2 kernel parity] passed in {time.perf_counter() - t0:.1f}s; "
         f"max abs err at main-path shapes: {max_err}")
 
     # ---------------------------------------------------------------- 3
     t0 = time.perf_counter()
-    params = model_parity(torch, dev)
+    params = model_parity(torch, dev, "qwen3-0.6b")
+    model_parity(torch, dev, "dbrx-132b", n_layers=1)  # its 18 GB are freed on return
+    torch.cuda.empty_cache()
     log(f"[3 model parity] passed in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 4
@@ -169,13 +188,15 @@ def main():
     where_time_goes(torch, dev, params)
     del params
     torch.cuda.empty_cache()
+    where_time_goes_moe(torch, dev)
+    torch.cuda.empty_cache()
     log(f"[6 where the time goes] done in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 7
     t0 = time.perf_counter()
-    launches.update(tuner(torch, dev))
-    log(f"[7 tuner] passed in {time.perf_counter() - t0:.1f}s; launches "
-        f"{ {k: launches[k] for k in ('fused_moe', 'scaled_mm')} }")
+    tuned = tuner(torch, dev)
+    launches["scaled_mm"] = tuned["scaled_mm"]  # the tuner is scaled_mm's main path
+    log(f"[7 tuner] passed in {time.perf_counter() - t0:.1f}s; launches {tuned}")
 
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
@@ -461,21 +482,67 @@ def tuner_kernel_parity(torch, dev):
     return max_err
 
 
+def moe_serving_parity(torch, dev, max_err):
+    """Fused MoE in bf16 at dbrx-132b's serving shapes, through the model's
+    ``expert_ffn`` (which pads the rows to a multiple of ``block_m``),
+    against the plain version on the unpadded rows: a decode tick of 4 slots
+    and the admission prefill of a prime-length prompt."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.fused_moe import kernel as moe_k
+    from repro_torch.kernels.fused_moe.ref import fused_moe_ref
+    from repro_torch.models.moe import EXPERT_BLOCK_M, dispatch_geometry, expert_ffn
+
+    cfg = get_arch("dbrx-132b")
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_hidden
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf16)
+
+    w = (randn((E, D, F), D ** -0.5), randn((E, D, F), D ** -0.5), randn((E, F, D), F ** -0.5))
+    for label, tokens in (("decode tick, 4 slots", 4), ("prefill of a 2003-token prompt", 2003)):
+        G, Sg, C = dispatch_geometry(cfg, tokens, train=False)
+        rows = G * C
+        x = randn((E, rows, D))
+        out = expert_ffn(x, *w)
+        grid = moe_k.last_grid
+        ref = fused_moe_ref(x, *w)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all()), label
+        err = float((out.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        bm = min(EXPERT_BLOCK_M, rows)
+        log(f"  fused_moe dbrx {label}: (G, Sg, C) = {(G, Sg, C)}, {rows} rows an expert, "
+            f"padded to {-(-rows // bm) * bm} for block_m {bm}, launched grid {grid}; max abs "
+            f"err {err:.3g} = {err / scale:.3g} of max|ref| {scale:.4g} (tol {BF16_TOL} of it)")
+        assert err <= BF16_TOL * scale, f"fused_moe dbrx {label}: card and plain version disagree"
+        max_err["fused_moe"] = max(max_err["fused_moe"], err)
+        del x, out, ref
+    del w
+    torch.cuda.empty_cache()
+
+
 # ======================================================================
 # phase 3: full-width model on the card against the CPU
 # ======================================================================
 
 
-def model_parity(torch, dev):
+def model_parity(torch, dev, arch, n_layers=None):
+    """``arch`` at full width (depth cut to ``n_layers`` where given), f32
+    compute, on the card against the CPU with the same weights; returns the
+    card's parameters."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import build_model
 
-    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), compute_dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gpu, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
     params = gpu.init(SEED)
     n = sum(p.numel() for p in params.parameters())
-    log(f"  qwen3-0.6b full width: {n / 1e9:.3f}B parameters, f32 compute")
+    log(f"  {arch} full width, {cfg.n_layers} layers: {n / 1e9:.3f}B parameters, f32 compute")
     params_cpu = T.Tree(T.tree_map(lambda a: a.detach().cpu(), params))
     prompt = np.random.default_rng(SEED).integers(1, cfg.vocab_size, (1, 64))
 
@@ -512,7 +579,7 @@ def model_parity(torch, dev):
             gap = float(top2[0] - top2[1])
             log(f"  {what}: greedy tokens differ ({ta} vs {tb}); CPU top-2 gap {gap:.3g}")
             assert gap <= 2 * MODEL_TOL * scale, f"{what}: greedy tokens differ beyond a tie"
-    log(f"  greedy tokens on the card: {[int(greedy(s)) for s in on_gpu]}")
+    log(f"  {arch} greedy tokens on the card: {[int(greedy(s)) for s in on_gpu]}")
     del params_cpu
     return params
 
@@ -522,34 +589,78 @@ def model_parity(torch, dev):
 # ======================================================================
 
 
-class StepLog:
-    """Trace recorder for the engines (duck-typed): one entry per step,
-    stamped with its wall-clock after a device sync."""
+def serve_run(torch, kinds, label, eng, prompts, max_new, per_forward, per_prefill, *,
+              predictor=None):
+    """Serve ``prompts`` through ``eng`` (its recorder a ``TraceRecorder``)
+    with the launch counts set to 0 before and read after; checks that
+    every step was recorded and stamped, that each step's ``StepMeta``
+    re-lowers to exactly its recorded calls, and that the counts moved by
+    exactly ``per_forward`` a step and ``per_prefill`` a prefill. Returns
+    the launches."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.monitor import trace_residuals
+    from repro_torch.serve.trace import step_calls
 
-    def __init__(self):
-        self.steps = []
-
-    def record_step(self, name, cfg, B, q, kv, phase, active=None):
-        self.steps.append({"phase": phase, "B": B, "q": q, "kv": kv,
-                           "active": B if active is None else active})
-
-    def mark_measured(self, seconds):
-        self.steps[-1]["s"] = seconds
-
-    def count(self, phase):
-        return sum(1 for s in self.steps if s["phase"] == phase)
+    cfg, rec = eng.cfg, eng.recorder
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new=max_new))
+    torch.cuda.synchronize()
+    for m in kinds.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    if isinstance(eng, ServeEngine):
+        results = []
+        while eng.queue:
+            results += eng.step_batch()
+    else:
+        results = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = {k: m.launches for k, m in kinds.items()}
+    pre = [m for m in rec.meta if m.phase == "prefill"]
+    dec = [m for m in rec.meta if m.phase == "decode"]
+    assert len(pre) + len(dec) == rec.n_steps and rec.n_steps > 0
+    expect = {k: per_forward.get(k, 0) * rec.n_steps + per_prefill.get(k, 0) * len(pre)
+              for k in kinds}
+    assert moved == expect, f"{label}: launches {moved}, expected {expect}"
+    assert sorted(r.rid for r in results) == list(range(len(prompts)))
+    for r in results:
+        assert len(r.tokens) == max_new and all(0 <= t < cfg.vocab_size for t in r.tokens)
+    assert all(m.measured_s > 0 for m in rec.meta), f"{label}: a step was not stamped"
+    for (_, _, calls), m in zip(rec.steps, rec.meta):
+        assert step_calls(cfg, m.B, m.qlen, m.kvlen, m.tp, m.pp) == calls, (label, m)
+    pre_tok = sum(m.B * m.qlen for m in pre)
+    pre_s, dec_s = sum(m.measured_s for m in pre), sum(m.measured_s for m in dec)
+    log(f"  {label}: {len(results)} requests, prompts {sorted(len(p) for p in prompts)}, "
+        f"{len(pre)} prefills + {len(dec)} decode steps in {wall:.2f}s; launches {moved}; "
+        f"{rec.n_steps} steps recorded and stamped, each re-lowered to its recorded calls")
+    log(f"    prefill {pre_tok} tokens (padded) in {pre_s:.3f}s = {pre_tok / pre_s:.0f} tok/s; "
+        f"median prefill step {1e3 * float(np.median([m.measured_s for m in pre])):.1f} ms")
+    log(f"    decode {rec.decode_tokens} tokens in {dec_s:.3f}s = {rec.decode_tokens / dec_s:.0f} "
+        f"tok/s; median decode step "
+        f"{1e3 * float(np.median([m.measured_s for m in dec])):.2f} ms")
+    if predictor is not None:
+        res = trace_residuals(rec, predictor)
+        assert len(res) == rec.n_steps, f"{label}: {len(res)} residuals, {rec.n_steps} steps"
+        log(f"    {len(res)} residuals, one per measured step")
+        log(f"    prediction for the registry TPU {predictor.hw.name} ({predictor.name} "
+            f"backend), not this card: the recorded steps take "
+            f"{sum(r.predicted_s for r in res):.6f} s there")
+    return moved
 
 
 def serve(torch, dev, params, kinds):
+    """Phase 4: qwen3-0.6b (``params``) through both engines and through
+    predicted admission, then dbrx-132b at full width, 2 layers."""
     from repro_torch.configs import get_arch
-    from repro_torch.serve.engine import ContinuousBatchingEngine, Request, ServeEngine
+    from repro_torch.core.e2e import model_calls
+    from repro_torch.core.hardware import get_hw
+    from repro_torch.models.registry import build_model
+    from repro_torch.predict import get_predictor
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.serve.trace import TraceRecorder
 
-    cfg = get_arch("qwen3-0.6b")  # bf16 compute, f32 parameters
-    n = cfg.n_layers
-    per_forward = {"rmsnorm": 4 * n + 1, "silu_mul": n}
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(512, 2049, 16)
-    prompts = [rng.integers(1, cfg.vocab_size, int(L)) for L in lens]
+    totals = {k: 0 for k in kinds}
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
     def check_finite(runner):
@@ -562,59 +673,88 @@ def serve(torch, dev, params, kinds):
 
         runner.sample = sample
 
-    engines = [
-        ("ServeEngine(max_batch=4)",
-         ServeEngine(cfg, params=params, max_batch=4, recorder=StepLog(), device="cuda"),
-         prompts[:8]),
-        ("ContinuousBatchingEngine(slots=4, max_len=4096)",
-         ContinuousBatchingEngine(cfg, params=params, slots=4, max_len=4096,
-                                  recorder=StepLog(), device="cuda"),
-         prompts[8:]),
-    ]
-    for _, eng, _ in engines:
+    def run(label, eng, prompts, max_new, per_forward, per_prefill, **kw):
         check_finite(eng._runner)
-    torch.cuda.synchronize()
-    for k in kinds.values():
-        k.launches = 0
-    totals = {k: 0 for k in kinds}
-    for label, eng, ps in engines:
-        before = {k: m.launches for k, m in kinds.items()}
-        for i, p in enumerate(ps):
-            eng.submit(Request(rid=i, prompt=p, max_new=32))
-        t0 = time.perf_counter()
-        if isinstance(eng, ServeEngine):
-            results = []
-            while eng.queue:
-                results += eng.step_batch()
+        for k, v in serve_run(torch, kinds, label, eng, prompts, max_new, per_forward,
+                              per_prefill, **kw).items():
+            totals[k] += v
+
+    cfg = get_arch("qwen3-0.6b")  # bf16 compute, f32 parameters
+    n = cfg.n_layers
+    per_forward = {"rmsnorm": 4 * n + 1, "silu_mul": n}  # decode attention stays plain
+    per_prefill = {"flash_attention": n}
+    hw = get_hw("tpu-v5e")
+    roofline = get_predictor("roofline", hw)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(512, 2049, 16)
+    prompts = [rng.integers(1, cfg.vocab_size, int(L)) for L in lens]
+    run("ServeEngine(max_batch=4)",
+        ServeEngine(cfg, params=params, max_batch=4, recorder=TraceRecorder(), device="cuda"),
+        prompts[:8], 32, per_forward, per_prefill, predictor=roofline)
+    run("ContinuousBatchingEngine(slots=4, max_len=4096)",
+        ContinuousBatchingEngine(cfg, params=params, slots=4, max_len=4096,
+                                 recorder=TraceRecorder(), device="cuda"),
+        prompts[8:], 32, per_forward, per_prefill, predictor=roofline)
+
+    # predicted admission: an SLO between the shortest and the longest
+    # request's decode tick, so long requests defer the others
+    spans = sorted(len(p) + 16 + 1 for p in prompts[:6])
+    slo = roofline.predict(model_calls(cfg, 4, 1, spans[len(spans) // 2], tp=1)).total_s
+    eng = ContinuousBatchingEngine(cfg, params=params, slots=4, max_len=4096,
+                                   recorder=TraceRecorder(), admission="predicted",
+                                   predictor=roofline, decode_slo_s=slo, device="cuda")
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        run("ContinuousBatchingEngine(slots=4, admission='predicted')", eng, prompts[:6], 16,
+            per_forward, per_prefill, predictor=roofline)
+    log(f"    prediction for the registry TPU {hw.name} (roofline backend), not this card: "
+        f"decode_slo_s {slo:.6f} s at a {spans[len(spans) // 2]}-token span")
+    runs = []  # the log, a deferred head's retries on later ticks counted together
+    for d in eng.admission_log:
+        key = (d["rid"], d["kv"], d["predicted_s"], d["admitted"], d["forced"])
+        if runs and runs[-1][0] == key:
+            runs[-1][1] += 1
         else:
-            results = eng.run_to_completion()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        moved = {k: m.launches - before[k] for k, m in kinds.items()}
-        rec = eng.recorder
-        n_pre, n_dec = rec.count("prefill"), rec.count("decode")
-        expect = {
-            "rmsnorm": per_forward["rmsnorm"] * (n_pre + n_dec),
-            "silu_mul": per_forward["silu_mul"] * (n_pre + n_dec),
-            "flash_attention": n * n_pre,  # decode attention stays on the plain path
-        }
-        assert moved == expect, f"{label}: launches {moved}, expected {expect}"
-        assert sorted(r.rid for r in results) == list(range(len(ps)))
-        for r in results:
-            assert len(r.tokens) == 32 and all(0 <= t < cfg.vocab_size for t in r.tokens)
-        pre = [s for s in rec.steps if s["phase"] == "prefill"]
-        dec = [s for s in rec.steps if s["phase"] == "decode"]
-        pre_tok = sum(s["B"] * s["q"] for s in pre)
-        dec_tok = sum(s["active"] for s in dec)
-        pre_s, dec_s = sum(s["s"] for s in pre), sum(s["s"] for s in dec)
-        log(f"  {label}: {len(results)} requests, prompts {sorted(len(p) for p in ps)}, "
-            f"{n_pre} prefills + {n_dec} decode steps in {wall:.2f}s; launches {moved}")
-        log(f"    prefill {pre_tok} tokens (padded) in {pre_s:.3f}s = {pre_tok / pre_s:.0f} tok/s; "
-            f"median prefill step {1e3 * float(np.median([s['s'] for s in pre])):.1f} ms")
-        log(f"    decode {dec_tok} tokens in {dec_s:.3f}s = {dec_tok / dec_s:.0f} tok/s; "
-            f"median decode step {1e3 * float(np.median([s['s'] for s in dec])):.2f} ms")
-        for k in totals:
-            totals[k] += moved[k]
+            runs.append([key, 1])
+    for (rid, kv, pred, admitted, forced), count in runs:
+        what = "forced" if forced else "admitted" if admitted else f"deferred x{count}"
+        log(f"    admission log: rid {rid}, projected kv {kv}, predicted for {hw.name} "
+            f"{pred:.6f} s: {what}")
+    deferred = sum(not d["admitted"] for d in eng.admission_log)
+    assert deferred > 0, "the SLO deferred no admission"
+    assert eng.admission == "predicted" and eng.admission_fallback_reason is None
+    log(f"    {deferred} admissions deferred, {eng.slo_forced_admits} forced "
+        f"({len(warned)} warnings), every request completed")
+    del eng
+
+    # dbrx-132b at full width, depth cut to 2 layers (31 GB of f32 parameters)
+    cfg = dataclasses.replace(get_arch("dbrx-132b"), n_layers=2)
+    params = build_model(cfg, "cuda").init(SEED)
+    log(f"  dbrx-132b full width, 2 layers: "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B parameters, bf16 compute")
+    n = cfg.n_layers
+    per_forward, per_prefill = {"rmsnorm": 2 * n + 1, "fused_moe": n}, {"flash_attention": n}
+    rng = np.random.default_rng(SEED + 3)
+    # ServeEngine: batches padded to 1024 (2048 tokens, groups of 512) and
+    # to 333 (666 tokens, 334 rows an expert, padded to 384); continuous:
+    # each prompt alone, 2003 (prime: 8012 rows), 781 (396 rows), 1024,
+    # 640 and 1500 tokens
+    for label, make, lens in (
+        ("dbrx ServeEngine(max_batch=2)",
+         lambda: ServeEngine(cfg, params=params, max_batch=2, recorder=TraceRecorder(),
+                             device="cuda"), (1024, 517, 333, 200)),
+        ("dbrx ContinuousBatchingEngine(slots=4, max_len=2048)",
+         lambda: ContinuousBatchingEngine(cfg, params=params, slots=4, max_len=2048,
+                                          recorder=TraceRecorder(), device="cuda"),
+         (2003, 781, 1024, 640, 1500)),
+    ):
+        eng = make()
+        run(label, eng, [rng.integers(1, cfg.vocab_size, L) for L in lens], 8, per_forward,
+            per_prefill, predictor=roofline)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
     assert all(v > 0 for v in totals.values()), totals
     assert bool(finite), "non-finite logits on the serving path"
     return totals
@@ -680,6 +820,8 @@ def kernel_times(torch, dev, peaks):
     from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
     from repro_torch.kernels.silu_mul.ref import silu_mul_ref
     from repro_torch.kernels.silu_mul import kernel as silu_k
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import dispatch_geometry
     from repro_torch.tune import DEFAULT_WORKLOADS, arch_workload
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -746,9 +888,18 @@ def kernel_times(torch, dev, peaks):
     log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
     del q, k, v, qt, kt, vt
 
-    # fused MoE at dbrx-132b width, default blocks: f32 (the tuner's inputs,
-    # the JSON row) and bf16; library yardstick: three bmm's with silu * mul
-    E, C, D, Fm = (arch_workload("fused_moe", "dbrx-132b")[k] for k in "ECDF")
+    # fused MoE at dbrx-132b width, default blocks. The serving shapes, bf16
+    # as served: a decode tick of 4 slots (4 rows an expert; the JSON row)
+    # and a 1024-token prefill (groups of 512, 256 rows a group: 512 rows an
+    # expert), rows from the model's dispatch_geometry; and the tuner's dbrx
+    # workload (C256), f32 (its inputs) and bf16. Library yardstick: three
+    # bmm's with silu * mul.
+    dbrx = get_arch("dbrx-132b")
+    E, D, Fm = dbrx.n_experts, dbrx.d_model, dbrx.moe_hidden
+
+    def rows_of(tokens):
+        G, _, C = dispatch_geometry(dbrx, tokens, train=False)
+        return G * C
 
     def bmm_moe(x, wg, wu, wd):
         return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
@@ -757,19 +908,23 @@ def kernel_times(torch, dev, peaks):
     # each one, so its bound is that of 3 x the operations at the TF32 peak;
     # the f32 FMA units' bound, which a kernel of this design can beat, is
     # logged beside it.
-    for kname, dt in (("fused_moe", f32), ("fused_moe bf16", bf16)):
+    C_tune = arch_workload("fused_moe", "dbrx-132b")["C"]
+    for kname, C, dt, iters in (("fused_moe", rows_of(4), bf16, 8),
+                                ("fused_moe prefill 1024 tokens", rows_of(1024), bf16, 4),
+                                ("fused_moe f32 tuner", C_tune, f32, 2),
+                                ("fused_moe bf16 tuner", C_tune, bf16, 2)):
         args = (randn(E, C, D, dtype=dt), randn(E, D, Fm, scale=D ** -0.5, dtype=dt),
                 randn(E, D, Fm, scale=D ** -0.5, dtype=dt), randn(E, Fm, D, scale=Fm ** -0.5, dtype=dt))
         nbytes = args[0].element_size() * (2 * E * C * D + 3 * E * D * Fm)
         flops = 6 * E * C * D * Fm
-        row(kname, fused_moe_cuda, fused_moe_ref, (bmm_moe, [args]), [args], 2,
+        row(kname, fused_moe_cuda, fused_moe_ref, (bmm_moe, [args]), [args], iters,
             *(bound(peaks, nbytes, 3 * flops, "tf32") if dt == f32
               else bound(peaks, nbytes, flops, "bfloat16")))
-        log(f"  fused_moe E{E} C{C} D{D} F{Fm} {dt}: {flops / 1e12:.4f} TFLOP, "
+        log(f"  {kname}: E{E} C{C} D{D} F{Fm} {dt}: {flops / 1e12:.4f} TFLOP, "
             f"{nbytes / 1e9:.2f} GB")
         if dt == f32:
             fma_ms, fma_by = bound(peaks, nbytes, flops, "float32")
-            log(f"  fused_moe f32: bound {rows[kname]['bound_ms']:.4f} ms as 3xTF32 (the row's), "
+            log(f"  {kname}: bound {rows[kname]['bound_ms']:.4f} ms as 3xTF32 (the row's), "
                 f"{fma_ms:.4f} ms by {fma_by} on the f32 FMA units")
         # the split between its two launches, from the profiler's kernel
         # times (a launch a call each: a count below 1 means the profiler
@@ -858,13 +1013,15 @@ def profiled(torch, fn, steps):
             "top": [(name[:90], n / steps, us / 1e3 / steps) for name, (n, us) in top]}
 
 
-def where_time_goes(torch, dev, params):
+def where_time_goes(torch, dev, params, cfg=None, max_len=4096):
+    """Profile decode ticks of a full slot pool and one prefill of
+    ``cfg`` (default: qwen3-0.6b with bf16 compute, as served in phase 4)."""
     from repro_torch.configs import get_arch
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
 
-    cfg = get_arch("qwen3-0.6b")  # bf16 compute, as served in phase 4
+    cfg = cfg or get_arch("qwen3-0.6b")
     slots, prompt_len, ticks, warm = 4, 1024, 8, 3
-    eng = ContinuousBatchingEngine(cfg, params=params, slots=slots, max_len=4096, device="cuda")
+    eng = ContinuousBatchingEngine(cfg, params=params, slots=slots, max_len=max_len, device="cuda")
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, cfg.vocab_size, prompt_len) for _ in range(slots + 1)]
     for i, p in enumerate(prompts[:-1]):  # room for every tick below, so no slot retires
@@ -878,8 +1035,9 @@ def where_time_goes(torch, dev, params):
         eng.step()
     prefill()
     torch.cuda.synchronize()
-    for label, fn, steps in ((f"decode tick ({slots} slots, {prompt_len}-token prompts)", eng.step, ticks),
-                             (f"prefill (1 x {prompt_len} tokens)", prefill, 3)):
+    for label, fn, steps in ((f"{cfg.name} decode tick ({slots} slots, {prompt_len}-token "
+                              f"prompts)", eng.step, ticks),
+                             (f"{cfg.name} prefill (1 x {prompt_len} tokens)", prefill, 3)):
         walls = []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -892,6 +1050,33 @@ def where_time_goes(torch, dev, params):
             f"unprofiled wall {float(np.median(walls)):.3f} ms")
         for name, n, ms in r["top"]:
             log(f"    {ms:9.4f} ms  x{n:<6g} {name}")
+
+
+def where_time_goes_moe(torch, dev):
+    """Phase 6 for dbrx-132b at full width, 2 layers, bf16 compute; and the
+    time of one layer's f32 to bf16 parameter cast (the engines cast once,
+    when they take the parameters, so no serving step pays it)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_arch("dbrx-132b"), n_layers=2)
+    params = build_model(cfg, "cuda").init(SEED)
+    where_time_goes(torch, dev, params, cfg, max_len=2048)
+    layer = params["segments"][0][0]
+    nbytes = sum(a.numel() for a in layer.parameters()) * (4 + 2)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    T._cast(layer, torch.bfloat16)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        T._cast(layer, torch.bfloat16)
+    end.record()
+    end.synchronize()
+    log(f"  dbrx-132b one layer's f32 -> bf16 parameter cast: {start.elapsed_time(end) / 3:.3f} ms "
+        f"({nbytes / 1e9:.2f} GB read and written), paid once per engine, not per step")
+    del params, layer
+    torch.cuda.empty_cache()
 
 
 # ======================================================================

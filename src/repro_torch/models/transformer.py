@@ -1,4 +1,4 @@
-"""Dense decoder assembly, in PyTorch (``repro.models.transformer``).
+"""Decoder assembly, in PyTorch (``repro.models.transformer``).
 
 A model is a list of *segments*, each a homogeneous stack of layers. The
 reference scans each stack with ``lax.scan`` over stacked parameters; here
@@ -8,8 +8,8 @@ reference's layout: a list with one ``{"k", "v"}`` dict per segment, each
 leaf ``(n_layers, B, S, Hkv, D)``.
 
 Modes: 'train' (no cache), 'prefill' (build KV caches), 'decode' (one token
-against the caches, which are updated in place). Only the dense family with
-global attention is ported; ``build_segments`` raises for the others.
+against the caches, which are updated in place). The dense and MoE families
+with global attention are ported; ``build_segments`` raises for the others.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -96,6 +97,7 @@ def cast_for_compute(params: Tree, cfg: ArchConfig) -> Tree:
 @dataclasses.dataclass
 class Ctx:
     cfg: ArchConfig
+    train: bool = False
     positions: Optional[torch.Tensor] = None  # (B, S) train/prefill
     dec_positions: Optional[torch.Tensor] = None  # (B,) decode
 
@@ -146,6 +148,26 @@ def init_dense_block(gen, cfg: ArchConfig, dtype, device):
     return p
 
 
+def moe_block(p, x, ctx: Ctx, cache, mode, *, window):
+    cfg = ctx.cfg
+    p = _cast(p, x.dtype)
+    h = L.apply_norm(p["ln1"], x, cfg)
+    attn_out, new_cache = _self_attn(p["attn"], h, ctx, cache, mode, window=window)
+    x = x + attn_out
+    h = L.apply_norm(p["ln2"], x, cfg)
+    moe_out, aux = M.moe_layer(p["moe"], h, cfg, train=ctx.train)
+    return x + moe_out, aux, new_cache
+
+
+def init_moe_block(gen, cfg: ArchConfig, dtype, device):
+    return {
+        "ln1": L.init_norm(cfg, cfg.d_model, dtype, device),
+        "attn": L.init_attention(gen, cfg, dtype, device),
+        "ln2": L.init_norm(cfg, cfg.d_model, dtype, device),
+        "moe": M.init_moe(gen, cfg, dtype, device),
+    }
+
+
 # ======================================================================
 # segment machinery
 # ======================================================================
@@ -181,17 +203,19 @@ class Segment:
 
 
 def build_segments(cfg: ArchConfig) -> list[Segment]:
-    if cfg.family != "dense" or cfg.layer_pattern != "global":
+    if cfg.family not in ("dense", "moe") or cfg.layer_pattern != "global":
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders with global attention are ported "
-            f"(family={cfg.family!r}, layer_pattern={cfg.layer_pattern!r})"
+            f"{cfg.name}: only dense and MoE decoders with global attention are "
+            f"ported (family={cfg.family!r}, layer_pattern={cfg.layer_pattern!r})"
         )
+    init, fwd = {"dense": (init_dense_block, dense_block),
+                 "moe": (init_moe_block, moe_block)}[cfg.family]
     return [
         Segment(
-            "dense",
+            cfg.family,
             cfg.n_layers,
-            lambda gen, dt, dev: init_dense_block(gen, cfg, dt, dev),
-            partial(dense_block, window=cfg.window),
+            lambda gen, dt, dev: init(gen, cfg, dt, dev),
+            partial(fwd, window=cfg.window),
         )
     ]
 
@@ -221,7 +245,7 @@ def forward(params, cfg: ArchConfig, batch, mode: str):
     tokens = batch["tokens"]
     B, S = tokens.shape
     pos = torch.arange(S, device=tokens.device).expand(B, S)
-    ctx = Ctx(cfg=cfg, positions=pos)
+    ctx = Ctx(cfg=cfg, train=(mode == "train"), positions=pos)
     x = L.embed_tokens(params["embed"], tokens, cfg, torch_dtype(cfg.compute_dtype))
     caches = []
     aux = 0.0

@@ -8,7 +8,8 @@ A ``Predictor`` turns a list (or nested groups) of ``KernelCall``/
 
 Ported: the call and estimate types, batching, the comm regressor and the
 backends. ``SynPerfPredictor`` raises until the trained estimator is
-ported; ``objective`` and ``sweep`` are still to port.
+ported; ``objective`` is still to port. ``SweepPredictor`` prices one
+trace on many registry TPUs at once.
 """
 from repro_torch.predict.api import (
     CommCall,
@@ -20,6 +21,7 @@ from repro_torch.predict.api import (
 )
 from repro_torch.predict.batching import FeatureCache, canonical_x, group_calls, task_sig
 from repro_torch.predict.comm import CommRegressor
+from repro_torch.predict.sweep import SweepComparison, SweepPredictor, SweepResult, hw_split
 from repro_torch.predict.backends import (
     PREDICTORS,
     BaselinePredictor,
@@ -45,10 +47,14 @@ __all__ = [
     "CallableTimesPredictor",
     "OraclePredictor",
     "RooflinePredictor",
+    "SweepComparison",
+    "SweepPredictor",
+    "SweepResult",
     "SynPerfPredictor",
     "canonical_x",
     "flatten_calls",
     "get_predictor",
     "group_calls",
+    "hw_split",
     "task_sig",
 ]

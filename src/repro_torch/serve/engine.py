@@ -8,14 +8,21 @@ each admitted request alone into its slot's rows of the shared cache and
 decodes all slots in lock step. Both share a ``_ModelRunner`` that owns the
 parameters, the model functions and the sampling generator.
 
+A ``serve.trace.TraceRecorder`` passed as ``recorder=`` records every step
+as the decomposer's call sequence for its shapes, stamped with the step's
+wall-clock after a device sync. ``ContinuousBatchingEngine`` admits by a
+fixed slot count or, with ``admission="predicted"``, only while a
+predictor prices the would-be decode tick within ``decode_slo_s``.
+
 Engines run on ``"cuda"`` unless ``device="cpu"`` is passed. Not ported
-yet: ``mesh=`` (the distribution slice), ``tuned=``/``audit=`` and
-``admission="predicted"`` (the prediction slice).
+yet: ``mesh=`` (the distribution slice, ROADMAP A10) and ``audit=`` (the
+predictor audit, ROADMAP A12); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Optional
 
@@ -105,13 +112,18 @@ class _ModelRunner:
 
 
 class _EngineBase:
-    def __init__(self, cfg: ArchConfig, *, params, seed, recorder, device):
+    def __init__(self, cfg: ArchConfig, *, params, seed, recorder, device, mesh):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= needs the port's distribution slice (ROADMAP A10), not ported yet"
+            )
         self.cfg = cfg
         self._runner = _ModelRunner(cfg, params=params, seed=seed, device=device)
         self.api = self._runner.api
         self.queue: deque[Request] = deque()
-        # optional trace recorder (duck-typed: record_step, mark_measured);
-        # each step is stamped with its wall-clock after a device sync
+        # optional serve.trace.TraceRecorder: every executed step also emits
+        # its decomposer call sequence (actual launched shapes), stamped with
+        # its wall-clock after a device sync
         self.recorder = recorder
 
     @property
@@ -137,8 +149,9 @@ class _EngineBase:
 
 class ServeEngine(_EngineBase):
     def __init__(self, cfg: ArchConfig, params=None, seed: int = 0, max_batch: int = 8,
-                 recorder=None, device="cuda"):
-        super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device)
+                 recorder=None, mesh=None, device="cuda"):
+        super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device,
+                         mesh=mesh)
         self.max_batch = max_batch
 
     def _pad_batch(self, prompts: list[np.ndarray]):
@@ -220,34 +233,139 @@ class ContinuousBatchingEngine(_EngineBase):
     the next step boundary. Each admission prefills its prompt alone, at its
     own length, and copies its KV rows into its slot of the shared cache
     ``(n_layers, slots, max_len, Hkv, D)``; running slots are never
-    interrupted. Every decode tick launches the full slot pool.
+    interrupted. Every decode tick launches the full slot pool, and its
+    attended KV span is ``max(active positions) + 1``.
 
-    Only ``admission="fixed"`` (admit whenever a slot is free) is ported."""
+    Admission policy (``admission=``):
+
+      * ``"fixed"`` (default): admit whenever a slot is free;
+      * ``"predicted"``: before each admission, ask ``predictor`` (any
+        ``repro_torch.predict`` backend) for the decode-tick latency of the
+        would-be batch at its worst-case future KV span, and admit only
+        while that stays within ``decode_slo_s``. The latencies are
+        **seconds predicted on the predictor's hardware** (a registry
+        TPU), not this machine's wall-clock. A request that violates the
+        SLO even alone in the pool is admitted anyway with a warning
+        (counted in ``slo_forced_admits``). If the predictor cannot price a
+        step (it raises ``RuntimeError``), the engine warns once and falls
+        back to fixed admission (``admission_fallback_reason``). Decisions
+        are logged in ``admission_log``, one dict per considered candidate.
+    """
 
     def __init__(self, cfg: ArchConfig, *, slots: int = 4, max_len: int = 128,
                  params=None, seed: int = 0, recorder=None, admission: str = "fixed",
-                 device="cuda"):
+                 predictor=None, decode_slo_s: Optional[float] = None, mesh=None,
+                 audit=None, tuned: Optional[dict] = None, device="cuda"):
         if cfg.family in ("ssm", "hybrid", "audio", "vlm"):
             raise ValueError("the continuous-batching engine supports KV-cache LMs")
-        if admission == "predicted":
-            raise NotImplementedError(
-                "admission='predicted' needs the predictor (repro.predict, core/e2e), "
-                "which the port's prediction slice brings"
-            )
-        if admission != "fixed":
+        if admission not in ("fixed", "predicted"):
             raise ValueError(f"admission must be 'fixed' or 'predicted', got {admission!r}")
-        super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device)
+        if admission == "predicted" and (predictor is None or decode_slo_s is None):
+            raise ValueError(
+                "admission='predicted' needs predictor= (a repro_torch.predict "
+                "backend for the target hardware) and decode_slo_s= (the "
+                "per-tick decode latency SLO in predicted seconds)"
+            )
+        if audit:
+            raise NotImplementedError(
+                "audit= needs analysis.audit_predictor (ROADMAP A12), not ported yet"
+            )
+        super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device,
+                         mesh=mesh)
         self.max_len = max_len
         self.admission = admission
+        self.predictor = predictor
+        self.decode_slo_s = decode_slo_s
+        #: autotuned kernel block table for the predictor's hardware
+        #: (``repro_torch.tune.TunedConfigs.for_hw(hw)``); predicted admission
+        #: prices decode ticks with these blocks merged in
+        self.tuned = tuned
+        #: one dict per admission decision: rid, projected kv, predicted_s,
+        #: slo_s, admitted, forced (admitted despite violating, alone in pool)
+        self.admission_log: list[dict] = []
+        self.slo_forced_admits = 0
+        self.admission_fallback_reason: Optional[str] = None
         self.slots = [_Slot() for _ in range(slots)]
         self.caches = self._runner.init_cache(slots, max_len)
         self.done: list[Result] = []
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
 
+    # ------------------------------------------------------------------
+    # predicted admission
+
+    def _projected_kv(self, req: Request) -> int:
+        """Worst-case attended KV span of any future tick of the would-be
+        batch: every active slot and the candidate projected to their
+        final write positions."""
+        cap = self.max_len - 1
+        spans = [min(len(req.prompt) + req.max_new, cap)]
+        for s in self.slots:
+            if not s.free:
+                spans.append(min(s.pos + max(s.req.max_new - len(s.emitted), 0), cap))
+        return max(spans) + 1
+
+    def _predicted_tick_s(self, kv: int) -> Optional[float]:
+        """Predicted decode-tick latency (seconds on the predictor's
+        hardware) for the full slot pool attending ``kv``, at tp=1 (the
+        engine runs on one device); None when the predictor cannot price
+        the step (the engine has then fallen back to fixed admission)."""
+        from repro_torch.core.e2e import model_calls
+
+        try:
+            return self.predictor.predict(
+                model_calls(self.cfg, len(self.slots), 1, kv, tp=1, tuned=self.tuned)
+            ).total_s
+        except RuntimeError as e:  # unfitted estimator / comm regressor
+            self.admission_fallback_reason = f"{type(e).__name__}: {e}"
+            self.admission = "fixed"
+            warnings.warn(
+                f"predicted admission unavailable ({e}); falling back to "
+                "fixed slot admission",
+                stacklevel=4,
+            )
+            return None
+
+    def _admit_ok(self, req: Request) -> bool:
+        """One admission decision under the predicted policy (always True
+        for fixed admission). Logged in ``admission_log``."""
+        if self.admission != "predicted":
+            return True
+        kv = self._projected_kv(req)
+        pred = self._predicted_tick_s(kv)
+        if pred is None:
+            return True  # fell back to fixed admission mid-run
+        ok = pred <= self.decode_slo_s
+        forced = False
+        if not ok and all(s.free for s in self.slots):
+            # the request violates the SLO even alone: admit anyway so the
+            # queue cannot deadlock, but say so
+            forced, ok = True, True
+            self.slo_forced_admits += 1
+            warnings.warn(
+                f"request {req.rid} cannot meet decode_slo_s="
+                f"{self.decode_slo_s:.4g}s even alone in the pool "
+                f"(predicted {pred:.4g}s); admitting anyway",
+                stacklevel=3,
+            )
+        self.admission_log.append(
+            {
+                "rid": req.rid,
+                "kv": kv,
+                "predicted_s": pred,
+                "slo_s": self.decode_slo_s,
+                "admitted": ok,
+                "forced": forced,
+            }
+        )
+        return ok
+
+    # ------------------------------------------------------------------
     def _admit(self):
         for i, slot in enumerate(self.slots):
             if not slot.free or not self.queue:
                 continue
+            if not self._admit_ok(self.queue[0]):
+                break  # FIFO: a deferred head is retried next tick
             req = self.queue.popleft()
             L = len(req.prompt)
             t0 = time.perf_counter()

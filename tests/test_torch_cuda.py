@@ -169,6 +169,12 @@ MOE_CASES = [
     (2, 1024, 384, 1024, 32, 32),
     (2, 1024, 384, 1024, 128, 256),
     (2, 1024, 384, 1024, 512, 512),
+    # a model's decode ticks: capacities of 4 and 8 rows, below the 32-row
+    # sub-tile (block_m clamps to C)
+    (16, 4, 640, 1024, 128, 256),
+    (16, 8, 640, 1024, 128, 256),
+    (4, 4, 48, 96, 128, 256),
+    (4, 8, 64, 96, 8, 32),
 ]
 
 
@@ -303,3 +309,63 @@ def test_kernels_reject_bad_inputs(dev):
     with pytest.raises(TypeError):
         smm_ops.scaled_mm(a.float(), a.t().contiguous(), torch.ones(8, device=dev),
                           torch.ones(8, device=dev))
+
+
+def _moe_layer_pair(dev, dtype, tokens, seed):
+    """The dbrx-132b smoke MoE layer's parameters and an input, on the card
+    and on the CPU (the same values), in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_arch("dbrx-132b").smoke(),
+                              compute_dtype={torch.float32: "float32",
+                                             torch.bfloat16: "bfloat16"}[dtype])
+    p = T._cast(build_model(cfg, device="cpu").init(seed)["segments"][0][0]["moe"], dtype)
+    x = _randn(np.random.default_rng(seed), (1, tokens, cfg.d_model), dtype, "cpu")
+    return cfg, p, x, T.tree_map(lambda a: a.to(dev), p), x.to(dev)
+
+
+@pytest.mark.parametrize("tokens", [67, 4, 96])
+def test_moe_layer_on_the_card_matches_the_cpu(dev, tokens):
+    """f32: a prime prefill (one-token groups, 134 rows an expert, padded
+    to 256 for block_m = 128), a decode tick of 4 tokens (4 rows, block_m
+    4) and a 96-token prefill (groups of 32)."""
+    from repro_torch.models import moe as M
+
+    cfg, p, x, p_dev, x_dev = _moe_layer_pair(dev, torch.float32, tokens, seed=5)
+    n0 = moe_kernel.launches
+    with torch.no_grad():
+        out, aux = M.moe_layer(p_dev, x_dev, cfg, train=False)
+        ref, ref_aux = M.moe_layer(p, x, cfg, train=False)
+    assert moe_kernel.launches == n0 + 1
+    G, _, C = M.dispatch_geometry(cfg, tokens, train=False)
+    rows = G * C
+    bm = min(M.EXPERT_BLOCK_M, rows)
+    padded = -(-rows // bm) * bm
+    assert moe_kernel.last_grid == moe_ops.grid_shape(cfg.n_experts, padded, cfg.d_model,
+                                                      cfg.moe_hidden, block_m=bm)
+    _close(out.cpu(), ref, torch.float32)
+    _close(aux.cpu(), ref_aux, torch.float32)
+
+
+def test_dbrx_smoke_moe_layer_bf16_on_the_card_matches_the_cpu(dev):
+    """bf16 compute: the card's kernel keeps gate and up in f32 and rounds
+    h once; the CPU's plain version computes in f32 and rounds the output.
+    Both route the same tokens to the same slots."""
+    from repro_torch.models import moe as M
+
+    cfg, p, x, p_dev, x_dev = _moe_layer_pair(dev, torch.bfloat16, 96, seed=6)
+    with torch.no_grad():
+        out, aux = M.moe_layer(p_dev, x_dev, cfg, train=False)
+        ref, ref_aux = M.moe_layer(p, x, cfg, train=False)
+        ids = torch.topk((x_dev.reshape(-1, cfg.d_model) @ p_dev["router"]).float(),
+                         cfg.top_k).indices.cpu()
+        ref_ids = torch.topk((x.reshape(-1, cfg.d_model) @ p["router"]).float(),
+                             cfg.top_k).indices
+    assert torch.equal(ids, ref_ids)
+    assert out.dtype == torch.bfloat16
+    _close(out.cpu(), ref, torch.bfloat16)
+    _close(aux.cpu(), ref_aux, torch.bfloat16)

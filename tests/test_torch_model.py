@@ -160,6 +160,6 @@ def test_init_params_has_the_reference_tree_and_laws():
 
 
 def test_unported_families_raise():
-    for arch in ("mamba2-370m", "gemma2-2b", "dbrx-132b"):
+    for arch in ("mamba2-370m", "gemma2-2b"):
         with pytest.raises(NotImplementedError):
             build_model(get_arch(arch).smoke(), device="cpu").init(0)

@@ -55,7 +55,9 @@ def test_port_files_exist():
                 "core/features.py", "core/hwsim.py", "core/dataset.py", "core/tuner.py",
                 "predict/api.py", "predict/batching.py", "predict/comm.py",
                 "predict/backends.py", "analysis/diagnostics.py", "analysis/kernels.py",
-                "tune/space.py", "tune/tuner.py", "tune/__main__.py"):
+                "tune/space.py", "tune/tuner.py", "tune/__main__.py",
+                "predict/sweep.py", "dist/pipeline.py", "core/e2e.py", "serve/trace.py",
+                "serve/monitor.py", "models/moe.py"):
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu"):

@@ -134,9 +134,20 @@ def test_sampling_follows_the_distribution(setup):
 
 
 def test_engine_options_of_later_slices_raise(setup):
+    """Predicted admission is ported; what still raises: ``audit=`` (A12),
+    ``mesh=`` (A10), predicted admission without its predictor or SLO, an
+    unknown admission policy, and a family without a KV cache."""
     _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="audit"):
+        ContinuousBatchingEngine(cfg, params=params, audit=True, device="cpu")
+    for cls in (ServeEngine, ContinuousBatchingEngine):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            cls(cfg, params=params, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="admission="):
         ContinuousBatchingEngine(cfg, params=params, admission="predicted", device="cpu")
+    with pytest.raises(ValueError, match="admission="):
+        ContinuousBatchingEngine(cfg, params=params, admission="predicted",
+                                 decode_slo_s=1.0, device="cpu")
     with pytest.raises(ValueError):
         ContinuousBatchingEngine(cfg, params=params, admission="lottery", device="cpu")
     with pytest.raises(ValueError):
