@@ -6,6 +6,12 @@
 ``Tree``: each segment's stacked leaves ``(n_layers, ...)`` become a list of
 per-layer dicts. ``ml_dtypes.bfloat16`` arrays are viewed as ``uint16`` and
 then as ``torch.bfloat16``, so no value is rounded on the way.
+
+``mlp_from_numpy`` and ``pipeweave_from_numpy`` carry a reference
+``TrainedMLP`` (its ``params`` and ``state`` after
+``jax.tree.map(np.asarray, ...)``, and its normalization arrays) and a
+reference ``PipeWeave`` into the port's numpy-only estimator, whose
+``predict`` is then bit-equal to the reference's.
 """
 from __future__ import annotations
 
@@ -13,8 +19,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.estimator import PipeWeave
+from repro_torch.core.nn import TrainedMLP
 from repro_torch.models.registry import resolve_device
 from repro_torch.models.transformer import Tree, build_segments
+from repro_torch.optim.adamw import tree_map
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -55,3 +64,17 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def mlp_from_numpy(params, state, mu_x, sd_x, y_floor, x_lo, x_hi) -> TrainedMLP:
+    copy = lambda a: None if a is None else np.array(a)
+    return TrainedMLP(
+        params=tree_map(np.array, params), state=tree_map(np.array, state),
+        mu_x=copy(mu_x), sd_x=copy(sd_x), y_floor=float(y_floor),
+        x_lo=copy(x_lo), x_hi=copy(x_hi),
+    )
+
+
+def pipeweave_from_numpy(models: dict) -> PipeWeave:
+    """``{kind: mlp_from_numpy's keyword arguments}`` -> ``PipeWeave``."""
+    return PipeWeave(models={kind: mlp_from_numpy(**kw) for kind, kw in models.items()})

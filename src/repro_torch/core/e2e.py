@@ -10,13 +10,13 @@ re-prices collectives against the cross-pipeline exposed-compute window
 ``repro_torch.predict`` backend: ``request_estimate(cfg, ..., predictor=p)``
 returns an ``Estimate`` with the total plus per-family/per-op breakdown and
 the analytical ceiling; ``step_time``/``request_latency`` are the scalar
-views and ``request_sweep`` prices the same request on many hardware at
-once (``repro_torch.predict.sweep``). ``place_request`` and
-``simulate_fleet`` need the fleet layer (``serve.placement``,
-``serve.fleet``), which the port has not ported yet: they raise
-``NotImplementedError`` until it lands. The legacy
-``kernel_time``/``comm_time`` two-lambda kwargs are kept as a deprecation
-shim (wrapped in ``CallableTimesPredictor``).
+views, ``request_sweep`` prices the same request on many hardware at
+once (``repro_torch.predict.sweep``), ``place_request`` ranks the fleet for
+it under a placement objective (``repro_torch.serve.placement``) and
+``simulate_fleet`` replays a request stream through it with queueing
+(``repro_torch.serve.fleet``). The legacy ``kernel_time``/``comm_time``
+two-lambda kwargs are kept as a deprecation shim (wrapped in
+``CallableTimesPredictor``).
 
 Every latency these functions return is a prediction for a registry TPU,
 not a time measured on the machine that runs the port.
@@ -437,22 +437,6 @@ def request_sweep(
     return res
 
 
-def _fleet(name: str):
-    """``repro_torch.serve.<name>``, imported at call time; raises
-    ``NotImplementedError`` while the fleet layer is not ported."""
-    import importlib
-
-    module = f"repro_torch.serve.{name}"
-    try:
-        return importlib.import_module(module)
-    except ModuleNotFoundError as e:
-        if e.name != module:
-            raise
-        raise NotImplementedError(
-            f"{module} (the fleet layer, ROADMAP A8) is not ported yet"
-        ) from e
-
-
 def place_request(
     cfg: ArchConfig, B: int, lin: int, lout: int, *, tp: int = 1, pp: int = 1,
     pp_schedule: str = "gpipe", pp_microbatches: Optional[int] = None,
@@ -471,7 +455,7 @@ def place_request(
     warmth across requests (``hws``/``backend``/kwargs then stay unset);
     ``n_tokens`` for per-token objectives is the generated-token count
     ``B * lout``."""
-    FleetRouter = _fleet("placement").FleetRouter
+    from repro_torch.serve.placement import FleetRouter
 
     check_prebuilt_exclusive("router", router, hws, backend, backend_kw)
     rt = router if router is not None else FleetRouter(hws, backend, **backend_kw)
@@ -503,8 +487,7 @@ def simulate_fleet(
     a ``serve.monitor.ResidualMonitor`` re-route the fleet mid-replay
     (the report's ``reroutes`` log records each trip). Returns a
     ``serve.fleet.FleetReport``."""
-    fleet = _fleet("fleet")
-    FleetSimulator, WorkloadClass = fleet.FleetSimulator, fleet.WorkloadClass
+    from repro_torch.serve.fleet import FleetSimulator, WorkloadClass
 
     wc = WorkloadClass(
         "request", cfg, B=B, lin=lin, lout=lout, tp=tp, pp=pp,

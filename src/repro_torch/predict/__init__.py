@@ -6,10 +6,10 @@ A ``Predictor`` turns a list (or nested groups) of ``KernelCall``/
     from repro_torch.predict import get_predictor
     est = get_predictor("roofline", hw).predict(calls)
 
-Ported: the call and estimate types, batching, the comm regressor and the
-backends. ``SynPerfPredictor`` raises until the trained estimator is
-ported; ``objective`` is still to port. ``SweepPredictor`` prices one
-trace on many registry TPUs at once.
+Ported, all of it: the call and estimate types, batching, the comm
+regressor, the backends (``SynPerfPredictor`` over the port's trained
+``core.estimator.PipeWeave``), the placement objectives, and
+``SweepPredictor``, which prices one trace on many registry TPUs at once.
 """
 from repro_torch.predict.api import (
     CommCall,
@@ -21,6 +21,13 @@ from repro_torch.predict.api import (
 )
 from repro_torch.predict.batching import FeatureCache, canonical_x, group_calls, task_sig
 from repro_torch.predict.comm import CommRegressor
+from repro_torch.predict.objective import (
+    OBJECTIVES,
+    Objective,
+    UnpricedHardwareError,
+    get_objective,
+    trace_cost_usd,
+)
 from repro_torch.predict.sweep import SweepComparison, SweepPredictor, SweepResult, hw_split
 from repro_torch.predict.backends import (
     PREDICTORS,
@@ -39,8 +46,11 @@ __all__ = [
     "Estimate",
     "FeatureCache",
     "KernelCall",
+    "OBJECTIVES",
+    "Objective",
     "PREDICTORS",
     "Predictor",
+    "UnpricedHardwareError",
     "UntrainedFamilyError",
     "BaselinePredictor",
     "BasePredictor",
@@ -53,8 +63,10 @@ __all__ = [
     "SynPerfPredictor",
     "canonical_x",
     "flatten_calls",
+    "get_objective",
     "get_predictor",
     "group_calls",
     "hw_split",
     "task_sig",
+    "trace_cost_usd",
 ]

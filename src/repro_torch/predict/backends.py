@@ -1,7 +1,7 @@
 """Predictor backends behind one registry (paper §IV estimator + §VI
 baselines + the roofline bound + the hwsim oracle)::
 
-    get_predictor("synperf", hw, estimator=pw)   # PipeWeave MLPs (not ported yet)
+    get_predictor("synperf", hw, estimator=pw)   # PipeWeave per-family MLPs
     get_predictor("roofline", hw)                # analytical ceiling
     get_predictor("linear", hw, models={...})    # fitted §VI baselines
     get_predictor("oracle", hw)                  # hwsim ("measured")
@@ -15,7 +15,9 @@ no model for follow an *explicit* fallback policy — ``"error"`` (default),
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+import glob
+import os
+from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
 
@@ -26,6 +28,9 @@ from repro_torch.core.hardware import TPUSpec
 from repro_torch.predict.api import CallSeq, Estimate, KernelCall, UntrainedFamilyError
 from repro_torch.predict.batching import FeatureCache, group_calls
 from repro_torch.predict.comm import CommRegressor
+
+if TYPE_CHECKING:
+    from repro_torch.core.estimator import PipeWeave
 
 
 class BasePredictor:
@@ -175,20 +180,29 @@ class BasePredictor:
 
 class SynPerfPredictor(BasePredictor):
     """The paper's hybrid predictor: cached analytical featurization + one
-    vectorized per-family MLP forward, latency = theoretical / efficiency.
-
-    Not ported yet: it needs the trained estimator (``core/estimator`` over
-    ``core/nn``, ROADMAP A3). Constructing it raises instead of standing in
-    another backend for it."""
+    vectorized per-family MLP forward, latency = theoretical / efficiency."""
 
     name = "synperf"
 
-    def __init__(self, hw: TPUSpec, estimator: Any = None, **kw: Any) -> None:
-        raise NotImplementedError(
-            'get_predictor("synperf", hw) needs the trained PipeWeave estimator '
-            "(core/estimator and core/nn), which the port has not ported yet "
-            "(ROADMAP A3); use the roofline or oracle predictor"
-        )
+    def __init__(
+        self, hw: TPUSpec, estimator: "PipeWeave | str | None" = None, **kw: Any
+    ) -> None:
+        super().__init__(hw, **kw)
+        from repro_torch.core.estimator import PipeWeave
+
+        if estimator is None:
+            estimator = _load_cached_pipeweave()
+        elif isinstance(estimator, str):
+            estimator = PipeWeave.load(estimator)
+        self.estimator = estimator
+
+    def families(self) -> set:
+        return set(self.estimator.models)
+
+    def _family_latencies(self, kind: str, workloads: list) -> np.ndarray:
+        vecs = np.stack([self.cache.vector(kind, X, self.hw) for X in workloads])
+        eff = self.estimator.predict_eff(kind, vecs)
+        return self._theoretical_latencies(kind, workloads) / eff
 
 
 class RooflinePredictor(BasePredictor):
@@ -317,3 +331,29 @@ def get_predictor(name: str, hw: TPUSpec, **kwargs: Any) -> BasePredictor:
             f"unknown predictor {name!r}; registered: {sorted(PREDICTORS)}"
         ) from None
     return factory(hw, **kwargs)
+
+
+def _load_cached_pipeweave() -> "PipeWeave":
+    """Default estimator for ``get_predictor("synperf", hw)`` with no
+    explicit ``estimator=``: the newest of the port's own PipeWeave pickles
+    (``pipeweave_torch_*.pkl``, written by ``PipeWeave.save``) in the
+    benchmark cache. The reference's ``pipeweave_*.pkl`` hold jax arrays
+    and are never read."""
+    from repro_torch.core.estimator import PipeWeave
+
+    cache_dir = os.environ.get("REPRO_BENCH_CACHE", "results/bench_cache")
+    candidates = sorted(
+        glob.glob(os.path.join(cache_dir, "pipeweave_torch_*.pkl")),
+        key=os.path.getmtime,
+        reverse=True,
+    )
+    for path in candidates:
+        try:
+            return PipeWeave.load(path)
+        except RuntimeError:
+            continue  # stale / unversioned / foreign cache entry
+    raise RuntimeError(
+        'get_predictor("synperf", hw) found no trained estimator: pass '
+        "estimator=<PipeWeave or pickle path>, or save one with "
+        f"PipeWeave.save to {cache_dir}/pipeweave_torch_<name>.pkl"
+    )

@@ -28,11 +28,10 @@ gap:
   * on a trip, :meth:`ResidualMonitor.corrections` is the per-hardware
     residual factor to rescale predictions with —
     ``FleetSimulator.replay(monitor=...)`` re-runs ``route_many`` under a
-    ``ResidualCorrectedObjective`` built from it, logs a ``RerouteEvent``,
-    and resets the monitor against the corrected baseline (so a step drift
-    re-routes exactly once: after correction the residual returns to 1).
-    The fleet simulator and the objectives are the fleet layer, which the
-    port has not ported yet (ROADMAP A8); this module needs neither.
+    :class:`~repro_torch.predict.objective.ResidualCorrectedObjective`
+    built from it, logs a ``RerouteEvent``, and resets the monitor against
+    the corrected baseline (so a step drift re-routes exactly once: after
+    correction the residual returns to 1).
 
 Drift *injection* lives here too: a :class:`DriftSpec` multiplies one
 hardware's true service times (step or linear ramp), which makes the whole

@@ -3,6 +3,7 @@ reference, on the same inputs. These modules are numpy in both packages, so
 they are held *equal*: the same bits, not within a tolerance."""
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 
@@ -119,9 +120,28 @@ def test_estimates_equal(name, hw_name):
 
 
 def test_predictor_registry_equal_and_synperf_not_ported():
+    """The registry, and synperf built from reference estimator weights
+    crossed into the port: its estimates equal the reference's (the name is
+    kept from when synperf raised here)."""
+    from repro.core import dataset as ref_ds
+    from repro.core import estimator as ref_estimator
+    from repro_torch.convert import pipeweave_from_numpy
+
     assert sorted(backends.PREDICTORS) == sorted(ref_backends.PREDICTORS)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        backends.get_predictor("synperf", hardware.REGISTRY["tpu-v4"])
+    ref_pw = ref_estimator.train_pipeweave(
+        {kind: ref_ds.build_dataset(kind, n_workloads=8, seed=1) for kind in ("gemm", "rmsnorm")},
+        max_epochs=3)
+    pw = pipeweave_from_numpy({k: dict(
+        params=jax.tree.map(np.asarray, m.params), state=jax.tree.map(np.asarray, m.state),
+        mu_x=m.mu_x, sd_x=m.sd_x, y_floor=m.y_floor, x_lo=m.x_lo, x_hi=m.x_hi)
+        for k, m in ref_pw.models.items()})
+    for hw_name in ("tpu-v4", "tpu-v6e-lite"):
+        ref = ref_backends.get_predictor("synperf", ref_hardware.REGISTRY[hw_name],
+                                         estimator=ref_pw, fallback="roofline")
+        port = backends.get_predictor("synperf", hardware.REGISTRY[hw_name], estimator=pw,
+                                      fallback="roofline")
+        assert port.name == ref.name == "synperf"
+        assert _plain(port.predict(_calls(api))) == _plain(ref.predict(_calls(ref_api)))
 
 
 @pytest.mark.parametrize("arch", list_archs())

@@ -369,3 +369,33 @@ def test_dbrx_smoke_moe_layer_bf16_on_the_card_matches_the_cpu(dev):
     assert out.dtype == torch.bfloat16
     _close(out.cpu(), ref, torch.bfloat16)
     _close(aux.cpu(), ref_aux, torch.bfloat16)
+
+
+def test_mlp_forward_on_the_card_matches_the_cpu(dev):
+    """The predictor's MLP (BatchNorm in train and eval mode, no dropout),
+    same weights on the card and on the CPU, f32 without TF32."""
+    from repro_torch.core import nn
+    from repro_torch.optim.adamw import tree_map
+
+    params, state = nn.init_mlp(torch.Generator().manual_seed(0), 44)
+    x = _randn(np.random.default_rng(0), (512, 44), torch.float32, "cpu")
+    to_dev = lambda tree: tree_map(lambda t: t.to(dev), tree)
+    for train in (True, False):
+        out, new_state = nn.mlp_forward(to_dev(params), to_dev(state), x.to(dev), train=train)
+        ref, ref_state = nn.mlp_forward(params, state, x, train=train)
+        _close(out.cpu(), ref, torch.float32)
+        for a, b in zip(new_state["bn_var"], ref_state["bn_var"]):
+            _close(a.cpu(), b, torch.float32)
+
+
+def test_fit_mlp_on_the_card_learns_gemm(dev):
+    """``tests/test_core.py``'s gemm criterion, trained on the card."""
+    from repro_torch.core.dataset import SEEN, build_dataset, mape
+    from repro_torch.core.estimator import train_pipeweave
+
+    ds = build_dataset("gemm", n_workloads=110, seed=5)
+    pw = train_pipeweave({"gemm": ds}, max_epochs=250, device="cuda")
+    pred = pw.predict_dataset(ds)
+    seen = np.array([h in SEEN for h in ds.hw_names])
+    m = mape(pred[seen], ds.actual_s[seen])
+    assert m < mape(ds.theoretical_s[seen], ds.actual_s[seen]) and m < 20.0, m

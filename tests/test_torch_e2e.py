@@ -154,11 +154,17 @@ def test_request_sweep_and_fleet_entry_points():
         assert _plain(res.estimates) == _plain(ref.estimates)
     with pytest.raises(TypeError):
         e2e.request_sweep(cfg, 2, 64, 8, hws=hws, sweep=SweepPredictor(hws, "roofline"))
-    # the fleet layer (serve.placement, serve.fleet) is not ported yet
-    with pytest.raises(NotImplementedError, match="A8"):
-        e2e.place_request(cfg, 2, 64, 8, backend="roofline")
-    with pytest.raises(NotImplementedError, match="A8"):
-        e2e.simulate_fleet(cfg, 2, 64, 8, rate_rps=1.0, n_requests=2, backend="roofline")
+    # the fleet layer: place_request and simulate_fleet equal the reference's
+    for pp, overlap in ((1, False), (2, True)):
+        kw = dict(tp=2, pp=pp, comm_overlap=overlap, backend="roofline", hws=hws,
+                  objective="cost_per_token")
+        assert _plain(e2e.place_request(cfg, 2, 64, 8, **kw)) == \
+            _plain(ref_e2e.place_request(ref_cfg, 2, 64, 8, **kw))
+    kw = dict(tp=2, rate_rps=2.0, n_requests=50, backend="oracle", hws=hws, replicas=2, seed=4)
+    rep, ref_rep = e2e.simulate_fleet(cfg, 2, 64, 8, **kw), ref_e2e.simulate_fleet(ref_cfg, 2, 64, 8, **kw)
+    assert rep.latencies.tobytes() == ref_rep.latencies.tobytes()
+    assert _plain(dataclasses.replace(rep, latencies=None)) == \
+        _plain(dataclasses.replace(ref_rep, latencies=None))
 
 
 # ----------------------------------------------------------------------

@@ -15,7 +15,12 @@ from repro_torch.configs import base
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+from repro_torch.core.baselines import HabitatBaseline
+from repro_torch.core.dataset import build_dataset
+from repro_torch.core.estimator import train_pipeweave
 from repro_torch.core.hardware import REGISTRY
+from repro_torch.core.nn import fit_mlp
+from repro_torch.core.quantile import train_ceiling
 from repro_torch.tune import make_inputs, measure, tune
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -57,7 +62,9 @@ def test_port_files_exist():
                 "predict/backends.py", "analysis/diagnostics.py", "analysis/kernels.py",
                 "tune/space.py", "tune/tuner.py", "tune/__main__.py",
                 "predict/sweep.py", "dist/pipeline.py", "core/e2e.py", "serve/trace.py",
-                "serve/monitor.py", "models/moe.py"):
+                "serve/monitor.py", "models/moe.py", "optim/adamw.py", "core/nn.py",
+                "core/estimator.py", "core/quantile.py", "core/baselines.py",
+                "predict/objective.py", "serve/placement.py", "serve/fleet.py"):
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu"):
@@ -88,6 +95,17 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     assert ServeEngine(cfg, device="cpu").device.type == "cpu"
+    # the predictor's trainers
+    ds = build_dataset("gemm", n_workloads=4, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_mlp(ds.X, ds.y_eff, max_epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_pipeweave({"gemm": ds}, max_epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_ceiling(ds, max_epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HabitatBaseline().fit(ds)
+    assert fit_mlp(ds.X, ds.y_eff, max_epochs=1, device="cpu").epochs == 1
 
 
 def test_tuner_measures_on_cuda_unless_asked_for_the_cpu(monkeypatch):
