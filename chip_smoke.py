@@ -22,7 +22,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    width (scaled_mm also with 32-deep steps, and at shapes it stages byte
    by byte); fused MoE in bf16 at dbrx-132b's serving shapes, through the
    model's ``expert_ffn``: a decode tick of 4 slots (4 rows an expert) and
-   the prefill of a prime-length prompt (8012 rows, padded to 8064);
+   the prefill of a prime-length prompt (8012 rows, padded to 8064); and
+   the remaining families' shapes: flash attention at gemma2-2b's prefill
+   (4608 tokens, window 4096, softcap 50, head dim 256), whisper-base's
+   encoder and cross attention (1500 frames), llama-3.2-vision's cross
+   attention (1601 patches) and stablelm-3b's head dim 80; silu_mul geglu
+   at gemma2-2b's (4608, 9216);
 3. whole-model parity, random weights from one seed, f32 compute: prefill
    of a 64-token prompt and 8 greedy decode steps on the card (kernels) and
    on the CPU (plain versions), same weights: full-width qwen3-0.6b, and
@@ -43,16 +48,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    from a CUDA-graph replay; the eager time, launched from Python, is
    logged beside it), beside the plain version's time, one PyTorch library
    call's time where one exists (timed here only; the port never calls it)
-   and the least time the card could take (its bound); fused MoE in bf16 at
+   and the least time the card could take (its bound); flash attention
+   also at gemma2-2b's prefill shape (no library call: SDPA takes no
+   softcap); fused MoE in bf16 at
    dbrx-132b's decode and prefill serving shapes, and at the tuner's
    dbrx-132b workload (f32, bounded as 3xTF32, the path its kernel runs;
    and bf16); silu_mul also at phase 4's prompt lengths, scaled_mm also
    at the tuner's default workload beside ``torch._int_mm``;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
-   under ``torch.profiler``, for qwen3-0.6b and for 2-layer dbrx-132b; for
-   each it prints the wall-clock of the profiled window, the device's busy
-   time and idle share in that same window, the launches and the kernels
+   under ``torch.profiler``, for qwen3-0.6b, for 2-layer dbrx-132b and for
+   full-depth gemma2-2b (4608-token prompts, an 8192-token cache), and a
+   prefill and a decode step of full-depth mamba2-370m; for each it prints
+   the wall-clock of the profiled window, the device's busy time and idle
+   share in that same window, the launches and the kernels
    that take the most device time; and the time one dbrx layer's f32 to
    bf16 parameter cast takes, which the engines do once, not every step;
 7. the tuner, the second main path: ``repro_torch.tune.tune`` ranks
@@ -76,7 +85,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``admission="predicted"`` priced by the synperf backend (deferrals
    asserted; launch counts checked as in phase 4 and added to the
    serving kernels' counts), and ``core.e2e.place_request`` and
-   ``simulate_fleet`` over the registry with the synperf backend.
+   ``simulate_fleet`` over the registry with the synperf backend;
+9. the remaining model families: (b) gemma2-2b (2 layers, a 4608-token
+   prompt that its window cuts), stablelm-3b (2 layers), mamba2-370m (48),
+   hymba-1.5b (4: global layers 0, 2, 3 and one local layer, a 1400-token
+   prompt), whisper-base (6 + 6) and llama-3.2-vision-11b (one group of 4
+   self and 1 cross layer), each at full width, f32, on the card against
+   the CPU within MODEL_TOL of max|logit|, prefill and 8 greedy steps; (c)
+   gemma2-2b at full width and depth (26 layers), bf16, served through
+   ``ServeEngine`` and ``ContinuousBatchingEngine`` (4 slots, 8192 tokens)
+   with prompts of 512-6000 tokens, then each other family through
+   ``ServeEngine`` at its depth of (b), every step recorded and re-lowered
+   and every kernel's launch count exact (``family_launches``).
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -206,6 +226,8 @@ def main():
     torch.cuda.empty_cache()
     where_time_goes_moe(torch, dev)
     torch.cuda.empty_cache()
+    where_time_goes_gemma2(torch, dev)
+    where_time_goes_ssm(torch, dev)
     log(f"[6 where the time goes] done in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 7
@@ -220,6 +242,13 @@ def main():
     for k, v in priced.items():
         launches[k] += v
     log(f"[8 trained predictor] passed in {time.perf_counter() - t0:.1f}s; launches {priced}")
+
+    # ---------------------------------------------------------------- 9
+    t0 = time.perf_counter()
+    served = remaining_families(torch, dev, kinds)
+    for k, v in served.items():
+        launches[k] += v
+    log(f"[9 remaining families] passed in {time.perf_counter() - t0:.1f}s; launches {served}")
 
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
@@ -239,7 +268,7 @@ def main():
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_err[k], **rows[k],
         })
-    log(f"[done] phases 1-8 in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] phases 1-9 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -305,12 +334,14 @@ def kernel_parity(torch, dev):
         x, w = randn(shape, xd), randn(shape[-1:], wd, 0.1)
         check(f"rmsnorm {shape} x={xd} w={wd}", "rmsnorm", rmsnorm_cuda(x, w),
               rmsnorm_ref(x, w), xd, main)
-    for shape, dt, main in [((8192, 3072), bf16, True), ((8192, 3072), f32, False),
-                            ((4, 32, 64), f32, False)]:
-        for act in ("silu", "geglu"):
+    for shape, dt, main, acts in [((8192, 3072), bf16, True, ("silu", "geglu")),
+                                  ((8192, 3072), f32, False, ("silu", "geglu")),
+                                  ((4, 32, 64), f32, False, ("silu", "geglu")),
+                                  ((4608, 9216), bf16, True, ("geglu",))]:  # gemma2-2b prefill
+        for act in acts:
             g, u = randn(shape, dt, 3.0), randn(shape, dt)
             check(f"silu_mul {shape} {act} {dt}", "silu_mul", silu_mul_cuda(g, u, act=act),
-                  silu_mul_ref(g, u, act=act), dt, main and act == "silu")
+                  silu_mul_ref(g, u, act=act), dt, main and (act == "silu" or shape[1] == 9216))
     fa_cases = [
         # (B, S, Skv, Hq, Hkv, D, causal, window, softcap, dtype, main path)
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),
@@ -325,6 +356,19 @@ def kernel_parity(torch, dev):
         # rows q >= Skv + window - 1 see no key and average v over every key
         (1, 200, 50, 2, 1, 64, False, 10, None, bf16, False),
         (1, 200, 50, 2, 1, 64, True, 10, None, f32, False),
+        # the remaining families (phase 9): gemma2-2b's prefill, a 4608-token
+        # prompt that the 4096 window cuts, softcap 50, head dim 256;
+        # whisper-base's encoder and its cross attention over 1500 frames;
+        # llama-3.2-vision's cross attention over 1601 patches; stablelm-3b's
+        # head dim 80
+        (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0, bf16, True),
+        (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0, f32, False),
+        (1, 1500, 1500, 8, 8, 64, False, None, None, bf16, True),
+        (1, 1500, 1500, 8, 8, 64, False, None, None, f32, False),
+        (1, 64, 1500, 8, 8, 64, False, None, None, bf16, True),
+        (1, 512, 1601, 32, 8, 128, False, None, None, bf16, True),
+        (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, True),
+        (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
     ]
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in fa_cases:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
@@ -552,43 +596,53 @@ def moe_serving_parity(torch, dev, max_err):
 # ======================================================================
 
 
-def model_parity(torch, dev, arch, n_layers=None):
+def model_parity(torch, dev, arch, n_layers=None, prompt_len=64):
     """``arch`` at full width (depth cut to ``n_layers`` where given), f32
-    compute, on the card against the CPU with the same weights; returns the
-    card's parameters."""
+    compute, on the card against the CPU with the same weights: prefill of
+    a ``prompt_len``-token prompt (with frames or image embeds drawn with
+    numpy where the family takes them) and 8 greedy decode steps. Returns
+    the card's parameters. llama-vision's cross-attention gates, zero at
+    init, are set to 0.5 so that its cross layers reach the logits."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as T
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, materialize_batch
 
     cfg = dataclasses.replace(get_arch(arch), compute_dtype="float32")
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gpu, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
     params = gpu.init(SEED)
+    if cfg.family == "vlm":
+        for group in params["segments"][0]:
+            for gate in ("gate_attn", "gate_ffn"):
+                group["cross"][gate].fill_(0.5)
     n = sum(p.numel() for p in params.parameters())
-    log(f"  {arch} full width, {cfg.n_layers} layers: {n / 1e9:.3f}B parameters, f32 compute")
+    log(f"  {arch} full width, {cfg.n_layers} layers: {n / 1e9:.3f}B parameters, f32 compute, "
+        f"{prompt_len}-token prompt")
     params_cpu = T.Tree(T.tree_map(lambda a: a.detach().cpu(), params))
-    prompt = np.random.default_rng(SEED).integers(1, cfg.vocab_size, (1, 64))
+    batch = materialize_batch(cfg, 1, prompt_len, seed=SEED, device="cpu")
 
     def greedy(logits):
         return logits[:, : cfg.vocab_size].argmax(-1)
 
     def run(api, p, device, forced=None):
-        toks = torch.from_numpy(prompt).to(device)
         with torch.no_grad():
-            logits, caches = api.prefill(p, {"tokens": toks})
-            caches = T.pad_cache(caches, cfg, 64 + 8)
+            logits, caches = api.prefill(p, {k: v.to(device) for k, v in batch.items()})
+            caches = T.pad_cache(caches, cfg, prompt_len + 8)
             steps = [logits.float().cpu()]
             for i in range(8):
                 tok = forced[i] if forced is not None else greedy(steps[-1])
-                pos = torch.full((1,), 64 + i, device=device)
+                pos = torch.full((1,), prompt_len + i, device=device)
                 logits, caches = api.decode(p, caches, tok.to(device), pos)
                 steps.append(logits.float().cpu())
         return steps
 
+    t0 = time.perf_counter()
     on_gpu = run(gpu, params, dev)
+    t1 = time.perf_counter()
     forced = [greedy(s) for s in on_gpu[:-1]]  # the CPU follows the card's tokens
     on_cpu = run(cpu, params_cpu, "cpu", forced)
+    log(f"  {arch}: card {t1 - t0:.1f}s, CPU {time.perf_counter() - t1:.1f}s")
     for i, (a, b) in enumerate(zip(on_gpu, on_cpu)):
         assert torch.isfinite(a).all() and a.shape == (1, cfg.padded_vocab)
         scale = float(b.abs().max())
@@ -785,6 +839,130 @@ def serve(torch, dev, params, kinds):
 
 
 # ======================================================================
+# phase 9: the remaining model families
+# ======================================================================
+
+# (arch, depth for the parity and serving runs (None: full), prompt length
+# of the parity run): gemma2's prompt is longer than its 4096 window, and
+# hymba's than window + meta tokens + q_block (1280), so that its local
+# layers take the sliced path; mamba2's is not a whole number of chunks
+FAMILY_RUNS = [
+    ("gemma2-2b", 2, 4608),
+    ("stablelm-3b", 2, 512),
+    ("mamba2-370m", None, 300),
+    ("hymba-1.5b", 4, 1400),
+    ("whisper-base", None, 64),
+    ("llama-3.2-vision-11b", 4, 128),
+]
+
+
+def family_launches(cfg):
+    """What one forward (prefill or decode step) and one prefill add to each
+    kernel's launch count: ``(per_forward, per_prefill)``. Decode attention
+    and hymba's windowed layers (meta tokens) stay on the plain chunked
+    path; layernorm and whisper's gelu FFN are plain PyTorch."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":  # ln1 and the gated norm a layer
+        return {"rmsnorm": 2 * n + 1}, {}
+    if cfg.family == "hybrid":  # ln1, gated norm, two branch norms, ln2
+        return {"rmsnorm": 5 * n + 1, "silu_mul": n}, {"flash_attention": len({0, n // 2, n - 1})}
+    if cfg.family == "audio":  # encoder, decoder self and cross attention
+        return {}, {"flash_attention": cfg.n_enc_layers + 2 * n}
+    if cfg.family == "vlm":  # n self layers and n / cross_every cross layers
+        layers = n + n // cfg.cross_every
+        return {"rmsnorm": 2 * layers + 1, "silu_mul": layers}, {"flash_attention": layers}
+    norms = 0 if cfg.norm == "layernorm" else (4 if cfg.post_norms else 2) + 2 * cfg.qk_norm
+    per_forward = {"silu_mul": n}
+    if norms:
+        per_forward["rmsnorm"] = norms * n + 1
+    return per_forward, {"flash_attention": n}
+
+
+def remaining_families(torch, dev, kinds):
+    """Phase 9: (b) each family at full width on the card against the CPU,
+    f32; (c) gemma2-2b at full width and depth served in bf16 through both
+    engines with prompts longer than its window, then each other family
+    through ``ServeEngine`` at its parity depth, launch counts exact.
+    Returns the serving runs' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hardware import get_hw
+    from repro_torch.models.registry import build_model
+    from repro_torch.predict import get_predictor
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.serve.trace import TraceRecorder
+
+    t0 = time.perf_counter()
+    for arch, depth, prompt_len in FAMILY_RUNS:
+        t = time.perf_counter()
+        params = model_parity(torch, dev, arch, n_layers=depth, prompt_len=prompt_len)
+        del params
+        torch.cuda.empty_cache()
+        log(f"  (b) {arch} parity in {time.perf_counter() - t:.1f}s")
+    log(f"  (b) every family within {MODEL_TOL} of max|logit| in {time.perf_counter() - t0:.1f}s")
+
+    totals = {k: 0 for k in kinds}
+    roofline = get_predictor("roofline", get_hw("tpu-v5e"))
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def run(label, eng, prompts, max_new):
+        nonlocal finite
+        inner = eng._runner.sample
+
+        def sample(logits, temperatures, generator):
+            nonlocal finite
+            finite = finite & torch.isfinite(logits).all()
+            return inner(logits, temperatures, generator)
+
+        eng._runner.sample = sample
+        per_forward, per_prefill = family_launches(eng.cfg)
+        for k, v in serve_run(torch, kinds, label, eng, prompts, max_new, per_forward,
+                              per_prefill, predictor=roofline).items():
+            totals[k] += v
+
+    # gemma2-2b at full width and depth, bf16 compute
+    t0 = time.perf_counter()
+    cfg = get_arch("gemma2-2b")
+    params = build_model(cfg, "cuda").init(SEED)
+    log(f"  (c) gemma2-2b full width, {cfg.n_layers} layers: "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B parameters, bf16 compute, "
+        f"window {cfg.window}, softcaps {cfg.attn_softcap}/{cfg.final_softcap}")
+    rng = np.random.default_rng(SEED + 5)
+    for label, make, lens in (
+        ("gemma2 ServeEngine(max_batch=2)",
+         lambda: ServeEngine(cfg, params=params, max_batch=2, recorder=TraceRecorder(),
+                             device="cuda"), (6000, 4500, 1024, 512)),
+        ("gemma2 ContinuousBatchingEngine(slots=4, max_len=8192)",
+         lambda: ContinuousBatchingEngine(cfg, params=params, slots=4, max_len=8192,
+                                          recorder=TraceRecorder(), device="cuda"),
+         (5000, 700, 4200, 2048, 512, 3001)),
+    ):
+        eng = make()
+        run(label, eng, [rng.integers(1, cfg.vocab_size, L) for L in lens], 16)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    log(f"  (c) gemma2-2b served in {time.perf_counter() - t0:.1f}s")
+
+    # every other family through ServeEngine at its parity depth, bf16
+    for arch, depth, prompt_len in FAMILY_RUNS[1:]:
+        t0 = time.perf_counter()
+        cfg = get_arch(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = build_model(cfg, "cuda").init(SEED)
+        lens = (prompt_len, prompt_len // 2 + 1, 200)
+        eng = ServeEngine(cfg, params=params, max_batch=2, recorder=TraceRecorder(), device="cuda")
+        run(f"{arch} ({cfg.n_layers} layers) ServeEngine(max_batch=2)", eng,
+            [rng.integers(1, cfg.vocab_size, L) for L in lens], 8)
+        del eng, params
+        torch.cuda.empty_cache()
+        log(f"  (c) {arch} served in {time.perf_counter() - t0:.1f}s")
+    assert bool(finite), "non-finite logits on the families' serving paths"
+    return totals
+
+
+# ======================================================================
 # phase 5: kernel times
 # ======================================================================
 
@@ -911,6 +1089,34 @@ def kernel_times(torch, dev, peaks):
         [(q, k, v)], 20, *bound(peaks, nbytes, flops, "bfloat16"))
     log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
     del q, k, v, qt, kt, vt
+    # gemma2-2b's prefill: B=1, S=4608, 8/4 heads of 256, causal, window
+    # 4096, softcap 50, bf16. A row past the window sees 4096 keys. SDPA
+    # takes no softcap, so there is no library call for this function.
+    B, S, Hq, Hkv, D, W = 1, 4608, 8, 4, 256, 4096
+    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    pairs = B * Hq * sum(min(i + 1, W) for i in range(S))
+    flops = 4 * D * pairs
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    kw = dict(causal=True, window=W, softcap=50.0)
+    row("flash_attention gemma2 prefill", lambda a, b, c: flash_attention_cuda(a, b, c, **kw),
+        lambda a, b, c: attention_ref(a, b, c, **kw), None, [(q, k, v)], 20,
+        *bound(peaks, nbytes, flops, "bfloat16"))
+    r = rows["flash_attention gemma2 prefill"]
+    log(f"  flash_attention gemma2 prefill work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s achieved, {r['bound_ms'] / r['ms']:.3f} of the bound")
+    # the same call at other (block_q, block_k): at D = 256 a register tile
+    # holds 64 keys, so the default 128-key step takes two passes
+    from repro_torch.kernels.flash_attention.kernel import launch_plan
+
+    corners = []
+    for bq, bk in ((128, 64), (64, 64), (64, 128), (256, 64)):
+        t, _ = cuda_ms(torch, lambda a, b, c: flash_attention_cuda(
+            a, b, c, block_q=bq, block_k=bk, **kw), [(q, k, v)], 20)
+        plan = launch_plan(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
+        corners.append(f"({bq}, {bk}) {t:.4f} ms [kt {plan.kt}, {plan.warps} warps, "
+                       f"grid {plan.grid}]")
+    log("  flash_attention gemma2 prefill at other blocks: " + "; ".join(corners))
+    del q, k, v
 
     # fused MoE at dbrx-132b width, default blocks. The serving shapes, bf16
     # as served: a decode tick of 4 slots (4 rows an expert; the JSON row)
@@ -1037,14 +1243,15 @@ def profiled(torch, fn, steps):
             "top": [(name[:90], n / steps, us / 1e3 / steps) for name, (n, us) in top]}
 
 
-def where_time_goes(torch, dev, params, cfg=None, max_len=4096):
+def where_time_goes(torch, dev, params, cfg=None, max_len=4096, prompt_len=1024):
     """Profile decode ticks of a full slot pool and one prefill of
-    ``cfg`` (default: qwen3-0.6b with bf16 compute, as served in phase 4)."""
+    ``cfg`` (default: qwen3-0.6b with bf16 compute, as served in phase 4),
+    every prompt ``prompt_len`` tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
 
     cfg = cfg or get_arch("qwen3-0.6b")
-    slots, prompt_len, ticks, warm = 4, 1024, 8, 3
+    slots, ticks, warm = 4, 8, 3
     eng = ContinuousBatchingEngine(cfg, params=params, slots=slots, max_len=max_len, device="cuda")
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(1, cfg.vocab_size, prompt_len) for _ in range(slots + 1)]
@@ -1074,6 +1281,51 @@ def where_time_goes(torch, dev, params, cfg=None, max_len=4096):
             f"unprofiled wall {float(np.median(walls)):.3f} ms")
         for name, n, ms in r["top"]:
             log(f"    {ms:9.4f} ms  x{n:<6g} {name}")
+
+
+def where_time_goes_gemma2(torch, dev):
+    """Phase 6 for gemma2-2b at full width and depth, bf16 compute: decode
+    ticks of 4 slots over 4608-token prompts (past its 4096 window) in an
+    8192-token cache, and one 4608-token prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+
+    cfg = get_arch("gemma2-2b")
+    params = build_model(cfg, "cuda").init(SEED)
+    where_time_goes(torch, dev, params, cfg, max_len=8192, prompt_len=4608)
+    del params
+    torch.cuda.empty_cache()
+
+
+def where_time_goes_ssm(torch, dev):
+    """Phase 6 for mamba2-370m at full width and depth, bf16 compute, through
+    the model API (the continuous engine takes KV-cache families only): one
+    2048-token prefill (the SSD scan's chunk products and its chunk loop)
+    and a decode step of 4 rows (the recurrent update)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model, materialize_batch
+
+    cfg = get_arch("mamba2-370m")
+    api = build_model(cfg, "cuda")
+    params = T.cast_for_compute(api.init(SEED), cfg)
+    batch = materialize_batch(cfg, 1, 2048, seed=SEED, device="cuda")
+    with torch.no_grad():
+        _, caches = api.prefill(params, materialize_batch(cfg, 4, 2048, seed=SEED, device="cuda"))
+        tok = torch.ones(4, dtype=torch.long, device=dev)
+        pos = torch.full((4,), 2048, device=dev)
+        steps = (("decode step (4 rows)", lambda: api.decode(params, caches, tok, pos), 8),
+                 ("prefill (1 x 2048 tokens)", lambda: api.prefill(params, batch), 3))
+        for label, fn, n in steps:
+            fn()
+            r = profiled(torch, fn, n)
+            log(f"  mamba2-370m {label}: profiled wall {r['wall_ms']:.3f} ms, device busy "
+                f"{r['busy_ms']:.3f} ms (idle {100 * r['idle_share']:.1f}%), "
+                f"{r['launches']:.0f} launches")
+            for name, k, ms in r["top"]:
+                log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
+    del params, caches
+    torch.cuda.empty_cache()
 
 
 def where_time_goes_moe(torch, dev):

@@ -4,8 +4,11 @@
 ``repro.models.transformer.init_params`` returns, after
 ``jax.tree.map(np.asarray, params)``, and builds the port's parameter
 ``Tree``: each segment's stacked leaves ``(n_layers, ...)`` become a list of
-per-layer dicts. ``ml_dtypes.bfloat16`` arrays are viewed as ``uint16`` and
-then as ``torch.bfloat16``, so no value is rounded on the way.
+per-layer dicts, and so do whisper's encoder (``enc``, stacked over
+``n_enc_layers``) and llama-vision's inner self-attention layers (``self``,
+stacked twice: ``(n_groups, cross_every, ...)``). ``ml_dtypes.bfloat16``
+arrays are viewed as ``uint16`` and then as ``torch.bfloat16``, so no value
+is rounded on the way.
 
 ``mlp_from_numpy`` and ``pipeweave_from_numpy`` carry a reference
 ``TrainedMLP`` (its ``params`` and ``state`` after
@@ -36,7 +39,17 @@ def to_tensor(a, device) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
+
+
+def _unstack(stacked, n: int, what: str) -> list:
+    """A tree of arrays stacked along axis 0 -> a list of ``n`` trees."""
+    leading = {np.shape(a)[0] for a in _leaves(stacked)}
+    if leading != {n}:
+        raise ValueError(f"{what}: leading axes {leading}, expected {n}")
+    return [_map(stacked, lambda a, i=i: a[i]) for i in range(n)]
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> Tree:
@@ -46,15 +59,19 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device="cuda") -> Tree:
         raise ValueError(
             f"{len(tree['segments'])} segments in the tree, {len(segments)} in {cfg.name}"
         )
-    out = {k: _map(v, lambda a: to_tensor(a, dev)) for k, v in tree.items() if k != "segments"}
-    out["segments"] = []
-    for seg, stacked in zip(segments, tree["segments"]):
-        leading = {np.shape(a)[0] for a in _leaves(stacked)}
-        if leading != {seg.n}:
-            raise ValueError(f"segment {seg.name!r}: leading axes {leading}, expected {seg.n}")
-        out["segments"].append(
-            [_map(stacked, lambda a, i=i: to_tensor(a[i], dev)) for i in range(seg.n)]
-        )
+    out = {}
+    for key, val in tree.items():
+        if key == "segments":
+            val = []
+            for seg, stacked in zip(segments, tree["segments"]):
+                layers = _unstack(stacked, seg.n, f"segment {seg.name!r}")
+                if seg.name == "vlm":
+                    for lp in layers:
+                        lp["self"] = _unstack(lp["self"], cfg.cross_every, "vlm self layers")
+                val.append(layers)
+        elif key == "enc":
+            val = _unstack(val, cfg.n_enc_layers, "encoder")
+        out[key] = _map(val, lambda a: to_tensor(a, dev))
     return Tree(out)
 
 

@@ -45,8 +45,10 @@
 // by cp.async, so the next sub-tile loads while this one computes; each
 // fragment is loaded one product ahead of its use. Rows are padded by 16
 // bytes in shared memory, which makes every ldmatrix conflict-free; head
-// dims below 16 are zero-padded to 16 there. Tiles inside the mask skip
-// the position tests, and the scale folds into the exponent's FFMA. The
+// dims below 16 are zero-padded to 16 there, and head dim 80 to 96 (the
+// zero columns add nothing to QK^T, and their outputs are not stored).
+// Tiles inside the mask skip the position tests, and the scale folds into
+// the exponent's FFMA. The
 // output is staged through the warp's own q rows and written as 16-byte
 // stores. What holds it at several times its bound (PERF.md) is the
 // shared-memory reads: with 16 rows a warp, each K or V fragment feeds
@@ -657,6 +659,7 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
       case 16: return launch_f32<16>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
       case 32: return launch_f32<32>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
       case 64: return launch_f32<64>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 80: return launch_f32<80>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
       case 128: return launch_f32<128>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
       case 256: return launch_f32<256>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
       default: return cudaErrorInvalidValue;
@@ -668,6 +671,8 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
       case 16: return dispatch_kt<16>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       case 32: return dispatch_kt<32>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       case 64: return dispatch_kt<64>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      // stablelm-3b's head dim: tiles of 96 columns, the last 16 zero-filled
+      case 80: return dispatch_kt<96>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       case 128: return dispatch_kt<128>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       case 256: return dispatch_kt<256>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       default: return cudaErrorInvalidValue;

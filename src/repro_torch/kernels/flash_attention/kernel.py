@@ -28,7 +28,7 @@ launches = 0
 last_grid: tuple | None = None
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
-HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,17 +1,17 @@
-"""Core layers of the dense decoder, in PyTorch (``repro.models.layers``).
+"""Core layers shared by the model zoo, in PyTorch (``repro.models.layers``).
 
 Functions over explicit parameters (dict-like: a plain dict, or the
-``transformer.Tree`` module that holds a model's parameters). Norms, the
-FFN activation and prefill attention go through ``repro_torch.kernels``:
-on a CUDA tensor they launch the Hopper kernels, on a CPU tensor they take
-the plain versions. Decode attention (a ``kv_valid`` mask and an offset
-query position, which the kernel does not take) stays on the plain
-``chunked_attention`` here.
+``transformer.Tree`` module that holds a model's parameters). RMS norms,
+the gated FFN's activation and prefill attention (self and cross) go
+through ``repro_torch.kernels``: on a CUDA tensor they launch the Hopper
+kernels, on a CPU tensor they take the plain versions. Two attentions stay
+on the plain ``chunked_attention``, whose function the kernel does not
+compute: decode attention (a ``kv_valid`` mask and an offset query
+position) and hymba's windowed layers, whose meta-token prefix stays
+visible past the window. ``layernorm`` and the non-gated gelu FFN are plain
+PyTorch, as they are plain ``jnp`` in the reference.
 
-Not ported yet: ``layernorm``, cross attention, the triangular causal
-schedule, ``flash_remat`` and the local-window slice path of
-``chunked_attention`` (the global path applies the same window mask), and
-the cross entropies.
+Not ported yet: the cross entropies (ROADMAP A11, with training).
 """
 from __future__ import annotations
 
@@ -55,15 +55,28 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     return rms_ops.rmsnorm(x, weight, eps=eps)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch, in f32 inside, cast back (the reference has no kernel
+    for it)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return out.to(dt)
+
+
 def init_norm(cfg: ArchConfig, d: int, dtype, device):
     if cfg.norm == "layernorm":
-        raise NotImplementedError("layernorm archs are not ported yet")
+        return {"w": torch.ones((d,), dtype=dtype, device=device),
+                "b": torch.zeros((d,), dtype=dtype, device=device)}
     return {"w": torch.zeros((d,), dtype=dtype, device=device)}  # stores (scale - 1)
 
 
 def apply_norm(p, x, cfg: ArchConfig):
     if cfg.norm == "layernorm":
-        raise NotImplementedError("layernorm archs are not ported yet")
+        return layernorm(x, p["w"], p["b"])
     return rmsnorm(x, p["w"])
 
 
@@ -107,6 +120,7 @@ def _block_attend(
     softcap: Optional[float],
     scale: float,
     kv_valid=None,  # (B, Skv) bool: cache validity
+    prefix: int = 0,  # always-visible global prefix (hymba's meta tokens)
 ):
     """Full-row masked attention for one query block. f32 softmax."""
     s = torch.einsum("bqhgd,bkhd->bhgqk", qb.float(), k.float()) * scale
@@ -118,7 +132,10 @@ def _block_attend(
     if causal:
         mask &= kpos[:, None, :] <= qpos[:, :, None]
     if window is not None:
-        mask &= kpos[:, None, :] > (qpos[:, :, None] - window)
+        win_ok = kpos[:, None, :] > (qpos[:, :, None] - window)
+        if prefix:
+            win_ok |= (kpos < prefix)[:, None, :]
+        mask &= win_ok
     if kv_valid is not None:
         mask &= kv_valid[:, None, :]
     s = s.masked_fill(~mask[:, None, None, :, :], NEG_INF)
@@ -126,6 +143,53 @@ def _block_attend(
     p = torch.exp(s - m)
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+
+
+def triangular_attention(
+    qg,  # (B, Sq, Hkv, G, D) grouped queries
+    k,  # (B, Sq, Hkv, D)
+    v,
+    qpos,  # (B, Sq)
+    kpos,  # (B, Sq)
+    *,
+    softcap: Optional[float],
+    scale: float,
+    q_block: int,
+):
+    """The reference's block-sparse causal schedule: each query block
+    visits only the key blocks at or below it (nb(nb+1)/2 pairs instead of
+    nb^2), with an online-softmax state per query block. The reference
+    scans the static pair list; here query block i walks key blocks
+    0..i in a Python loop, the same pairs in the same order for each block.
+
+    Requires Sq == Skv, no window, prefix or validity mask."""
+    B, Sq, Hkv, G, D = qg.shape
+    nb, qb = Sq // q_block, q_block
+    f32 = torch.float32
+    outs = []
+    for i in range(nb):
+        qt = qg[:, i * qb:(i + 1) * qb].float()
+        qp = qpos[:, i * qb:(i + 1) * qb]
+        m = torch.full((B, Hkv, G, qb, 1), NEG_INF, dtype=f32, device=qg.device)
+        l = torch.zeros((B, Hkv, G, qb, 1), dtype=f32, device=qg.device)
+        acc = torch.zeros((B, Hkv, G, qb, D), dtype=f32, device=qg.device)
+        for j in range(i + 1):
+            kt, vt = k[:, j * qb:(j + 1) * qb], v[:, j * qb:(j + 1) * qb]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qt, kt.float()) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            mask = kpos[:, None, j * qb:(j + 1) * qb] <= qp[:, :, None]  # (B, qb, qb)
+            s = s.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True)).clamp_min(-1e30)
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1, keepdim=True)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vt.dtype), vt).float()
+            acc = corr * acc + pv
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30))  # (B, Hkv, G, qb, D)
+    out = torch.cat(outs, dim=3)  # (B, Hkv, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).to(qg.dtype)
 
 
 def chunked_attention(
@@ -140,24 +204,66 @@ def chunked_attention(
     softcap: Optional[float] = None,
     q_block: int = 512,
     kv_valid=None,
+    prefix: int = 0,
+    flash_remat: bool = False,
+    causal_sparse: bool = False,
 ):
-    """Attention a query block at a time, each block against the whole KV
-    row (the reference's global path), so peak memory is O(bq * Skv)."""
+    """Attention a query block at a time (the reference's schedules), so
+    peak memory is O(bq * Skv): the triangular causal schedule where
+    ``causal_sparse`` asks for it and the shape allows it; otherwise each
+    block sees either the full KV row (global) or, for a causal window
+    narrower than the row, a fixed-size slice of it (local: the prefix
+    plus ``[qstart - window, qstart + bq)``). A query length that is not a
+    whole number of blocks is padded and sliced back.
+
+    ``flash_remat`` chooses how the reference's backward pass recomputes
+    each block; the forward pass is the same either way, so it has no
+    effect here (training maps it to ``torch.utils.checkpoint``)."""
+    del flash_remat
     B, Sq, Hq, D = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, Hkv, G, D)
-    outs = [
-        _block_attend(
-            qg[:, i:i + q_block], k, v, qpos[:, i:i + q_block], kpos,
-            causal=causal, window=window, softcap=softcap, scale=scale,
-            kv_valid=kv_valid,
-        )
-        for i in range(0, Sq, q_block)
-    ]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out.reshape(B, Sq, Hq, D)
+
+    if (causal_sparse and causal and window is None and kv_valid is None and prefix == 0
+            and Sq == Skv and Sq % q_block == 0 and Sq // q_block >= 2):
+        out = triangular_attention(qg, k, v, qpos, kpos, softcap=softcap, scale=scale,
+                                   q_block=q_block)
+        return out.reshape(B, Sq, Hq, D)
+
+    def attend(qb, kk, vv, qp, kp, kvv):
+        return _block_attend(qb, kk, vv, qp, kp, causal=causal, window=window,
+                             softcap=softcap, scale=scale, kv_valid=kvv, prefix=prefix)
+
+    if Sq <= q_block:
+        return attend(qg, k, v, qpos, kpos, kv_valid).reshape(B, Sq, Hq, D)
+
+    if Sq % q_block:  # pad to a whole number of blocks; sliced off below
+        pad = q_block - Sq % q_block
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+        qpos = torch.nn.functional.pad(qpos, (0, pad))
+    nb = qg.shape[1] // q_block
+
+    local = window is not None and (prefix + window + q_block) < Skv and causal
+    span = (window or 0) + q_block
+
+    def slice_kv(arr, start):
+        tail = arr[:, start:start + span]
+        return torch.cat([arr[:, :prefix], tail], dim=1) if prefix else tail
+
+    outs = []
+    for idx in range(nb):
+        rows = slice(idx * q_block, (idx + 1) * q_block)
+        qb, qp = qg[:, rows], qpos[:, rows]
+        if local:
+            start = min(max(idx * q_block - window, prefix), Skv - span)
+            kvv = slice_kv(kv_valid, start) if kv_valid is not None else None
+            outs.append(attend(qb, slice_kv(k, start), slice_kv(v, start),
+                               qp, slice_kv(kpos, start), kvv))
+        else:
+            outs.append(attend(qb, k, v, qp, kpos, kv_valid))
+    return torch.cat(outs, dim=1)[:, :Sq].reshape(B, Sq, Hq, D)
 
 
 # ----------------------------------------------------------------------
@@ -195,16 +301,33 @@ def _project_qkv(p, x, cfg: ArchConfig, positions):
 
 def attention_layer(p, x, cfg: ArchConfig, positions, *, window: Optional[int],
                     causal: bool = True):
-    """Self-attention for prefill. Returns (out, (k, v)) for caching.
+    """Self-attention for prefill (and whisper's encoder). Returns
+    (out, (k, v)) for caching.
 
-    ``positions`` are 0..S-1 per row, which is what ``transformer.forward``
-    passes, so the attention is exactly the flash-attention kernel's
-    function and goes to ``kernels.flash_attention.ops``. (The reference
-    takes its chunked path where hymba's meta tokens shift the positions;
-    the port builds no model with meta tokens yet.)"""
+    ``positions`` are 0..S-1 in every row: ``transformer.forward`` builds
+    them so, hymba's meta tokens included (``[0..m) ++ base + m`` is
+    ``0..m+S-1``). So the attention is the flash-attention kernel's function
+    and goes to ``kernels.flash_attention.ops`` -- except on a windowed
+    layer with meta tokens (hymba's local layers), whose prefix stays
+    visible past the window: that is not the kernel's mask, and it takes
+    the reference's plain chunked path (local slice and prefix)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = fa_ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
     B, S = x.shape[:2]
+    if window is not None and cfg.meta_tokens:
+        out = chunked_attention(
+            q, k, v, positions, positions, causal=causal, window=window,
+            softcap=cfg.attn_softcap, q_block=cfg.q_block, prefix=cfg.meta_tokens,
+            flash_remat=cfg.flash_remat,
+        )
+    else:
+        if positions.shape[-1] != S:
+            raise ValueError(f"attention_layer: {positions.shape[-1]} positions for {S} rows")
+        if cfg.meta_tokens:  # positions assembled from the prefix and the tokens' own
+            torch._assert_async(
+                (positions == torch.arange(S, device=positions.device)).all(),
+                "attention_layer: the kernel needs positions 0..S-1 in every row",
+            )
+        out = fa_ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
@@ -235,9 +358,45 @@ def attention_decode(
     out = chunked_attention(
         q, cache_k, cache_v, positions[:, None], kpos,
         causal=True, window=window, softcap=cfg.attn_softcap,
-        q_block=cfg.q_block, kv_valid=valid,
+        q_block=cfg.q_block, kv_valid=valid, prefix=cfg.meta_tokens,
     )
     return out.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+def init_cross_attention(gen, cfg: ArchConfig, dtype, device):
+    return init_attention(gen, cfg, dtype, device)
+
+
+def cross_attention_layer(p, x, kv_src, cfg: ArchConfig):
+    """Cross-attention for prefill: queries from x, keys/values from
+    ``kv_src`` (no rope). Every query sees every source row (positions all
+    0, not causal, no window or softcap), which is the flash-attention
+    kernel's non-causal function. Returns (out, (k, v)) for caching."""
+    B, S, _ = x.shape
+    Skv = kv_src.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).view(B, S, cfg.n_heads, hd)
+    k = (kv_src @ p["wk"]).view(B, Skv, cfg.n_kv_heads, hd)
+    v = (kv_src @ p["wv"]).view(B, Skv, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    out = fa_ops.attention(q, k, v, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def cross_attention_cached(p, x, ck, cv, cfg: ArchConfig):
+    """Cross-attention at decode time against the source K/V of the
+    prefill, on the plain chunked path like decode self-attention."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"]).view(B, S, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+    zeros = lambda n: torch.zeros((B, n), dtype=torch.long, device=x.device)
+    out = chunked_attention(q, ck, cv, zeros(S), zeros(ck.shape[1]), causal=False,
+                            q_block=cfg.q_block)
+    return out.reshape(B, S, -1) @ p["wo"]
 
 
 # ----------------------------------------------------------------------
@@ -247,22 +406,26 @@ def attention_decode(
 
 def init_ffn(gen, cfg: ArchConfig, dtype, device, d_ff: Optional[int] = None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    if cfg.act not in ("silu", "geglu"):
-        raise NotImplementedError(f"act={cfg.act!r} is not ported yet")
-    return {
-        "w_gate": dense_init(gen, (d, f), dtype, device),
-        "w_up": dense_init(gen, (d, f), dtype, device),
-        "w_down": dense_init(gen, (f, d), dtype, device),
-    }
+    if cfg.act in ("silu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, (d, f), dtype, device),
+            "w_up": dense_init(gen, (d, f), dtype, device),
+            "w_down": dense_init(gen, (f, d), dtype, device),
+        }
+    return {"w_up": dense_init(gen, (d, f), dtype, device),
+            "w_down": dense_init(gen, (f, d), dtype, device)}
 
 
 def ffn(p, x, cfg: ArchConfig):
-    """Gated FFN; ``act(g) * u`` is the silu_mul kernel on the card (the
-    reference's ``use_pallas`` path, taken unconditionally here)."""
-    if cfg.act not in ("silu", "geglu"):
-        raise NotImplementedError(f"act={cfg.act!r} is not ported yet")
-    h = silu_ops.act_mul(x @ p["w_gate"], x @ p["w_up"], act=cfg.act,
-                         block_rows=SERVING_BLOCK_ROWS)
+    """Gated FFN: ``act(g) * u`` is the silu_mul kernel on the card (the
+    reference's ``use_pallas`` path, taken unconditionally here). The
+    non-gated gelu FFN (whisper) has no product to fuse and stays plain, as
+    in the reference."""
+    if cfg.act in ("silu", "geglu"):
+        h = silu_ops.act_mul(x @ p["w_gate"], x @ p["w_up"], act=cfg.act,
+                             block_rows=SERVING_BLOCK_ROWS)
+    else:
+        h = torch.nn.functional.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
 
 

@@ -53,10 +53,36 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelApi:
     return ModelApi(cfg, dev, init, prefill, decode, init_cache)
 
 
+class BatchSpec(NamedTuple):
+    shape: tuple
+    dtype: torch.dtype
+
+
+def batch_specs(cfg: ArchConfig, B: int, S: int) -> dict:
+    """The train/prefill batch's inputs: tokens, and the stubbed modality
+    front ends' outputs (whisper's frame embeddings, llama-vision's patch
+    embeddings) in the compute type. Tokens are int64 here (torch indexes
+    with them), int32 in the reference."""
+    specs = {"tokens": BatchSpec((B, S), torch.int64)}
+    cdt = T.torch_dtype(cfg.compute_dtype)
+    if cfg.family == "audio":
+        specs["frames"] = BatchSpec((B, cfg.enc_frames, cfg.d_model), cdt)
+    if cfg.family == "vlm":
+        specs["image_embeds"] = BatchSpec((B, cfg.n_img_tokens, cfg.d_model), cdt)
+    return specs
+
+
 def materialize_batch(cfg: ArchConfig, B: int, S: int, seed: int = 0, device="cuda") -> dict:
-    """Random token batch ``(B, S)`` drawn with numpy from ``seed`` (the
-    same law as the reference's, not the same numbers)."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"{cfg.family} inputs are not ported yet")
+    """A random batch matching ``batch_specs``, drawn with numpy from
+    ``seed``: tokens uniform over the vocabulary, frames and image embeds
+    normal with std 0.1 (the reference's laws, not its numbers)."""
+    dev = resolve_device(device)
+    specs = batch_specs(cfg, B, S)
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
-    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+    out = {"tokens": torch.from_numpy(toks).to(dev)}
+    for stream, name in ((1, "frames"), (2, "image_embeds")):
+        if name in specs:
+            shape, dtype = specs[name]
+            a = np.random.default_rng([seed, stream]).standard_normal(shape, dtype=np.float32)
+            out[name] = torch.from_numpy(a).to(dev).to(dtype) * 0.1
+    return out

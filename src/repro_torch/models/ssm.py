@@ -1,0 +1,198 @@
+"""Mamba-2 / SSD (state-space duality) blocks, in PyTorch (``repro.models.ssm``).
+
+The chunked SSD algorithm: a quadratic, attention-like product inside
+fixed-size chunks plus a linear recurrence over the chunk states (the
+reference's ``lax.scan``, a Python loop over chunks here). Decode keeps a
+recurrent (conv, ssm) state and costs O(1) a token. The reference has no
+Pallas kernel in this module: the products are plain einsums in f32, and
+only the gated norm goes through ``rmsnorm`` (the Triton kernel on the
+card).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import dense_init, rmsnorm
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor  # (B, conv_dim, W-1) rolling window of recent inputs
+    ssm: torch.Tensor  # (B, H, P, N) recurrent state, f32
+
+
+def conv_dim(cfg: ArchConfig) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype, device):
+    """The reference's tree and laws, drawn from ``gen``: dt uniform in log
+    space on [1e-3, 0.1] stored as its inverse softplus, ``A_log`` the log
+    of U[1, 16]; ``A_log``, ``dt_bias`` and ``D`` in f32 whatever
+    ``dtype`` is."""
+    d, di = cfg.d_model, cfg.d_inner
+    G, N, H, W = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.conv_width
+    f32 = torch.float32
+    proj_out = 2 * di + 2 * G * N + H
+    in_proj = dense_init(gen, (d, proj_out), dtype, device)
+    conv_w = 0.1 * torch.randn((conv_dim(cfg), W), generator=gen, device=device)
+    a = 1.0 + 15.0 * torch.rand((H,), generator=gen, device=device)
+    u = torch.rand((H,), generator=gen, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((conv_dim(cfg),), dtype=dtype, device=device),
+        "A_log": torch.log(a),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "D": torch.ones((H,), dtype=f32, device=device),
+        "gate_norm": torch.zeros((di,), dtype=dtype, device=device),
+        "out_proj": dense_init(gen, (di, d), dtype, device),
+    }
+
+
+def _split_proj(cfg: ArchConfig, zxbcdt):
+    di, H = cfg.d_inner, cfg.ssm_heads
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:di + conv_dim(cfg)]
+    dt = zxbcdt[..., di + conv_dim(cfg):]
+    if dt.shape[-1] != H:
+        raise ValueError(f"in_proj gives {dt.shape[-1]} dt columns, expected {H}")
+    return z, xBC, dt
+
+
+def _causal_conv(xBC, w, b):
+    """Depthwise causal conv, width W. xBC: (B, L, C); w: (C, W)."""
+    W = w.shape[-1]
+    L = xBC.shape[1]
+    pads = F.pad(xBC, (0, 0, W - 1, 0))
+    out = sum(pads[:, i:i + L, :] * w[None, None, :, W - 1 - i] for i in range(W))
+    return F.silu(out + b[None, None, :])
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """Chunked SSD scan.
+
+    x: (b, l, h, p); dt: (b, l, h) positive; A: (h,) negative; B, C:
+    (b, l, g, n). Returns y (b, l, h, p) in f32 and the final state
+    (b, h, p, n)."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    l_orig = l
+    if l % chunk:
+        # zero-pad the tail: dt = 0 makes padded steps identity transitions
+        # (decay exp(0) = 1, no state or output contribution)
+        pad = chunk - l % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        l = l + pad
+    nc, Q = l // chunk, chunk
+    rep = h // g  # heads per B/C group
+
+    f32 = torch.float32
+    xdt = (x.float() * dt[..., None].float()).reshape(b, nc, Q, h, p)
+    dA = (dt.float() * A.float()[None, None, :]).reshape(b, nc, Q, h)
+    Bh = B.float().reshape(b, nc, Q, g, n).repeat_interleave(rep, dim=3)  # (b, nc, Q, h, n)
+    Ch = C.float().reshape(b, nc, Q, g, n).repeat_interleave(rep, dim=3)
+
+    cum = torch.cumsum(dA, dim=2)  # (b, nc, Q, h)
+
+    # intra-chunk (block-diagonal) term: L[i, j] = exp(cum_i - cum_j) for
+    # i >= j, the masked entries -inf before the exp
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b, nc, Qi, Qj, h)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    Lmat = torch.exp(seg.masked_fill(~causal[None, None, :, :, None], -math.inf))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * Lmat
+    y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores, xdt)
+
+    # chunk states
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (b, nc, Q, h)
+    states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bh, decay_to_end, xdt)
+
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (b, nc, h)
+    s = torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (b, nc, h, p, n)
+
+    # state -> output
+    decay_from_start = torch.exp(cum)  # (b, nc, Q, h)
+    y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, prev_states, decay_from_start)
+    y = (y_diag + y_off).reshape(b, l, h, p)
+    return y[:, :l_orig], s
+
+
+def ssm_layer(p, x, cfg: ArchConfig):
+    """The Mamba-2 mixer for train/prefill. x: (B, L, d). Returns
+    (out, SSMState): the state hands prefill over to decode."""
+    Bsz, L, _ = x.shape
+    di, G, N, H, P = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    zxbcdt = x @ p["in_proj"]
+    z, raw_xBC, dt = _split_proj(cfg, zxbcdt)
+    xBC = _causal_conv(raw_xBC, p["conv_w"], p["conv_b"])
+    xs = xBC[..., :di].reshape(Bsz, L, H, P)
+    Bm = xBC[..., di:di + G * N].reshape(Bsz, L, G, N)
+    Cm = xBC[..., di + G * N:].reshape(Bsz, L, G, N)
+    dt = _softplus(dt.float() + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["A_log"])
+    y, final = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssd_chunk)
+    y = y + p["D"][None, None, :, None] * xs.float()
+    y = y.reshape(Bsz, L, di).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"])
+    out = y @ p["out_proj"]
+    # the conv state holds the *pre-activation* last W-1 inputs, oldest first
+    W = cfg.conv_width
+    pad = F.pad(raw_xBC, (0, 0, W - 1, 0))
+    conv_state = pad[:, L:L + W - 1, :].transpose(1, 2)  # (B, C, W-1)
+    return out, SSMState(conv=conv_state.to(x.dtype).contiguous(), ssm=final)
+
+
+def ssm_decode(p, x, cfg: ArchConfig, state: SSMState):
+    """One-token recurrent step. x: (B, 1, d). Returns (out, new state):
+    the caller writes the new state back into its cache."""
+    Bsz = x.shape[0]
+    di, G, N, H, P = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    zxbcdt = x[:, 0, :] @ p["in_proj"]  # (B, proj)
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    # rolling conv window; win[..., -1] is the newest input and pairs with conv_w[:, 0]
+    win = torch.cat([state.conv, xBC[:, :, None]], dim=2)  # (B, C, W)
+    conv_out = torch.einsum("bcw,cw->bc", win.float(), p["conv_w"].float().flip(-1))
+    xBC_a = F.silu(conv_out + p["conv_b"].float()).to(x.dtype)
+    xs = xBC_a[..., :di].reshape(Bsz, H, P)
+    Bm = xBC_a[..., di:di + G * N].reshape(Bsz, G, N)
+    Cm = xBC_a[..., di + G * N:].reshape(Bsz, G, N)
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=1)  # (B, H, N)
+    Ch = Cm.repeat_interleave(rep, dim=1)
+    dt = _softplus(dt.float() + p["dt_bias"][None, :])  # (B, H)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A[None, :])  # (B, H)
+    upd = (dt[:, :, None] * xs.float())[:, :, :, None] * Bh.float()[:, :, None, :]
+    ssm = state.ssm * dA[:, :, None, None] + upd  # (B, H, P, N)
+    y = torch.einsum("bhpn,bhn->bhp", ssm, Ch.float())
+    y = y + p["D"][None, :, None] * xs.float()
+    y = y.reshape(Bsz, di).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), p["gate_norm"])
+    out = (y @ p["out_proj"])[:, None, :]
+    return out, SSMState(conv=win[:, :, 1:].to(x.dtype), ssm=ssm)
+
+
+def init_ssm_state(cfg: ArchConfig, batch: int, dtype, device) -> SSMState:
+    return SSMState(
+        conv=torch.zeros((batch, conv_dim(cfg), cfg.conv_width - 1), dtype=dtype, device=device),
+        ssm=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                        dtype=torch.float32, device=device),
+    )

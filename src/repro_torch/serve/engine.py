@@ -162,6 +162,19 @@ class ServeEngine(_EngineBase):
             toks[i, L - len(p):] = p  # left-pad so last token aligns
         return torch.from_numpy(toks).to(self.device), L
 
+    def _extra_inputs(self, B: int) -> dict:
+        """The stubbed modality front ends' outputs for a batch of ``B``:
+        whisper's frame embeddings, llama-vision's patch embeddings, normal
+        with std 0.1 in the compute type, drawn from the engine's seeded
+        generator (the reference's law, not its numbers)."""
+        cfg, gen = self.cfg, self._runner.generator
+        shapes = {"audio": ("frames", cfg.enc_frames), "vlm": ("image_embeds", cfg.n_img_tokens)}
+        if cfg.family not in shapes:
+            return {}
+        name, n = shapes[cfg.family]
+        noise = torch.randn((B, n, cfg.d_model), generator=gen, device=self.device)
+        return {name: noise.to(T.torch_dtype(cfg.compute_dtype)) * 0.1}
+
     def step_batch(self) -> list[Result]:
         """Admit up to max_batch requests, serve them to completion."""
         if not self.queue:
@@ -176,7 +189,7 @@ class ServeEngine(_EngineBase):
         t0 = time.perf_counter()
         if self.recorder is not None:
             self.recorder.record_step(f"prefill[b{B}xL{L}]", self.cfg, B, L, L, phase="prefill")
-        logits, caches = self._runner.prefill({"tokens": toks})
+        logits, caches = self._runner.prefill({"tokens": toks, **self._extra_inputs(B)})
         caches = self._runner.grow_cache(caches, L + max_new)
         self._runner.sync()
         prefill_s = time.perf_counter() - t0
@@ -225,6 +238,20 @@ class _Slot:
     @property
     def free(self) -> bool:
         return self.req is None
+
+
+def _copy_slot(full, one, i: int):
+    """``full_leaf[:, i] = one_leaf[:, 0]`` for each pair of leaves of two
+    cache trees of the same structure (a leaf's slot axis is 1: the
+    continuous engine's families stack their leaves once, over layers)."""
+    if isinstance(full, torch.Tensor):
+        full[:, i] = one[:, 0]
+    elif isinstance(full, dict):
+        for k in full:
+            _copy_slot(full[k], one[k], i)
+    else:
+        for f, o in zip(full, one):
+            _copy_slot(f, o, i)
 
 
 class ContinuousBatchingEngine(_EngineBase):
@@ -375,10 +402,8 @@ class ContinuousBatchingEngine(_EngineBase):
             tokens = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)
             logits, cache1 = self._runner.prefill({"tokens": tokens[None, :]})
             cache1 = self._runner.grow_cache(cache1, self.max_len)
-            # copy this request's KV rows into slot i of the shared cache
-            for full, one in zip(self.caches, cache1):
-                for name in full:
-                    full[name][:, i] = one[name][:, 0]
+            # copy this request's cache rows into slot i of the shared cache
+            _copy_slot(self.caches, cache1, i)
             tok = self._runner.sample(logits, [req.temperature], self._gen).item()
             self._runner.sync()
             now = time.perf_counter()

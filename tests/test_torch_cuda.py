@@ -64,6 +64,18 @@ FA_CASES = [
     # rows q >= Skv + window - 1 see no key: they average v over every key
     (1, 200, 50, 2, 1, 64, False, 10, None),
     (1, 200, 50, 2, 1, 64, True, 10, None),
+    # the remaining families' prefill shapes: gemma2-2b (a window of 4096
+    # that cuts keys, softcap 50, head dim 256), whisper-base's encoder and
+    # cross attention (ragged 1500-frame source, one query row at decode),
+    # llama-3.2-vision's cross attention (1601 patches), stablelm-3b's head
+    # dim 80 (causal, and windowed with a ragged length)
+    (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0),
+    (1, 1500, 1500, 8, 8, 64, False, None, None),
+    (1, 64, 1500, 8, 8, 64, False, None, None),
+    (1, 1, 1500, 8, 8, 64, False, None, None),
+    (1, 512, 1601, 32, 8, 128, False, None, None),
+    (1, 2048, 2048, 32, 32, 80, True, None, None),
+    (2, 300, 300, 4, 2, 80, True, 100, 30.0),
 ]
 
 
@@ -80,10 +92,37 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     out = fa_ops.attention(q, k, v, **kw)
     assert fa_kernel.launches == n0 + 1
     ref = fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw)
-    _close(out.cpu(), ref, dtype)
+    torch.cuda.synchronize()
+    out = out.cpu()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    if not torch.allclose(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype]):
+        # say which side is off: both against the same function in float64
+        exact = _attention_f64(q.cpu(), k.cpu(), v.cpu(), **kw)
+        gaps = {name: float((t.double() - exact).abs().max()) for name, t in
+                (("kernel", out), ("plain", ref), ("kernel again", fa_ops.attention(q, k, v, **kw)))}
+        pytest.fail(f"kernel and plain version disagree; max abs err against float64: {gaps}")
 
 
-FA_BF16_HEAD_DIMS = [64, 128, 256]
+def _attention_f64(q, k, v, *, causal, window, softcap):
+    """The kernels' function in float64 on the CPU (the model layout)."""
+    q, k, v = (t.double() for t in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(q.shape[1])[:, None]
+    kpos = torch.arange(k.shape[1])[None, :]
+    mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(s.masked_fill(~mask, -1.0e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+FA_BF16_HEAD_DIMS = [64, 80, 128, 256]
 
 
 @pytest.mark.parametrize("D", FA_BF16_HEAD_DIMS)
@@ -399,3 +438,40 @@ def test_fit_mlp_on_the_card_learns_gemm(dev):
     seen = np.array([h in SEEN for h in ds.hw_names])
     m = mape(pred[seen], ds.actual_s[seen])
     assert m < mape(ds.theoretical_s[seen], ds.actual_s[seen]) and m < 20.0, m
+
+
+FAMILIES = ["gemma2-2b", "stablelm-3b", "mamba2-370m", "hymba-1.5b", "whisper-base",
+            "llama-3.2-vision-11b"]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_smoke_model_on_the_card_matches_the_cpu(dev, arch, compute_dtype):
+    """Each family's smoke model, the same weights and inputs on the card
+    (kernels) and on the CPU (plain versions): prefill and 4 decode steps
+    fed the CPU's greedy tokens, within 1e-4 of max|logit| in f32 and 5e-2
+    in bf16 (the tolerances of ``tests/test_torch_families.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model, materialize_batch
+
+    cfg = dataclasses.replace(get_arch(arch).smoke(), compute_dtype=compute_dtype)
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu.init(0)
+    gparams = T.Tree(T.tree_map(lambda a: a.to(dev), params))
+    batch = materialize_batch(cfg, 2, 45, device="cpu")
+    tol = 1e-4 if compute_dtype == "float32" else 5e-2
+    with torch.no_grad():
+        ref, caches = cpu.prefill(params, batch)
+        out, gcaches = gpu.prefill(gparams, {k: v.to(dev) for k, v in batch.items()})
+        caches, gcaches = T.pad_cache(caches, cfg, 50), T.pad_cache(gcaches, cfg, 50)
+        for step in range(5):
+            scale = float(ref.float().abs().max())
+            assert float((out.float().cpu() - ref.float()).abs().max()) <= tol * scale, step
+            if step == 4:
+                break
+            tok, pos = ref.argmax(-1), torch.full((2,), 45 + step)
+            ref, caches = cpu.decode(params, caches, tok, pos)
+            out, gcaches = gpu.decode(gparams, gcaches, tok.to(dev), pos.to(dev))

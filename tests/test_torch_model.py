@@ -18,7 +18,7 @@ import torch
 import repro.models.transformer as RT
 from repro.configs import get_arch as ref_get_arch
 from repro.models.registry import build_model as ref_build_model
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -159,7 +159,19 @@ def test_init_params_has_the_reference_tree_and_laws():
                        build_model(cfg, device="cpu").init(3)["embed"]["tok"])
 
 
-def test_unported_families_raise():
-    for arch in ("mamba2-370m", "gemma2-2b"):
-        with pytest.raises(NotImplementedError):
-            build_model(get_arch(arch).smoke(), device="cpu").init(0)
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_arch_inits_the_reference_tree(arch):
+    """Every registered arch builds and inits in the port, with the tree
+    and shapes of the reference's parameters carried across by
+    ``params_from_numpy``; the SSM's f32 leaves follow the reference's laws."""
+    ref_cfg, cfg = ref_get_arch(arch).smoke(), get_arch(arch).smoke()
+    ref_tree = jax.tree.map(np.asarray, RT.init_params(ref_cfg, jax.random.PRNGKey(0)))
+    params = build_model(cfg, device="cpu").init(0)
+    state = lambda tree: {k: (tuple(v.shape), v.dtype) for k, v in tree.state_dict().items()}
+    assert state(params) == state(params_from_numpy(ref_tree, cfg, "cpu"))
+    for name, a in params.state_dict().items():
+        if name.endswith(".A_log"):
+            assert a.dtype == torch.float32 and bool(((a >= 0) & (a <= np.log(16.0))).all())
+        if name.endswith(".dt_bias"):
+            dt = torch.nn.functional.softplus(a)
+            assert a.dtype == torch.float32 and bool(((dt > 9e-4) & (dt < 0.11)).all())

@@ -64,7 +64,8 @@ def test_port_files_exist():
                 "predict/sweep.py", "dist/pipeline.py", "core/e2e.py", "serve/trace.py",
                 "serve/monitor.py", "models/moe.py", "optim/adamw.py", "core/nn.py",
                 "core/estimator.py", "core/quantile.py", "core/baselines.py",
-                "predict/objective.py", "serve/placement.py", "serve/fleet.py"):
+                "predict/objective.py", "serve/placement.py", "serve/fleet.py",
+                "models/ssm.py"):
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu"):
