@@ -5,9 +5,10 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: compile the CUDA sources (flash attention, fused MoE, scaled_mm)
-   with nvcc, one process each, all at once, and the Triton kernels
-   (rmsnorm, silu_mul), from the sources in this checkout;
+1. build: compile the CUDA sources (flash attention, its backward, fused
+   MoE, scaled_mm) with nvcc, one process each, all at once, and the Triton
+   kernels (rmsnorm, silu_mul and their backwards), from the sources in
+   this checkout;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
@@ -27,7 +28,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    (4608 tokens, window 4096, softcap 50, head dim 256), whisper-base's
    encoder and cross attention (1500 frames), llama-3.2-vision's cross
    attention (1601 patches) and stablelm-3b's head dim 80; silu_mul geglu
-   at gemma2-2b's (4608, 9216);
+   at gemma2-2b's (4608, 9216); and the three backward kernels (rmsnorm,
+   silu_mul, flash attention) against their plain backward formulas, at
+   qwen3-0.6b's training shapes (B4 S2048) and the reference's kernel test
+   shapes (causal and not, a window, a softcap, GQA, rows that see no
+   key), each gradient within f32 2e-5 / bf16 2e-2 of its max|ref|, and
+   bit-equal when run twice;
 3. whole-model parity, random weights from one seed, f32 compute: prefill
    of a 64-token prompt and 8 greedy decode steps on the card (kernels) and
    on the CPU (plain versions), same weights: full-width qwen3-0.6b, and
@@ -54,7 +60,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    dbrx-132b's decode and prefill serving shapes, and at the tuner's
    dbrx-132b workload (f32, bounded as 3xTF32, the path its kernel runs;
    and bf16); silu_mul also at phase 4's prompt lengths, scaled_mm also
-   at the tuner's default workload beside ``torch._int_mm``;
+   at the tuner's default workload beside ``torch._int_mm``; the three
+   backward kernels at qwen3-0.6b's training shapes, beside their plain
+   backward formulas and the backward of ``F.rms_norm`` and of SDPA;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``, for qwen3-0.6b, for 2-layer dbrx-132b and for
@@ -96,7 +104,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``ServeEngine`` and ``ContinuousBatchingEngine`` (4 slots, 8192 tokens)
    with prompts of 512-6000 tokens, then each other family through
    ``ServeEngine`` at its depth of (b), every step recorded and re-lowered
-   and every kernel's launch count exact (``family_launches``).
+   and every kernel's launch count exact (``family_launches``);
+10. training, the third main path: (a) qwen3-0.6b at full width cut to 2
+   layers, f32, one loss and every gradient leaf on the card (kernels and
+   backward kernels) against the CPU (plain versions, autograd) on the same
+   weights: the loss within 1e-5 relative, each leaf within 1e-4 of its
+   max|g|, every leaf's gradient present and non-zero; (b) full-depth
+   qwen3-0.6b (28 layers, bf16 compute, f32 master weights) trained through
+   ``Trainer`` for 10 steps of B4 S2048 with checkpoints every 5 steps: the
+   loss falls, every kernel's launch count is exactly 10 x
+   ``training_launches`` (layer remat runs each forward kernel twice), the
+   step wall-clock, tokens/s and memory peak are printed, one more step is
+   profiled (device busy, idle share, launches), and a restart from the
+   step-5 checkpoint gives steps 6-10's losses bit for bit under
+   ``torch.use_deterministic_algorithms``; (c) two steps with int8
+   error-feedback compression (bucketed) and two with 2 microbatches, at
+   full width and depth, all losses finite.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -184,11 +207,14 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per CUDA source, all at once
-        builds = [pool.submit(k.library) for k in (fa_k, moe_k, smm_k)]
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per CUDA source, all at once
+        builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, moe_k.library,
+                                           smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
+        rms_k.rmsnorm_bwd_cuda(x, x, torch.zeros(1024, device=dev))
         silu_k.silu_mul_cuda(x, x)
+        silu_k.silu_mul_bwd_cuda(x, x, x)
         for b in builds:
             b.result()
     torch.cuda.synchronize()
@@ -199,6 +225,7 @@ def main():
     max_err = kernel_parity(torch, dev)
     max_err.update(tuner_kernel_parity(torch, dev))
     moe_serving_parity(torch, dev, max_err)
+    max_err.update(backward_parity(torch, dev))
     log(f"[2 kernel parity] passed in {time.perf_counter() - t0:.1f}s; "
         f"max abs err at main-path shapes: {max_err}")
 
@@ -217,6 +244,7 @@ def main():
     # ---------------------------------------------------------------- 5
     t0 = time.perf_counter()
     rows = kernel_times(torch, dev, peaks)
+    rows.update(backward_times(torch, dev, peaks))
     log(f"[5 kernel times] done in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 6
@@ -250,6 +278,13 @@ def main():
         launches[k] += v
     log(f"[9 remaining families] passed in {time.perf_counter() - t0:.1f}s; launches {served}")
 
+    # ---------------------------------------------------------------- 10
+    t0 = time.perf_counter()
+    trained = training(torch, dev)
+    for k, v in trained.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[10 training] passed in {time.perf_counter() - t0:.1f}s; launches {trained}")
+
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
                     "src/repro/kernels/rmsnorm/kernel.py:13"),
@@ -261,6 +296,16 @@ def main():
                       "src/repro/kernels/fused_moe/kernel.py:27"),
         "scaled_mm": ("cuda", "src/repro_torch/kernels/scaled_mm/csrc/scaled_mm.cu",
                       "src/repro/kernels/scaled_mm/kernel.py:20"),
+        # the backwards of the kernels training runs through; the TPU kernels
+        # have none (the reference differentiates its plain path), so each
+        # names the forward TPU kernel whose backward it is
+        "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
+                        "src/repro/kernels/rmsnorm/kernel.py:13"),
+        "silu_mul_bwd": ("triton", "src/repro_torch/kernels/silu_mul/_triton.py",
+                         "src/repro/kernels/silu_mul/kernel.py:13"),
+        "flash_attention_bwd": (
+            "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30"),
     }
     kernels = []
     for k, (route, source, replaces) in sources.items():
@@ -268,7 +313,7 @@ def main():
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_err[k], **rows[k],
         })
-    log(f"[done] phases 1-9 in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -589,6 +634,94 @@ def moe_serving_parity(torch, dev, max_err):
         del x, out, ref
     del w
     torch.cuda.empty_cache()
+
+
+def backward_parity(torch, dev):
+    """The three backward kernels against their plain backward formulas
+    (``ref.py``) on the same inputs: each gradient within F32_TOL / BF16_TOL
+    of its max|ref|, at qwen3-0.6b's training shapes (B4 S2048: 8192 rows
+    of d 1024 and d_ff 3072, 131072 q/k-norm rows of 128, 16/8 heads of 128)
+    and the reference's kernel test shapes; each kernel run twice gives the
+    same bits (no float atomics). Returns the max abs err at the training
+    shapes."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    from repro_torch.kernels.silu_mul.kernel import silu_mul_bwd_cuda
+    from repro_torch.kernels.silu_mul.ref import silu_mul_bwd_ref
+
+    rng = np.random.default_rng(SEED + 7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0}
+
+    def randn(shape, dtype, scale=1.0):
+        a = (scale * rng.standard_normal(shape)).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    def check(label, kname, fn, refs, main):
+        """Each gradient within the tolerance of its own type."""
+        got = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: not deterministic"
+        notes = []
+        for name, a, r in zip(kname[1], got, refs):
+            tol = F32_TOL if a.dtype == f32 else BF16_TOL
+            scale = float(r.float().abs().max())
+            err = float((a.float() - r.float()).abs().max())
+            assert bool(torch.isfinite(a).all()) and err <= tol * scale, (
+                f"{label} {name}: {err:.3g} of max|ref| {scale:.3g} (tol {tol})")
+            notes.append(f"{name} {err:.3g} of {scale:.3g} (tol {tol})")
+            if main:
+                max_err[kname[0]] = max(max_err[kname[0]], err)
+        log(f"  {label}: " + ", ".join(notes) + "; bit-equal twice")
+
+    rms = ("rmsnorm_bwd", ("dx", "dw"))
+    for shape, xd, wd, main in [((8192, 1024), bf16, bf16, True), ((8192, 1024), bf16, f32, True),
+                                ((8192 * 16, 128), bf16, bf16, True),
+                                ((8192, 1024), f32, f32, False), ((2, 7, 48), f32, f32, False)]:
+        x, w, g = randn(shape, xd), randn(shape[-1:], wd, 0.1), randn(shape, xd)
+        check(f"rmsnorm bwd {shape} x={xd} w={wd}", rms, lambda: rmsnorm_bwd_cuda(g, x, w),
+              rmsnorm_bwd_ref(g, x, w), main)
+    act = ("silu_mul_bwd", ("dg", "du"))
+    for shape, dt, main in [((8192, 3072), bf16, True), ((8192, 3072), f32, False),
+                            ((4, 32, 64), f32, False)]:
+        for a in ("silu", "geglu"):
+            g, u, dh = randn(shape, dt, 3.0), randn(shape, dt), randn(shape, dt)
+            check(f"silu_mul bwd {shape} {a} {dt}", act,
+                  lambda: silu_mul_bwd_cuda(dh, g, u, act=a),
+                  silu_mul_bwd_ref(dh, g, u, act=a), main and a == "silu")
+    fa = ("flash_attention_bwd", ("dq", "dk", "dv"))
+    for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in [
+        (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
+        (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
+        (1, 64, 64, 2, 2, 16, True, None, None, f32, False),  # the reference's cases
+        (2, 128, 128, 4, 2, 32, True, None, None, f32, False),
+        (1, 64, 64, 2, 1, 16, True, 32, None, f32, False),
+        (1, 64, 64, 2, 2, 16, True, None, 30.0, f32, False),
+        (2, 64, 64, 4, 4, 16, False, None, None, bf16, False),
+        (1, 32, 128, 2, 2, 16, False, None, None, bf16, False),
+        (2, 512, 512, 16, 8, 128, True, 256, None, bf16, False),
+        (2, 512, 512, 16, 8, 128, True, None, 50.0, bf16, False),
+        (1, 77, 200, 2, 1, 64, False, 50, 20.0, f32, False),
+        (1, 200, 50, 2, 1, 64, False, 10, None, bf16, False),  # rows that see no key
+        (1, 200, 50, 2, 1, 64, True, 10, None, f32, False),
+    ]:
+        q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
+        dout = randn((B, S, Hq, D), dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        check(f"flash_attention bwd B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
+              f"window={window} softcap={softcap} {dt}", fa,
+              lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
+              attention_bwd_ref(q, k, v, dout, **kw), main)
+        del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    return max_err
 
 
 # ======================================================================
@@ -1206,6 +1339,99 @@ def kernel_times(torch, dev, peaks):
     return rows
 
 
+def backward_times(torch, dev, peaks):
+    """Phase 5 for the backward kernels at qwen3-0.6b's training shapes
+    (B4 S2048, bf16): device ms from a CUDA-graph replay, eager ms, the
+    plain backward formula's time, and the library's backward (of
+    ``F.rms_norm``, of SDPA; none for act * u) timed the same way. The
+    bound counts each input read once and each output written once; for
+    flash attention the operations of the five products a backward needs
+    (``10 D`` a visible pair) at the bf16 tensor-core peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    from repro_torch.kernels.silu_mul.kernel import silu_mul_bwd_cuda
+    from repro_torch.kernels.silu_mul.ref import silu_mul_bwd_ref
+
+    bf16 = torch.bfloat16
+    bw = peaks["bytes"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    rows, eager = {}, {}
+
+    def library_ms(fwd, inputs, iters, kname):
+        """The library's backward alone: ``autograd.grad`` of its forward,
+        both captured in one CUDA graph (autograd runs the backward on the
+        forward's stream, so the two are captured together), less the
+        forward alone."""
+        def fwd_bwd(*a):
+            return torch.autograd.grad(fwd(*a[:-1]), a[:-1], a[-1])
+
+        def fwd_only(*a):
+            with torch.no_grad():
+                return fwd(*a[:-1])
+
+        both, eager[kname + " library fwd+bwd"] = cuda_ms(torch, fwd_bwd, inputs, iters)
+        only, _ = cuda_ms(torch, fwd_only, inputs, iters)
+        log(f"  {kname} library: forward and backward {both:.4f} ms, forward {only:.4f} ms")
+        return both - only
+
+    def row(kname, kernel, plain, library, inputs, iters, bound_ms, bound_by):
+        ms, eager[kname] = cuda_ms(torch, kernel, inputs, iters)
+        plain_ms, eager[kname + " plain"] = cuda_ms(torch, plain, inputs, max(2, iters // 4))
+        lib = None if library is None else library_ms(library[0], library[1], iters, kname)
+        rows[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib}
+
+    R, d, F_ = 8192, 1024, 3072
+    sets = [(randn(R, d), randn(R, d), randn(d, scale=0.1)) for _ in range(4)]  # 4 x 32 MiB > L2
+    lib_sets = [(x.clone().requires_grad_(), (1.0 + w).requires_grad_(), g) for g, x, w in sets]
+    row("rmsnorm_bwd", rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
+        (lambda x, w: F.rms_norm(x, (d,), w, 1e-6), lib_sets),
+        sets, 200, 1e3 * (3 * R * d * 2 + 2 * d * 2) / bw, "bytes")
+    del sets, lib_sets
+    gus = [(randn(R, F_), randn(R, F_, scale=3.0), randn(R, F_)) for _ in range(2)]
+    row("silu_mul_bwd", silu_mul_bwd_cuda, silu_mul_bwd_ref, None, gus, 100,
+        1e3 * (5 * R * F_ * 2) / bw, "bytes")
+    del gus
+    B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
+    q, k, v, dout = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D), randn(B, S, Hq, D)
+    out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    pairs = B * Hq * S * (S + 1) // 2
+    flops = 10 * D * pairs
+    nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dout_t = dout.transpose(1, 2).contiguous()
+    row("flash_attention_bwd",
+        lambda *a: flash_attention_bwd_cuda(*a, causal=True),
+        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
+        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True, enable_gqa=True),
+         [(qt, kt, vt, dout_t)]),
+        [(q, k, v, out, lse, dout)], 5, *bound(peaks, nbytes, flops, "bfloat16"))
+    r = rows["flash_attention_bwd"]
+    log(f"  flash_attention_bwd causal work: {flops / 1e9:.2f} GFLOP in its 5 products "
+        f"(the kernel computes 7: S and dP in both passes), {nbytes / 1e6:.1f} MB; "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s of the 5, {r['bound_ms'] / r['ms']:.4f} of the bound")
+    del q, k, v, dout, out, lse, qt, kt, vt, dout_t
+    torch.cuda.empty_cache()
+    for kname, r in rows.items():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {kname}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    log("  backward, eager launches from Python, ms a call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in eager.items()))
+    return rows
+
+
 # ======================================================================
 # phase 6: where a serving step's time goes
 # ======================================================================
@@ -1596,6 +1822,201 @@ def trained_predictor(torch, dev, kinds):
         f"replicas), predicted for the registry TPUs: assignment {report.assignment}, "
         f"p50 {report.latency_p50_s:.6f} s, p95 {report.latency_p95_s:.6f} s "
         f"({time.perf_counter() - t0:.2f}s)")
+    return moved
+
+
+# ======================================================================
+# phase 10: training
+# ======================================================================
+
+# the 2-layer f32 loss, card against CPU: relative
+TRAIN_LOSS_RTOL = 1e-5
+# each gradient leaf, card against CPU: of that leaf's max|g| (f32 sums over
+# 512 rows and vocab 151936 run in other orders on the card and the CPU)
+TRAIN_GRAD_TOL = 1e-4
+
+
+def kernel_counts(zero=False):
+    """Every forward and backward kernel's launch count (set to 0 first
+    with ``zero``)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.rmsnorm import kernel as rms_k
+    from repro_torch.kernels.silu_mul import kernel as silu_k
+
+    counters = {}
+    for name, mod in (("rmsnorm", rms_k), ("silu_mul", silu_k), ("flash_attention", fa_k)):
+        counters[name] = (mod, "launches")
+        counters[name + "_bwd"] = (mod, "bwd_launches")
+    if zero:
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def training_launches(cfg):
+    """What one training step of a dense decoder adds to each count: under
+    layer remat each layer's forward runs twice (in the forward pass and
+    again in the backward pass), the final norm once; each backward once."""
+    n = cfg.n_layers
+    twice = 2 if cfg.remat == "layer" else 1
+    norms = 2 + 2 * cfg.qk_norm + 2 * cfg.post_norms
+    return {"rmsnorm": twice * norms * n + 1, "rmsnorm_bwd": norms * n + 1,
+            "silu_mul": twice * n, "silu_mul_bwd": n,
+            "flash_attention": twice * n, "flash_attention_bwd": n}
+
+
+def training(torch, dev):
+    """Phase 10 (the module docstring's (a), (b), (c)). Returns the launches
+    of the full-depth training run (b)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import (
+        TrainConfig,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()  # what earlier phases left for the collector
+    torch.cuda.empty_cache()
+    log(f"  held on the card before phase 10: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # (a) one loss and its gradients, card against CPU, same weights
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), n_layers=2, compute_dtype="float32")
+    params = build_model(cfg, "cuda").init(SEED)
+    tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (2, 256))
+
+    def loss_and_grads(tree, device):
+        leaves_tree = T.trainable(tree)
+        leaves = tree_leaves(leaves_tree)
+        loss, _ = build_model(cfg, device).loss(
+            leaves_tree, {"tokens": torch.from_numpy(tokens).to(device)})
+        return float(loss), [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    kernel_counts(zero=True)
+    loss_gpu, g_gpu = loss_and_grads(params, dev)
+    torch.cuda.synchronize()
+    moved = kernel_counts()
+    assert moved == training_launches(cfg), f"(a) launches {moved}"
+    t1 = time.perf_counter()
+    loss_cpu, g_cpu = loss_and_grads(T.tree_map(lambda a: a.detach().cpu(), params), "cpu")
+    del params
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    assert rel <= TRAIN_LOSS_RTOL, f"(a) loss {loss_gpu} on the card, {loss_cpu} on the CPU"
+    ratios = []
+    for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
+        scale = float(b.abs().max())
+        assert float(a.abs().max()) > 0 and scale > 0, f"(a) gradient leaf {i} is zero"
+        ratios.append(float((a - b).abs().max()) / scale)
+        assert ratios[-1] <= TRAIN_GRAD_TOL, f"(a) gradient leaf {i}: {ratios[-1]:.3g} of max|g|"
+    log(f"  (a) qwen3-0.6b full width, 2 layers, f32, B2 S256: loss {loss_gpu:.6f} on the card, "
+        f"{loss_cpu:.6f} on the CPU (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); {len(ratios)} gradient "
+        f"leaves, each present and non-zero, the worst {max(ratios):.3g} of its max|g| (median "
+        f"{float(np.median(ratios)):.3g}, tol {TRAIN_GRAD_TOL}); launches {moved}; card "
+        f"{t1 - t0:.1f}s, CPU {time.perf_counter() - t1:.1f}s")
+    del g_gpu, g_cpu
+    torch.cuda.empty_cache()
+
+    # (b) full depth through Trainer, checkpoints, a bit-equal restart
+    cfg = get_arch("qwen3-0.6b")
+    B, S, steps = 4, 2048, 10
+    tc = TrainConfig(lr=1e-3, warmup=2, total_steps=steps)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)  # the embedding's index_put
+    # the mode's NaN fill of every torch.empty is a debugging aid, not part
+    # of any algorithm: left off, so that the step times are the step's
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+
+            def trainer():
+                return Trainer(cfg, DataConfig(batch=B, seq_len=S, seed=SEED), tc,
+                               TrainerConfig(total_steps=steps, ckpt_every=5, ckpt_dir=tmp,
+                                             async_save=True, log_every=steps), device="cuda")
+
+            tr = trainer()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            kernel_counts(zero=True)
+            t0 = time.perf_counter()
+            _, state, losses = tr.run(seed=SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            moved = kernel_counts()
+            peak = torch.cuda.max_memory_allocated()
+            per_step = training_launches(cfg)
+            assert moved == {k: steps * v for k, v in per_step.items()}, f"(b) launches {moved}"
+            assert np.isfinite(losses).all() and losses[-1] < losses[0], f"(b) losses {losses}"
+            step_ms = 1e3 * float(np.median(tr.step_times[1:]))
+            n = sum(p.numel() for p in tree_leaves(state["params"]))
+            log(f"  (b) qwen3-0.6b, 28 layers ({n / 1e9:.4f}B parameters), bf16 compute, f32 "
+                f"master weights, B{B} S{S}: {steps} steps in {wall:.1f}s (checkpoints at 5 and "
+                f"10 included); losses {[round(x, 4) for x in losses]}")
+            log(f"  (b) step wall-clock (train_step to its loss on the host) median "
+                f"{step_ms:.1f} ms (steps 2-{steps}; the first {1e3 * tr.step_times[0]:.1f} ms), "
+                f"{B * S / step_ms * 1e3:.0f} tokens/s; torch.cuda.max_memory_allocated "
+                f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held before the run "
+                f"began; launches a step {per_step}")
+            batch = tr.batch_at(steps)
+
+            def one_step():
+                nonlocal state
+                state, _ = tr.train_step(state, batch)
+
+            r = profiled(torch, one_step, 1)
+            log(f"  (b) one training step under torch.profiler: profiled wall {r['wall_ms']:.3f} "
+                f"ms, device busy {r['busy_ms']:.3f} ms (idle {100 * r['idle_share']:.1f}%), "
+                f"{r['launches']:.0f} launches")
+            for name, k, ms in r["top"]:
+                log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
+            del state, tr
+            torch.cuda.empty_cache()
+            shutil.rmtree(os.path.join(tmp, f"step_{steps:010d}"))
+            t0 = time.perf_counter()
+            tr = trainer()
+            _, _, resumed = tr.run(seed=SEED)
+            assert resumed == losses[5:], f"(b) resumed {resumed} vs {losses[5:]}"
+            log(f"  (b) restarted from the step-5 checkpoint: steps 6-{steps} bit-equal "
+                f"({time.perf_counter() - t0:.1f}s)")
+            del tr
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = True
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) error-feedback compression (bucketed), and microbatches
+    api = build_model(cfg, "cuda")
+    source = SyntheticLM(cfg, DataConfig(batch=B, seq_len=S, seed=SEED))
+    for label, tcx in (("compress_grads + overlap_grads",
+                        dataclasses.replace(tc, compress_grads=True, overlap_grads=True)),
+                       ("microbatches=2", dataclasses.replace(tc, microbatches=2))):
+        t0 = time.perf_counter()
+        opt = make_optimizer(tcx)
+        st = init_train_state(api, opt, SEED, compress_grads=tcx.compress_grads)
+        step = make_train_step(api, opt, tcx)
+        ls = []
+        for i in range(2):
+            st, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(i).items()})
+            ls.append(float(m["loss"]))
+        assert np.isfinite(ls).all(), f"(c) {label}: losses {ls}"
+        log(f"  (c) {label}: losses {ls} ({time.perf_counter() - t0:.1f}s)")
+        del st
+        torch.cuda.empty_cache()
     return moved
 
 

@@ -59,6 +59,11 @@
 // at the main shape (it takes about 0.33 ms on an H100 SXM, PERF.md):
 // wgmma with TMA, which reads B from shared memory itself, is still owed.
 //
+// Log-sum-exp for the backward (flash_attention_bwd.cu): where `lse` is not
+// null, each row's natural-log log-sum-exp of its scores, lse = m + log l,
+// is written as f32 at lse[(b * Hq + h) * S + q]; a row that sees no key
+// gets -inf. The serving path passes null and writes nothing.
+//
 // f32 path (the tuner's inputs and the f32 model): the reference's 2e-5
 // rules out TF32, so every product is an IEEE f32 FMA on the FMA units.
 // 256 threads own 64 q rows; each thread holds a 4x4 patch of the 64x64
@@ -73,6 +78,7 @@ namespace {
 
 constexpr float MASKED = -1.0e30f;  // the reference's value for a masked score
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
 // ---------------------------------------------------------------- schedule
@@ -200,8 +206,9 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
 template <int DP, int KT>
 __global__ void __launch_bounds__(256) fa_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int Skv, int Hq,
-    int Hkv, int D, int bq, int bk, int causal, int window, float softcap, float scale) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+    int S, int Skv, int Hq, int Hkv, int D, int bq, int bk, int causal, int window, float softcap,
+    float scale) {
   constexpr int LD = ld_of(DP);
   constexpr int NT = KT / 8;  // n-tiles of the score tile
   constexpr int DT = DP / 8;  // n-tiles of the output rows
@@ -375,6 +382,11 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int qi = r_lo + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && qi <= q_last)
+        lse[((size_t)b * Hq + h) * S + qi] = (window > 0 && qi >= Skv + window - 1)
+                                                 ? -INFINITY
+                                                 : (m[r] + log2f(fmaxf(l[r], 1e-30f))) * LN2;
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
     __nv_bfloat16* sO = sQ + warp * 16 * LD;
@@ -399,7 +411,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
 }
 
 template <int DP, int KT>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                         int Skv, int Hq, int Hkv, int D, int bq, int bk, int warps, int causal,
                         int window, float softcap, float scale, cudaStream_t stream) {
   // raise the shared-memory limit once per device and size, so that a
@@ -419,25 +431,25 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const dim3 grid(B * Hq, (S + bq - 1) / bq);
   fa_bf16_kernel<DP, KT><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, Skv, Hq, Hkv, D,
-      bq, bk, causal, window, softcap, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Skv, Hq, Hkv,
+      D, bq, bk, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t dispatch_kt(int kt, const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t dispatch_kt(int kt, const void* q, const void* k, const void* v, void* o, float* lse, int B,
                         int S, int Skv, int Hq, int Hkv, int D, int bq, int bk, int warps,
                         int causal, int window, float softcap, float scale, cudaStream_t st) {
   switch (kt) {
     case 32:
-      return launch_bf16<DP, 32>(q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window,
+      return launch_bf16<DP, 32>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window,
                                  softcap, scale, st);
     case 64:
-      return launch_bf16<DP, 64>(q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window,
+      return launch_bf16<DP, 64>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window,
                                  softcap, scale, st);
     case 128:
       if constexpr (DP <= 128)
-        return launch_bf16<DP, 128>(q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal,
+        return launch_bf16<DP, 128>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal,
                                     window, softcap, scale, st);
       return cudaErrorInvalidValue;
     default:
@@ -461,8 +473,8 @@ template <int D> struct F32Smem {
 template <int D>
 __global__ void __launch_bounds__(NTH) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int S, int Skv, int Hq, int Hkv, int bq, int bk, int causal,
-    int window, float softcap, float scale) {
+    float* __restrict__ o, float* __restrict__ lse, int S, int Skv, int Hq, int Hkv, int bq,
+    int bk, int causal, int window, float softcap, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;                  // [D][QS]
   float* kv = qT + D * QS;           // k^T [D][KS], later v [BK][D]
@@ -605,6 +617,9 @@ __global__ void __launch_bounds__(NTH) fa_f32_kernel(
       const int qi = q0 + ty * 4 + r;
       if (qi > q_last) continue;
       const float denom = fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && tx == 0)
+        lse[((size_t)b * Hq + h) * S + qi] =
+            (window > 0 && qi >= Skv + window - 1) ? -INFINITY : m[r] + logf(denom);
 #pragma unroll
       for (int c = 0; c < DPT; ++c) {
         const int col = tx + 16 * c;
@@ -615,7 +630,7 @@ __global__ void __launch_bounds__(NTH) fa_f32_kernel(
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                        int Skv, int Hq, int Hkv, int bq, int bk, int causal, int window,
                        float softcap, float scale, cudaStream_t stream) {
   const size_t smem = F32Smem<D>::bytes;
@@ -633,7 +648,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const dim3 grid(B * Hq, (S + bq - 1) / bq);
   fa_f32_kernel<D><<<grid, NTH, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale);
+      static_cast<float*>(o), lse, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -643,8 +658,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 // bq, bk: q rows a CTA owns and keys a softmax step takes (already clamped
 // to S and Skv). kt, warps: the bf16 path's key sub-tile (32, 64, or 128
 // for D <= 128) and warps a CTA; the f32 path takes kt = 64 and 8 warps.
+// lse: null, or (B, Hq, S) f32 for each row's log-sum-exp (the backward's).
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, int dtype, int B,
+extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse_out,
+                          int dtype, int B,
                           int S, int Skv, int Hq, int Hkv, int D, int causal, int window,
                           float softcap, float scale, int bq, int bk, int kt, int warps,
                           void* stream) {
@@ -652,29 +669,30 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
       bq > S || bk > Skv || warps < 1 || warps > 8)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0) {
     if (kt != BK || warps != NTH / 32) return cudaErrorInvalidValue;
     switch (D) {
-      case 8: return launch_f32<8>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 16: return launch_f32<16>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 32: return launch_f32<32>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 64: return launch_f32<64>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 80: return launch_f32<80>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 128: return launch_f32<128>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 256: return launch_f32<256>(q, k, v, o, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 8: return launch_f32<8>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 16: return launch_f32<16>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 32: return launch_f32<32>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 64: return launch_f32<64>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 80: return launch_f32<80>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 128: return launch_f32<128>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 256: return launch_f32<256>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     switch (D) {
       case 8:
-      case 16: return dispatch_kt<16>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 32: return dispatch_kt<32>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 64: return dispatch_kt<64>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 16: return dispatch_kt<16>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 32: return dispatch_kt<32>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 64: return dispatch_kt<64>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       // stablelm-3b's head dim: tiles of 96 columns, the last 16 zero-filled
-      case 80: return dispatch_kt<96>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 128: return dispatch_kt<128>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 256: return dispatch_kt<256>(kt, q, k, v, o, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 80: return dispatch_kt<96>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 128: return dispatch_kt<128>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 256: return dispatch_kt<256>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }

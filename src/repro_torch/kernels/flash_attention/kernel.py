@@ -9,6 +9,11 @@ ctypes on PyTorch's current stream. A failed build or launch raises.
 ``launch_plan`` computes the launch geometry in Python, so the CPU tests
 reach it: ``block_q`` sets the q rows a CTA owns and ``block_k`` the keys of
 one online-softmax step, after the reference's ``min(block, dim)`` clamp.
+
+With ``return_lse=True`` the forward also writes each row's log-sum-exp,
+``(B, Hq, S)`` f32, which ``flash_attention_bwd_cuda`` takes: the backward
+kernel of ``csrc/flash_attention_bwd.cu`` (its own library, so that its
+build runs beside the forward's), for head dims ``BWD_HEAD_DIMS``.
 """
 from __future__ import annotations
 
@@ -23,12 +28,19 @@ from repro_torch.kernels._build import load_cuda_library
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: backward calls since the count was last set to 0 (each launches the
+#: Delta, dK/dV and dQ kernels)
+bwd_launches = 0
 #: ``(B*Hq, ceil(S/bq), ceil(Skv/bk))`` of the last launch: the CUDA grid is
 #: the first two; each CTA walks the third, its softmax steps, in order
 last_grid: tuple | None = None
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
+BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
+#: head dims of the backward kernel (stablelm-3b's 80 and gemma2-2b's 256
+#: are not among them yet: ROADMAP D)
+BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -69,9 +81,19 @@ def library() -> ctypes.CDLL:
     lib = load_cuda_library("flash_attention", SOURCES)
     fn = lib.fa_forward
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def bwd_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the backward kernel's library."""
+    lib = load_cuda_library("flash_attention_bwd", BWD_SOURCES)
+    fn = lib.fa_backward
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -87,7 +109,10 @@ def flash_attention_cuda(
     scale: float | None = None,
     block_q: int = 128,
     block_k: int = 128,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """The attention output, and with ``return_lse`` also each row's
+    log-sum-exp ``(B, Hq, S)`` f32 (``-inf`` for a row that sees no key)."""
     global launches, last_grid
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k, v must be CUDA tensors on one device")
@@ -111,8 +136,9 @@ def flash_attention_cuda(
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0 or Skv == 0:
-        return out
+        return (out, lse) if return_lse else out
     plan = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k, dtype=q.dtype)
     if q.dtype == torch.bfloat16:  # 16-byte asynchronous copies need aligned rows
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
@@ -120,7 +146,8 @@ def flash_attention_cuda(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.fa_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, _DTYPE_CODE[q.dtype],
             B, S, Skv, Hq, Hkv, D, int(causal), window or 0, float(softcap or 0.0),
             scale if scale is not None else 1.0 / math.sqrt(D),
             plan.block_q, plan.block_k, plan.kt, plan.warps, stream,
@@ -129,4 +156,58 @@ def flash_attention_cuda(
         raise RuntimeError(f"flash_attention_cuda: launch failed with cudaError {err}")
     launches += 1
     last_grid = plan.grid
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, Skv, Hkv, D)
+    v: torch.Tensor,
+    out: torch.Tensor,  # the forward's output
+    lse: torch.Tensor,  # (B, Hq, S) f32, the forward's
+    dout: torch.Tensor,  # (B, S, Hq, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of ``flash_attention_cuda`` for the output gradient
+    ``dout``, in q's type."""
+    global bwd_launches
+    tensors = (q, k, v, out, lse, dout)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("flash_attention_bwd_cuda: every tensor must be on q's CUDA device")
+    if (q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in (k, v, out, dout))
+            or lse.dtype != torch.float32):
+        raise TypeError("flash_attention_bwd_cuda: q, k, v, out, dout of one type "
+                        "(float32 or bfloat16) and an f32 lse")
+    B, S, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (B, Hq, S) or k.shape[0] != B or k.shape[3] != D or Hq % Hkv):
+        raise ValueError(f"flash_attention_bwd_cuda: shapes q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}, "
+                         f"dout {tuple(dout.shape)}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in {BWD_HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention_bwd_cuda: every tensor must be contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    if q.dtype == torch.bfloat16:  # 16-byte asynchronous copies need aligned rows
+        q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    lib = bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.fa_backward(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+            _DTYPE_CODE[q.dtype], B, S, Skv, Hq, Hkv, D, int(causal), window or 0,
+            float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed with cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -5,12 +5,24 @@ tensors, the plain version for CPU tensors. Same signature as
 ``block_q``/``block_k`` reach the kernel's launch: the q rows a CTA owns
 and the keys of one online-softmax step (``kernel.last_grid ==
 grid_shape(...)`` wherever the lengths divide the blocks). The kernel masks
-ragged edges itself, so no length has to divide a block."""
+ragged edges itself, so no length has to divide a block.
+
+On CUDA tensors that autograd records, the call is a
+``torch.autograd.Function``: its forward also keeps each row's log-sum-exp,
+and its backward is the CUDA backward kernel
+(``kernel.flash_attention_bwd_cuda``), which recomputes P from it tile by
+tile. Head dims outside ``kernel.BWD_HEAD_DIMS`` raise there, with no
+fallback. On CPU tensors autograd differentiates the plain version."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels import needs_grad
+from repro_torch.kernels.flash_attention.kernel import (
+    BWD_HEAD_DIMS,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -62,5 +74,28 @@ def attention(
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    if needs_grad(q, k, v):
+        if q.shape[-1] not in BWD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash attention: no backward kernel for head dim {q.shape[-1]} yet "
+                f"(it has {BWD_HEAD_DIMS}); train this model on the CPU, or see ROADMAP D"
+            )
+        return _Attention.apply(q, k, v, causal, window, softcap, block_q, block_k)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                                 block_q=block_q, block_k=block_k)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, block_q, block_k):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
+                                        block_q=block_q, block_k=block_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout.contiguous(), **ctx.masks)
+        return dq, dk, dv, None, None, None, None, None

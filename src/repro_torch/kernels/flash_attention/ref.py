@@ -50,3 +50,40 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None) -> torch.T
     vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, -1, D)
     of = flash_attention_ref(qf, kf, vf, group=G, causal=causal, window=window, softcap=softcap)
     return of.reshape(B, Hkv, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+
+
+def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None):
+    """The backward of :func:`attention_ref` as an explicit formula, dense
+    and in f32, on the model layout: ``P = softmax(masked s')``,
+    ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP - rowsum(P dP))`` times
+    ``1 - tanh^2(s / c)`` under a softcap ``c`` and the scale, then
+    ``dQ = dS K`` and ``dK = dS^T Q``; a masked pair has ``dS = 0``, and
+    ``dK``/``dV`` sum over the query heads of a group. Returns
+    ``(dq, dk, dv)`` in the inputs' types."""
+    B, S, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf, do = q.float(), dout.float()
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    dcap = 1.0
+    if softcap is not None:
+        t = torch.tanh(x / softcap)
+        x, dcap = softcap * t, 1.0 - t * t
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    p = torch.softmax(x.masked_fill(~mask, -1.0e30), dim=-1)  # a row with no key: uniform
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * dcap * scale
+    ds = ds.masked_fill(~mask, 0.0)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(B, Skv, Hkv, G, D).sum(dim=3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do).reshape(B, Skv, Hkv, G, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

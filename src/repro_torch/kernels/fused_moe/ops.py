@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.fused_moe.kernel import fused_moe_cuda
 from repro_torch.kernels.fused_moe.ref import fused_moe_ref
 
@@ -51,4 +52,5 @@ def fused_moe(
 ) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_moe_ref(x, w_gate, w_up, w_down)
+    refuse_grad("fused_moe", x, w_gate, w_up, w_down)
     return fused_moe_cuda(x, w_gate, w_up, w_down, block_m=block_m, block_f=block_f)

@@ -1,11 +1,16 @@
 """RMSNorm entry point: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors. Same signature as ``repro.kernels.rmsnorm.ops``."""
+version for CPU tensors. Same signature as ``repro.kernels.rmsnorm.ops``.
+
+On CUDA tensors that autograd records, the call is a
+``torch.autograd.Function`` whose backward is the Triton backward kernel
+(``kernel.rmsnorm_bwd_cuda``); on CPU tensors autograd differentiates the
+plain version."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import largest_divisor_block
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+from repro_torch.kernels import largest_divisor_block, needs_grad
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 
@@ -29,4 +34,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             block_rows: int = 256) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
+    if needs_grad(x, w):
+        return _RMSNorm.apply(x, w, eps, block_rows)
     return rmsnorm_cuda(x, w, eps=eps, block_rows=block_rows)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps, block_rows):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, w, eps=eps, block_rows=block_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_cuda(g.contiguous(), x, w, eps=ctx.eps)
+        return dx, dw, None, None

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import largest_divisor_block
+from repro_torch.kernels import largest_divisor_block, refuse_grad
 from repro_torch.kernels.scaled_mm.kernel import scaled_mm_cuda
 from repro_torch.kernels.scaled_mm.ref import scaled_mm_ref
 
@@ -55,5 +55,6 @@ def scaled_mm(
 ) -> torch.Tensor:
     if x.device.type == "cpu":
         return scaled_mm_ref(x, w, sx, sw, out_dtype)
+    refuse_grad("scaled_mm", x, w, sx, sw)
     return scaled_mm_cuda(x, w, sx, sw, out_dtype=out_dtype,
                           block_m=block_m, block_n=block_n, block_k=block_k)

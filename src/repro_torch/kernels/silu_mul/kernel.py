@@ -17,6 +17,10 @@ block_rows=...)``; it walks those rows' contiguous values in chunks of
 ``block`` is the span rounded up to a power of two, within ``MIN_BLOCK``
 and ``MAX_BLOCK``, so that a program of few rows launches few masked lanes.
 ``launch_plan`` computes the geometry in Python, so the CPU tests reach it.
+
+The backward (``silu_mul_bwd_cuda``) is one elementwise pass over ``dh``,
+``g`` and ``u`` that writes ``dg`` and ``du``, in f32 inside: five values
+moved a element, so its bound is ``5 R d * itemsize / bandwidth``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ from repro_torch.kernels._build import import_triton
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: backward launches since the count was last set to 0
+bwd_launches = 0
 #: ``(R/rows,)`` of the last launch: one program per block of rows
 last_grid: tuple | None = None
 
@@ -91,3 +97,36 @@ def silu_mul_cuda(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu",
     launches += 1
     last_grid = plan.grid
     return out
+
+
+BWD_BLOCK = 2048  # values a program of the backward handles
+
+
+def silu_mul_bwd_cuda(dh: torch.Tensor, g: torch.Tensor, u: torch.Tensor, *,
+                      act: str = "silu") -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dg, du)`` of ``silu_mul_cuda(g, u, act=act)`` for the output
+    gradient ``dh``; all three of one shape and type on the card."""
+    global bwd_launches
+    if act not in ("silu", "geglu"):
+        raise ValueError(f"silu_mul_bwd_cuda: unknown activation {act!r}")
+    if not all(t.is_cuda and t.device == g.device for t in (dh, u)):
+        raise ValueError("silu_mul_bwd_cuda: dh, g and u must be CUDA tensors on one device")
+    if g.dtype not in _DTYPES or u.dtype != g.dtype or dh.dtype != g.dtype:
+        raise TypeError(f"silu_mul_bwd_cuda: unsupported types {dh.dtype}, {g.dtype}, {u.dtype}")
+    if not (dh.shape == g.shape == u.shape):
+        raise ValueError(f"silu_mul_bwd_cuda: shapes {tuple(dh.shape)}, {tuple(g.shape)}, "
+                         f"{tuple(u.shape)}")
+    if not (dh.is_contiguous() and g.is_contiguous() and u.is_contiguous()):
+        raise ValueError("silu_mul_bwd_cuda: dh, g and u must be contiguous")
+    dg, du = torch.empty_like(g), torch.empty_like(u)
+    n = g.numel()
+    if n == 0:
+        return dg, du
+    import_triton()
+    from repro_torch.kernels.silu_mul._triton import act_mul_bwd_kernel
+
+    act_mul_bwd_kernel[(-(-n // BWD_BLOCK),)](
+        dh, g, u, dg, du, n, GEGLU=(act == "geglu"), BLOCK=BWD_BLOCK, num_warps=8,
+    )
+    bwd_launches += 1
+    return dg, du

@@ -1,12 +1,17 @@
 """act(g) * u entry point: the Hopper kernel for CUDA tensors, the plain
 version for CPU tensors. Same signature as ``repro.kernels.silu_mul.ops``;
-``block_rows`` reaches the launch (``kernel.last_grid == grid_shape(...)``)."""
+``block_rows`` reaches the launch (``kernel.last_grid == grid_shape(...)``).
+
+On CUDA tensors that autograd records, the call is a
+``torch.autograd.Function`` whose backward is the Triton backward kernel
+(``kernel.silu_mul_bwd_cuda``); on CPU tensors autograd differentiates the
+plain version."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import largest_divisor_block
-from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
+from repro_torch.kernels import largest_divisor_block, needs_grad
+from repro_torch.kernels.silu_mul.kernel import silu_mul_bwd_cuda, silu_mul_cuda
 from repro_torch.kernels.silu_mul.ref import silu_mul_ref
 
 
@@ -30,4 +35,20 @@ def act_mul(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu",
             block_rows: int = 128) -> torch.Tensor:
     if g.device.type == "cpu":
         return silu_mul_ref(g, u, act=act)
+    if needs_grad(g, u):
+        return _ActMul.apply(g, u, act, block_rows)
     return silu_mul_cuda(g, u, act=act, block_rows=block_rows)
+
+
+class _ActMul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, u, act, block_rows):
+        ctx.save_for_backward(g, u)
+        ctx.act = act
+        return silu_mul_cuda(g, u, act=act, block_rows=block_rows)
+
+    @staticmethod
+    def backward(ctx, dh):
+        g, u = ctx.saved_tensors
+        dg, du = silu_mul_bwd_cuda(dh.contiguous(), g, u, act=ctx.act)
+        return dg, du, None, None

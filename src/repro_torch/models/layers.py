@@ -8,10 +8,10 @@ kernels, on a CPU tensor they take the plain versions. Two attentions stay
 on the plain ``chunked_attention``, whose function the kernel does not
 compute: decode attention (a ``kv_valid`` mask and an offset query
 position) and hymba's windowed layers, whose meta-token prefix stays
-visible past the window. ``layernorm`` and the non-gated gelu FFN are plain
-PyTorch, as they are plain ``jnp`` in the reference.
-
-Not ported yet: the cross entropies (ROADMAP A11, with training).
+visible past the window. ``layernorm``, the non-gated gelu FFN and the
+cross entropies are plain PyTorch, as they are plain ``jnp`` in the
+reference. On CUDA tensors that autograd records, the kernels' calls carry
+their hand-written backward kernels, so training runs through them too.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -217,8 +218,11 @@ def chunked_attention(
     whole number of blocks is padded and sliced back.
 
     ``flash_remat`` chooses how the reference's backward pass recomputes
-    each block; the forward pass is the same either way, so it has no
-    effect here (training maps it to ``torch.utils.checkpoint``)."""
+    each block. The forward pass is the same either way, so it has no
+    effect here: on the card, training's attention is the flash-attention
+    kernel, whose backward always recomputes P from the forward's
+    log-sum-exp, and layer remat (``torch.utils.checkpoint``) recomputes
+    whole layers."""
     del flash_remat
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -455,3 +459,59 @@ def lm_logits(p, x, cfg: ArchConfig):
         c = cfg.final_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def _mask_padded_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Padded vocabulary slots out of the softmax: their logits to ``NEG_INF``."""
+    V = logits.shape[-1]
+    if V <= vocab_size:
+        return logits
+    keep = torch.arange(V, device=logits.device) < vocab_size
+    return logits.masked_fill(~keep, NEG_INF)
+
+
+def _nll_sum(logits, labels, valid, vocab_size: int):
+    """``(sum of valid positions' -log p(label), number of valid positions)``."""
+    logits = _mask_padded_vocab(logits, vocab_size)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def cross_entropy(logits, labels, valid, vocab_size: int):
+    """Mean next-token cross entropy over valid positions. Padded vocab slots
+    are masked out of the softmax."""
+    tot, n = _nll_sum(logits, labels, valid, vocab_size)
+    return tot / n.clamp_min(1.0)
+
+
+def chunked_cross_entropy(
+    x,  # (B, S, d) final hidden states (positions predicting labels)
+    embed_params,
+    labels,  # (B, S) integer
+    valid,  # (B, S) float
+    cfg: ArchConfig,
+    block: int = 512,
+):
+    """Next-token CE without materializing the (B, S, V) logits: blocks of
+    ``block`` positions, each under ``torch.utils.checkpoint``, so its
+    logits are recomputed in the backward pass (the reference's
+    ``jax.checkpoint`` inside a scan). Peak logits memory is ``block * V``
+    a row, not ``S * V``."""
+    B, S, d = x.shape
+    if S % block:
+        pad = block - S % block
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+        S += pad
+
+    def blk(xi, li, vi):
+        return _nll_sum(lm_logits(embed_params, xi, cfg), li, vi, cfg.vocab_size)
+
+    tot, n = 0.0, 0.0
+    for i in range(0, S, block):
+        s, c = checkpoint(blk, x[:, i:i + block], labels[:, i:i + block],
+                          valid[:, i:i + block], use_reentrant=False)
+        tot, n = tot + s, n + c
+    return tot / torch.clamp(torch.as_tensor(n), min=1.0)

@@ -28,6 +28,7 @@ class ModelApi(NamedTuple):
     cfg: ArchConfig
     device: torch.device
     init: Callable[[int], Any]  # (seed) -> params
+    loss: Callable[[Any, Any], Any]  # (params, batch) -> (loss, metrics)
     prefill: Callable[[Any, Any], Any]  # (params, batch) -> (last logits, caches)
     decode: Callable[[Any, Any, Any, Any], Any]  # (params, caches, tok, pos)
     init_cache: Callable[[int, int], Any]  # (batch, max_len) -> caches
@@ -38,6 +39,9 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelApi:
 
     def init(seed: int):
         return T.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+    def loss(params, batch):
+        return T.train_loss(params, cfg, batch)
 
     def prefill(params, batch):
         hidden, _, caches = T.forward(params, cfg, batch, "prefill")
@@ -50,7 +54,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> ModelApi:
     def init_cache(batch, max_len):
         return T.init_cache(cfg, batch, max_len, dev)
 
-    return ModelApi(cfg, dev, init, prefill, decode, init_cache)
+    return ModelApi(cfg, dev, init, loss, prefill, decode, init_cache)
 
 
 class BatchSpec(NamedTuple):

@@ -11,7 +11,9 @@ segment, each leaf stacked over the segment's layers,
 ``(n_layers, B, S, Hkv, D)`` for a KV leaf (llama-vision's inner self
 layers add an axis: ``(n_groups, cross_every, ...)``).
 
-Modes: 'train' (no cache), 'prefill' (build the KV and SSM caches),
+Modes: 'train' (no cache; with ``cfg.remat == "layer"`` each layer runs
+under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``),
+'prefill' (build the KV and SSM caches),
 'decode' (one token against the caches). Decode updates the caches in
 place: KV leaves are written by ``attention_decode``, and a block that
 returns new leaves (the SSM state) has them copied back into its layer's
@@ -26,6 +28,7 @@ from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -81,6 +84,14 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     if isinstance(tree, (Tree, dict)):
         return {k: tree_map(fn, tree[k]) for k in tree.keys()}
     return [tree_map(fn, e) for e in tree]
+
+
+def trainable(params) -> dict:
+    """The parameters as a plain tree (dicts and lists) of leaves that take
+    gradients: each a detached copy of the ``Tree``'s leaf with
+    ``requires_grad``. The ``Tree`` itself, the engines' frozen parameters,
+    is left as it is."""
+    return tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
 
 
 def tree_stack(trees: list):
@@ -405,12 +416,21 @@ class Segment:
     def init(self, gen, dtype, device) -> list:
         return [self.init_one(gen, dtype, device) for _ in range(self.n)]
 
-    def apply(self, params, x, ctx: Ctx, mode: str, cache=None):
+    def apply(self, params, x, ctx: Ctx, mode: str, cache=None, remat=False):
         """Run the stack: a Python loop over the layers' parameters. In
         prefill, the layers' cache trees are stacked leaf by leaf along a
         new leading axis; in decode, layer i reads the views ``leaf[i]`` of
         ``cache`` and whatever new leaves it returns are copied into them,
-        so ``cache`` itself is the updated cache."""
+        so ``cache`` itself is the updated cache. In train mode with
+        ``remat``, each layer runs under ``torch.utils.checkpoint``: only
+        its input is kept, and its forward (kernels included) runs again in
+        the backward pass."""
+        if mode == "train" and remat:
+            aux = 0.0
+            for lp in params:
+                x, a = checkpoint(self._train_layer, lp, x, ctx, use_reentrant=False)
+                aux = aux + a
+            return x, aux, None
         if mode == "decode":
             for i, lp in enumerate(params):
                 layer_cache = tree_map(lambda c: c[i], cache)
@@ -426,6 +446,10 @@ class Segment:
         if mode != "prefill":
             return x, aux, None
         return x, aux, tree_stack(per_layer)
+
+    def _train_layer(self, lp, x, ctx):
+        y, a, _ = self.fwd(lp, x, ctx, None, "train")
+        return y, a
 
 
 def build_segments(cfg: ArchConfig) -> list[Segment]:
@@ -550,7 +574,8 @@ def forward(params, cfg: ArchConfig, batch, mode: str):
     caches = []
     aux = 0.0
     for seg, seg_params in zip(build_segments(cfg), params["segments"]):
-        x, a, c = seg.apply(seg_params, x, ctx, mode)
+        x, a, c = seg.apply(seg_params, x, ctx, mode,
+                            remat=(cfg.remat == "layer" and mode == "train"))
         aux = aux + a
         caches.append(c)
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -562,6 +587,18 @@ def forward(params, cfg: ArchConfig, batch, mode: str):
 def full_logits(params, cfg: ArchConfig, hidden):
     """Logits for every position of ``hidden``."""
     return L.lm_logits(params["embed"], hidden, cfg)
+
+
+def train_loss(params, cfg: ArchConfig, batch):
+    """Next-token loss ``ce + 0.01 aux`` over the batch's tokens, and
+    ``{"ce", "aux"}`` (aux: the MoE load-balancing loss, 0 elsewhere)."""
+    hidden, aux, _ = forward(params, cfg, batch, "train")
+    labels = batch["tokens"][:, 1:]
+    valid = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+    ce = L.chunked_cross_entropy(hidden[:, :-1, :], params["embed"], labels, valid, cfg,
+                                 block=cfg.q_block)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def decode_step(params, cfg: ArchConfig, caches, tokens, positions):

@@ -48,6 +48,41 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def tree_flatten(tree):
+    """``(leaves, unflatten)`` in ``jax.tree_util``'s order: dict keys
+    sorted, lists, tuples and NamedTuples in order, ``None`` an empty
+    subtree. ``unflatten(new_leaves)`` rebuilds a tree of the same shape,
+    its dicts keeping ``tree``'s key order (the checkpoints' leaf numbering
+    and the gradient buckets' ledger follow the sorted order, as the
+    reference's do; ``tree_leaves`` and the sums over it, such as
+    ``global_norm``, keep theirs, so a restored state steps bit for bit as
+    the one saved)."""
+    leaves = []
+
+    def walk(node):
+        if node is None:
+            return lambda it: None
+        if isinstance(node, dict):
+            subs = {k: walk(node[k]) for k in sorted(node)}
+            order = list(node)
+
+            def build(it):
+                built = {k: s(it) for k, s in subs.items()}  # leaves taken in sorted order
+                return {k: built[k] for k in order}
+
+            return build
+        if isinstance(node, (list, tuple)):
+            subs = [walk(v) for v in node]
+            if hasattr(node, "_fields"):  # a NamedTuple
+                return lambda it: type(node)(*(s(it) for s in subs))
+            return lambda it: type(node)(s(it) for s in subs)
+        leaves.append(node)
+        return lambda it: next(it)
+
+    build = walk(tree)
+    return leaves, lambda new_leaves: build(iter(new_leaves))
+
+
 # ----------------------------------------------------------------------
 # schedules
 # ----------------------------------------------------------------------

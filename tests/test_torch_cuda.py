@@ -475,3 +475,144 @@ def test_family_smoke_model_on_the_card_matches_the_cpu(dev, arch, compute_dtype
             tok, pos = ref.argmax(-1), torch.full((2,), 45 + step)
             ref, caches = cpu.decode(params, caches, tok, pos)
             out, gcaches = gpu.decode(gparams, gcaches, tok.to(dev), pos.to(dev))
+
+
+# ----------------------------------------------------------------------
+# backward kernels (training), against their plain backward formulas
+# ----------------------------------------------------------------------
+
+
+def _rel_close(got, ref, dtype, name):
+    """Within TOL[dtype] of ``ref``'s largest magnitude (each gradient)."""
+    torch.cuda.synchronize()
+    scale = float(ref.float().abs().max())
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= TOL[dtype] * scale, f"{name}: {err:.3g} of max|ref| {scale:.3g}"
+
+
+@pytest.mark.parametrize("shape,xd,wd", [
+    ((8192, 1024), torch.bfloat16, torch.float32),  # the final norm: an f32 weight
+    ((8192, 1024), torch.bfloat16, torch.bfloat16),
+    ((4096, 128), torch.bfloat16, torch.bfloat16),  # q/k norms
+    ((2, 7, 48), torch.float32, torch.float32),
+    ((777, 1024), torch.float32, torch.float32),
+])
+def test_rmsnorm_bwd_kernel_matches_plain(dev, shape, xd, wd):
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+
+    rng = np.random.default_rng(0)
+    x, w, g = _randn(rng, shape, xd, dev), _randn(rng, shape[-1:], wd, dev, 0.1), _randn(
+        rng, shape, xd, dev)
+    n0 = rms_kernel.bwd_launches
+    dx, dw = rms_kernel.rmsnorm_bwd_cuda(g, x, w)
+    assert rms_kernel.bwd_launches == n0 + 1 and dx.dtype == xd and dw.dtype == wd
+    rdx, rdw = rmsnorm_bwd_ref(g, x, w)
+    _rel_close(dx, rdx, xd, "dx")
+    _rel_close(dw, rdw, wd, "dw")
+    dx2, dw2 = rms_kernel.rmsnorm_bwd_cuda(g, x, w)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("act", ["silu", "geglu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_silu_mul_bwd_kernel_matches_plain(dev, act, dtype):
+    from repro_torch.kernels.silu_mul.ref import silu_mul_bwd_ref
+
+    rng = np.random.default_rng(0)
+    shape = (1000, 3072)
+    g, u, dh = _randn(rng, shape, dtype, dev, 3.0), _randn(rng, shape, dtype, dev), _randn(
+        rng, shape, dtype, dev)
+    n0 = silu_kernel.bwd_launches
+    dg, du = silu_kernel.silu_mul_bwd_cuda(dh, g, u, act=act)
+    assert silu_kernel.bwd_launches == n0 + 1
+    rdg, rdu = silu_mul_bwd_ref(dh, g, u, act=act)
+    _rel_close(dg, rdg, dtype, "dg")
+    _rel_close(du, rdu, dtype, "du")
+
+
+FA_BWD_CASES = [
+    # the reference's kernel cases, GQA, ragged lengths, qwen3-0.6b's heads,
+    # and rows q >= Skv + window - 1 that see no key
+    (1, 64, 64, 2, 2, 16, True, None, None),
+    (2, 128, 128, 4, 2, 32, True, None, None),
+    (1, 64, 64, 2, 1, 16, True, 32, None),
+    (1, 64, 64, 2, 2, 16, True, None, 30.0),
+    (2, 64, 64, 4, 4, 16, False, None, None),
+    (1, 32, 128, 2, 2, 16, False, None, None),
+    (2, 100, 100, 4, 2, 128, True, None, None),
+    (1, 77, 200, 2, 1, 64, False, 50, 20.0),
+    (1, 40, 40, 2, 2, 8, True, None, None),
+    (1, 200, 50, 2, 1, 64, False, 10, None),
+    (1, 200, 50, 2, 1, 64, True, 10, None),
+    (1, 1000, 1000, 16, 8, 128, True, None, None),
+]
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    B, S, Skv, Hq, Hkv, D, causal, window, softcap = case
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, S, Hq, D), dtype, dev)
+    k, v = (_randn(rng, (B, Skv, Hkv, D), dtype, dev) for _ in range(2))
+    dout = _randn(rng, (B, S, Hq, D), dtype, dev)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    n0 = fa_kernel.bwd_launches
+    grads = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert fa_kernel.bwd_launches == n0 + 1
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, attention_bwd_ref(q, k, v, dout, **kw)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        _rel_close(got, ref, dtype, name)
+    again = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics: the same bits
+
+
+def test_kernel_ops_record_their_backward_kernels(dev):
+    """On CUDA tensors that require grad, each op's output has a grad_fn
+    whose backward launches the backward kernel, once."""
+    rng = np.random.default_rng(0)
+    bf16 = torch.bfloat16
+    q = _randn(rng, (2, 64, 4, 32), bf16, dev).requires_grad_()
+    k, v = (_randn(rng, (2, 64, 2, 32), bf16, dev).requires_grad_() for _ in range(2))
+    x = _randn(rng, (64, 128), bf16, dev).requires_grad_()
+    w = _randn(rng, (128,), torch.float32, dev, 0.1).requires_grad_()
+    g, u = (_randn(rng, (64, 96), bf16, dev).requires_grad_() for _ in range(2))
+    outs = [(fa_ops.attention(q, k, v), fa_kernel, (q, k, v)),
+            (rms_ops.rmsnorm(x, w), rms_kernel, (x, w)),
+            (silu_ops.act_mul(g, u), silu_kernel, (g, u))]
+    for out, kmod, leaves in outs:
+        assert out.grad_fn is not None
+        n0 = kmod.bwd_launches
+        out.float().square().sum().backward()
+        assert kmod.bwd_launches == n0 + 1
+        assert all(t.grad is not None and float(t.grad.abs().sum()) > 0 for t in leaves)
+    assert w.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_flash_attention_without_a_backward_head_dim_raises_under_grad(dev, D):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 32, 2, D), torch.bfloat16, dev).requires_grad_()
+    k, v = (_randn(rng, (1, 32, 2, D), torch.bfloat16, dev) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="head dim"):
+        fa_ops.attention(q, k, v)
+    with torch.no_grad():
+        assert fa_ops.attention(q, k, v).shape == q.shape  # serving is unaffected
+
+
+def test_fused_moe_and_scaled_mm_raise_under_grad(dev):
+    rng = np.random.default_rng(0)
+    x = _randn(rng, (2, 32, 16), torch.float32, dev).requires_grad_()
+    ws = [_randn(rng, s, torch.float32, dev) for s in ((2, 16, 32), (2, 16, 32), (2, 32, 16))]
+    with pytest.raises(NotImplementedError, match="fused_moe"):
+        moe_ops.fused_moe(x, *ws)
+    with torch.no_grad():
+        assert moe_ops.fused_moe(x, *ws).shape == x.shape
+    xi = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device=dev)
+    wi = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device=dev)
+    sx = torch.ones(64, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="scaled_mm"):
+        smm_ops.scaled_mm(xi, wi, sx, torch.ones(64, device=dev))

@@ -22,6 +22,10 @@ from repro_torch.core.hardware import REGISTRY
 from repro_torch.core.nn import fit_mlp
 from repro_torch.core.quantile import train_ceiling
 from repro_torch.tune import make_inputs, measure, tune
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch import train as launch_train
+from repro_torch.train.step import TrainConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -65,22 +69,28 @@ def test_port_files_exist():
                 "serve/monitor.py", "models/moe.py", "optim/adamw.py", "core/nn.py",
                 "core/estimator.py", "core/quantile.py", "core/baselines.py",
                 "predict/objective.py", "serve/placement.py", "serve/fleet.py",
-                "models/ssm.py"):
+                "models/ssm.py", "dist/collectives.py", "data/pipeline.py",
+                "checkpoint/manager.py", "train/step.py", "train/trainer.py",
+                "launch/train.py"):
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
-    for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu"):
+    for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu",
+               "kernels/flash_attention/csrc/flash_attention_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / cu).is_file()
 
 
 LIBRARY_PRODUCTS = ("torch.matmul", "bmm", "einsum", "_int_mm", "cublas")
 
 
-@pytest.mark.parametrize("kernel", ["fused_moe", "scaled_mm"])
+@pytest.mark.parametrize("kernel", ["fused_moe", "scaled_mm", "flash_attention", "rmsnorm",
+                                    "silu_mul"])
 def test_kernels_compute_their_own_products(kernel):
     """The kernel and its binding call no library product: the plain
-    version (``ref.py``) may, the kernel may not."""
+    version (``ref.py``) may, the kernel may not. That covers the backward
+    kernels of flash attention, rmsnorm and silu_mul."""
     pkg = ROOT / "src" / "repro_torch" / "kernels" / kernel
-    for path in [pkg / "kernel.py", *sorted((pkg / "csrc").glob("*.cu"))]:
+    for path in [pkg / "kernel.py", *sorted(pkg.glob("_triton.py")),
+                 *sorted((pkg / "csrc").glob("*.cu"))]:
         text = path.read_text().lower()
         found = [name for name in LIBRARY_PRODUCTS if name.lower() in text]
         assert not found, f"{path.name} names {found}"
@@ -107,6 +117,24 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HabitatBaseline().fit(ds)
     assert fit_mlp(ds.X, ds.y_eff, max_epochs=1, device="cpu").epochs == 1
+
+
+def test_training_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """``Trainer`` and ``launch.train`` default to the card and raise on a
+    machine without it; neither falls back to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("qwen3-0.6b").smoke()
+    data = DataConfig(batch=2, seq_len=8)
+    tcfg = TrainerConfig(total_steps=1, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, data, TrainConfig(), tcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path)])
+    assert launch_train.parse_args(["--arch", "qwen3-0.6b"]).device == "cuda"
+    assert Trainer(cfg, data, TrainConfig(), tcfg, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="A10"):
+        Trainer(cfg, data, TrainConfig(), tcfg, mesh=object(), device="cpu")
 
 
 def test_tuner_measures_on_cuda_unless_asked_for_the_cpu(monkeypatch):
