@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build: compile the CUDA sources (flash attention, its backward, fused
    MoE, scaled_mm) with nvcc, one process each, all at once, and the Triton
    kernels (rmsnorm, silu_mul and their backwards), from the sources in
-   this checkout;
+   this checkout; ptxas's registers and spills of each backward
+   flash-attention instance, and the backward's launch plan, are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
@@ -30,10 +31,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention (1601 patches) and stablelm-3b's head dim 80; silu_mul geglu
    at gemma2-2b's (4608, 9216); and the three backward kernels (rmsnorm,
    silu_mul, flash attention) against their plain backward formulas, at
-   qwen3-0.6b's training shapes (B4 S2048) and the reference's kernel test
-   shapes (causal and not, a window, a softcap, GQA, rows that see no
-   key), each gradient within f32 2e-5 / bf16 2e-2 of its max|ref|, and
-   bit-equal when run twice;
+   qwen3-0.6b's training shapes (B4 S2048; rmsnorm also at its q and k
+   norms' rows), stablelm-3b's (B1 S2048, 32/32 heads of 80, bf16 and
+   f32) and the reference's kernel test shapes (causal and not, a window,
+   a softcap, GQA, rows that see no key), each gradient within f32 2e-5 /
+   bf16 2e-2 of its max|ref|, and bit-equal when run twice;
 3. whole-model parity, random weights from one seed, f32 compute: prefill
    of a 64-token prompt and 8 greedy decode steps on the card (kernels) and
    on the CPU (plain versions), same weights: full-width qwen3-0.6b, and
@@ -62,7 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and bf16); silu_mul also at phase 4's prompt lengths, scaled_mm also
    at the tuner's default workload beside ``torch._int_mm``; the three
    backward kernels at qwen3-0.6b's training shapes, beside their plain
-   backward formulas and the backward of ``F.rms_norm`` and of SDPA;
+   backward formulas and the backward of ``F.rms_norm`` and of SDPA (rows
+   logged beside them: rmsnorm's at the q and k norms' (131072, 128) and
+   (65536, 128), flash attention's at stablelm-3b's head dim 80);
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``, for qwen3-0.6b, for 2-layer dbrx-132b and for
@@ -105,11 +109,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    with prompts of 512-6000 tokens, then each other family through
    ``ServeEngine`` at its depth of (b), every step recorded and re-lowered
    and every kernel's launch count exact (``family_launches``);
-10. training, the third main path: (a) qwen3-0.6b at full width cut to 2
-   layers, f32, one loss and every gradient leaf on the card (kernels and
-   backward kernels) against the CPU (plain versions, autograd) on the same
-   weights: the loss within 1e-5 relative, each leaf within 1e-4 of its
-   max|g|, every leaf's gradient present and non-zero; (b) full-depth
+10. training, the third main path: (a) qwen3-0.6b and stablelm-3b (head
+   dim 80) at full width cut to 2 layers, f32, one loss and every gradient
+   leaf on the card (kernels and backward kernels) against the CPU (plain
+   versions, autograd) on the same weights: the loss within 1e-5 relative,
+   each leaf within 1e-4 of its max|g|, every leaf's gradient present and
+   non-zero; (b) full-depth
    qwen3-0.6b (28 layers, bf16 compute, f32 master weights) trained through
    ``Trainer`` for 10 steps of B4 S2048 with checkpoints every 5 steps: the
    loss falls, every kernel's launch count is exactly 10 x
@@ -219,6 +224,7 @@ def main():
             b.result()
     torch.cuda.synchronize()
     log(f"[1 build] nvcc + triton: {time.perf_counter() - t0:.1f}s")
+    ptxas_report(fa_k)
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -323,6 +329,31 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def ptxas_report(fa_k):
+    """Phase 1's record of the backward kernels: ptxas's registers and
+    spills for each instance built (``-Xptxas -v``), and the geometry
+    ``bwd_launch_plan`` gives at qwen3-0.6b's training shape."""
+    import re
+
+    from repro_torch.kernels._build import build_log
+
+    kernel = None
+    for line in build_log("flash_attention_bwd", fa_k.BWD_SOURCES).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the Itanium mangling keeps each name and template argument readable
+            name = re.search(r"(fa_bwd_\w+?_kernel)(?:I(.*?)EEv)?", m.group(1))
+            kernel = m.group(1) if not name else name.group(1) + (
+                "<" + ", ".join(re.findall(r"Li(\d+)E", name.group(2) + "E")) + ">"
+                if name.group(2) else "")
+        elif kernel and ("spill" in line or "Used" in line):
+            log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
+        log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
+            f"{kern.rows} rows a CTA, steps of {kern.step}, {kern.stages} stages, "
+            f"{kern.warps} warps, {kern.smem} shared bytes")
 
 
 # ======================================================================
@@ -640,8 +671,9 @@ def backward_parity(torch, dev):
     """The three backward kernels against their plain backward formulas
     (``ref.py``) on the same inputs: each gradient within F32_TOL / BF16_TOL
     of its max|ref|, at qwen3-0.6b's training shapes (B4 S2048: 8192 rows
-    of d 1024 and d_ff 3072, 131072 q/k-norm rows of 128, 16/8 heads of 128)
-    and the reference's kernel test shapes; each kernel run twice gives the
+    of d 1024 and d_ff 3072, 131072 q-norm and 65536 k-norm rows of 128,
+    16/8 heads of 128), stablelm-3b's (B1 S2048, 32/32 heads of 80) and the
+    reference's kernel test shapes; each kernel run twice gives the
     same bits (no float atomics). Returns the max abs err at the training
     shapes."""
     from repro_torch.kernels.flash_attention.kernel import (
@@ -683,6 +715,7 @@ def backward_parity(torch, dev):
     rms = ("rmsnorm_bwd", ("dx", "dw"))
     for shape, xd, wd, main in [((8192, 1024), bf16, bf16, True), ((8192, 1024), bf16, f32, True),
                                 ((8192 * 16, 128), bf16, bf16, True),
+                                ((8192 * 8, 128), bf16, bf16, True),
                                 ((8192, 1024), f32, f32, False), ((2, 7, 48), f32, f32, False)]:
         x, w, g = randn(shape, xd), randn(shape[-1:], wd, 0.1), randn(shape, xd)
         check(f"rmsnorm bwd {shape} x={xd} w={wd}", rms, lambda: rmsnorm_bwd_cuda(g, x, w),
@@ -699,6 +732,8 @@ def backward_parity(torch, dev):
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in [
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
+        (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),  # stablelm-3b training
+        (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
         (1, 64, 64, 2, 2, 16, True, None, None, f32, False),  # the reference's cases
         (2, 128, 128, 4, 2, 32, True, None, None, f32, False),
         (1, 64, 64, 2, 1, 16, True, 32, None, f32, False),
@@ -1366,7 +1401,7 @@ def backward_times(torch, dev, peaks):
     def randn(*shape, scale=1.0, dtype=bf16):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
-    rows, eager = {}, {}
+    rows, logged, eager = {}, {}, {}
 
     def library_ms(fwd, inputs, iters, kname):
         """The library's backward alone: ``autograd.grad`` of its forward,
@@ -1385,20 +1420,25 @@ def backward_times(torch, dev, peaks):
         log(f"  {kname} library: forward and backward {both:.4f} ms, forward {only:.4f} ms")
         return both - only
 
-    def row(kname, kernel, plain, library, inputs, iters, bound_ms, bound_by):
+    def row(kname, kernel, plain, library, inputs, iters, bound_ms, bound_by, into=rows):
+        """The kernel's row (``into=logged``: a row that is logged only)."""
         ms, eager[kname] = cuda_ms(torch, kernel, inputs, iters)
         plain_ms, eager[kname + " plain"] = cuda_ms(torch, plain, inputs, max(2, iters // 4))
         lib = None if library is None else library_ms(library[0], library[1], iters, kname)
-        rows[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        into[kname] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib}
 
     R, d, F_ = 8192, 1024, 3072
-    sets = [(randn(R, d), randn(R, d), randn(d, scale=0.1)) for _ in range(4)]  # 4 x 32 MiB > L2
-    lib_sets = [(x.clone().requires_grad_(), (1.0 + w).requires_grad_(), g) for g, x, w in sets]
-    row("rmsnorm_bwd", rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
-        (lambda x, w: F.rms_norm(x, (d,), w, 1e-6), lib_sets),
-        sets, 200, 1e3 * (3 * R * d * 2 + 2 * d * 2) / bw, "bytes")
-    del sets, lib_sets
+    # the layer norms (the kernel's row), then the q and k norms (logged rows)
+    for rn, dn in ((R, d), (R * 16, 128), (R * 8, 128)):
+        sets = [(randn(rn, dn), randn(rn, dn), randn(dn, scale=0.1)) for _ in range(4)]  # > L2
+        lib_sets = [(x.clone().requires_grad_(), (1.0 + w).requires_grad_(), g)
+                    for g, x, w in sets]
+        row("rmsnorm_bwd" if dn == d else f"rmsnorm_bwd ({rn}, {dn})", rmsnorm_bwd_cuda,
+            rmsnorm_bwd_ref, (lambda x, w, dn=dn: F.rms_norm(x, (dn,), w, 1e-6), lib_sets),
+            sets, 200, 1e3 * (3 * rn * dn * 2 + 2 * dn * 2) / bw, "bytes",
+            rows if dn == d else logged)
+        del sets, lib_sets
     gus = [(randn(R, F_), randn(R, F_, scale=3.0), randn(R, F_)) for _ in range(2)]
     row("silu_mul_bwd", silu_mul_bwd_cuda, silu_mul_bwd_ref, None, gus, 100,
         1e3 * (5 * R * F_ * 2) / bw, "bytes")
@@ -1423,7 +1463,23 @@ def backward_times(torch, dev, peaks):
         f"{flops / r['ms'] / 1e9:.1f} TFLOP/s of the 5, {r['bound_ms'] / r['ms']:.4f} of the bound")
     del q, k, v, dout, out, lse, qt, kt, vt, dout_t
     torch.cuda.empty_cache()
-    for kname, r in rows.items():
+    # stablelm-3b's training shape, B1 S2048 32/32 heads of 80 (a logged row)
+    B, Hq, D = 1, 32, 80
+    q, k, v, dout = (randn(B, S, Hq, D) for _ in range(4))
+    out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    pairs = B * Hq * S * (S + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    row("flash_attention_bwd (stablelm-3b, D80)",
+        lambda *a: flash_attention_bwd_cuda(*a, causal=True),
+        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
+        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True),
+         [(qt, kt, vt, dout.transpose(1, 2).contiguous())]),
+        [(q, k, v, out, lse, dout)], 5,
+        *bound(peaks, 2 * 8 * B * S * Hq * D + 4 * B * Hq * S, 10 * D * pairs, "bfloat16"),
+        into=logged)
+    del q, k, v, dout, out, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    for kname, r in (rows | logged).items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
@@ -1859,8 +1915,10 @@ def training_launches(cfg):
     again in the backward pass), the final norm once; each backward once."""
     n = cfg.n_layers
     twice = 2 if cfg.remat == "layer" else 1
-    norms = 2 + 2 * cfg.qk_norm + 2 * cfg.post_norms
-    return {"rmsnorm": twice * norms * n + 1, "rmsnorm_bwd": norms * n + 1,
+    # rmsnorm's launches a layer (layernorm is plain PyTorch), and the final norm's
+    norms, final = (0, 0) if cfg.norm == "layernorm" else (
+        2 + 2 * cfg.qk_norm + 2 * cfg.post_norms, 1)
+    return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
             "silu_mul": twice * n, "silu_mul_bwd": n,
             "flash_attention": twice * n, "flash_attention_bwd": n}
 
@@ -1891,42 +1949,46 @@ def training(torch, dev):
     torch.cuda.empty_cache()
     log(f"  held on the card before phase 10: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    # (a) one loss and its gradients, card against CPU, same weights
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_arch("qwen3-0.6b"), n_layers=2, compute_dtype="float32")
-    params = build_model(cfg, "cuda").init(SEED)
-    tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (2, 256))
+    # (a) one loss and its gradients, card against CPU, same weights:
+    # qwen3-0.6b, and stablelm-3b through the backward kernel's head dim 80
+    for arch in ("qwen3-0.6b", "stablelm-3b"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), n_layers=2, compute_dtype="float32")
+        params = build_model(cfg, "cuda").init(SEED)
+        tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (2, 256))
 
-    def loss_and_grads(tree, device):
-        leaves_tree = T.trainable(tree)
-        leaves = tree_leaves(leaves_tree)
-        loss, _ = build_model(cfg, device).loss(
-            leaves_tree, {"tokens": torch.from_numpy(tokens).to(device)})
-        return float(loss), [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+        def loss_and_grads(tree, device, cfg=cfg, tokens=tokens):
+            leaves_tree = T.trainable(tree)
+            leaves = tree_leaves(leaves_tree)
+            loss, _ = build_model(cfg, device).loss(
+                leaves_tree, {"tokens": torch.from_numpy(tokens).to(device)})
+            return float(loss), [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
 
-    kernel_counts(zero=True)
-    loss_gpu, g_gpu = loss_and_grads(params, dev)
-    torch.cuda.synchronize()
-    moved = kernel_counts()
-    assert moved == training_launches(cfg), f"(a) launches {moved}"
-    t1 = time.perf_counter()
-    loss_cpu, g_cpu = loss_and_grads(T.tree_map(lambda a: a.detach().cpu(), params), "cpu")
-    del params
-    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    assert rel <= TRAIN_LOSS_RTOL, f"(a) loss {loss_gpu} on the card, {loss_cpu} on the CPU"
-    ratios = []
-    for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
-        scale = float(b.abs().max())
-        assert float(a.abs().max()) > 0 and scale > 0, f"(a) gradient leaf {i} is zero"
-        ratios.append(float((a - b).abs().max()) / scale)
-        assert ratios[-1] <= TRAIN_GRAD_TOL, f"(a) gradient leaf {i}: {ratios[-1]:.3g} of max|g|"
-    log(f"  (a) qwen3-0.6b full width, 2 layers, f32, B2 S256: loss {loss_gpu:.6f} on the card, "
-        f"{loss_cpu:.6f} on the CPU (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); {len(ratios)} gradient "
-        f"leaves, each present and non-zero, the worst {max(ratios):.3g} of its max|g| (median "
-        f"{float(np.median(ratios)):.3g}, tol {TRAIN_GRAD_TOL}); launches {moved}; card "
-        f"{t1 - t0:.1f}s, CPU {time.perf_counter() - t1:.1f}s")
-    del g_gpu, g_cpu
-    torch.cuda.empty_cache()
+        kernel_counts(zero=True)
+        loss_gpu, g_gpu = loss_and_grads(params, dev)
+        torch.cuda.synchronize()
+        moved = kernel_counts()
+        assert moved == training_launches(cfg), f"(a) {arch} launches {moved}"
+        t1 = time.perf_counter()
+        loss_cpu, g_cpu = loss_and_grads(T.tree_map(lambda a: a.detach().cpu(), params), "cpu")
+        del params
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        assert rel <= TRAIN_LOSS_RTOL, (
+            f"(a) {arch} loss {loss_gpu} on the card, {loss_cpu} on the CPU")
+        ratios = []
+        for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
+            scale = float(b.abs().max())
+            assert float(a.abs().max()) > 0 and scale > 0, f"(a) {arch} gradient leaf {i} is zero"
+            ratios.append(float((a - b).abs().max()) / scale)
+            assert ratios[-1] <= TRAIN_GRAD_TOL, (
+                f"(a) {arch} gradient leaf {i}: {ratios[-1]:.3g} of max|g|")
+        log(f"  (a) {arch} full width, 2 layers, f32, B2 S256: loss {loss_gpu:.6f} on the card, "
+            f"{loss_cpu:.6f} on the CPU (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); {len(ratios)} "
+            f"gradient leaves, each present and non-zero, the worst {max(ratios):.3g} of its "
+            f"max|g| (median {float(np.median(ratios)):.3g}, tol {TRAIN_GRAD_TOL}); launches "
+            f"{moved}; card {t1 - t0:.1f}s, CPU {time.perf_counter() - t1:.1f}s")
+        del g_gpu, g_cpu
+        torch.cuda.empty_cache()
 
     # (b) full depth through Trainer, checkpoints, a bit-equal restart
     cfg = get_arch("qwen3-0.6b")

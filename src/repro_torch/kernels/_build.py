@@ -4,8 +4,11 @@
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds) and caches it under ``src/repro_torch/_build/``,
 keyed by a hash of the sources and flags: an edited source rebuilds, an
-unchanged one loads the library already built. ``import_triton()`` points
-Triton's own kernel cache into the same directory before importing it.
+unchanged one loads the library already built. ptxas reports each kernel's
+registers, spills and shared bytes (``-Xptxas -v``); ``build_log(name,
+sources)`` returns that report, kept beside the library.
+``import_triton()`` points Triton's own kernel cache into the same
+directory before importing it.
 
 Nothing here runs at import time; a missing ``nvcc`` or a failed build
 raises, and no caller falls back to a plain version. Libraries of different
@@ -24,7 +27,7 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()  # guards _name_locks
@@ -70,10 +73,16 @@ def load_cuda_library(name: str, sources: list[Path]) -> ctypes.CDLL:
                     f"nvcc failed building {name} ({proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
                 )
+            out.with_suffix(".log").write_text(proc.stderr)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
         return lib
+
+
+def build_log(name: str, sources: list[Path]) -> str:
+    """What ptxas reported building ``sources`` (after ``load_cuda_library``)."""
+    return library_path(name, sources).with_suffix(".log").read_text()
 
 
 def import_triton():

@@ -16,14 +16,13 @@
 // Layout as the forward: q, o, dO, dQ are (B, S, Hq, D), k, v, dK, dV
 // (B, Skv, Hkv, D), contiguous; lse and Delta are (B, Hq, S) f32.
 //
-// Determinism: no float atomics. Three launches:
-//   1. Delta, one warp a row;
-//   2. dK and dV: a CTA owns 64 keys of one kv head and walks the G q heads
-//      of its group and their q tiles in order, so GQA's sum over the group
-//      runs in registers in a fixed order;
-//   3. dQ: a CTA owns 64 q rows of one head and walks the 64-key tiles.
-// Scores and dP are computed in both 2 and 3 (seven tile products where
-// an atomic design does five); that is the price of a fixed sum order.
+// Determinism: no float atomics. Two kernels own the two sums:
+//   dK and dV: a CTA owns a block of keys of one kv head and walks the G q
+//     heads of its group and their q tiles in order, so GQA's sum over the
+//     group runs in registers in a fixed order;
+//   dQ: a CTA owns a block of q rows of one head and walks the key tiles.
+// Scores and dP are computed in both (seven tile products where an atomic
+// design does five); that is the price of a fixed sum order.
 //
 // What bounds it on an H100 SXM. At qwen3-0.6b's training shape (B=4,
 // S=2048, 16/8 heads of 128, causal) the causal mask keeps 134.3 M
@@ -31,26 +30,47 @@
 // against 202 MB moved, so operations bound it, and only the tensor cores
 // come near that bound.
 //
-// bf16 path (training's): the forward's tensor-core design, mma.sync
-// m16n8k16 with f32 accumulation and operands brought in by ldmatrix. A
-// CTA is 4 warps. dK/dV: each warp owns 16 of the CTA's 64 keys and keeps
-// their dK and dV rows in registers; per step of 32 q rows it computes
-// S^T = K Q^T and dP^T = V dO^T (keys x q), turns them into P^T and dS^T
-// in registers, and feeds both as A operands (rounded to bf16, the C-to-A
-// fragment identity the forward uses for P) to dV += P^T dO and
-// dK += dS^T Q, whose B operands come from the q tile by transposing
-// ldmatrix. dQ: each warp owns 16 of the CTA's 64 q rows; per step of 64
-// keys, S = Q K^T and dP = dO V^T, dS in registers, dQ += dS K. Tiles come
-// in by cp.async into rows padded by 16 bytes (conflict-free ldmatrix),
-// one stage: a step's loads are not yet overlapped with the last step's
-// products. Head dims below 16 are zero-padded to 16.
+// bf16 path (training's): mma.sync m16n8k16 with f32 accumulation, operands
+// brought in by ldmatrix, two launches (dQ first):
+//   dQ: a CTA of W warps owns 16 W q rows, 16 a warp, and keeps their dQ rows
+//     in registers. Per step of TK keys: S = Q K^T and dP = dO V^T (the two
+//     products interleaved), dS in registers, rounded to bf16 A fragments,
+//     dQ += dS K. Its prologue also computes Delta = rowsum(dO O) for its
+//     rows with 16-byte loads, while its first copies are in flight, and
+//     stores it for the dK/dV kernel: no launch of its own.
+//   dK/dV: a CTA of W warps owns 16 W keys, 16 a warp, and keeps their dK and
+//     dV rows in registers; per step of TQ q rows, S^T = K Q^T and dP^T =
+//     V dO^T (keys x queries) become P^T and dS^T in registers and, rounded
+//     to bf16 A fragments (the C-to-A fragment identity the forward uses for
+//     P), feed dV += P^T dO and dK += dS^T Q, whose B operands come by
+//     transposing ldmatrix.
+//   Both stream their tiles (q, dO, lse and Delta; k and v) through a ring
+//   of ST shared-memory stages filled by cp.async, so step i + ST - 1 loads
+//   while step i computes; one barrier a step. The softmax scale multiplies
+//   the sums once, at the end, not every dS. A warp whose 16 rows or keys
+//   the masks remove from a tile skips its products, and a tile whose pairs
+//   are all visible skips the position tests (P = 2^(s scale log2 e - lse
+//   log2 e), one FFMA and one ex2). Both grids launch their heaviest causal
+//   blocks first: dK/dV's key block 0, which every row sees, and dQ's last
+//   q block, which sees every key, so the causal tail is short.
+//   Sizes (kernel.bwd_launch_plan; ptxas's counts are logged by
+//   chip_smoke.py): TQ = TK = 64, ST = 2, W = 4. The accumulators take
+//   most of the 255 registers a thread may hold (at head dim 128: dK and dV
+//   128, S^T and dP^T 64), so an SM runs 8 warps whatever the split; two
+//   CTAs of 4 warps an SM measured faster than one of 8 on the H100, since
+//   one CTA's barriers and prologue overlap the other's products. At head
+//   dim 128 the dK/dV instance spills a few bytes; the spill-free TQ = 32
+//   measured slower. Rows are padded by 16 bytes in shared memory
+//   (conflict-free ldmatrix); head dims below 16 are zero-padded to 16.
 //
 // f32 path (the f32 model): the reference's 2e-5 rules out bf16 and TF32
 // products, so every product is an IEEE f32 FMA, the forward's f32 design:
 // 256 threads, each a 4 x 4 patch of the 64 x 64 score tile, tiles
-// transposed in shared memory as f32 and read as float4.
+// transposed in shared memory as f32 and read as float4; a Delta kernel,
+// then dK/dV, then dQ, one stage.
 //
-// Head dims 8 to 128; other head dims are refused by the wrapper.
+// Head dims 8, 16, 32, 64, 80 and 128; other head dims are refused by the
+// wrapper.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,8 +85,13 @@ constexpr int BS = BB + 4;  // row stride of the transposed tiles, P and dS (flo
 constexpr int NTH = 256;    // threads: 16 (tx) x 16 (ty)
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// The q block a dQ CTA takes at launch position y of n blocks of `rows`:
+// the last block, whose rows see the most keys under a causal mask, first;
+// a ragged last block, lighter than the full one before it, last.
+__device__ __forceinline__ int heavy_first(int y, int n, int rows, int S) {
+  if (S % rows != 0) return y == n - 1 ? n - 1 : n - 2 - y;
+  return n - 1 - y;
+}
 
 // A row that sees no key at all; the plain version averages v over every key.
 __device__ __forceinline__ bool no_key(int qi, int Skv, int window) {
@@ -112,13 +137,15 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* aT, co
   }
 }
 
-// P and dS of one pair from its raw product s = q . k and dp = dO . v
+// P and dS of one pair from its raw product s = q . k and dp = dO . v; dS
+// carries the factor ds_scale (the scale, or 1 where the caller applies it
+// to the sum)
 struct Grad {
   float p, ds;
 };
 __device__ __forceinline__ Grad pair_grad(float s, float dp, int qi, int kj, int S, int Skv,
                                           int causal, int window, float softcap, float scale,
-                                          float lse, float delta) {
+                                          float lse, float delta, float ds_scale) {
   Grad g = {0.f, 0.f};
   if (qi >= S || kj >= Skv) return g;
   if (no_key(qi, Skv, window)) {
@@ -133,23 +160,23 @@ __device__ __forceinline__ Grad pair_grad(float s, float dp, int qi, int kj, int
     dcap = 1.f - t * t;
   }
   g.p = expf(x - lse);
-  g.ds = g.p * (dp - delta) * dcap * scale;
+  g.ds = g.p * (dp - delta) * dcap * ds_scale;
   return g;
 }
 
 // ---------------------------------------------------------------- Delta
 
-template <typename T>
-__global__ void __launch_bounds__(NTH) fa_bwd_delta_kernel(const T* __restrict__ o,
-                                                           const T* __restrict__ dout,
+// Delta of the f32 path, one warp a row (the bf16 path computes it in dQ)
+__global__ void __launch_bounds__(NTH) fa_bwd_delta_kernel(const float* __restrict__ o,
+                                                           const float* __restrict__ dout,
                                                            float* __restrict__ delta, int rows,
                                                            int S, int Hq, int D) {
   const int row = blockIdx.x * (NTH / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;  // a row of (B, S, Hq)
-  const T* op = o + (size_t)row * D;
-  const T* dp = dout + (size_t)row * D;
+  const float* op = o + (size_t)row * D;
+  const float* dp = dout + (size_t)row * D;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f(op[d]), to_f(dp[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(op[d], dp[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -226,7 +253,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const Grad gr = pair_grad(s[r][c], dp[r][c], q0 + row, k0 + tx * 4 + c, S, Skv, causal,
-                                    window, softcap, scale, rowL[row], rowD[row]);
+                                    window, softcap, scale, rowL[row], rowD[row], scale);
           pv[c] = gr.p;
           dsv[c] = gr.ds;
         }
@@ -295,7 +322,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * BB, q1 = min(q0 + BB, S) - 1;
+  const int q0 = heavy_first(blockIdx.y, gridDim.y, BB, S) * BB, q1 = min(q0 + BB, S) - 1;
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
   constexpr int DPT = (D + 15) / 16;
   const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
@@ -331,7 +358,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         dsv[r][c] = pair_grad(s[r][c], dp[r][c], q0 + row, k0 + tx * 4 + c, S, Skv, causal,
-                              window, softcap, scale, rowL[row], rowD[row]).ds;
+                              window, softcap, scale, rowL[row], rowD[row], scale).ds;
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -371,10 +398,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
 
 // ---------------------------------------------------------------- bf16: tensor cores
 
-constexpr int TW = 4;           // warps a CTA
-constexpr int TR = 16 * TW;     // keys (dK/dV) or q rows (dQ) a CTA owns
-constexpr int TQ = 32;          // q rows of a dK/dV step
-constexpr int TK = 64;          // keys of a dQ step
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -383,8 +407,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -407,16 +439,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
 }
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the special-function unit
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
+// Row stride of a shared tile: 16 bytes of padding make every ldmatrix
+// conflict-free (DP = 80: a 176-byte stride puts the 8 rows of an 8 x 8
+// matrix on 8 distinct 16-byte bank groups).
 __host__ __device__ constexpr int ld_of(int DP) { return DP + 8; }
 
 // Copy `rows` rows of D values (row stride `stride`) into a tile of DP
-// columns, zero-filling rows at or past `limit` and columns at or past D.
-template <int DP>
+// columns, zero-filling rows at or past `limit` and columns at or past D;
+// NTHR threads share the copies.
+template <int DP, int NTHR>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t stride, int row0,
                                           int rows, int limit, int D) {
   constexpr int LD = ld_of(DP), CH = DP / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * CH; i += 32 * TW) {
+  for (int i = threadIdx.x; i < rows * CH; i += NTHR) {
     const int r = i / CH, c = (i % CH) * 8;
     const bool ok = (row0 + r < limit) && (c < D);
     const bf16* g = ok ? src + (size_t)(row0 + r) * stride + c : src;
@@ -424,44 +465,57 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t str
   }
 }
 
-// A 16 x (8 * NT) product tile += A (16 x DP rows at a_addr) . B^T, where B
-// is [n][k] in shared memory at b_addr (both ldmatrix base addresses)
+// Two 16 x (8 * NT) product tiles, interleaved: c += A . B^T and e += C .
+// D^T, where A and C are 16 x DP rows at a_addr and c_addr and B and D are
+// [n][k] in shared memory at b_addr and d_addr (ldmatrix base addresses)
 template <int DP, int NT>
-__device__ __forceinline__ void mma_rows(float (&c)[NT][4], uint32_t a_addr, uint32_t b_addr) {
+__device__ __forceinline__ void mma_rows2(float (&c)[NT][4], uint32_t a_addr, uint32_t b_addr,
+                                          float (&e)[NT][4], uint32_t c_addr, uint32_t d_addr) {
   constexpr int LD = ld_of(DP);
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
+    uint32_t a[4], cc[4];
     ldsm_x4(a, a_addr + kk * 32);
+    ldsm_x4(cc, c_addr + kk * 32);
 #pragma unroll
     for (int n2 = 0; n2 < NT / 2; ++n2) {
-      uint32_t b[4];
+      uint32_t b[4], d[4];
       ldsm_x4(b, b_addr + (n2 * 16 * LD + kk * 16) * 2);
+      ldsm_x4(d, d_addr + (n2 * 16 * LD + kk * 16) * 2);
       mma_bf16(c[2 * n2], a, b[0], b[1]);
+      mma_bf16(e[2 * n2], cc, d[0], d[1]);
       mma_bf16(c[2 * n2 + 1], a, b[2], b[3]);
+      mma_bf16(e[2 * n2 + 1], cc, d[2], d[3]);
     }
   }
 }
 
-// acc (16 x DP) += X (16 x 16 * KS, f32 C fragments, rounded to bf16 as the
-// A operand) . Y, where Y is [k][n] in shared memory at yt_addr (a
-// transposing ldmatrix base address)
+// f32 C fragments of a 16 x 16 * KS tile, rounded to bf16 A fragments
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&x)[2 * KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// acc (16 x DP) += X (16 x 16 * KS, bf16 A fragments) . Y, where Y is [k][n]
+// in shared memory at yt_addr (a transposing ldmatrix base address)
 template <int DP, int KS>
-__device__ __forceinline__ void mma_acc(float (&acc)[DP / 8][4], const float (&x)[2 * KS][4],
+__device__ __forceinline__ void mma_acc(float (&acc)[DP / 8][4], const uint32_t (&x)[KS][4],
                                         uint32_t yt_addr) {
   constexpr int LD = ld_of(DP);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
 #pragma unroll
     for (int d2 = 0; d2 < DP / 16; ++d2) {
       uint32_t b[4];
       ldsm_x4_t(b, yt_addr + (kk * 16 * LD + d2 * 16) * 2);
-      mma_bf16(acc[2 * d2], a, b[0], b[1]);
-      mma_bf16(acc[2 * d2 + 1], a, b[2], b[3]);
+      mma_bf16(acc[2 * d2], x[kk], b[0], b[1]);
+      mma_bf16(acc[2 * d2 + 1], x[kk], b[2], b[3]);
     }
   }
 }
@@ -485,44 +539,121 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, const floa
   }
 }
 
-template <int DP>
-struct MmaSmem {
-  static constexpr size_t dkdv =
-      sizeof(bf16) * ld_of(DP) * (2 * TR + 2 * TQ) + sizeof(float) * 2 * TQ;
-  static constexpr size_t dq =
-      sizeof(bf16) * ld_of(DP) * (2 * TR + 2 * TK) + sizeof(float) * 2 * TR;
+// The q tiles a dK/dV CTA walks, in order: for each q head g of its group,
+// the tiles of t rows that see one of keys [k0, k1] or hold rows that see no
+// key. Every thread walks the same tiles.
+struct QTiles {
+  int g, i;  // q head of the group and q tile; g == G once the walk is done
+  int G, n, t, S, Skv, k0, k1, causal, window;
+  bool any_no_key;
+  __device__ bool needed() const {
+    const int q0 = i * t, q1 = min(q0 + t, S) - 1;
+    return tile_sees(q0, q1, k0, k1, causal, window) || (any_no_key && no_key(q1, Skv, window));
+  }
+  __device__ void settle() {  // forward to the first needed tile at or after (g, i)
+    while (g < G) {
+      while (i < n && !needed()) ++i;
+      if (i < n) return;
+      ++g;
+      i = 0;
+    }
+  }
+  __device__ bool done() const { return g >= G; }
+  __device__ void next() {
+    if (!done()) {
+      ++i;
+      settle();
+    }
+  }
 };
 
-template <int DP>
-__global__ void __launch_bounds__(32 * TW) fa_bwd_dkdv_mma_kernel(
+// The key tiles of t keys a dQ CTA walks, in order: those one of its rows
+// [q0, q1] sees.
+struct KTiles {
+  int i, n, t, Skv, q0, q1, causal, window;
+  __device__ bool needed() const {
+    return tile_sees(q0, q1, i * t, min(i * t + t, Skv) - 1, causal, window);
+  }
+  __device__ void settle() {
+    while (i < n && !needed()) ++i;
+  }
+  __device__ bool done() const { return i >= n; }
+  __device__ void next() {
+    if (!done()) {
+      ++i;
+      settle();
+    }
+  }
+};
+
+// Shared bytes of the two kernels, whose CTAs own `rows` keys or q rows
+// (bwd_launch_plan in kernel.py computes the same).
+__host__ __device__ constexpr size_t dkdv_smem(int DP, int rows, int TQ, int ST) {
+  return sizeof(bf16) * ld_of(DP) * (2 * rows + 2 * ST * TQ) + sizeof(float) * 2 * ST * TQ;
+}
+__host__ __device__ constexpr size_t dq_smem(int DP, int rows, int TK, int ST) {
+  return sizeof(bf16) * ld_of(DP) * (2 * rows + 2 * ST * TK);
+}
+
+template <int DP, int TQ, int ST, int W>
+__global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Skv, int Hq, int Hkv, int D,
     int causal, int window, float softcap, float scale) {
-  constexpr int LD = ld_of(DP), NT = TQ / 8, DT = DP / 8;
+  constexpr int LD = ld_of(DP), NT = TQ / 8, DT = DP / 8, QT = TQ * LD;
+  constexpr int BR = 16 * W, NTHR = 32 * W;  // keys of the CTA, 16 a warp; threads
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [TR][LD]
-  bf16* sV = sK + TR * LD;                        // [TR][LD]
-  bf16* sQ = sV + TR * LD;                        // [TQ][LD]
-  bf16* sO = sQ + TQ * LD;                        // [TQ][LD]: dO
-  float* sL = reinterpret_cast<float*>(sO + TQ * LD);  // [TQ]: lse
-  float* sD = sL + TQ;                                  // [TQ]: Delta
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);        // [BR][LD]
+  bf16* sV = sK + BR * LD;                              // [BR][LD]
+  bf16* sQ = sV + BR * LD;                              // [ST][TQ][LD]: the ring of q tiles
+  bf16* sO = sQ + ST * QT;                              // [ST][TQ][LD]: dO
+  float* sL = reinterpret_cast<float*>(sO + ST * QT);  // [ST][TQ]: lse
+  float* sD = sL + ST * TQ;                             // [ST][TQ]: Delta
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, G = Hq / Hkv;
-  const int k0 = blockIdx.y * TR, k1 = min(k0 + TR, Skv) - 1;
+  // key block blockIdx.y: block 0, which every causal row sees, launches first
+  const int k0 = blockIdx.y * BR, k1 = min(k0 + BR, Skv) - 1;
+  const int wk0 = k0 + warp * 16;  // this warp's keys: wk0 .. wk0 + 15
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
   const bool any_no_key = window > 0 && S >= Skv + window;
-  load_rows<DP>(sK, k + ((size_t)b * Skv * Hkv + hk) * D, kv_step, k0, TR, Skv, D);
-  load_rows<DP>(sV, v + ((size_t)b * Skv * Hkv + hk) * D, kv_step, k0, TR, Skv, D);
-  cp_async_commit();
+  const float scale_log2 = scale * LOG2E;
+
+  QTiles walk{0, 0, G, (S + TQ - 1) / TQ, TQ, S, Skv, k0, k1, causal, window, any_no_key};
+  walk.settle();
+  QTiles ahead = walk;
+  // the loads of tile `ahead` into ring slot `slot`, as one commit group
+  // (an empty group past the walk's end keeps the groups counted)
+  auto issue = [&](int slot) {
+    if (!ahead.done()) {
+      const int h = hk * G + ahead.g, q0 = ahead.i * TQ;
+      load_rows<DP, NTHR>(sQ + slot * QT, q + ((size_t)b * S * Hq + h) * D, q_step, q0, TQ, S,
+                          D);
+      load_rows<DP, NTHR>(sO + slot * QT, dout + ((size_t)b * S * Hq + h) * D, q_step, q0, TQ,
+                          S, D);
+      for (int i = tid; i < 2 * TQ; i += NTHR) {
+        const int r = i % TQ;
+        const float* src = (i < TQ ? lse : delta) + ((size_t)b * Hq + h) * S;
+        const bool ok = q0 + r < S;
+        cp_async4(smem_u32((i < TQ ? sL : sD) + slot * TQ + r), ok ? src + q0 + r : src,
+                  ok ? 4 : 0);
+      }
+      ahead.next();
+    }
+    cp_async_commit();
+  };
+  load_rows<DP, NTHR>(sK, k + ((size_t)b * Skv * Hkv + hk) * D, kv_step, k0, BR, Skv, D);
+  load_rows<DP, NTHR>(sV, v + ((size_t)b * Skv * Hkv + hk) * D, kv_step, k0, BR, Skv, D);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) issue(s);  // K and V ride in the first tile's group
 
   float adk[DT][4], adv[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[d][e] = adv[d][e] = 0.f;
-  const int kj_lo = k0 + warp * 16 + lane / 4;  // this thread's keys: kj_lo, kj_lo + 8
+  const int kj_lo = wk0 + lane / 4;  // this thread's keys: kj_lo, kj_lo + 8
   const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
   const uint32_t k_addr = smem_u32(sK + a_row * LD + a_col);
   const uint32_t v_addr = smem_u32(sV + a_row * LD + a_col);
@@ -533,89 +664,144 @@ __global__ void __launch_bounds__(32 * TW) fa_bwd_dkdv_mma_kernel(
   const uint32_t qt_addr = smem_u32(sQ + bt_row * LD + bt_col);
   const uint32_t ot_addr = smem_u32(sO + bt_row * LD + bt_col);
 
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const bf16* qb = q + ((size_t)b * S * Hq + h) * D;
-    const bf16* ob = dout + ((size_t)b * S * Hq + h) * D;
-    const float* lb = lse + ((size_t)b * Hq + h) * S;
-    const float* db = delta + ((size_t)b * Hq + h) * S;
-    for (int q0 = 0; q0 < S; q0 += TQ) {
-      const int q1 = min(q0 + TQ, S) - 1;
-      if (!tile_sees(q0, q1, k0, k1, causal, window) && !(any_no_key && no_key(q1, Skv, window)))
-        continue;
-      __syncthreads();  // the last step's readers of sQ, sO, sL, sD are done
-      load_rows<DP>(sQ, qb, q_step, q0, TQ, S, D);
-      load_rows<DP>(sO, ob, q_step, q0, TQ, S, D);
-      cp_async_commit();
-      if (tid < TQ) {
-        sL[tid] = (q0 + tid < S) ? lb[q0 + tid] : 0.f;
-        sD[tid] = (q0 + tid < S) ? db[q0 + tid] : 0.f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-
+  for (int slot = 0; !walk.done(); slot = (slot + 1 == ST) ? 0 : slot + 1) {
+    cp_async_wait<ST - 2>();  // this thread's copies of this tile have landed
+    __syncthreads();          // everyone's have, and the last tile's slot is read
+    issue(slot == 0 ? ST - 1 : slot - 1);  // the tile ST - 1 ahead, into that slot
+    const int q0 = walk.i * TQ, q1 = min(q0 + TQ, S) - 1;
+    const bool sees = wk0 < Skv && (tile_sees(q0, q1, wk0, wk0 + 15, causal, window) ||
+                                    (any_no_key && no_key(q1, Skv, window)));
+    if (sees) {  // this warp's keys take part in this tile
+      const uint32_t off = slot * QT * sizeof(bf16);
       float s[NT][4], dp[NT][4];  // S^T and dP^T: this warp's 16 keys x TQ queries
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      mma_rows<DP, NT>(s, k_addr, qn_addr);
-      mma_rows<DP, NT>(dp, v_addr, on_addr);
+      mma_rows2<DP, NT>(s, k_addr, qn_addr + off, dp, v_addr, on_addr + off);
+      const float* L = sL + slot * TQ;
+      const float* Dl = sD + slot * TQ;
+      // a tile whose pairs are all visible skips the position tests
+      const bool inside = softcap <= 0.f && q1 == q0 + TQ - 1 && wk0 + 15 < Skv &&
+                          (!causal || wk0 + 15 <= q0) && (window <= 0 || wk0 > q1 - window);
+      if (inside) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + (lane % 4) * 2 + (e % 2);
-          const Grad gr = pair_grad(s[n][e], dp[n][e], q0 + col, kj_lo + 8 * (e / 2), S, Skv,
-                                    causal, window, softcap, scale, sL[col], sD[col]);
-          s[n][e] = gr.p;
-          dp[n][e] = gr.ds;
-        }
-      mma_acc<DP, TQ / 16>(adv, s, ot_addr);   // dV += P^T dO
-      mma_acc<DP, TQ / 16>(adk, dp, qt_addr);  // dK += dS^T Q
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + (lane % 4) * 2 + (e % 2);
+            const float p = ex2(fmaf(s[n][e], scale_log2, -L[col] * LOG2E));
+            dp[n][e] = p * (dp[n][e] - Dl[col]);  // the scale goes to the sum
+            s[n][e] = p;
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n * 8 + (lane % 4) * 2 + (e % 2);
+            const Grad gr = pair_grad(s[n][e], dp[n][e], q0 + col, kj_lo + 8 * (e / 2), S, Skv,
+                                      causal, window, softcap, scale, L[col], Dl[col], 1.f);
+            s[n][e] = gr.p;
+            dp[n][e] = gr.ds;
+          }
+      }
+      uint32_t pa[TQ / 16][4], da[TQ / 16][4];  // P^T and dS^T as bf16 A fragments
+      pack_a<TQ / 16>(pa, s);
+      pack_a<TQ / 16>(da, dp);
+      mma_acc<DP, TQ / 16>(adv, pa, ot_addr + off);  // dV += P^T dO
+      mma_acc<DP, TQ / 16>(adk, da, qt_addr + off);  // dK += dS^T Q
     }
+    walk.next();
   }
-  cp_async_wait_all();  // a CTA whose keys no query sees still waits for its loads
+  cp_async_wait<0>();  // a CTA whose keys no query sees still waits for its loads
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[d][e] *= scale;
   const size_t kbase = ((size_t)b * Skv * Hkv + hk) * D;
-  store_rows<DP>(dk + kbase, kv_step, adk, k0 + warp * 16, Skv, D);
-  store_rows<DP>(dv + kbase, kv_step, adv, k0 + warp * 16, Skv, D);
+  store_rows<DP>(dk + kbase, kv_step, adk, wk0, Skv, D);
+  store_rows<DP>(dv + kbase, kv_step, adv, wk0, Skv, D);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(32 * TW) fa_bwd_dq_mma_kernel(
+template <int DP, int TK, int ST, int W>
+__global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int S, int Skv, int Hq, int Hkv, int D, int causal, int window,
-    float softcap, float scale) {
-  constexpr int LD = ld_of(DP), NT = TK / 8, DT = DP / 8;
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, bf16* __restrict__ dq, int S, int Skv, int Hq, int Hkv, int D,
+    int causal, int window, float softcap, float scale) {
+  constexpr int LD = ld_of(DP), NT = TK / 8, DT = DP / 8, KT = TK * LD;
+  constexpr int BR = 16 * W, NTHR = 32 * W;  // q rows of the CTA, 16 a warp; threads
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [TR][LD]
-  bf16* sO = sQ + TR * LD;                        // [TR][LD]: dO
-  bf16* sK = sO + TR * LD;                        // [TK][LD]
-  bf16* sV = sK + TK * LD;                        // [TK][LD]
-  float* sL = reinterpret_cast<float*>(sV + TK * LD);  // [TR]: lse
-  float* sD = sL + TR;                                  // [TR]: Delta
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BR][LD]
+  bf16* sO = sQ + BR * LD;                        // [BR][LD]: dO
+  bf16* sK = sO + BR * LD;                        // [ST][TK][LD]: the ring of key tiles
+  bf16* sV = sK + ST * KT;                        // [ST][TK][LD]
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tid = threadIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * TR, q1 = min(q0 + TR, S) - 1;
+  const int q0 = heavy_first(blockIdx.y, gridDim.y, BR, S) * BR, q1 = min(q0 + BR, S) - 1;
+  const int wq0 = q0 + warp * 16;  // this warp's rows: wq0 .. wq0 + 15
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
+  const size_t qbase = ((size_t)b * S * Hq + h) * D;
   const bf16* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
   const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
-  load_rows<DP>(sQ, q + ((size_t)b * S * Hq + h) * D, q_step, q0, TR, S, D);
-  load_rows<DP>(sO, dout + ((size_t)b * S * Hq + h) * D, q_step, q0, TR, S, D);
-  cp_async_commit();
-  if (tid < TR) {
-    const size_t at = ((size_t)b * Hq + h) * S + q0 + tid;
-    sL[tid] = (q0 + tid < S) ? lse[at] : 0.f;
-    sD[tid] = (q0 + tid < S) ? delta[at] : 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  KTiles walk{0, (Skv + TK - 1) / TK, TK, Skv, q0, q1, causal, window};
+  walk.settle();
+  KTiles ahead = walk;
+  auto issue = [&](int slot) {  // as in the dK/dV kernel
+    if (!ahead.done()) {
+      load_rows<DP, NTHR>(sK + slot * KT, kb, kv_step, ahead.i * TK, TK, Skv, D);
+      load_rows<DP, NTHR>(sV + slot * KT, vb, kv_step, ahead.i * TK, TK, Skv, D);
+      ahead.next();
+    }
+    cp_async_commit();
+  };
+  load_rows<DP, NTHR>(sQ, q + qbase, q_step, q0, BR, S, D);
+  load_rows<DP, NTHR>(sO, dout + qbase, q_step, q0, BR, S, D);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) issue(s);  // Q and dO ride in the first tile's group
+
+  // Delta = rowsum(dO * O) of this warp's 16 rows, two lanes a row, by
+  // 16-byte loads while the copies above are in flight; the dK/dV kernel,
+  // launched after this one, reads it
+  const int dr = wq0 + lane / 2;
+  float dsum = 0.f;
+  if (dr < S) {
+    const bf16* orow = o + qbase + (size_t)dr * q_step;
+    const bf16* grow = dout + qbase + (size_t)dr * q_step;
+    for (int c = (lane % 2) * 8; c < D; c += 16) {
+      const uint4 a = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 g = *reinterpret_cast<const uint4*>(grow + c);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(a2[j]), fg = __bfloat1622float2(g2[j]);
+        dsum = fmaf(fa.x, fg.x, dsum);
+        dsum = fmaf(fa.y, fg.y, dsum);
+      }
+    }
   }
+  dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+  if (lane % 2 == 0 && dr < S) delta[((size_t)b * Hq + h) * S + dr] = dsum;
+  // this thread's rows wq0 + lane/4 and + 8: their Delta and lse (also in log2 units)
+  const int r_lo = wq0 + lane / 4;
+  float dl[2], ll[2], ll2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dl[r] = __shfl_sync(0xffffffffu, dsum, 2 * (lane / 4) + 16 * r);
+    ll[r] = (r_lo + 8 * r < S) ? lse[((size_t)b * Hq + h) * S + r_lo + 8 * r] : 0.f;
+    ll2[r] = ll[r] * LOG2E;
+  }
+
   float adq[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adq[d][e] = 0.f;
-  const int row_lo = warp * 16 + lane / 4;  // this thread's rows: q0 + row_lo, + 8
   const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
   const uint32_t q_addr = smem_u32(sQ + a_row * LD + a_col);
   const uint32_t o_addr = smem_u32(sO + a_row * LD + a_col);
@@ -625,135 +811,147 @@ __global__ void __launch_bounds__(32 * TW) fa_bwd_dq_mma_kernel(
   const int bt_row = (lane % 8) + ((lane / 8) % 2) * 8, bt_col = (lane / 16) * 8;
   const uint32_t kt_addr = smem_u32(sK + bt_row * LD + bt_col);
 
-  for (int k0 = 0; k0 < Skv; k0 += TK) {
-    if (!tile_sees(q0, q1, k0, min(k0 + TK, Skv) - 1, causal, window)) continue;
-    __syncthreads();  // lse/Delta are stored; the last step's readers of sK, sV are done
-    load_rows<DP>(sK, kb, kv_step, k0, TK, Skv, D);
-    load_rows<DP>(sV, vb, kv_step, k0, TK, Skv, D);
-    cp_async_commit();
-    cp_async_wait_all();
+  for (int slot = 0; !walk.done(); slot = (slot + 1 == ST) ? 0 : slot + 1) {
+    cp_async_wait<ST - 2>();
     __syncthreads();
-
-    float s[NT][4], dp[NT][4];  // S and dP: this warp's 16 rows x TK keys
+    issue(slot == 0 ? ST - 1 : slot - 1);
+    const int kt0 = walk.i * TK;
+    if (wq0 < S && tile_sees(wq0, min(wq0 + 15, S - 1), kt0, min(kt0 + TK, Skv) - 1, causal,
+                             window)) {
+      const uint32_t off = slot * KT * sizeof(bf16);
+      float s[NT][4], dp[NT][4];  // S and dP: this warp's 16 rows x TK keys
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_rows<DP, NT>(s, q_addr, kn_addr);
-    mma_rows<DP, NT>(dp, o_addr, vn_addr);
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      mma_rows2<DP, NT>(s, q_addr, kn_addr + off, dp, o_addr, vn_addr + off);
+      const bool inside = softcap <= 0.f && wq0 + 15 < S && kt0 + TK <= Skv &&
+                          (!causal || kt0 + TK - 1 <= wq0) &&
+                          (window <= 0 || kt0 > wq0 + 15 - window);
+      if (inside) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row_lo + 8 * (e / 2);
-        s[n][e] = pair_grad(s[n][e], dp[n][e], q0 + row, k0 + n * 8 + (lane % 4) * 2 + (e % 2),
-                            S, Skv, causal, window, softcap, scale, sL[row], sD[row]).ds;
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(s[n][e], scale_log2, -ll2[e / 2]));
+            s[n][e] = p * (dp[n][e] - dl[e / 2]);  // the scale goes to the sum
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[n][e] = pair_grad(s[n][e], dp[n][e], r_lo + 8 * (e / 2),
+                                kt0 + n * 8 + (lane % 4) * 2 + (e % 2), S, Skv, causal, window,
+                                softcap, scale, ll[e / 2], dl[e / 2], 1.f).ds;
       }
-    mma_acc<DP, TK / 16>(adq, s, kt_addr);  // dQ += dS K
+      uint32_t da[TK / 16][4];  // dS as bf16 A fragments
+      pack_a<TK / 16>(da, s);
+      mma_acc<DP, TK / 16>(adq, da, kt_addr + off);  // dQ += dS K
+    }
+    walk.next();
   }
-  cp_async_wait_all();
-  store_rows<DP>(dq + ((size_t)b * S * Hq + h) * D, q_step, adq, q0 + warp * 16, S, D);
+  cp_async_wait<0>();
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[d][e] *= scale;
+  store_rows<DP>(dq + qbase, q_step, adq, wq0, S, D);
 }
 
-template <int DP>
-cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                           void* dv, int B, int S, int Skv, int Hq, int Hkv, int D, int causal,
-                           int window, float softcap, float scale, cudaStream_t st) {
-  static bool opted_in[kMaxDevices] = {};
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  int B, S, Skv, Hq, Hkv, D, causal, window;
+  float softcap, scale;
+};
+
+// Raise a kernel's shared-memory limit once per device, so that a launch a
+// CUDA graph captures makes no call besides the launch itself.
+template <typename Kernel>
+cudaError_t opt_in(bool (&done)[kMaxDevices], Kernel kernel, size_t bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(fa_bwd_dkdv_mma_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)MmaSmem<DP>::dkdv);
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(fa_bwd_dq_mma_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MmaSmem<DP>::dq);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
+    done[dev] = true;
   }
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dop = static_cast<const bf16*>(dout);
-  const int rows = B * S * Hq;
-  fa_bwd_delta_kernel<bf16><<<(rows + NTH / 32 - 1) / (NTH / 32), NTH, 0, st>>>(
-      static_cast<const bf16*>(o), dop, delta, rows, S, Hq, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dkdv_mma_kernel<DP><<<dim3(B * Hkv, (Skv + TR - 1) / TR), 32 * TW, MmaSmem<DP>::dkdv,
-                               st>>>(qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dk),
-                                     static_cast<bf16*>(dv), S, Skv, Hq, Hkv, D, causal, window,
-                                     softcap, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dq_mma_kernel<DP><<<dim3(B * Hq, (S + TR - 1) / TR), 32 * TW, MmaSmem<DP>::dq, st>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<bf16*>(dq), S, Skv, Hq, Hkv, D, causal, window,
-      softcap, scale);
+  return cudaSuccess;
+}
+
+template <int DP, int TK, int ST, int W>
+cudaError_t launch_dq(const BwdArgs& a, cudaStream_t st) {
+  static bool opted_in[kMaxDevices] = {};
+  constexpr int rows = 16 * W;
+  constexpr size_t smem = dq_smem(DP, rows, TK, ST);
+  cudaError_t err = opt_in(opted_in, fa_bwd_dq_mma_kernel<DP, TK, ST, W>, smem);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dq_mma_kernel<DP, TK, ST, W>
+      <<<dim3(a.B * a.Hq, (a.S + rows - 1) / rows), 32 * W, smem, st>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+          static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.S,
+          a.Skv, a.Hq, a.Hkv, a.D, a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
+}
+
+template <int DP, int TQ, int ST, int W>
+cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t st) {
+  static bool opted_in[kMaxDevices] = {};
+  constexpr int rows = 16 * W;
+  constexpr size_t smem = dkdv_smem(DP, rows, TQ, ST);
+  cudaError_t err = opt_in(opted_in, fa_bwd_dkdv_mma_kernel<DP, TQ, ST, W>, smem);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dkdv_mma_kernel<DP, TQ, ST, W>
+      <<<dim3(a.B * a.Hkv, (a.Skv + rows - 1) / rows), 32 * W, smem, st>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+          static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.Skv, a.Hq, a.Hkv, a.D,
+          a.causal, a.window, a.softcap, a.scale);
+  return cudaGetLastError();
+}
+
+// The tiles built (kernel.BWD_TILES names the same): both kernels step 64 q
+// rows (dK/dV) or keys (dQ) through a two-stage ring, 4 warps a CTA, so two
+// CTAs share an SM
+constexpr int kTile = 64, kStages = 2, kWarps = 4;
+
+// dQ launches first, since it writes the Delta that dK/dV reads.
+template <int DP>
+cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t st) {
+  const cudaError_t err = launch_dq<DP, kTile, kStages, kWarps>(a, st);
+  return err != cudaSuccess ? err : launch_dkdv<DP, kTile, kStages, kWarps>(a, st);
 }
 
 // ---------------------------------------------------------------- launch
 
 template <int D>
-cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
-                       float softcap, float scale, cudaStream_t st) {
-  // raise the shared-memory limits once per device, so that a launch a CUDA
-  // graph captures makes no call besides the launch itself
-  static bool opted_in[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
+  static bool dkdv_in[kMaxDevices] = {}, dq_in[kMaxDevices] = {};
+  cudaError_t err = opt_in(dkdv_in, fa_bwd_dkdv_kernel<D>, BwdSmem<D>::dkdv);
+  if (err == cudaSuccess) err = opt_in(dq_in, fa_bwd_dq_kernel<D>, BwdSmem<D>::dq);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(fa_bwd_dkdv_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)BwdSmem<D>::dkdv);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(fa_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)BwdSmem<D>::dq);
-    if (err != cudaSuccess) return err;
-    opted_in[dev] = true;
-  }
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  const float* dop = static_cast<const float*>(dout);
-  const int rows = B * S * Hq;
-  fa_bwd_delta_kernel<float><<<(rows + NTH / 32 - 1) / (NTH / 32), NTH, 0, st>>>(
-      static_cast<const float*>(o), dop, delta, rows, S, Hq, D);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  const int rows = a.B * a.S * a.Hq;
+  fa_bwd_delta_kernel<<<(rows + NTH / 32 - 1) / (NTH / 32), NTH, 0, st>>>(
+      static_cast<const float*>(a.o), dout, a.delta, rows, a.S, a.Hq, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dkdv_kernel<D><<<dim3(B * Hkv, (Skv + BB - 1) / BB), NTH, BwdSmem<D>::dkdv, st>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Skv, Hq,
-      Hkv, causal, window, softcap, scale);
+  fa_bwd_dkdv_kernel<D><<<dim3(a.B * a.Hkv, (a.Skv + BB - 1) / BB), NTH, BwdSmem<D>::dkdv, st>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
+      a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.softcap, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dq_kernel<D><<<dim3(B * Hq, (S + BB - 1) / BB), NTH, BwdSmem<D>::dq, st>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<float*>(dq), S, Skv, Hq, Hkv, causal, window,
-      softcap, scale);
+  fa_bwd_dq_kernel<D><<<dim3(a.B * a.Hq, (a.S + BB - 1) / BB), NTH, BwdSmem<D>::dq, st>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.Skv, a.Hq, a.Hkv,
+      a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
-}
-
-cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, int S, int Skv, int Hq, int Hkv, int causal, int window,
-                       float softcap, float scale, cudaStream_t st) {
-#define FA_BWD_CASE(DD)                                                                        \
-  case DD:                                                                                     \
-    return launch_bwd_f32<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S, Skv, Hq, Hkv, \
-                              causal, window, softcap, scale, st);
-  switch (D) {
-    FA_BWD_CASE(8)
-    FA_BWD_CASE(16)
-    FA_BWD_CASE(32)
-    FA_BWD_CASE(64)
-    FA_BWD_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef FA_BWD_CASE
 }
 
 }  // namespace
@@ -762,29 +960,47 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, con
 // kernels, rows 16-byte aligned); q, k, v, o, dout, dq, dk, dv all of it.
 // lse: the forward's (B, Hq, S) f32 log-sum-exp; delta: (B, Hq, S) f32
 // scratch. window <= 0: none; softcap <= 0: none. Head dims 8, 16, 32, 64,
-// 128. Returns the cudaError_t of the launches (0 on success).
+// 80, 128. tq, kv_stages, kv_warps, tk, q_stages, q_warps: the launch
+// plan's tiles (kernel.bwd_launch_plan): the q rows of a dK/dV step, its
+// ring's stages and its CTA's warps, and the same of dQ (keys a step); the
+// f32 kernels take (64, 1, 8, 64, 1, 8).
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, void* delta, void* dq, void* dk,
                            void* dv, int dtype, int B, int S, int Skv, int Hq, int Hkv, int D,
-                           int causal, int window, float softcap, float scale, void* stream) {
+                           int causal, int window, float softcap, float scale, int tq,
+                           int kv_stages, int kv_warps, int tk, int q_stages, int q_warps,
+                           void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (dtype == 0)
-    return dispatch_f32(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, S, Skv, Hq, Hkv, causal,
-                             window, softcap, scale, st);
-  if (dtype != 1) return cudaErrorInvalidValue;
-#define FA_BWD_MMA(DP)                                                                        \
-  return launch_bwd_mma<DP>(q, k, v, o, dout, l, dl, dq, dk, dv, B, S, Skv, Hq, Hkv, D, causal, \
-                            window, softcap, scale, st);
-  switch (D) {
+  const BwdArgs a{q, k, v, o, dout, l, dl, dq, dk, dv, B, S, Skv, Hq, Hkv, D, causal, window,
+                  softcap, scale};
+  if (dtype == 0) {
+    if (tq != BB || kv_stages != 1 || kv_warps != NTH / 32 || tk != BB || q_stages != 1 ||
+        q_warps != NTH / 32)
+      return cudaErrorInvalidValue;
+    switch (D) {
+      case 8: return launch_bwd_f32<8>(a, st);
+      case 16: return launch_bwd_f32<16>(a, st);
+      case 32: return launch_bwd_f32<32>(a, st);
+      case 64: return launch_bwd_f32<64>(a, st);
+      case 80: return launch_bwd_f32<80>(a, st);
+      case 128: return launch_bwd_f32<128>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 1 || tq != kTile || kv_stages != kStages || kv_warps != kWarps || tk != kTile ||
+      q_stages != kStages || q_warps != kWarps)
+    return cudaErrorInvalidValue;
+  switch (D) {  // bf16 pads head dims 8 to 16
     case 8:
-    case 16: FA_BWD_MMA(16)
-    case 32: FA_BWD_MMA(32)
-    case 64: FA_BWD_MMA(64)
-    case 128: FA_BWD_MMA(128)
+    case 16: return launch_bwd_mma<16>(a, st);
+    case 32: return launch_bwd_mma<32>(a, st);
+    case 64: return launch_bwd_mma<64>(a, st);
+    case 80: return launch_bwd_mma<80>(a, st);
+    case 128: return launch_bwd_mma<128>(a, st);
     default: return cudaErrorInvalidValue;
   }
-#undef FA_BWD_MMA
 }

@@ -12,8 +12,12 @@ one online-softmax step, after the reference's ``min(block, dim)`` clamp.
 
 With ``return_lse=True`` the forward also writes each row's log-sum-exp,
 ``(B, Hq, S)`` f32, which ``flash_attention_bwd_cuda`` takes: the backward
-kernel of ``csrc/flash_attention_bwd.cu`` (its own library, so that its
+kernels of ``csrc/flash_attention_bwd.cu`` (its own library, so that its
 build runs beside the forward's), for head dims ``BWD_HEAD_DIMS``.
+``bwd_launch_plan`` computes their geometry in Python, as ``launch_plan``
+does the forward's: the kernels in launch order, their grids, the block
+each launch position takes, the tiles, the ring's stages and the shared
+bytes; the wrapper passes the plan's tiles to the library.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.kernels._build import load_cuda_library
 #: kernel launches since the count was last set to 0
 launches = 0
 #: backward calls since the count was last set to 0 (each launches the
-#: Delta, dK/dV and dQ kernels)
+#: kernels of ``bwd_launch_plan``)
 bwd_launches = 0
 #: ``(B*Hq, ceil(S/bq), ceil(Skv/bk))`` of the last launch: the CUDA grid is
 #: the first two; each CTA walks the third, its softmax steps, in order
@@ -38,9 +42,14 @@ last_grid: tuple | None = None
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-#: head dims of the backward kernel (stablelm-3b's 80 and gemma2-2b's 256
-#: are not among them yet: ROADMAP D)
-BWD_HEAD_DIMS = (8, 16, 32, 64, 128)
+#: head dims of the backward kernels (gemma2-2b's 256 is not among them
+#: yet: ROADMAP D13)
+BWD_HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+#: bf16 backward tiles, the one set ``csrc`` builds: for dK/dV the q rows of
+#: a step, the stages of its ring and the warps a CTA (16 keys each); for dQ
+#: the keys of a step, its stages and warps (16 q rows each)
+BWD_TILES = ((64, 2, 4), (64, 2, 4))
+_F32_BLOCK, _F32_STRIDE = 64, 68  # the f32 kernels' 64 x 64 tile and its padded row
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,6 +85,62 @@ def launch_plan(
     return LaunchPlan(grid, bq, bk, kt, warps)
 
 
+class BwdKernel(NamedTuple):
+    name: str  # "delta", "dq" or "dkdv"
+    grid: tuple  # the CUDA grid
+    order: tuple  # the block blockIdx.y = 0, 1, ... takes: q blocks (dq), key blocks (dkdv)
+    rows: int  # q rows (dq) or keys (dkdv) a CTA owns; rows (delta) of a CTA
+    step: int  # keys (dq) or q rows (dkdv) of one step of the CTA's walk
+    stages: int  # shared-memory stages of the ring the steps' tiles stream through
+    warps: int  # warps a CTA
+    smem: int  # dynamic shared bytes a CTA
+
+
+def _heavy_first(n: int, rows: int, length: int) -> tuple:
+    """The q block each dQ launch position takes (the kernel's
+    ``heavy_first``): the last block first, since under a causal mask its
+    rows see the most keys; a ragged last block, lighter than the full one
+    before it, last."""
+    if length % rows:
+        return (*range(n - 2, -1, -1), n - 1)
+    return tuple(range(n - 1, -1, -1))
+
+
+def bwd_launch_plan(
+    B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype = torch.bfloat16,
+) -> tuple[BwdKernel, ...]:
+    """The backward's kernels in launch order, with the geometry
+    ``csrc/flash_attention_bwd.cu`` launches. bf16: dQ (which also writes
+    Delta), then dK/dV, their tiles and warps from ``BWD_TILES``; f32:
+    Delta, dK/dV, dQ on 64 x 64 tiles, one stage. Both grids put the block
+    that the most causal pairs fall in first. Raises on a head dim the
+    kernels do not take."""
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention backward: head dim {D} not in {BWD_HEAD_DIMS}")
+    if dtype == torch.float32:
+        bb, bs = _F32_BLOCK, _F32_STRIDE
+        nq, nk, rows = -(-S // bb), -(-Skv // bb), B * S * Hq
+        return (
+            BwdKernel("delta", (-(-rows // 8),), (), 8, 0, 0, 8, 0),
+            BwdKernel("dkdv", (B * Hkv, nk), tuple(range(nk)), bb, bb, 1, 8,
+                      4 * (4 * D * bs + 2 * bb * bs + 2 * bb)),
+            BwdKernel("dq", (B * Hq, nq), _heavy_first(nq, bb, S), bb, bb, 1, 8,
+                      4 * (4 * D * bs + bb * bs + 2 * bb)),
+        )
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention backward: type {dtype}; expected float32 or bfloat16")
+    (tq, kv_stages, kv_warps), (tk, q_stages, q_warps) = BWD_TILES
+    ld = max(D, 16) + 8  # a shared row: head dims below 16 pad to 16, plus 16 bytes
+    kv_rows, q_rows = 16 * kv_warps, 16 * q_warps
+    nq, nk = -(-S // q_rows), -(-Skv // kv_rows)
+    return (
+        BwdKernel("dq", (B * Hq, nq), _heavy_first(nq, q_rows, S), q_rows, tk, q_stages, q_warps,
+                  2 * ld * (2 * q_rows + 2 * q_stages * tk)),
+        BwdKernel("dkdv", (B * Hkv, nk), tuple(range(nk)), kv_rows, tq, kv_stages, kv_warps,
+                  2 * ld * (2 * kv_rows + 2 * kv_stages * tq) + 4 * 2 * kv_stages * tq),
+    )
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("flash_attention", SOURCES)
@@ -93,7 +158,7 @@ def bwd_library() -> ctypes.CDLL:
     lib = load_cuda_library("flash_attention_bwd", BWD_SOURCES)
     fn = lib.fa_backward
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -196,8 +261,10 @@ def flash_attention_bwd_cuda(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    if q.dtype == torch.bfloat16:  # 16-byte asynchronous copies need aligned rows
-        q, k, v, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, dout))
+    plan = {kern.name: kern for kern in bwd_launch_plan(B, S, Skv, Hq, Hkv, D, q.dtype)}
+    if q.dtype == torch.bfloat16:  # 16-byte copies and loads need aligned rows
+        q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (q, k, v, out, dout))
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     lib = bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -205,7 +272,9 @@ def flash_attention_bwd_cuda(
         err = lib.fa_backward(
             *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)),
             _DTYPE_CODE[q.dtype], B, S, Skv, Hq, Hkv, D, int(causal), window or 0,
-            float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D), stream,
+            float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
+            *(x for name in ("dkdv", "dq") for x in (plan[name].step, plan[name].stages,
+                                                      plan[name].warps)), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed with cudaError {err}")

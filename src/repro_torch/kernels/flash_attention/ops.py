@@ -78,7 +78,7 @@ def attention(
         if q.shape[-1] not in BWD_HEAD_DIMS:
             raise NotImplementedError(
                 f"flash attention: no backward kernel for head dim {q.shape[-1]} yet "
-                f"(it has {BWD_HEAD_DIMS}); train this model on the CPU, or see ROADMAP D"
+                f"(it has {BWD_HEAD_DIMS}); train this model on the CPU, or see ROADMAP D13"
             )
         return _Attention.apply(q, k, v, causal, window, softcap, block_q, block_k)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,

@@ -23,17 +23,18 @@ def rmsnorm_kernel(x_ptr, w_ptr, o_ptr, R, D, eps,
 
 @triton.jit
 def rmsnorm_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, R, D, eps, ROWS_PER_PROG,
-                       ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-    """One program walks ``ROWS_PER_PROG`` rows, ``ROWS`` at a time: it
-    writes their ``dx`` and keeps its share of ``dw`` in registers, then
-    stores that share as one row of ``part`` (no atomics)."""
+                       ROWS: tl.constexpr, BLOCK_D: tl.constexpr, STAGES: tl.constexpr):
+    """One program walks ``ROWS_PER_PROG`` rows, ``ROWS`` a step, with the
+    loads of the next ``STAGES - 1`` steps in flight: it writes their ``dx``
+    and keeps its share of ``dw`` in registers, then stores that share as
+    one row of ``part`` (no atomics)."""
     pid = tl.program_id(0)
     cols = tl.arange(0, BLOCK_D)
     cmask = cols < D
     w1 = 1.0 + tl.load(w_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-    dw = tl.zeros((BLOCK_D,), dtype=tl.float32)
+    acc = tl.zeros((ROWS, BLOCK_D), dtype=tl.float32)
     row0 = pid * ROWS_PER_PROG
-    for start in range(0, ROWS_PER_PROG, ROWS):
+    for start in tl.range(0, ROWS_PER_PROG, ROWS, num_stages=STAGES):
         rows = row0 + start + tl.arange(0, ROWS)
         mask = (rows < R)[:, None] & cmask[None, :]
         offs = rows[:, None].to(tl.int64) * D + cols[None, :]
@@ -44,8 +45,8 @@ def rmsnorm_bwd_kernel(x_ptr, w_ptr, g_ptr, dx_ptr, part_ptr, R, D, eps, ROWS_PE
         c = tl.sum(gw * x, axis=1) / D
         dx = r[:, None] * gw - x * (r * r * r * c)[:, None]
         tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-        dw += tl.sum(g * x * r[:, None], axis=0)
-    tl.store(part_ptr + pid.to(tl.int64) * D + cols, dw, mask=cmask)
+        acc += g * x * r[:, None]
+    tl.store(part_ptr + pid.to(tl.int64) * D + cols, tl.sum(acc, axis=0), mask=cmask)
 
 
 @triton.jit

@@ -13,12 +13,18 @@ weight once a program. The weight keeps its own type, so an f32 final-norm
 weight is not rounded to bf16 before ``1 + w``.
 
 The backward (``rmsnorm_bwd_cuda``) is bound by bytes too: it reads ``x``
-and the gradient once and writes ``dx`` once. A program walks a fixed share
-of the rows, writing their ``dx`` and keeping its part of ``dw = sum g x r``
-in registers; a second launch sums those parts in program order, so ``dw``
-is the same bits every run (no float atomics).
+and the gradient once and writes ``dx`` once. ``bwd_plan`` gives the
+geometry: one program an SM walks a contiguous share of the rows in steps
+of ``BWD_TILE`` values (16 KB of x and 16 KB of the gradient in bf16), with
+the next steps' loads in flight (Triton's software pipeline over
+``tl.range``), writing their ``dx`` and keeping its part of ``dw = sum g x
+r`` in registers; a second launch sums those parts in program order, all
+of them in one pass, so ``dw`` is the same bits every run (no float
+atomics).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -71,12 +77,41 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return out
 
 
-#: programs of the backward's row pass, at most (two an SM): each owns a
-#: share of the rows, and the ``dw`` pass reads one f32 row of ``d`` per
-#: program (1056 programs measured slower on an H100: the ``dw`` pass grows)
-BWD_PROGRAMS = 264
+#: values (rows x padded columns) of one step of the backward's row pass
+BWD_TILE = 8192
+#: programs of the row pass an SM, and the stages of its loads
+BWD_PROGRAMS_PER_SM = 1
+BWD_STAGES = 3
 #: columns of ``dw`` a program of the second pass sums
-DW_BLOCK = 64
+DW_BLOCK = 32
+
+
+class BwdPlan(NamedTuple):
+    programs: int  # programs of the row pass
+    rows_per_program: int  # program p walks rows [p * rows_per_program, + rows_per_program)
+    rows: int  # rows of one step
+    block_d: int  # columns of a step, ``d`` padded to a power of two
+    stages: int  # steps whose loads are in flight
+    warps: int
+    dw_programs: int  # programs of the ``dw`` pass, ``dw_block`` columns each
+    dw_block: int
+    dw_rows: int  # partial rows the ``dw`` pass sums at a time
+
+
+def bwd_plan(R: int, d: int, *, sms: int = 132) -> BwdPlan:
+    """The backward's launch geometry for ``R`` rows of ``d`` on a card of
+    ``sms`` SMs. Every row falls in exactly one program's share; the last
+    share may run past ``R`` (those rows are masked)."""
+    if R <= 0 or d <= 0 or sms <= 0:
+        raise ValueError(f"rmsnorm backward: R={R}, d={d}, sms={sms}")
+    block_d = 1 << (d - 1).bit_length()
+    rows = min(_pow2_floor(max(1, BWD_TILE // block_d)), 1 << (R - 1).bit_length())
+    steps = -(-R // rows)
+    per = rows * -(-steps // min(steps, BWD_PROGRAMS_PER_SM * sms))
+    programs = -(-R // per)
+    dw_block = min(DW_BLOCK, block_d)
+    return BwdPlan(programs, per, rows, block_d, BWD_STAGES, 8, -(-d // dw_block), dw_block,
+                   min(1 << (programs - 1).bit_length(), max(1, BWD_TILE // dw_block)))
 
 
 def rmsnorm_bwd_cuda(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
@@ -101,18 +136,13 @@ def rmsnorm_bwd_cuda(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *,
     import_triton()
     from repro_torch.kernels.rmsnorm._triton import rmsnorm_bwd_kernel, rmsnorm_dw_kernel
 
-    block_d = 1 << (d - 1).bit_length()
-    rows = _pow2_floor(max(1, 2048 // block_d))
-    per = -(-R // min(-(-R // rows), BWD_PROGRAMS))
-    per = -(-per // rows) * rows  # rows a program walks: whole steps of ``rows``
-    programs = -(-R // per)
-    part = torch.empty((programs, d), dtype=torch.float32, device=x.device)
-    rmsnorm_bwd_kernel[(programs,)](
-        x, w, g, dx, part, R, d, eps, per, ROWS=rows, BLOCK_D=block_d,
-        num_warps=4 if rows * block_d <= 1024 else 8,
+    plan = bwd_plan(R, d, sms=torch.cuda.get_device_properties(x.device).multi_processor_count)
+    part = torch.empty((plan.programs, d), dtype=torch.float32, device=x.device)
+    rmsnorm_bwd_kernel[(plan.programs,)](
+        x, w, g, dx, part, R, d, eps, plan.rows_per_program, ROWS=plan.rows,
+        BLOCK_D=plan.block_d, STAGES=plan.stages, num_warps=plan.warps,
     )
-    block = min(DW_BLOCK, block_d)
-    rmsnorm_dw_kernel[(-(-d // block),)](part, dw, programs, d, PB=64, BLOCK=block,
-                                         num_warps=4)
+    rmsnorm_dw_kernel[(plan.dw_programs,)](part, dw, plan.programs, d, PB=plan.dw_rows,
+                                           BLOCK=plan.dw_block, num_warps=4)
     bwd_launches += 1
     return dx, dw

@@ -494,6 +494,8 @@ def _rel_close(got, ref, dtype, name):
     ((8192, 1024), torch.bfloat16, torch.float32),  # the final norm: an f32 weight
     ((8192, 1024), torch.bfloat16, torch.bfloat16),
     ((4096, 128), torch.bfloat16, torch.bfloat16),  # q/k norms
+    ((131072, 128), torch.bfloat16, torch.bfloat16),  # qwen3-0.6b's q norm at B4 S2048
+    ((65536, 128), torch.bfloat16, torch.bfloat16),  # and its k norm
     ((2, 7, 48), torch.float32, torch.float32),
     ((777, 1024), torch.float32, torch.float32),
 ])
@@ -545,6 +547,11 @@ FA_BWD_CASES = [
     (1, 200, 50, 2, 1, 64, False, 10, None),
     (1, 200, 50, 2, 1, 64, True, 10, None),
     (1, 1000, 1000, 16, 8, 128, True, None, None),
+    # stablelm-3b's head dim 80: its training shape, and a window, a softcap,
+    # GQA and a ragged length
+    (1, 2048, 2048, 32, 32, 80, True, None, None),
+    (2, 300, 300, 4, 2, 80, True, 100, 30.0),
+    (1, 781, 781, 16, 8, 128, True, None, None),
 ]
 
 
@@ -592,15 +599,34 @@ def test_kernel_ops_record_their_backward_kernels(dev):
     assert w.grad.dtype == torch.float32
 
 
-@pytest.mark.parametrize("D", [80, 256])
+@pytest.mark.parametrize("D", [256])
 def test_flash_attention_without_a_backward_head_dim_raises_under_grad(dev, D):
     rng = np.random.default_rng(0)
     q = _randn(rng, (1, 32, 2, D), torch.bfloat16, dev).requires_grad_()
     k, v = (_randn(rng, (1, 32, 2, D), torch.bfloat16, dev) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="head dim"):
+    with pytest.raises(NotImplementedError, match="head dim .* ROADMAP D13"):
         fa_ops.attention(q, k, v)
     with torch.no_grad():
         assert fa_ops.attention(q, k, v).shape == q.shape  # serving is unaffected
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_trains_at_head_dim_80(dev, dtype):
+    """stablelm-3b's head dim 80 trains on the card: ``ops.attention``'s
+    gradients through the backward kernel equal autograd's through the plain
+    version on the CPU, on the same inputs."""
+    rng = np.random.default_rng(0)
+    shapes = [(2, 96, 4, 80), (2, 96, 2, 80), (2, 96, 2, 80)]
+    host = [_randn(rng, s, dtype, "cpu").float().requires_grad_() for s in shapes]
+    card = [t.detach().to(dev, dtype).requires_grad_() for t in host]
+    g = _randn(rng, shapes[0], dtype, "cpu")
+    n0 = fa_kernel.bwd_launches
+    got = torch.autograd.grad(fa_ops.attention(*card, window=64), card, g.to(dev))
+    assert fa_kernel.bwd_launches == n0 + 1
+    want = torch.autograd.grad(fa_ops.attention(*host, window=64), host, g.float())
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype
+        _rel_close(a.cpu(), r, dtype, name)
 
 
 def test_fused_moe_and_scaled_mm_raise_under_grad(dev):

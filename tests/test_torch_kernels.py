@@ -405,3 +405,99 @@ def test_silu_mul_plan_owns_whole_row_blocks():
         assert p.block & (p.block - 1) == 0 and 4 <= p.num_warps <= 32
         lo, hi = min(span, silu_kernel.MAX_BLOCK), max(silu_kernel.MIN_BLOCK, 2 * span - 1)
         assert lo <= p.block <= hi
+
+
+def _causal_pairs(lo, hi, n_other, rows):
+    """Causal (query, key) pairs of a block: ``rows=True`` counts the keys
+    that q rows [lo, hi) see, else the q rows that see keys [lo, hi)."""
+    idx = np.arange(lo, hi)
+    return int((idx + 1).sum()) if rows else int((n_other - idx).clip(0).sum())
+
+
+BWD_SHAPES = [(4, 2048, 2048, 16, 8), (1, 781, 781, 4, 2), (2, 64, 64, 2, 2), (1, 200, 50, 2, 1),
+              (1, 2048, 2048, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_attention_bwd_plan_covers_every_block_once(shape, dtype):
+    """Each kernel's grid takes every key block (dK/dV) or q block (dQ)
+    exactly once, and the blocks cover every key and q row."""
+    B, S, Skv, Hq, Hkv = shape
+    for D in fa_kernel.BWD_HEAD_DIMS:
+        plan = {k.name: k for k in fa_kernel.bwd_launch_plan(B, S, Skv, Hq, Hkv, D, dtype)}
+        for name, heads, length in (("dkdv", Hkv, Skv), ("dq", Hq, S)):
+            kern = plan[name]
+            n = kern.grid[1]
+            assert kern.grid[0] == B * heads and sorted(kern.order) == list(range(n))
+            assert (n - 1) * kern.rows < length <= n * kern.rows
+        if dtype == torch.float32:
+            assert plan["delta"].grid[0] * plan["delta"].rows >= B * S * Hq
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_attention_bwd_plan_launches_the_heaviest_causal_block_first(shape, dtype):
+    """Under a causal mask both grids launch their heaviest block first:
+    dK/dV's first key block sees every q row, dQ's last q block every key,
+    so the heaviest CTAs run in the first wave and not the last. Blocks
+    follow in order of falling work, but for a ragged last q block, which
+    launches last."""
+    B, S, Skv, Hq, Hkv = shape
+    for kern in fa_kernel.bwd_launch_plan(B, S, Skv, Hq, Hkv, 128, dtype):
+        if kern.name == "delta":
+            continue
+        rows = kern.name == "dq"
+        work = [_causal_pairs(i * kern.rows, min((i + 1) * kern.rows, S if rows else Skv),
+                              S, rows) for i in kern.order]
+        if rows and S % kern.rows and len(work) > 1:
+            assert kern.order[-1] == len(kern.order) - 1
+            work = work[:-1]
+        assert work[0] == max(work) and work == sorted(work, reverse=True), (kern.name, work)
+
+
+def test_flash_attention_bwd_plan_rings_and_shared_bytes():
+    """bf16: dQ launches first (it writes Delta), then dK/dV, each streaming
+    its tiles through a ring of at least two stages; every head dim's
+    kernels fit the 232448 shared bytes a CTA may take. f32: the one-stage
+    FMA kernels, Delta first."""
+    for D in fa_kernel.BWD_HEAD_DIMS:
+        bf = fa_kernel.bwd_launch_plan(4, 2048, 2048, 16, 8, D)
+        assert [k.name for k in bf] == ["dq", "dkdv"]
+        assert all(k.stages >= 2 and k.rows == 16 * k.warps for k in bf)
+        assert all(k.step % 16 == 0 for k in bf)
+        f32 = fa_kernel.bwd_launch_plan(4, 2048, 2048, 16, 8, D, torch.float32)
+        assert [k.name for k in f32] == ["delta", "dkdv", "dq"]
+        assert all(0 < k.smem <= 232448 for k in (*bf, *f32[1:]))
+    ld = 128 + 8
+    (tq, kst, kw), (tk, qst, qw) = fa_kernel.BWD_TILES
+    dq, dkdv = fa_kernel.bwd_launch_plan(4, 2048, 2048, 16, 8, 128)
+    assert (dq.step, dq.stages, dq.warps) == (tk, qst, qw)
+    assert (dkdv.step, dkdv.stages, dkdv.warps) == (tq, kst, kw)
+    assert dq.smem == 2 * ld * (2 * 16 * qw + 2 * qst * tk)
+    assert dkdv.smem == 2 * ld * (2 * 16 * kw + 2 * kst * tq) + 8 * kst * tq
+    assert dq.grid == (64, -(-2048 // (16 * qw))) and dkdv.grid == (32, -(-2048 // (16 * kw)))
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.bwd_launch_plan(1, 64, 64, 2, 2, 256)
+
+
+@pytest.mark.parametrize("R, d", [(8192, 1024), (131072, 128), (65536, 128), (8192, 3072),
+                                  (777, 1024), (14, 48), (1, 1), (100003, 128)])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_rmsnorm_bwd_plan_covers_each_row_once(R, d, sms):
+    """The row pass's programs own disjoint, contiguous shares in whole
+    steps; together they cover every row once, at most BWD_PROGRAMS_PER_SM
+    programs an SM; a step holds at most BWD_TILE values; the ``dw`` pass
+    covers every column and sums the partial rows in one order."""
+    p = rms_kernel.bwd_plan(R, d, sms=sms)
+    owner = np.zeros(R, dtype=np.int64)
+    for prog in range(p.programs):
+        lo = prog * p.rows_per_program
+        assert lo < R
+        owner[lo:lo + p.rows_per_program] += 1
+    assert (owner == 1).all()
+    assert p.rows_per_program % p.rows == 0
+    assert p.programs <= max(1, rms_kernel.BWD_PROGRAMS_PER_SM * sms)
+    assert p.rows * p.block_d <= max(rms_kernel.BWD_TILE, p.block_d)
+    assert p.block_d >= d and p.block_d & (p.block_d - 1) == 0 and p.stages >= 1
+    assert p.dw_programs * p.dw_block >= d and p.dw_rows >= 1

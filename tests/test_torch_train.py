@@ -538,6 +538,9 @@ FA_BWD_CASES = [
     (1, 77, 90, 4, 1, 64, False, 50, 20.0),
     (1, 60, 20, 2, 1, 16, True, 10, None),
     (1, 60, 20, 2, 1, 16, False, 10, 5.0),
+    # stablelm-3b's head dim 80: causal, and windowed and soft-capped with GQA
+    (1, 48, 48, 2, 2, 80, True, None, None),
+    (1, 40, 56, 4, 2, 80, True, 16, 30.0),
 ]
 
 
