@@ -46,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``StepMeta`` re-lowered by ``step_calls`` to exactly the recorded calls,
    one residual per measured step), one ``ContinuousBatchingEngine`` with
    ``admission="predicted"`` priced by the roofline predictor of a registry
-   TPU, with an SLO that defers some admissions; then full-width dbrx-132b
+   TPU, with an SLO that defers some admissions, built with ``audit=True``
+   (the predictor-coverage pre-flight); then full-width dbrx-132b
    cut to 2 layers, bf16 compute, through both engines. Each run sets the
    launch counts to 0 before it and reads them after: every kernel's count
    must move by exactly what the path implies (fused MoE once per MoE layer
@@ -124,7 +125,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    step-5 checkpoint gives steps 6-10's losses bit for bit under
    ``torch.use_deterministic_algorithms``; (c) two steps with int8
    error-feedback compression (bucketed) and two with 2 microbatches, at
-   full width and depth, all losses finite.
+   full width and depth, all losses finite;
+11. the static auditor: (a) ``python -m repro_torch.analysis --all --strict
+   --json`` in a subprocess exits 0 with only info-severity findings, one
+   SP105 (no cached dry-run ledger) for each registry arch, and the CUDA
+   memory this process holds is the same before and after; its wall
+   seconds are printed beside the card's name and power limit; (b) a
+   predicted-admission ``ContinuousBatchingEngine(audit=True)`` whose
+   roofline predictor carries a stale ``CommRegressor`` (fitted before
+   ``all_to_all`` joined its vocabulary) raises ``AuditError`` before it
+   builds anything: the CUDA memory allocated is the same before and after.
+   Phase 4's predicted-admission engine ran with ``audit=True``, and phases
+   3 and 4 ran through the models' ``constrain`` hooks, which without a
+   mesh return their input and launch nothing (phase 4's counts are exact).
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -291,6 +304,16 @@ def main():
         launches[k] = launches.get(k, 0) + v
     log(f"[10 training] passed in {time.perf_counter() - t0:.1f}s; launches {trained}")
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+    # ---------------------------------------------------------------- 11
+    t0 = time.perf_counter()
+    static_audit(torch, dev, smi)
+    log(f"[11 static auditor] passed in {time.perf_counter() - t0:.1f}s")
+
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
                     "src/repro/kernels/rmsnorm/kernel.py:13"),
@@ -319,12 +342,8 @@ def main():
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_err[k], **rows[k],
         })
-    log(f"[done] phases 1-10 in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] phases 1-11 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -948,10 +967,13 @@ def serve(torch, dev, params, kinds):
     slo = roofline.predict(model_calls(cfg, 4, 1, spans[len(spans) // 2], tp=1)).total_s
     eng = ContinuousBatchingEngine(cfg, params=params, slots=4, max_len=4096,
                                    recorder=TraceRecorder(), admission="predicted",
-                                   predictor=roofline, decode_slo_s=slo, device="cuda")
+                                   predictor=roofline, decode_slo_s=slo, audit=True,
+                                   device="cuda")
+    log("    audit=True: the roofline predictor passed the coverage pre-flight")
     with warnings.catch_warnings(record=True) as warned:
         warnings.simplefilter("always")
-        run("ContinuousBatchingEngine(slots=4, admission='predicted')", eng, prompts[:6], 16,
+        run("ContinuousBatchingEngine(slots=4, admission='predicted', audit=True)", eng,
+        prompts[:6], 16,
             per_forward, per_prefill, predictor=roofline)
     log(f"    prediction for the registry TPU {hw.name} (roofline backend), not this card: "
         f"decode_slo_s {slo:.6f} s at a {spans[len(spans) // 2]}-token span")
@@ -2080,6 +2102,63 @@ def training(torch, dev):
         del st
         torch.cuda.empty_cache()
     return moved
+
+
+# ======================================================================
+# phase 11: the static auditor
+# ======================================================================
+
+
+def static_audit(torch, dev, smi):
+    """Phase 11 (the module docstring's (a), (b))."""
+    import os
+
+    from repro_torch.analysis import AuditError
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.core.hardware import get_hw
+    from repro_torch.predict import CommRegressor, get_predictor
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--all", "--strict", "--json"],
+        capture_output=True, text=True, cwd=root, env=env, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"(a) auditor exit {proc.returncode}: {proc.stderr[-2000:]}"
+    diags = json.loads(proc.stdout)
+    assert all(d["severity"] == "info" for d in diags), diags
+    archs = {d["arch"] for d in diags if d["code"] == "SP105"}
+    assert archs == set(list_archs()) and len(archs) == 10, archs
+    assert torch.cuda.memory_allocated() == held, "(a) the audit moved CUDA memory"
+    log(f"  (a) python -m repro_torch.analysis --all --strict --json: exit 0, {len(diags)} "
+        f"findings, all info (SP105 for each of the {len(archs)} archs), {wall:.2f}s wall "
+        f"(card: {smi}); CUDA memory held {held / 2**30:.2f} GiB before and after")
+
+    hw = get_hw("tpu-v5e")
+    stale = CommRegressor().fit(hw)  # fitted before all_to_all joined CommRegressor.OPS
+    for k in [k for k in stale.theta if k[0] == "all_to_all"]:
+        del stale.theta[k]
+    bad = get_predictor("roofline", hw, comm=stale)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    try:
+        ContinuousBatchingEngine(get_arch("qwen3-0.6b"), slots=4, max_len=4096,
+                                 admission="predicted", predictor=bad, decode_slo_s=1.0,
+                                 audit=True, device="cuda")
+    except AuditError as e:
+        codes = [d.code for d in e.diagnostics]
+    else:
+        raise AssertionError("(b) a stale CommRegressor passed the audit")
+    torch.cuda.synchronize()
+    assert codes == ["SP401"], codes
+    assert torch.cuda.memory_allocated() == held, "(b) the refused engine allocated CUDA memory"
+    log(f"  (b) a stale CommRegressor: AuditError {codes} before any parameter was built; "
+        f"CUDA memory held {held / 2**30:.2f} GiB before and after")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ reference's layout.
 bf16 leaves, which numpy cannot hold, are stored as their 16-bit patterns
 (``uint16``) and the manifest records their type. Python scalars (the
 optimizer's step count) are stored as 0-d arrays and come back as such
-scalars. Restoring onto a mesh (``shardings=``) waits for ROADMAP A10.
+scalars. Restoring onto a mesh (``shardings=``) waits for ROADMAP A10 part 2.
 """
 from __future__ import annotations
 
@@ -133,7 +133,8 @@ class CheckpointManager:
         device and in the type of ``like``'s, each scalar leaf as its type."""
         if shardings is not None:
             raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...) needs the port's mesh (ROADMAP A10)"
+                "CheckpointManager.restore(shardings=...) needs executed sharding "
+                "(ROADMAP A10 part 2)"
             )
         path = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(path, "manifest.json")) as f:

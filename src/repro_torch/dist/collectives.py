@@ -11,7 +11,7 @@ As in the reference, compress and dequantize run inside the training step,
 single-process, so the numerics are faithful while the transport is left to
 the caller: ``ef_compress_grads_bucketed``'s ``all_reduce`` hook receives
 each bucket's dequantized leaves (a ``torch.distributed`` all-reduce once
-the port has a mesh, ROADMAP A10).
+the port executes sharding, ROADMAP A10 part 2).
 
 Trees are dicts, lists and tuples of tensors, flattened in the reference's
 order (``optim.adamw.tree_flatten``: dict keys sorted), so the same leaves

@@ -6,7 +6,7 @@
 Runs the full Trainer (data pipeline -> train step -> checkpoints ->
 watchdog) on one device: the card unless ``--device cpu``; a machine
 without CUDA raises rather than falling back. ``--mesh``/``--devices``
-raise until the port has a mesh (ROADMAP A10)."""
+raise until the port executes sharding (ROADMAP A10 part 2)."""
 import argparse
 import logging
 import sys
@@ -41,7 +41,9 @@ def build_trainer(args):
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     if args.mesh or args.devices:
-        raise NotImplementedError("--mesh/--devices need the port's mesh (ROADMAP A10)")
+        raise NotImplementedError(
+            "--mesh/--devices need executed sharding (ROADMAP A10 part 2)"
+        )
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()

@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import active_mesh, constrain, resolve_pspec
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.silu_mul import ops as silu_ops
@@ -304,9 +305,14 @@ def _project_qkv(p, x, cfg: ArchConfig, positions):
 
 
 def attention_layer(p, x, cfg: ArchConfig, positions, *, window: Optional[int],
-                    causal: bool = True):
+                    causal: bool = True, shard_hint: Optional[bool] = None):
     """Self-attention for prefill (and whisper's encoder). Returns
     (out, (k, v)) for caching.
+
+    ``shard_hint`` (default: ``cfg.attn_shard_hint is True``) pins k and v
+    batch- and head-sharded on the active mesh, and q too where its head
+    count shards, as the reference does; without a mesh the hints return
+    their inputs.
 
     ``positions`` are 0..S-1 in every row: ``transformer.forward`` builds
     them so, hymba's meta tokens included (``[0..m) ++ base + m`` is
@@ -316,6 +322,12 @@ def attention_layer(p, x, cfg: ArchConfig, positions, *, window: Optional[int],
     visible past the window: that is not the kernel's mask, and it takes
     the reference's plain chunked path (local slice and prefix)."""
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if shard_hint if shard_hint is not None else cfg.attn_shard_hint is True:
+        k = constrain(k, ("batch", None, "tp", None))
+        v = constrain(v, ("batch", None, "tp", None))
+        mesh = active_mesh()
+        if mesh is not None and resolve_pspec(q.shape, ("batch", None, "tp", None), mesh)[2] is not None:
+            q = constrain(q, ("batch", None, "tp", None))
     B, S = x.shape[:2]
     if window is not None and cfg.meta_tokens:
         out = chunked_attention(

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.kernels.fused_moe import ops as moe_ops
 from repro_torch.models.layers import dense_init, ffn, init_ffn
 
@@ -101,6 +102,7 @@ def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
         combine = combine.to(x.dtype)
     dispatch = (combine > 0).to(x.dtype)
     xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)  # (G, E, C, d)
+    xe = constrain(xe, ("batch", "experts", None, None))
 
     # ---- expert FFN (SwiGLU), one fused_moe call over (E, G*C, d) rows -----
     rows = xe.transpose(0, 1).reshape(E, G * C, d)

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
@@ -176,7 +177,10 @@ def _self_attn(p, x, ctx: Ctx, cache, mode, *, window, causal=True):
             p, x, cfg, cache["k"], cache["v"], ctx.dec_positions, window=window
         )
         return out, {"k": ck, "v": cv}
-    out, (k, v) = L.attention_layer(p, x, cfg, ctx.positions, window=window, causal=causal)
+    # attn_shard_hint: True = always, "train" = training only, as the reference
+    hint = cfg.attn_shard_hint is True or (cfg.attn_shard_hint == "train" and mode == "train")
+    out, (k, v) = L.attention_layer(p, x, cfg, ctx.positions, window=window, causal=causal,
+                                    shard_hint=hint)
     if mode == "prefill":
         return out, {"k": k, "v": v}
     return out, None
@@ -189,12 +193,13 @@ def dense_block(p, x, ctx: Ctx, cache, mode, *, window):
     attn_out, new_cache = _self_attn(p["attn"], h, ctx, cache, mode, window=window)
     if cfg.post_norms:
         attn_out = L.apply_norm(p["post_ln1"], attn_out, cfg)
-    x = x + attn_out
+    x = constrain(x + attn_out, ("batch", None, None))
     h = L.apply_norm(p["ln2"], x, cfg)
     ffn_out = L.ffn(p["ffn"], h, cfg)
     if cfg.post_norms:
         ffn_out = L.apply_norm(p["post_ln2"], ffn_out, cfg)
-    return x + ffn_out, 0.0, new_cache
+    x = constrain(x + ffn_out, ("batch", None, None))
+    return x, 0.0, new_cache
 
 
 def init_dense_block(gen, cfg: ArchConfig, dtype, device):
@@ -224,10 +229,11 @@ def moe_block(p, x, ctx: Ctx, cache, mode, *, window):
     p = _cast(p, x.dtype)
     h = L.apply_norm(p["ln1"], x, cfg)
     attn_out, new_cache = _self_attn(p["attn"], h, ctx, cache, mode, window=window)
-    x = x + attn_out
+    x = constrain(x + attn_out, ("batch", None, None))
     h = L.apply_norm(p["ln2"], x, cfg)
     moe_out, aux = M.moe_layer(p["moe"], h, cfg, train=ctx.train)
-    return x + moe_out, aux, new_cache
+    x = constrain(x + moe_out, ("batch", None, None))
+    return x, aux, new_cache
 
 
 def init_moe_block(gen, cfg: ArchConfig, dtype, device):
@@ -249,7 +255,8 @@ def ssm_block(p, x, ctx: Ctx, cache, mode):
     else:
         out, st = SSM.ssm_layer(p["mix"], h, cfg)
         new_cache = {"conv": st.conv, "ssm": st.ssm} if mode == "prefill" else None
-    return x + out, 0.0, new_cache
+    x = constrain(x + out, ("batch", None, None))
+    return x, 0.0, new_cache
 
 
 def init_ssm_block(gen, cfg: ArchConfig, dtype, device):
@@ -273,9 +280,9 @@ def hybrid_block(p, x, ctx: Ctx, cache, mode, *, window):
     else:
         ssm_out, st = SSM.ssm_layer(p["mix"], h, cfg)
     mixed = 0.5 * (L.rmsnorm(attn_out, p["norm_attn"]) + L.rmsnorm(ssm_out, p["norm_ssm"]))
-    x = x + mixed
+    x = constrain(x + mixed, ("batch", None, None))
     h = L.apply_norm(p["ln2"], x, cfg)
-    x = x + L.ffn(p["ffn"], h, cfg)
+    x = constrain(x + L.ffn(p["ffn"], h, cfg), ("batch", None, None))
     new_cache = None
     if mode != "train":
         new_cache = {"attn": attn_cache, "ssm": {"conv": st.conv, "ssm": st.ssm}}
@@ -310,7 +317,7 @@ def cross_block(p, x, ctx: Ctx, cache, mode):
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
     h = L.apply_norm(p["ln2"], x, cfg)
     x = x + torch.tanh(p["gate_ffn"]).to(x.dtype) * L.ffn(p["ffn"], h, cfg)
-    return x, 0.0, new_cache
+    return constrain(x, ("batch", None, None)), 0.0, new_cache
 
 
 def init_cross_block(gen, cfg: ArchConfig, dtype, device):
@@ -363,7 +370,7 @@ def encdec_block(p, x, ctx: Ctx, cache, mode):
         cross_cache = {"ck": ck, "cv": cv} if mode == "prefill" else None
     x = x + xo
     h = L.apply_norm(p["ln2"], x, cfg)
-    x = x + L.ffn(p["ffn"], h, cfg)
+    x = constrain(x + L.ffn(p["ffn"], h, cfg), ("batch", None, None))
     new_cache = None
     if mode != "train":
         new_cache = {"self": self_cache, "cross": cross_cache}
@@ -571,6 +578,7 @@ def forward(params, cfg: ArchConfig, batch, mode: str):
     if cfg.family == "audio":
         ctx.enc_out = _run_encoder(params, cfg, batch["frames"], ctx)
     x, ctx.positions = _embed_input(params, cfg, tokens, base_pos)
+    x = constrain(x, ("batch", None, None))
     caches = []
     aux = 0.0
     for seg, seg_params in zip(build_segments(cfg), params["segments"]):

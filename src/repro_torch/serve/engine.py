@@ -14,9 +14,14 @@ wall-clock after a device sync. ``ContinuousBatchingEngine`` admits by a
 fixed slot count or, with ``admission="predicted"``, only while a
 predictor prices the would-be decode tick within ``decode_slo_s``.
 
+``ContinuousBatchingEngine(audit=True)`` runs the predictor-coverage lint
+(``analysis.audit_predictor``) on its predictor before anything else is
+built, and raises ``analysis.AuditError`` on an error-severity finding.
+
 Engines run on ``"cuda"`` unless ``device="cpu"`` is passed. Not ported
-yet: ``mesh=`` (the distribution slice, ROADMAP A10) and ``audit=`` (the
-predictor audit, ROADMAP A12); both raise ``NotImplementedError``.
+yet: ``mesh=`` (executed sharding, ROADMAP A10 part 2) raises
+``NotImplementedError``; the engines run at the degrees of no mesh,
+``tp = pp = 1`` (``dist.sharding.mesh_degrees``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import mesh_degrees
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import build_model
 
@@ -59,10 +65,16 @@ class _ModelRunner:
     """Shared prefill/decode/sample machinery for the serving engines.
 
     Keeps ``params`` as given (``param_dtype``) and, beside them, the copy
-    the forward pass reads (``transformer.cast_for_compute``)."""
+    the forward pass reads (``transformer.cast_for_compute``). ``tp``/``pp``
+    are the mesh's "model"/"pipe" axis sizes (1 without a mesh): the
+    degrees every consumer (trace recorder, predicted admission) prices
+    this engine's steps at."""
 
-    def __init__(self, cfg: ArchConfig, *, params=None, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: ArchConfig, *, params=None, seed: int = 0, device="cuda",
+                 mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp, self.pp = mesh_degrees(mesh)
         self.api = build_model(cfg, device)
         self.device = self.api.device
         self.params = self.api.init(seed) if params is None else params
@@ -115,10 +127,10 @@ class _EngineBase:
     def __init__(self, cfg: ArchConfig, *, params, seed, recorder, device, mesh):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= needs the port's distribution slice (ROADMAP A10), not ported yet"
+                "mesh= needs executed sharding (ROADMAP A10 part 2), not ported yet"
             )
         self.cfg = cfg
-        self._runner = _ModelRunner(cfg, params=params, seed=seed, device=device)
+        self._runner = _ModelRunner(cfg, params=params, seed=seed, device=device, mesh=mesh)
         self.api = self._runner.api
         self.queue: deque[Request] = deque()
         # optional serve.trace.TraceRecorder: every executed step also emits
@@ -137,6 +149,20 @@ class _EngineBase:
     @property
     def device(self) -> torch.device:
         return self._runner.device
+
+    @property
+    def mesh(self):
+        return self._runner.mesh
+
+    @property
+    def tp(self) -> int:
+        """Tensor-parallel degree the engine executes at (the mesh's
+        "model" axis size; 1 single-process)."""
+        return self._runner.tp
+
+    @property
+    def pp(self) -> int:
+        return self._runner.pp
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -277,6 +303,11 @@ class ContinuousBatchingEngine(_EngineBase):
         step (it raises ``RuntimeError``), the engine warns once and falls
         back to fixed admission (``admission_fallback_reason``). Decisions
         are logged in ``admission_log``, one dict per considered candidate.
+        Ticks are priced at the engine's tensor-parallel degree ``self.tp``.
+
+    ``audit=True`` runs ``analysis.audit_predictor`` on ``predictor`` first
+    (a callable runs as ``audit(predictor, hw_name)``); an error-severity
+    finding raises ``analysis.AuditError`` before any parameter is built.
     """
 
     def __init__(self, cfg: ArchConfig, *, slots: int = 4, max_len: int = 128,
@@ -293,10 +324,23 @@ class ContinuousBatchingEngine(_EngineBase):
                 "backend for the target hardware) and decode_slo_s= (the "
                 "per-tick decode latency SLO in predicted seconds)"
             )
-        if audit:
-            raise NotImplementedError(
-                "audit= needs analysis.audit_predictor (ROADMAP A12), not ported yet"
+        if audit and predictor is not None:
+            # audit=True: pre-flight coverage lint. A predictor that cannot
+            # price the decode workload (stale CommRegressor, untrained
+            # family) fails construction, before any parameter is built or
+            # moved to the device, instead of the first admission tick. A
+            # callable substitutes a custom lint:
+            # audit(predictor, hw_name) -> list[Diagnostic].
+            from repro_torch.analysis import AuditError, audit_predictor
+
+            found = (
+                audit_predictor(predictor)
+                if audit is True
+                else audit(predictor, getattr(getattr(predictor, "hw", None), "name", ""))
             )
+            errors = [d for d in found if d.severity == "error"]
+            if errors:
+                raise AuditError(errors)
         super().__init__(cfg, params=params, seed=seed, recorder=recorder, device=device,
                          mesh=mesh)
         self.max_len = max_len
@@ -333,14 +377,15 @@ class ContinuousBatchingEngine(_EngineBase):
 
     def _predicted_tick_s(self, kv: int) -> Optional[float]:
         """Predicted decode-tick latency (seconds on the predictor's
-        hardware) for the full slot pool attending ``kv``, at tp=1 (the
-        engine runs on one device); None when the predictor cannot price
-        the step (the engine has then fallen back to fixed admission)."""
+        hardware) for the full slot pool attending ``kv``, at the engine's
+        tensor-parallel degree ``self.tp``; None when the predictor cannot
+        price the step (the engine has then fallen back to fixed
+        admission)."""
         from repro_torch.core.e2e import model_calls
 
         try:
             return self.predictor.predict(
-                model_calls(self.cfg, len(self.slots), 1, kv, tp=1, tuned=self.tuned)
+                model_calls(self.cfg, len(self.slots), 1, kv, tp=self.tp, tuned=self.tuned)
             ).total_s
         except RuntimeError as e:  # unfitted estimator / comm regressor
             self.admission_fallback_reason = f"{type(e).__name__}: {e}"

@@ -150,9 +150,14 @@ class FleetRouter:
     is the default criterion (name or ``Objective``); every route call may
     override it.
 
-    ``audit=`` (the reference's predictor-coverage lint at construction)
-    needs ``analysis.audit_predictor``, which the port has not ported yet
-    (ROADMAP A12): passing it raises ``NotImplementedError``."""
+    ``audit=True`` runs the predictor-coverage lint
+    (``repro_torch.analysis.audit_predictor``) over every fleet backend at
+    construction and raises :class:`~repro_torch.analysis.AuditError`
+    listing the diagnostics: a stale ``CommRegressor`` or an untrained
+    kernel family fails *here* instead of surfacing as one skip warning per
+    hardware in the middle of a fleet sweep. Pass a callable
+    ``audit(predictor, hw_name) -> list[Diagnostic]`` to substitute a
+    custom pre-flight lint."""
 
     def __init__(
         self,
@@ -168,9 +173,20 @@ class FleetRouter:
         self.sweep = sweep if sweep is not None else SweepPredictor(hws, backend, **backend_kw)
         self.objective = get_objective(objective)
         if audit:
-            raise NotImplementedError(
-                "audit= needs analysis.audit_predictor (ROADMAP A12), not ported yet"
-            )
+            # deferred import: serve stays importable without analysis
+            from repro_torch.analysis import AuditError, audit_predictor
+
+            hook = audit_predictor if audit is True else audit
+            found = []
+            for name, predictor in self.sweep.predictors.items():
+                found += (
+                    hook(predictor, hw_name=name)
+                    if hook is audit_predictor
+                    else hook(predictor, name)
+                )
+            errors = [d for d in found if d.severity == "error"]
+            if errors:
+                raise AuditError(errors)
 
     @property
     def hw_names(self) -> list:

@@ -25,7 +25,14 @@ from repro_torch.dist.collectives import (
 )
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import ModelApi
-from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map, tree_unflatten, warmup_cosine
+from repro_torch.optim.adamw import (
+    AdamW,
+    AdamWState,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    warmup_cosine,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +74,28 @@ def init_train_state(api: ModelApi, optimizer: AdamW, seed: int = 0,
 
 
 def train_state_pspecs(state_shapes: dict, mesh) -> dict:
-    """The train state's sharding over a mesh: it needs ``dist.sharding``."""
-    raise NotImplementedError("train_state_pspecs needs the port's mesh (ROADMAP A10)")
+    """PartitionSpecs for a full train-state tree (params, optimizer moments,
+    error-feedback buffer): the single source of truth for launchers. The
+    err subtree mirrors the params whenever it exists. Leaves may be
+    tensors, meta tensors or ``dist.sharding.LeafShape``s; per-layer lists
+    get per-layer specs (``dist.sharding.param_pspecs``)."""
+    from repro_torch.dist.sharding import PartitionSpec as P
+    from repro_torch.dist.sharding import param_pspecs
+
+    return {
+        "params": param_pspecs(state_shapes["params"], mesh),
+        "opt": AdamWState(
+            step=P(),
+            mu=param_pspecs(state_shapes["opt"].mu, mesh),
+            nu=param_pspecs(state_shapes["opt"].nu, mesh),
+        ),
+        "step": P(),
+        "err": (
+            param_pspecs(state_shapes["err"], mesh)
+            if state_shapes["err"] is not None
+            else None
+        ),
+    }
 
 
 def make_train_step(api: ModelApi, optimizer: AdamW, tc: TrainConfig):

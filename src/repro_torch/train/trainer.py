@@ -11,7 +11,7 @@
     running median.
 
 It runs on one device, ``"cuda"`` unless the caller asks for the CPU;
-``mesh=`` raises until the port has a mesh (ROADMAP A10).
+``mesh=`` raises until the port executes sharding (ROADMAP A10 part 2).
 """
 from __future__ import annotations
 
@@ -63,7 +63,9 @@ class Trainer:
         device="cuda",
     ):
         if mesh is not None or state_shardings is not None or batch_shardings is not None:
-            raise NotImplementedError("Trainer(mesh=...) needs the port's mesh (ROADMAP A10)")
+            raise NotImplementedError(
+                "Trainer(mesh=...) needs executed sharding (ROADMAP A10 part 2)"
+            )
         self.cfg = cfg
         self.api = build_model(cfg, device)
         self.device = self.api.device

@@ -642,3 +642,42 @@ def test_fused_moe_and_scaled_mm_raise_under_grad(dev):
     sx = torch.ones(64, device=dev, requires_grad=True)
     with pytest.raises(NotImplementedError, match="scaled_mm"):
         smm_ops.scaled_mm(xi, wi, sx, torch.ones(64, device=dev))
+
+
+# ----------------------------------------------------------------------
+# the predictor-coverage pre-flight on the card
+# ----------------------------------------------------------------------
+
+
+def test_continuous_engine_audit_on_the_card(dev):
+    """``ContinuousBatchingEngine(device="cuda", audit=True)`` on the smoke
+    config serves through predicted admission; a stale ``CommRegressor``
+    raises ``AuditError`` before any CUDA allocation."""
+    from repro_torch.analysis import AuditError
+    from repro_torch.configs import get_arch
+    from repro_torch.core.hardware import get_hw
+    from repro_torch.predict import CommRegressor, get_predictor
+    from repro_torch.serve.engine import ContinuousBatchingEngine, Request
+
+    cfg = get_arch("qwen3-0.6b").smoke()
+    hw = get_hw("tpu-v5e")
+    stale = CommRegressor().fit(hw)
+    for k in [k for k in stale.theta if k[0] == "all_to_all"]:
+        del stale.theta[k]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    with pytest.raises(AuditError, match="all_to_all"):
+        ContinuousBatchingEngine(cfg, admission="predicted", decode_slo_s=0.5, audit=True,
+                                 predictor=get_predictor("roofline", hw, comm=stale),
+                                 device="cuda")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    eng = ContinuousBatchingEngine(cfg, admission="predicted", decode_slo_s=0.5, audit=True,
+                                   predictor=get_predictor("roofline", hw), device="cuda")
+    assert eng.admission == "predicted" and eng.tp == 1
+    rng = np.random.default_rng(0)
+    for rid in range(3):
+        eng.submit(Request(rid, rng.integers(1, cfg.vocab_size, 9 + rid), max_new=4))
+    results = eng.run_to_completion()
+    assert sorted(r.rid for r in results) == [0, 1, 2]
+    assert all(len(r.tokens) == 4 for r in results)

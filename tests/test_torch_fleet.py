@@ -34,6 +34,7 @@ from repro.serve import fleet as ref_fleet
 from repro.serve import monitor as ref_monitor
 from repro.serve import placement as ref_placement
 from repro.serve import trace as ref_trace
+from repro_torch.analysis import AuditError
 from repro_torch.configs import get_arch
 from repro_torch.convert import pipeweave_from_numpy
 from repro_torch.core.e2e import model_calls, place_request, simulate_fleet
@@ -270,8 +271,14 @@ def test_router_rejects_ambiguous_construction_and_audit():
         FleetRouter(["tpu-v5e"], sweep=sp)
     with pytest.raises(KeyError, match="unknown objective"):
         FleetRouter(["tpu-v5e"], backend="roofline", objective="speed")
-    with pytest.raises(NotImplementedError, match="A12"):
-        FleetRouter(["tpu-v5e"], backend="roofline", audit=True)
+    # audit= is ported: a fitted fleet passes, a stale comm regressor fails
+    # construction (tests/test_torch_audit.py holds both against the reference)
+    FleetRouter(["tpu-v5e"], backend="roofline", audit=True)
+    stale = CommRegressor().fit(get_hw("tpu-v5e"))
+    for k in [k for k in stale.theta if k[0] == "all_to_all"]:
+        del stale.theta[k]
+    with pytest.raises(AuditError, match="all_to_all"):
+        FleetRouter(["tpu-v5e"], backend="roofline", audit=True, comm=stale)
 
 
 def test_split_fleet_prefers_different_devices():

@@ -71,7 +71,9 @@ def test_port_files_exist():
                 "predict/objective.py", "serve/placement.py", "serve/fleet.py",
                 "models/ssm.py", "dist/collectives.py", "data/pipeline.py",
                 "checkpoint/manager.py", "train/step.py", "train/trainer.py",
-                "launch/train.py"):
+                "launch/train.py", "dist/sharding.py", "analysis/conservation.py",
+                "analysis/coverage.py", "analysis/sharding.py", "analysis/audit.py",
+                "analysis/__main__.py"):
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu",

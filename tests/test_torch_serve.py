@@ -134,12 +134,13 @@ def test_sampling_follows_the_distribution(setup):
 
 
 def test_engine_options_of_later_slices_raise(setup):
-    """Predicted admission is ported; what still raises: ``audit=`` (A12),
-    ``mesh=`` (A10), predicted admission without its predictor or SLO, an
-    unknown admission policy, and a family without a KV cache."""
+    """Predicted admission and ``audit=`` are ported; what still raises:
+    ``mesh=`` (A10 part 2), predicted admission without its predictor or
+    SLO, an unknown admission policy, and a family without a KV cache.
+    ``audit=True`` without a predictor audits nothing, as the reference's."""
     _, _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="audit"):
-        ContinuousBatchingEngine(cfg, params=params, audit=True, device="cpu")
+    eng = ContinuousBatchingEngine(cfg, params=params, audit=True, device="cpu")
+    assert eng.tp == eng.pp == 1 and eng.mesh is None
     for cls in (ServeEngine, ContinuousBatchingEngine):
         with pytest.raises(NotImplementedError, match="mesh"):
             cls(cfg, params=params, mesh=object(), device="cpu")
