@@ -139,6 +139,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    3 and 4 ran through the models' ``constrain`` hooks, which without a
    mesh return their input and launch nothing (phase 4's counts are exact).
 
+12. the mesh path, on a one-rank NCCL process group and a ``(1, 1)``
+   ``("data", "model")`` ``DeviceMesh`` on the card: (a) full-width,
+   full-depth qwen3-0.6b (bf16 compute) through ``ServeEngine(mesh=)`` and
+   ``ContinuousBatchingEngine(mesh=)``: parameters and caches are DTensors,
+   the kernels run under ``local_map``; the tokens equal the meshless
+   engines' on the same weights, each kernel's launches move by exactly
+   what they move without the mesh, and the median decode tick is printed
+   with and without the mesh (DTensor's host cost); (b) qwen3-0.6b at full
+   width, 2 layers, f32: the loss and every gradient leaf on the mesh
+   against the meshless ones (phase 10 (a)'s tolerances), then
+   ``Trainer(mesh=)``: a checkpoint saved on the mesh resumes without one,
+   and one saved without a mesh resumes on it, each giving the same next
+   loss as a resume in the same mode; (c) dbrx-132b at full width, 1 layer,
+   bf16, under ``no_grad``, expert-parallel on the mesh (``fused_moe``
+   through ``local_map``, launched once): the loss equals the meshless
+   one. Two ranks sharing the card are not run: gloo refuses CUDA tensors
+   for send/recv, which the pipeline needs (its all-gather, reduce-scatter,
+   all-reduce and all-to-all take them; PERF.md), and NCCL takes one rank
+   a device.
+
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -314,6 +334,13 @@ def main():
     static_audit(torch, dev, smi)
     log(f"[11 static auditor] passed in {time.perf_counter() - t0:.1f}s")
 
+    # ---------------------------------------------------------------- 12
+    t0 = time.perf_counter()
+    sharded = mesh_path(torch, dev, kinds, smi)
+    for k, v in sharded.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"[12 mesh path] passed in {time.perf_counter() - t0:.1f}s; launches {sharded}")
+
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
                     "src/repro/kernels/rmsnorm/kernel.py:13"),
@@ -342,7 +369,7 @@ def main():
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_err[k], **rows[k],
         })
-    log(f"[done] phases 1-11 in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] phases 1-12 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -855,13 +882,13 @@ def model_parity(torch, dev, arch, n_layers=None, prompt_len=64):
 
 
 def serve_run(torch, kinds, label, eng, prompts, max_new, per_forward, per_prefill, *,
-              predictor=None):
+              predictor=None, results_out=None):
     """Serve ``prompts`` through ``eng`` (its recorder a ``TraceRecorder``)
     with the launch counts set to 0 before and read after; checks that
     every step was recorded and stamped, that each step's ``StepMeta``
     re-lowers to exactly its recorded calls, and that the counts moved by
     exactly ``per_forward`` a step and ``per_prefill`` a prefill. Returns
-    the launches."""
+    the launches; the results are appended to ``results_out`` if given."""
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.monitor import trace_residuals
     from repro_torch.serve.trace import step_calls
@@ -889,6 +916,8 @@ def serve_run(torch, kinds, label, eng, prompts, max_new, per_forward, per_prefi
               for k in kinds}
     assert moved == expect, f"{label}: launches {moved}, expected {expect}"
     assert sorted(r.rid for r in results) == list(range(len(prompts)))
+    if results_out is not None:
+        results_out.extend(results)
     for r in results:
         assert len(r.tokens) == max_new and all(0 <= t < cfg.vocab_size for t in r.tokens)
     assert all(m.measured_s > 0 for m in rec.meta), f"{label}: a step was not stamped"
@@ -2159,6 +2188,185 @@ def static_audit(torch, dev, smi):
     assert torch.cuda.memory_allocated() == held, "(b) the refused engine allocated CUDA memory"
     log(f"  (b) a stale CommRegressor: AuditError {codes} before any parameter was built; "
         f"CUDA memory held {held / 2**30:.2f} GiB before and after")
+
+
+# ======================================================================
+# phase 12: the mesh path (DTensors on a one-rank NCCL group)
+# ======================================================================
+
+
+def mesh_path(torch, dev, kinds, smi):
+    """Phase 12 (the module docstring's (a), (b), (c)). Returns the launches
+    of the mesh engines' runs in (a) and the mesh forward in (c)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.sharding import param_pspecs, place, use_mesh
+    from repro_torch.launch.mesh import make_mesh, process_group
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serve.engine import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.serve.trace import TraceRecorder
+    from repro_torch.train.step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    totals = {k: 0 for k in kinds}
+    try:
+        with process_group(os.path.join(tmp, "rendezvous"), backend="nccl"):
+            mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+            t_part = time.perf_counter()
+
+            # (a) both engines, with and without the mesh, on the same weights
+            cfg = get_arch("qwen3-0.6b")
+            n = cfg.n_layers
+            params = build_model(cfg, "cuda").init(SEED)
+            per_forward = {"rmsnorm": 4 * n + 1, "silu_mul": n}
+            per_prefill = {"flash_attention": n}
+            rng = np.random.default_rng(SEED + 12)
+            prompts = [rng.integers(1, cfg.vocab_size, int(L)) for L in (300, 517, 256, 129)]
+            for label, make in (
+                ("ServeEngine(max_batch=4)", lambda m: ServeEngine(
+                    cfg, params=params, max_batch=4, recorder=TraceRecorder(), mesh=m,
+                    device="cuda")),
+                ("ContinuousBatchingEngine(slots=4, max_len=1024)",
+                 lambda m: ContinuousBatchingEngine(
+                     cfg, params=params, slots=4, max_len=1024, recorder=TraceRecorder(),
+                     mesh=m, device="cuda")),
+            ):
+                got = {}
+                for m in (None, mesh):
+                    eng, results = make(m), []
+                    tag = f"{label}{' on the (1, 1) mesh' if m is not None else ''}"
+                    moved = serve_run(torch, kinds, tag, eng, prompts, 12, per_forward,
+                                      per_prefill, results_out=results)
+                    ticks = [x.measured_s for x in eng.recorder.meta if x.phase == "decode"]
+                    got[m is not None] = ({r.rid: r.tokens for r in results}, moved,
+                                          1e3 * float(np.median(ticks)))
+                    if m is not None:
+                        assert eng.tp == 1 and all(x.tp == 1 for x in eng.recorder.meta)
+                        leaf = eng.params["embed"]["head"]
+                        assert type(leaf.data).__name__ == "DTensor", type(leaf.data)
+                        for k, v in moved.items():
+                            totals[k] += v
+                    del eng
+                (ref, moved0, tick0), (tok, moved1, tick1) = got[False], got[True]
+                assert tok == ref, f"(a) {label}: tokens on the mesh differ"
+                assert moved1 == moved0, f"(a) {label}: launches {moved1} vs {moved0}"
+                log(f"  (a) {label}: tokens equal the meshless engine's; launches {moved1} "
+                    f"equal; median decode tick {tick0:.2f} ms without the mesh, {tick1:.2f} "
+                    f"ms on it (card: {smi})")
+            del params
+            torch.cuda.empty_cache()
+            log(f"  (a) {time.perf_counter() - t_part:.1f}s")
+            t_part = time.perf_counter()
+
+            # (b) loss and gradients on the mesh, then Trainer(mesh=) checkpoints
+            cfg = dataclasses.replace(get_arch("qwen3-0.6b"), n_layers=2,
+                                      compute_dtype="float32")
+            api = build_model(cfg, "cuda")
+            base = T.trainable(api.init(SEED))
+            tokens = torch.from_numpy(
+                np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (2, 256))).to(dev)
+
+            def loss_and_grads(tree):
+                leaves = tree_leaves(tree)
+                loss, _ = api.loss(tree, {"tokens": tokens})
+                grads = torch.autograd.grad(loss, leaves)
+                full = [g.full_tensor() if hasattr(g, "full_tensor") else g for g in grads]
+                loss = loss.full_tensor() if hasattr(loss, "full_tensor") else loss
+                return float(loss.detach()), [g.float() for g in full]
+
+            kernel_counts(zero=True)
+            loss0, g0 = loss_and_grads(base)
+            moved0 = kernel_counts()
+            kernel_counts(zero=True)
+            with use_mesh(mesh):
+                placed = place(base, param_pspecs(base, mesh), mesh)
+                for leaf in tree_leaves(placed):
+                    leaf.requires_grad_(True)
+                loss1, g1 = loss_and_grads(placed)
+            moved1 = kernel_counts()
+            assert moved1 == moved0, f"(b) launches {moved1} vs {moved0}"
+            rel = abs(loss1 - loss0) / abs(loss0)
+            assert rel <= TRAIN_LOSS_RTOL, f"(b) loss {loss1} on the mesh, {loss0} without"
+            ratios = []
+            for i, (a, b) in enumerate(zip(g1, g0)):
+                scale = float(b.abs().max())
+                assert scale > 0, f"(b) gradient leaf {i} is zero"
+                ratios.append(float((a - b).abs().max()) / scale)
+                assert ratios[-1] <= TRAIN_GRAD_TOL, f"(b) gradient leaf {i}: {ratios[-1]:.3g}"
+            log(f"  (b) qwen3-0.6b full width, 2 layers, f32, B2 S256: loss {loss1:.6f} on the "
+                f"mesh, {loss0:.6f} without (rel {rel:.3g}); {len(ratios)} gradient leaves, the "
+                f"worst {max(ratios):.3g} of its max|g|; launches {moved1} equal")
+            del base, placed, g0, g1
+
+            def trainer(ckpt_dir, total, m):
+                return Trainer(cfg, DataConfig(batch=2, seq_len=256, seed=SEED),
+                               TrainConfig(lr=1e-3, warmup=1, total_steps=4),
+                               TrainerConfig(total_steps=total, ckpt_every=2,
+                                             ckpt_dir=ckpt_dir, log_every=100),
+                               mesh=m, device="cuda")
+
+            for saved_on, other in ((mesh, None), (None, mesh)):
+                first = os.path.join(tmp, "first")
+                trainer(first, 2, saved_on).run(seed=SEED)
+                second = os.path.join(tmp, "second")
+                shutil.copytree(first, second)
+                same = trainer(first, 3, saved_on).run(seed=SEED)[2]
+                moved = trainer(second, 3, other).run(seed=SEED)[2]
+                assert len(same) == len(moved) == 1, (same, moved)
+                rel = abs(moved[0] - same[0]) / abs(same[0])
+                assert rel <= TRAIN_LOSS_RTOL, f"(b) resumed step 3: {moved} vs {same}"
+                where = "on the mesh" if saved_on is not None else "without a mesh"
+                log(f"  (b) a checkpoint saved {where} resumed "
+                    f"{'without one' if other is None else 'on the mesh'}: step 3 loss "
+                    f"{moved[0]:.6f}, {same[0]:.6f} resumed as saved (rel {rel:.3g})")
+                shutil.rmtree(first)
+                shutil.rmtree(second)
+            torch.cuda.empty_cache()
+            log(f"  (b) {time.perf_counter() - t_part:.1f}s")
+            t_part = time.perf_counter()
+
+            # (c) dbrx-132b expert parallel, one layer, bf16, under no_grad
+            cfg = dataclasses.replace(get_arch("dbrx-132b"), n_layers=1)
+            api = build_model(cfg, "cuda")
+            params = T.cast_for_compute(api.init(SEED), cfg)
+            batch = {"tokens": torch.from_numpy(
+                np.random.default_rng(SEED + 5).integers(0, cfg.vocab_size, (2, 256))).to(dev)}
+            with torch.no_grad():
+                for m in kinds.values():
+                    m.launches = 0
+                loss0 = float(api.loss(params, batch)[0])
+                moved0 = {k: m.launches for k, m in kinds.items()}
+                with use_mesh(mesh):
+                    placed = place(params, param_pspecs(params, mesh), mesh)
+                    del params
+                    for m in kinds.values():
+                        m.launches = 0
+                    loss1 = float(api.loss(placed, batch)[0].full_tensor())
+                moved1 = {k: m.launches for k, m in kinds.items()}
+            assert moved1 == moved0 and moved1["fused_moe"] == 1, (moved1, moved0)
+            for k, v in moved1.items():
+                totals[k] += v
+            rel = abs(loss1 - loss0) / abs(loss0)
+            assert rel <= TRAIN_LOSS_RTOL, f"(c) loss {loss1} on the mesh, {loss0} without"
+            log(f"  (c) dbrx-132b full width, 1 layer, bf16, no_grad, B2 S256: loss {loss1:.6f} "
+                f"on the mesh, {loss0:.6f} without (rel {rel:.3g}); "
+                f"launches {moved1} equal")
+            del placed
+            log(f"  (c) {time.perf_counter() - t_part:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return totals
 
 
 if __name__ == "__main__":

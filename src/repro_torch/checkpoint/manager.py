@@ -19,7 +19,18 @@ reference's layout.
 bf16 leaves, which numpy cannot hold, are stored as their 16-bit patterns
 (``uint16``) and the manifest records their type. Python scalars (the
 optimizer's step count) are stored as 0-d arrays and come back as such
-scalars. Restoring onto a mesh (``shardings=``) waits for ROADMAP A10 part 2.
+scalars.
+
+Sharded states: a DTensor leaf is saved whole (``full_tensor()``, a
+collective every rank of the group joins), and in a process group of
+several ranks rank 0 alone writes, with a barrier after the checkpoint is
+published (after an async save, in the next ``save`` or ``wait``, which
+every rank calls alike: each rank makes the same barriers). ``restore``
+gives a DTensor back for a DTensor leaf of ``like``, placed as it is, or
+places each leaf by ``shardings=`` (specs or placements,
+``dist.sharding.to_named``) on the active mesh: checkpoints hold full
+arrays, so a state saved on one mesh, or on none, restores onto
+any other (an elastic restart across rank counts).
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.optim.adamw import tree_flatten
 
@@ -40,11 +53,18 @@ def _key(i: int) -> str:
     return f"leaf_{i:05d}"
 
 
+def _in_group() -> bool:
+    """Whether this process is one rank of a group of several."""
+    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
 def _to_numpy(leaf) -> np.ndarray:
     """A host copy of the leaf that the caller's later updates do not touch
-    (``.cpu()`` of a CUDA tensor is already one)."""
+    (``.cpu()`` of a CUDA tensor is already one); a DTensor's whole value."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         t = t.cpu() if t.is_cuda else t.clone()
         return (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(leaf)
@@ -54,6 +74,28 @@ def _dtype_name(leaf) -> str:
     if isinstance(leaf, torch.Tensor):
         return str(leaf.dtype).replace("torch.", "")
     return type(leaf).__name__
+
+
+def _leaf_shardings(like, shardings) -> list:
+    """The entry of ``shardings`` at each leaf of ``like``, in
+    ``tree_flatten`` order (None where ``shardings`` is None or lacks the
+    leaf's key)."""
+    out: list = []
+
+    def walk(node, sh):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], None if sh is None else sh.get(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, None if sh is None else sh[i])
+        else:
+            out.append(sh)
+
+    walk(like, shardings)
+    return out
 
 
 def _paths(tree, prefix="") -> list[str]:
@@ -82,18 +124,30 @@ class CheckpointManager:
         arrays = [_to_numpy(l) for l in leaves]  # on the host before any thread starts
         meta = {"paths": _paths(state), "dtypes": [_dtype_name(l) for l in leaves]}
         if self.async_save:
-            self.wait()
+            self.wait()  # the previous save is published, on every rank alike
+        if _in_group() and dist.get_rank() != 0:  # rank 0 alone writes
+            if not self.async_save:
+                dist.barrier()  # rank 0 has published the checkpoint
+            return
+        if self.async_save:
             self._thread = threading.Thread(
                 target=self._save_sync, args=(step, arrays, meta, extra), daemon=True
             )
             self._thread.start()
         else:
             self._save_sync(step, arrays, meta, extra)
+            if _in_group():
+                dist.barrier()
 
     def wait(self):
+        """Wait for an async save; in a group of ranks, until rank 0's is
+        published. Every rank calls it alike (``save`` does, and so must the
+        caller once after its last save): it is one barrier of the group."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.async_save and _in_group():
+            dist.barrier()
 
     def _save_sync(self, step: int, arrays: list, meta: dict, extra: Optional[dict]):
         tmp = os.path.join(self.dir, f"tmp.{step}.{os.getpid()}")
@@ -130,12 +184,13 @@ class CheckpointManager:
 
     def restore(self, step: int, like: Any, shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``like``: each tensor leaf on the
-        device and in the type of ``like``'s, each scalar leaf as its type."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...) needs executed sharding "
-                "(ROADMAP A10 part 2)"
-            )
+        device and in the type of ``like``'s, each scalar leaf as its type.
+        A leaf is distributed by its entry of ``shardings`` (a spec or a
+        placement list; ``shardings`` has ``like``'s structure) on the
+        active mesh, else, where ``like``'s leaf is a DTensor, as it is."""
+        from repro_torch.dist.sharding import PartitionSpec, active_mesh, placements
+
+        mesh = active_mesh()
         path = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -144,8 +199,9 @@ class CheckpointManager:
             raise ValueError(f"checkpoint holds {manifest['n_leaves']} leaves, "
                              f"the state {len(leaves)}")
         new_leaves = []
+        shards = _leaf_shardings(like, shardings)
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            for i, ref in enumerate(leaves):
+            for i, (ref, sh) in enumerate(zip(leaves, shards)):
                 arr = data[_key(i)]
                 if not isinstance(ref, torch.Tensor):
                     new_leaves.append(type(ref)(arr.item()))
@@ -155,7 +211,17 @@ class CheckpointManager:
                 t = torch.from_numpy(arr)
                 if manifest["dtypes"][i] == "bfloat16":
                     t = t.view(torch.bfloat16)
-                new_leaves.append(t.to(device=ref.device, dtype=ref.dtype))
+                t = t.to(device=ref.device, dtype=ref.dtype)
+                if sh is not None:
+                    if mesh is None:
+                        raise ValueError("restore(shardings=...) places leaves on the active "
+                                         "mesh; call it under dist.sharding.use_mesh(mesh)")
+                    sh = placements(sh, mesh) if isinstance(sh, PartitionSpec) else sh
+                    t = distribute_tensor(t, mesh, list(sh), src_data_rank=None)
+                elif isinstance(ref, DTensor):
+                    t = distribute_tensor(t, ref.device_mesh, list(ref.placements),
+                                          src_data_rank=None)
+                new_leaves.append(t)
         return unflatten(new_leaves), manifest["extra"]
 
     def restore_latest(self, like: Any, shardings: Any = None):

@@ -1,17 +1,15 @@
 """Distribution, ported from ``repro.dist``. Split by concern:
 
-  * :mod:`repro_torch.dist.sharding`: role-based PartitionSpec resolution
-    and the ambient-mesh ``constrain`` the model code calls;
+  * :mod:`repro_torch.dist.sharding`: role-based PartitionSpec resolution,
+    their DTensor placements on a ``DeviceMesh`` and the ambient-mesh
+    ``constrain`` the model code calls;
   * :mod:`repro_torch.dist.collectives`: int8 error-feedback gradient
-    compression;
-  * :mod:`repro_torch.dist.pipeline`: the pipeline schedules' analytics.
-
-Executed sharding (``to_named``, ``constrain`` under a mesh) and the
-executed pipeline schedules (the reference's ``pipeline_forward``) wait
-for ROADMAP A10 part 2.
+    compression and its bucketed all-reduce over a process group;
+  * :mod:`repro_torch.dist.pipeline`: the GPipe, 1F1B and ZB-H1 schedules,
+    their analytics and their execution over point-to-point rings.
 """
 from repro_torch.dist.collectives import ef_compress_grads
-from repro_torch.dist.pipeline import pipeline_bubble_fraction
+from repro_torch.dist.pipeline import pipeline_bubble_fraction, pipeline_forward
 from repro_torch.dist.sharding import (
     active_mesh,
     batch_pspecs,
@@ -31,6 +29,7 @@ __all__ = [
     "ef_compress_grads",
     "param_pspecs",
     "pipeline_bubble_fraction",
+    "pipeline_forward",
     "resolve_pspec",
     "to_named",
     "use_mesh",

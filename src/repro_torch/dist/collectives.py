@@ -10,8 +10,10 @@ what licenses shipping 4x fewer bytes through data-parallel all-reduces.
 As in the reference, compress and dequantize run inside the training step,
 single-process, so the numerics are faithful while the transport is left to
 the caller: ``ef_compress_grads_bucketed``'s ``all_reduce`` hook receives
-each bucket's dequantized leaves (a ``torch.distributed`` all-reduce once
-the port executes sharding, ROADMAP A10 part 2).
+each bucket's dequantized leaves. :func:`group_all_reduce` is that hook over
+a ``torch.distributed`` process group (the ``data`` dim of a mesh): one
+launch group a bucket, the counterpart of the reference's per-bucket
+``psum`` inside ``shard_map``.
 
 Trees are dicts, lists and tuples of tensors, flattened in the reference's
 order (``optim.adamw.tree_flatten``: dict keys sorted), so the same leaves
@@ -34,6 +36,7 @@ __all__ = [
     "GradBucket",
     "int8_quantize",
     "int8_dequantize",
+    "group_all_reduce",
 ]
 
 _LEVELS = 127.0  # symmetric int8: q in [-127, 127]
@@ -57,7 +60,7 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def _err_leaves(leaves, err) -> list:
     if err is None:
-        return [torch.zeros(g.shape, dtype=torch.float32, device=g.device) for g in leaves]
+        return [torch.zeros_like(g, dtype=torch.float32) for g in leaves]
     err_leaves, _ = tree_flatten(err)
     if len(err_leaves) != len(leaves):
         raise ValueError(f"err has {len(err_leaves)} leaves, grads {len(leaves)}")
@@ -152,3 +155,24 @@ def ef_compress_grads_bucketed(
         for i, deq in zip(bucket.leaf_indices, bucket_deq):
             deq_leaves[i] = deq
     return unflatten(deq_leaves), unflatten(new_err_leaves), ledger
+
+
+def group_all_reduce(group=None) -> Callable[[List[torch.Tensor]], List[torch.Tensor]]:
+    """The ``all_reduce`` hook over a process group (None: the default
+    group): a bucket is one launch group, its leaves' all-reduces issued
+    together (``async_op``) and waited on together, the counterpart of the
+    reference's per-bucket list ``psum``. Each leaf keeps its own
+    collective: packing a bucket into one buffer would move its elements to
+    other ring chunks and change their summation order, and the bucketed
+    transport must stay bit-equal to compress-then-all-reduce. Every rank
+    must pass the same buckets, as ranks of one data-parallel step do."""
+    import torch.distributed as dist
+
+    def reduce(leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+        out = [t.clone() for t in leaves]
+        works = [dist.all_reduce(t, group=group, async_op=True) for t in out]
+        for w in works:
+            w.wait()
+        return out
+
+    return reduce

@@ -11,17 +11,24 @@ hold one in-flight microbatch per device for its whole lifecycle ``L``
 ticks. :func:`simulate_schedule` re-derives the count by stepping the ring
 event by event; the reference's property tests hold the two equal.
 
-Only the analytic half is here. The executed schedules
-(``pipeline_forward`` over ``shard_map`` and collective permutes in the
-reference) come with the port's distribution slice, over
-``torch.distributed`` point-to-point sends; this module imports no
-collectives.
+The executed schedules (:func:`pipeline_forward`) run the same rings over
+a ``torch.distributed`` process group: every rank of the mesh's ``pipe``
+dim holds its stage's layers, and each tick ends with one point-to-point
+exchange to the next stage (``batch_isend_irecv``), the counterpart of the
+reference's ``shard_map`` + ``ppermute``.
 """
 from __future__ import annotations
 
 import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.optim.adamw import tree_leaves, tree_map
 
 __all__ = [
+    "pipeline_forward",
     "pipeline_bubble_fraction",
     "schedule_ticks",
     "bubble_fraction",
@@ -149,3 +156,155 @@ def simulate_schedule(
         ticks += 1
     return ticks
 
+
+
+# ----------------------------------------------------------------------
+# executed schedules (process-group point-to-point rings)
+# ----------------------------------------------------------------------
+
+
+class _Ring:
+    """The ``pipe`` dim of a mesh as a ring: this rank's stage, the stage
+    count, and one tick's exchange with the neighbours (send to the next
+    stage, receive from the previous one)."""
+
+    def __init__(self, mesh, axis: Optional[str]):
+        axis = axis or mesh.mesh_dim_names[0]
+        self.group = mesh.get_group(axis)
+        self.n = mesh.size(mesh.mesh_dim_names.index(axis))
+        self.stage = mesh.get_local_rank(axis)
+        self._next = dist.get_global_rank(self.group, (self.stage + 1) % self.n)
+        self._prev = dist.get_global_rank(self.group, (self.stage - 1) % self.n)
+
+    def shift(self, *tensors):
+        """Each tensor as the previous stage held it (``ppermute`` by one)."""
+        if self.n == 1:
+            return tensors
+        out = [torch.empty_like(t) for t in tensors]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), self._next, self.group) for t in tensors]
+        ops += [dist.P2POp(dist.irecv, o, self._prev, self.group) for o in out]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        return tuple(out)
+
+    def from_last(self, outputs):
+        """The last stage's ``outputs`` on every rank (the reference's
+        ``psum`` of the outputs masked to the last stage)."""
+        out = outputs if self.stage == self.n - 1 else torch.zeros_like(outputs)
+        if self.n > 1:
+            dist.all_reduce(out, group=self.group)
+        return out
+
+
+def _n_layers(params) -> int:
+    return tree_leaves(params)[0].shape[0]
+
+
+def _apply_layers(layer_fn, params, lo: int, hi: int, h):
+    for i in range(lo, hi):
+        h = layer_fn(tree_map(lambda p: p[i], params), h)
+    return h
+
+
+def pipeline_forward(
+    layer_fn: Callable,
+    params: Any,
+    x: torch.Tensor,
+    mesh,
+    axis: Optional[str] = None,
+    *,
+    schedule: str = "gpipe",
+    interleave: int = 2,
+    ticks: Optional[int] = None,
+):
+    """Run a stacked layer tree as a pipeline over ``mesh``'s ``axis`` (a
+    ``DeviceMesh``; default: its first dim), one stage a rank.
+
+    Schedule contract (the reference's):
+
+    * ``schedule="gpipe"`` (default): one contiguous stage per rank;
+      ``n_layers`` must divide by the pipeline size ``S``. Runs exactly
+      ``schedule_ticks(S, M, "gpipe")`` ticks.
+    * ``schedule="1f1b"``: interleaved virtual stages, global chunk
+      ``g = j * S + d`` on rank ``d``; ``n_layers`` must divide by
+      ``S * interleave``. Runs exactly ``schedule_ticks(S, M, "1f1b",
+      interleave)`` ticks, for any ``M >= 1``.
+    * ``schedule="zb-h1"``: the zero-bubble three-phase ring; chunks are
+      applied during the F phase (lifecycle ticks ``< V*S``), the B/W
+      phases carry the finished activation as occupancy ticks. Runs exactly
+      ``schedule_ticks(S, M, "zb-h1", interleave)`` ticks.
+
+    ``layer_fn(layer_params, h) -> h`` runs one layer on one microbatch;
+    ``params`` is a tree of ``(n_layers, ...)`` tensors and ``x`` is
+    ``(n_micro, ...)``, both the same on every rank. ``ticks`` overrides
+    the tick count (one short must leave the last microbatch unfinished).
+    Returns the ``(n_micro, ...)`` outputs on every rank, equal to running
+    every layer over each microbatch in order."""
+    _check_schedule(schedule)
+    ring = _Ring(mesh, axis)
+    if schedule in ("1f1b", "zb-h1"):
+        return _forward_ring(layer_fn, params, x, ring, interleave, ticks, schedule)
+    return _forward_gpipe(layer_fn, params, x, ring, ticks)
+
+
+def _forward_gpipe(layer_fn, params, x, ring: _Ring, ticks=None):
+    S, stage = ring.n, ring.stage
+    n_layers = _n_layers(params)
+    if n_layers % S != 0:
+        raise ValueError(f"{n_layers} layers not divisible into {S} stages")
+    per = n_layers // S
+    n_micro = x.shape[0]
+    n_ticks = schedule_ticks(S, n_micro, "gpipe") if ticks is None else ticks
+    state, outputs = torch.zeros_like(x[0]), torch.zeros_like(x)
+    for t in range(n_ticks):
+        # stage 0 ingests microbatch t while the schedule is filling
+        h = x[min(t, n_micro - 1)] if stage == 0 and t < n_micro else state
+        y = _apply_layers(layer_fn, params, stage * per, (stage + 1) * per, h)
+        # the last stage finishes microbatch t - (S - 1) at tick t
+        if stage == S - 1 and t >= S - 1:
+            outputs[min(t - (S - 1), n_micro - 1)] = y
+        (state,) = ring.shift(y)
+    return ring.from_last(outputs)
+
+
+def _forward_ring(layer_fn, params, x, ring: _Ring, interleave, ticks=None,
+                  schedule="1f1b"):
+    S, stage = ring.n, ring.stage
+    V = int(interleave)
+    if V < 1:
+        raise ValueError(f"interleave must be >= 1, got {V}")
+    n_layers = _n_layers(params)
+    if n_layers % (S * V) != 0:
+        raise ValueError(f"{n_layers} layers not divisible into {S} stages x "
+                         f"{V} interleaved chunks")
+    per_chunk = n_layers // (S * V)
+    n_micro = x.shape[0]
+    # forward chunk-stages apply layers; ZB-H1 extends the slot lifecycle
+    # with the B/W occupancy phases (chunks applied only while g < V*S)
+    forward_stages = V * S
+    total_stages = _PHASES[schedule] * forward_stages
+    n_ticks = schedule_ticks(S, n_micro, schedule, V) if ticks is None else ticks
+
+    h = torch.zeros_like(x[0])
+    # the held slot: next global chunk-stage g, microbatch m, occupancy live
+    slot = torch.zeros(3, dtype=torch.int64, device=x.device)
+    next_m = 0  # injection counter (meaningful on stage 0 only)
+    outputs = torch.zeros_like(x)
+    for _ in range(n_ticks):
+        g, m, live = (int(v) for v in slot.tolist())
+        # stage-0 injection: only into a free (non-live) incoming slot
+        if stage == 0 and not live and next_m < n_micro:
+            h, g, m, live = x[next_m], 0, next_m, 1
+            next_m += 1
+        if live and g < forward_stages:
+            # round-robin placement: chunk j of this rank is global chunk j*S + stage
+            chunk = min(g // S, V - 1) * S + stage
+            h = _apply_layers(layer_fn, params, chunk * per_chunk, (chunk + 1) * per_chunk, h)
+        g += 1
+        # the final lifecycle tick (g == phases*V*S) lands on rank S-1
+        if live and g >= total_stages:
+            outputs[min(m, n_micro - 1)] = h
+            live = 0
+        slot = torch.tensor([g, m, live], dtype=torch.int64, device=x.device)
+        h, slot = ring.shift(h, slot)
+    return ring.from_last(outputs)

@@ -14,7 +14,8 @@ roles onto whatever mesh is active, with a greedy divisibility fallback:
   * a mesh axis is consumed at most once per spec (an expert-parallel dim
     claiming ``"model"`` blocks a later ``"tp"`` dim from reusing it).
 
-A mesh here is anything with a ``.shape`` mapping of axis name to size
+A mesh here is a ``torch.distributed`` ``DeviceMesh`` with named dims,
+anything with a ``.shape`` mapping of axis name to size
 (``analysis.sharding.MeshShape``) or a plain ``{axis: size}`` dict: the
 rules read nothing else. Specs are this module's :class:`PartitionSpec`,
 whose ``repr`` is JAX's.
@@ -31,9 +32,15 @@ stack dim). ``stacked_view`` gives the reference's tree itself (its path
 names, stacked shapes and dtype names), which is what the auditor walks.
 Cache trees are stacked in both packages and map one to one.
 
-Not ported yet (ROADMAP A10 part 2): ``to_named`` and ``constrain``'s
-executed half. Under an active mesh, ``constrain`` resolves its spec and
-then raises; it never returns its input silently there.
+**Execution.** On a ``DeviceMesh`` a spec becomes DTensor placements
+(:func:`to_named`, the counterpart of the reference's ``NamedSharding``):
+an entry naming axis ``a`` on tensor dim ``i`` puts ``Shard(i)`` at mesh
+dim ``a``, every other mesh dim is ``Replicate()``. :func:`place`
+distributes a tree's leaves by their specs, and under ``use_mesh`` of a
+``DeviceMesh`` :func:`constrain` redistributes a DTensor to its roles'
+placements (the reference's ``with_sharding_constraint``). ``use_mesh``
+also treats plain tensors met by DTensor ops as replicated
+(``implicit_replication``), as the reference's un-annotated arrays are.
 """
 from __future__ import annotations
 
@@ -42,6 +49,11 @@ import dataclasses
 import threading
 from collections.abc import Mapping
 from typing import Any, Optional, Sequence
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 __all__ = [
     "PartitionSpec",
@@ -52,6 +64,12 @@ __all__ = [
     "stacked_view",
     "LeafShape",
     "to_named",
+    "placements",
+    "place",
+    "local_slice",
+    "write_target",
+    "device_mesh",
+    "as_dtensor",
     "use_mesh",
     "active_mesh",
     "constrain",
@@ -102,6 +120,8 @@ _ROLE_AXES: dict[str, tuple[str, ...]] = {
 def _mesh_sizes(mesh) -> dict[str, int]:
     if isinstance(mesh, Mapping):
         return dict(mesh)
+    if isinstance(mesh, DeviceMesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(mesh.shape)
 
 
@@ -183,40 +203,167 @@ def active_mesh():
 
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """Make ``mesh`` the ambient mesh for :func:`constrain`."""
+    """Make ``mesh`` the ambient mesh for :func:`constrain`. On a
+    ``DeviceMesh`` plain tensors that meet DTensors inside the block count
+    as replicated (positions, masks, the cache's fresh rows)."""
     stack = getattr(_local, "mesh_stack", None)
     if stack is None:
         stack = _local.mesh_stack = []
     stack.append(mesh)
     try:
-        yield mesh
+        if isinstance(mesh, DeviceMesh):
+            with implicit_replication():
+                yield mesh
+        else:
+            yield mesh
     finally:
         stack.pop()
+
+
+def device_mesh(mesh) -> DeviceMesh:
+    """``mesh`` itself, checked to be a ``DeviceMesh`` with named dims: what
+    placing a tensor needs (an axis-size mapping does not do)."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"placing a tensor needs a torch.distributed DeviceMesh; {type(mesh).__name__} "
+            "holds only axis sizes (see launch.mesh.make_mesh)"
+        )
+    if mesh.mesh_dim_names is None:
+        raise ValueError("the DeviceMesh needs mesh_dim_names (e.g. ('data', 'model'))")
+    return mesh
+
+
+def placements(spec: P, mesh) -> tuple:
+    """One spec as DTensor placements on ``mesh``, one per mesh dim: an
+    entry naming axis ``a`` on tensor dim ``i`` is ``Shard(i)`` at ``a``'s
+    mesh dim; a tuple entry shards dim ``i`` over each of its axes, major
+    to minor, which must be the mesh's own order; the rest replicate. A
+    mesh dim of size 1 replicates: its one shard is the whole tensor (and
+    DTensor's view rules refuse to squeeze a dim sharded on it)."""
+    mesh = device_mesh(mesh)
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for i, e in enumerate(spec):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"{spec}: {axes} is not in the mesh's axis order {tuple(names)}")
+        for d in dims:
+            if mesh.size(d) > 1:
+                out[d] = Shard(i)
+    return tuple(out)
+
+
+def as_dtensor(x, mesh):
+    """``x`` itself if it is a DTensor, else ``x`` as a DTensor replicated on
+    ``mesh`` (what a plain tensor is under ``use_mesh``)."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def constrain(x, axis_roles: Sequence[Optional[str]]):
     """Pin ``x``'s sharding to its roles on the active mesh.
 
     Without an active mesh it returns ``x`` itself: no launch, no copy, no
-    sync, so model code calls it unconditionally. Under a mesh it resolves
-    the spec and raises, since placing a tensor on a mesh needs DTensor
-    (ROADMAP A10 part 2)."""
+    sync, so model code calls it unconditionally. Under a ``DeviceMesh`` it
+    resolves the spec and redistributes ``x`` to its placements (a plain
+    tensor counts as replicated); a DTensor already placed so passes
+    through."""
     mesh = active_mesh()
     if mesh is None:
         return x
     spec = resolve_pspec(x.shape, axis_roles, mesh)
-    raise NotImplementedError(
-        f"constrain to {spec} on the mesh {_mesh_sizes(mesh)} needs DTensor placements "
-        "(ROADMAP A10 part 2), not ported yet"
-    )
+    want = placements(spec, mesh)
+    x = as_dtensor(x, mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def local_slice(x, dim: int) -> slice:
+    """The global indices of ``x``'s dim ``dim`` that this rank holds
+    (all of them for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return slice(0, x.shape[dim])
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    return slice(offset[dim], offset[dim] + shape[dim])
+
+
+def write_target(dst, dim: int, *srcs):
+    """Where a write along ``dim`` of ``dst`` lands on this rank, so that no
+    element of ``dst`` moves: ``(dst's local tensor, the global indices of
+    dim that it holds, each of srcs as the local tensor that lines up with
+    it)``. Each source is laid out as ``dst`` without its dim ``dim`` (or a
+    leading part of those dims) and is brought to ``dst``'s placements over
+    its own dims first (dim's mesh dims replicated). A plain ``dst`` gives
+    itself, all of ``dim`` and the sources as they are."""
+    if not isinstance(dst, DTensor):
+        return dst, slice(0, dst.shape[dim]), srcs
+    mesh, nd = dst.device_mesh, dst.ndim
+    local = []
+    for src in srcs:
+        want = []
+        for p in dst.placements:
+            d = p.dim % nd if isinstance(p, Shard) else dim
+            if d == dim:
+                want.append(Replicate())
+                continue
+            d = d - 1 if d > dim else d  # the same dim of src
+            want.append(Shard(d) if d < src.ndim else Replicate())
+        local.append(as_dtensor(src, mesh).redistribute(mesh, want).to_local())
+    return dst.to_local(), local_slice(dst, dim), local
+
+
+def _map_specs(fn, specs):
+    if specs is None or isinstance(specs, P):
+        return None if specs is None else fn(specs)
+    if isinstance(specs, Mapping):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if hasattr(specs, "_fields"):  # a NamedTuple such as AdamWState
+        return type(specs)(*(_map_specs(fn, v) for v in specs))
+    return type(specs)(_map_specs(fn, v) for v in specs)
 
 
 def to_named(specs, mesh):
-    """The reference turns PartitionSpecs into placements on a device mesh;
-    the port's counterpart is DTensor's (ROADMAP A10 part 2)."""
-    raise NotImplementedError(
-        "to_named needs DeviceMesh and DTensor placements (ROADMAP A10 part 2), not ported yet"
-    )
+    """Replace every PartitionSpec of a tree (dicts, lists, NamedTuples)
+    with its placements on ``mesh`` (:func:`placements`); ``None`` leaves
+    (the lazy error-feedback buffer) pass through."""
+    return _map_specs(lambda s: placements(s, mesh), specs)
+
+
+def place(tree, specs, mesh):
+    """``distribute_tensor`` every leaf of ``tree`` by the matching spec of
+    ``specs`` (``param_pspecs``, ``cache_pspecs``, ``train_state_pspecs``):
+    plain dicts and lists of DTensors, each rank keeping its own shard of
+    the value it holds (every rank must hold the same values, as ranks that
+    drew them from one seed do; nothing is sent). A leaf that is no tensor
+    (a step count) or whose spec is None passes through; a DTensor leaf is
+    redistributed. ``specs`` may hold placements (:func:`to_named`)."""
+    mesh = device_mesh(mesh)
+
+    def walk(node, spec):
+        if node is None or spec is None:
+            return node
+        if isinstance(spec, tuple) and not isinstance(node, tuple):  # a spec or placements
+            if not isinstance(node, torch.Tensor):
+                return node
+            want = placements(spec, mesh) if isinstance(spec, P) else tuple(spec)
+            if isinstance(node, DTensor):
+                return node if tuple(node.placements) == want else node.redistribute(mesh, want)
+            return distribute_tensor(node.detach(), mesh, list(want), src_data_rank=None)
+        keys = _keys(node)
+        if keys is not None:
+            return {k: walk(node[k], spec[k]) for k in keys}
+        if hasattr(node, "_fields"):  # a NamedTuple such as AdamWState
+            return type(node)(*(walk(v, s) for v, s in zip(node, spec)))
+        return [walk(v, s) for v, s in zip(node, spec)]
+
+    return walk(tree, specs)
 
 
 # ----------------------------------------------------------------------

@@ -7,6 +7,9 @@ and the keys of one online-softmax step (``kernel.last_grid ==
 grid_shape(...)`` wherever the lengths divide the blocks). The kernel masks
 ragged edges itself, so no length has to divide a block.
 
+DTensors run the same call on each rank's batch and head shards
+(``head_placements``, ``kernels.on_shards``).
+
 On CUDA tensors that autograd records, the call is a
 ``torch.autograd.Function``: its forward also keeps each row's log-sum-exp,
 and its backward is the CUDA backward kernel
@@ -15,9 +18,12 @@ tile. Head dims outside ``kernel.BWD_HEAD_DIMS`` raise there, with no
 fallback. On CPU tensors autograd differentiates the plain version."""
 from __future__ import annotations
 
-import torch
+from functools import partial
 
-from repro_torch.kernels import needs_grad
+import torch
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.kernels import is_dtensor, kernel_placements, needs_grad, on_shards
 from repro_torch.kernels.flash_attention.kernel import (
     BWD_HEAD_DIMS,
     flash_attention_bwd_cuda,
@@ -72,6 +78,11 @@ def attention(
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
+    if is_dtensor(q, k, v):
+        pl = head_placements(q, k)
+        return on_shards(partial(attention, causal=causal, window=window, softcap=softcap,
+                                 block_q=block_q, block_k=block_k),
+                         (q, k, v), (pl, pl, pl), pl)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     if needs_grad(q, k, v):
@@ -83,6 +94,16 @@ def attention(
         return _Attention.apply(q, k, v, causal, window, softcap, block_q, block_k)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                                 block_q=block_q, block_k=block_k)
+
+
+def head_placements(q, k) -> tuple:
+    """The placements attention runs its shards at: q's batch (dim 0) and
+    head (dim 2) shards, never S or D. k and v take the same ones, so a
+    rank's q heads find their GQA group's kv heads on the same rank; a mesh
+    dim that does not divide both head counts replicates the heads."""
+    return tuple(
+        Replicate() if p == Shard(2) and (q.shape[2] % n or k.shape[2] % n) else p
+        for p, n in zip(kernel_placements(q, (0, 2)), q.device_mesh.shape))
 
 
 class _Attention(torch.autograd.Function):

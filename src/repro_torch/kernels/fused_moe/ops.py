@@ -1,12 +1,16 @@
 """Fused-MoE expert FFN entry point: the Hopper kernel for CUDA tensors,
 the plain version for CPU tensors. Same signature as
 ``repro.kernels.fused_moe.ops.fused_moe``; ``block_m``/``block_f`` reach the
-kernel's launch (``kernel.last_grid == grid_shape(...)``)."""
+kernel's launch (``kernel.last_grid == grid_shape(...)``). DTensors run
+the same call on each rank's experts (and rows) through ``kernels.on_shards``."""
 from __future__ import annotations
 
-import torch
+from functools import partial
 
-from repro_torch.kernels import refuse_grad
+import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from repro_torch.kernels import is_dtensor, kernel_placements, on_shards, refuse_grad
 from repro_torch.kernels.fused_moe.kernel import fused_moe_cuda
 from repro_torch.kernels.fused_moe.ref import fused_moe_ref
 
@@ -41,6 +45,17 @@ def vmem_footprint(
     return 2 * blocks + scratch
 
 
+def on_expert_shards(fn, x, w_gate, w_up, w_down):
+    """``fn(x, w_gate, w_up, w_down)`` (a fused-MoE call) on each rank's
+    experts through ``kernels.on_shards``: experts on dim 0 of ``x`` and of
+    the three weights; ``x``'s rows may stay sharded too, where the weights
+    replicate (and their gradients are partial sums)."""
+    xp = kernel_placements(x, (0, 1))
+    wp = tuple(p if p == Shard(0) else Replicate() for p in xp)
+    wg = tuple(Partial() if p == Shard(1) else w for p, w in zip(xp, wp))
+    return on_shards(fn, (x, w_gate, w_up, w_down), (xp, wp, wp, wp), xp, (xp, wg, wg, wg))
+
+
 def fused_moe(
     x: torch.Tensor,  # (E, C, D) gathered per-expert token blocks
     w_gate: torch.Tensor,  # (E, D, F)
@@ -50,6 +65,9 @@ def fused_moe(
     block_m: int = 128,
     block_f: int = 256,
 ) -> torch.Tensor:
+    if is_dtensor(x, w_gate, w_up, w_down):
+        return on_expert_shards(partial(fused_moe, block_m=block_m, block_f=block_f),
+                                x, w_gate, w_up, w_down)
     if x.device.type == "cpu":
         return fused_moe_ref(x, w_gate, w_up, w_down)
     refuse_grad("fused_moe", x, w_gate, w_up, w_down)

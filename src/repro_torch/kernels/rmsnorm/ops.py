@@ -1,15 +1,25 @@
 """RMSNorm entry point: the Hopper kernel for CUDA tensors, the plain
 version for CPU tensors. Same signature as ``repro.kernels.rmsnorm.ops``.
 
+A DTensor runs the same call on each rank's rows (``kernels.on_shards``).
 On CUDA tensors that autograd records, the call is a
 ``torch.autograd.Function`` whose backward is the Triton backward kernel
 (``kernel.rmsnorm_bwd_cuda``); on CPU tensors autograd differentiates the
 plain version."""
 from __future__ import annotations
 
-import torch
+from functools import partial
 
-from repro_torch.kernels import largest_divisor_block, needs_grad
+import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from repro_torch.kernels import (
+    is_dtensor,
+    kernel_placements,
+    largest_divisor_block,
+    needs_grad,
+    on_shards,
+)
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -32,6 +42,13 @@ def vmem_footprint(R: int, d: int, *, block_rows: int = 256, dtype_bytes: int = 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             block_rows: int = 256) -> torch.Tensor:
+    if is_dtensor(x, w):  # rows may be sharded, never the normed dim
+        rows = kernel_placements(x, range(x.ndim - 1))
+        rep = (Replicate(),) * len(rows)
+        # w's gradient sums over the rows each rank holds
+        dw = tuple(Partial() if isinstance(p, Shard) else p for p in rows)
+        return on_shards(partial(rmsnorm, eps=eps, block_rows=block_rows), (x, w),
+                         (rows, rep), rows, (rows, dw))
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     if needs_grad(x, w):

@@ -2,15 +2,24 @@
 version for CPU tensors. Same signature as ``repro.kernels.silu_mul.ops``;
 ``block_rows`` reaches the launch (``kernel.last_grid == grid_shape(...)``).
 
+A DTensor runs the same call on each rank's shard (``kernels.on_shards``).
 On CUDA tensors that autograd records, the call is a
 ``torch.autograd.Function`` whose backward is the Triton backward kernel
 (``kernel.silu_mul_bwd_cuda``); on CPU tensors autograd differentiates the
 plain version."""
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
-from repro_torch.kernels import largest_divisor_block, needs_grad
+from repro_torch.kernels import (
+    is_dtensor,
+    kernel_placements,
+    largest_divisor_block,
+    needs_grad,
+    on_shards,
+)
 from repro_torch.kernels.silu_mul.kernel import silu_mul_bwd_cuda, silu_mul_cuda
 from repro_torch.kernels.silu_mul.ref import silu_mul_ref
 
@@ -33,6 +42,9 @@ def vmem_footprint(R: int, d: int, *, block_rows: int = 128, dtype_bytes: int = 
 
 def act_mul(g: torch.Tensor, u: torch.Tensor, *, act: str = "silu",
             block_rows: int = 128) -> torch.Tensor:
+    if is_dtensor(g, u):  # elementwise: u is placed as g is
+        pl = kernel_placements(g, range(g.ndim))
+        return on_shards(partial(act_mul, act=act, block_rows=block_rows), (g, u), (pl, pl), pl)
     if g.device.type == "cpu":
         return silu_mul_ref(g, u, act=act)
     if needs_grad(g, u):

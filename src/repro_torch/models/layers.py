@@ -19,10 +19,17 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import active_mesh, constrain, resolve_pspec
+from repro_torch.dist.sharding import (
+    active_mesh,
+    constrain,
+    resolve_pspec,
+    write_target,
+)
+from repro_torch.kernels import is_dtensor, kernel_placements, on_shards
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.silu_mul import ops as silu_ops
@@ -347,6 +354,23 @@ def attention_layer(p, x, cfg: ArchConfig, positions, *, window: Optional[int],
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
+def write_rows(at, *pairs) -> None:
+    """``cache[b, at[b]] = new[b]`` for every row ``b`` of each ``(cache,
+    new)`` pair, in place. A DTensor cache (batch and head shards, never the
+    sequence dim) takes the write on each rank's own shard
+    (``dist.sharding.write_target``)."""
+    rows = None
+    for cache, new in pairs:
+        if is_dtensor(cache) and any(isinstance(p, Shard) and p.dim % cache.ndim == 1
+                                     for p in cache.placements):
+            raise ValueError(f"write_rows: the cache's sequence dim is sharded "
+                             f"({cache.placements})")
+        local, _, (new, at_l) = write_target(cache, 1, new, at)
+        if rows is None or rows.shape[0] != local.shape[0]:
+            rows = torch.arange(local.shape[0], device=local.device)
+        local[rows, at_l] = new.to(local.dtype)
+
+
 def attention_decode(
     p,
     x,  # (B, 1, d)
@@ -365,10 +389,8 @@ def attention_decode(
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, positions[:, None])
     Smax = cache_k.shape[1]
-    rows = torch.arange(B, device=x.device)
     at = positions.clamp(0, Smax - 1)  # dynamic_update_slice clamps the same way
-    cache_k[rows, at] = k[:, 0]
-    cache_v[rows, at] = v[:, 0]
+    write_rows(at, (cache_k, k[:, 0]), (cache_v, v[:, 0]))
     kpos = torch.arange(Smax, device=x.device).expand(B, Smax)
     valid = kpos <= positions[:, None]
     out = chunked_attention(
@@ -482,8 +504,73 @@ def _mask_padded_vocab(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return logits.masked_fill(~keep, NEG_INF)
 
 
+class _VocabShardNLL(torch.autograd.Function):
+    """Per-row ``-log p(label)`` from one rank's slice of the vocabulary
+    (global ids ``offset .. offset + V_local``): the row max, the sum of
+    exponentials and the label's logit are summed over ``group``, the ranks
+    that hold the other slices (none without one). Padded vocab slots are
+    masked out. The backward is local: ``softmax - onehot`` on the slice."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset: int, vocab_size: int, group):
+        import torch.distributed as dist
+
+        x = logits.float()
+        n = x.shape[-1]
+        ids = offset + torch.arange(n, device=x.device)
+        x = x.masked_fill(ids >= vocab_size, NEG_INF)
+        m = x.amax(dim=-1)
+        if group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[..., None])
+        se = e.sum(dim=-1)
+        mine = (labels >= offset) & (labels < offset + n)
+        at = (labels - offset).clamp(0, n - 1).long()[..., None]
+        gold = torch.gather(x, -1, at)[..., 0] * mine
+        if group is not None:
+            dist.all_reduce(se, group=group)
+            dist.all_reduce(gold, group=group)
+        ctx.save_for_backward(e / se[..., None], at, mine)
+        ctx.dtype = logits.dtype
+        return torch.log(se) + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        p, at, mine = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, at, -(g * mine)[..., None])
+        return grad.to(ctx.dtype), None, None, None, None
+
+
+def _sharded_nll_sum(logits, labels, valid, vocab_size: int):
+    """``_nll_sum`` of DTensor logits whose vocabulary may be sharded (the
+    ``head`` rule puts it on ``model``): each rank works on its own rows
+    and vocab slice through ``kernels.on_shards`` (:class:`_VocabShardNLL`)
+    and nothing gathers the logits."""
+    mesh, nd = logits.device_mesh, logits.ndim
+    lp = kernel_placements(logits, range(nd))
+    vocab = [i for i, p in enumerate(lp) if isinstance(p, Shard) and p.dim % nd == nd - 1]
+    if len(vocab) > 1:
+        raise ValueError(f"the logits' vocab is sharded over {len(vocab)} mesh dims")
+    rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(lp))
+    if vocab:
+        d = vocab[0]
+        step = -(-logits.shape[-1] // mesh.shape[d])  # torch.chunk's slice length
+        offset, group = mesh.get_local_rank(d) * step, mesh.get_group(d)
+    else:
+        offset, group = 0, None
+
+    def local(lg, lb):
+        return _VocabShardNLL.apply(lg, lb, offset, vocab_size, group)
+
+    nll = on_shards(local, (logits, labels), (lp, rows), rows)
+    return (nll * valid).sum(), valid.sum()
+
+
 def _nll_sum(logits, labels, valid, vocab_size: int):
     """``(sum of valid positions' -log p(label), number of valid positions)``."""
+    if is_dtensor(logits):
+        return _sharded_nll_sum(logits, labels, valid, vocab_size)
     logits = _mask_padded_vocab(logits, vocab_size)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -509,9 +596,10 @@ def chunked_cross_entropy(
     ``block`` positions, each under ``torch.utils.checkpoint``, so its
     logits are recomputed in the backward pass (the reference's
     ``jax.checkpoint`` inside a scan). Peak logits memory is ``block * V``
-    a row, not ``S * V``."""
+    a row, not ``S * V``. DTensors are not padded: their last block is
+    the shorter tail, whose sums are the same."""
     B, S, d = x.shape
-    if S % block:
+    if S % block and not is_dtensor(x, labels, valid):
         pad = block - S % block
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad))

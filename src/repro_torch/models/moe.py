@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import constrain
+from repro_torch.kernels import is_dtensor
 from repro_torch.kernels.fused_moe import ops as moe_ops
 from repro_torch.models.layers import dense_init, ffn, init_ffn
 
@@ -61,7 +62,11 @@ def expert_ffn(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     The kernel needs ``block_m`` to divide the rows, and a prefill of a
     prime length gives ``R = 4 * L`` rows that 128 does not divide. So the
     rows are padded with zeros to a multiple of ``min(EXPERT_BLOCK_M, R)``
-    and sliced off after: a zero row gives a zero output row."""
+    and sliced off after: a zero row gives a zero output row. DTensors run
+    on each rank's experts and rows (``fused_moe``'s placements), each rank
+    padding its own rows."""
+    if is_dtensor(xe, w_gate, w_up, w_down):
+        return moe_ops.on_expert_shards(expert_ffn, xe, w_gate, w_up, w_down)
     R = xe.shape[1]
     block_m = min(EXPERT_BLOCK_M, R)
     pad = -R % block_m

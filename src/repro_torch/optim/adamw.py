@@ -124,8 +124,8 @@ class AdamW:
     clip_norm: Optional[float] = 1.0
 
     def init(self, params) -> AdamWState:
-        zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                         params)
+        # zeros_like: a DTensor parameter's moments are placed as it is
+        zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         return AdamWState(step=0, mu=zeros, nu=tree_map(torch.clone, zeros))
 
     def update(self, grads, state: AdamWState, params):

@@ -18,13 +18,17 @@ predictor prices the would-be decode tick within ``decode_slo_s``.
 (``analysis.audit_predictor``) on its predictor before anything else is
 built, and raises ``analysis.AuditError`` on an error-severity finding.
 
-Engines run on ``"cuda"`` unless ``device="cpu"`` is passed. Not ported
-yet: ``mesh=`` (executed sharding, ROADMAP A10 part 2) raises
-``NotImplementedError``; the engines run at the degrees of no mesh,
-``tp = pp = 1`` (``dist.sharding.mesh_degrees``).
+Engines run on ``"cuda"`` unless ``device="cpu"`` is passed. With ``mesh=``
+(a ``DeviceMesh`` over the process group; every rank builds the same engine
+and submits the same requests) the runner places the parameters
+(``param_pspecs``) and caches (``cache_pspecs``) as DTensors, runs every
+step under ``use_mesh(mesh)``, and samples from the whole logits; the
+engine reports the mesh's degrees (``dist.sharding.mesh_degrees``) and
+binds an attached recorder to them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -33,9 +37,18 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import mesh_degrees
+from repro_torch.dist.sharding import (
+    cache_pspecs,
+    device_mesh,
+    mesh_degrees,
+    param_pspecs,
+    place,
+    use_mesh,
+    write_target,
+)
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import build_model
 
@@ -68,12 +81,13 @@ class _ModelRunner:
     the forward pass reads (``transformer.cast_for_compute``). ``tp``/``pp``
     are the mesh's "model"/"pipe" axis sizes (1 without a mesh): the
     degrees every consumer (trace recorder, predicted admission) prices
-    this engine's steps at."""
+    this engine's steps at. With ``mesh=`` the parameters and caches are
+    DTensors and every step runs under ``use_mesh(mesh)``."""
 
     def __init__(self, cfg: ArchConfig, *, params=None, seed: int = 0, device="cuda",
                  mesh=None):
         self.cfg = cfg
-        self.mesh = mesh
+        self.mesh = None if mesh is None else device_mesh(mesh)
         self.tp, self.pp = mesh_degrees(mesh)
         self.api = build_model(cfg, device)
         self.device = self.api.device
@@ -86,32 +100,51 @@ class _ModelRunner:
 
     @params.setter
     def params(self, value):
-        self._params = value.to(self.device)
+        value = value.to(self.device)
+        if self.mesh is not None:
+            value = T.Tree(place(value, param_pspecs(value, self.mesh), self.mesh))
+        self._params = value
         self._compute = T.cast_for_compute(self._params, self.cfg)
 
     def sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _ctx(self):
+        return use_mesh(self.mesh) if self.mesh is not None else contextlib.nullcontext()
+
     @torch.no_grad()
     def prefill(self, batch):
-        return self.api.prefill(self._compute, batch)
+        with self._ctx():
+            return self.api.prefill(self._compute, batch)
 
     @torch.no_grad()
     def decode(self, caches, tokens, positions):
-        return self.api.decode(self._compute, caches, tokens, positions)
+        with self._ctx():
+            return self.api.decode(self._compute, caches, tokens, positions)
 
+    def shard_cache(self, caches):
+        """Place a cache tree on the mesh (the tree itself without one)."""
+        if self.mesh is None:
+            return caches
+        return place(caches, cache_pspecs(caches, self.mesh), self.mesh)
+
+    @torch.no_grad()
     def grow_cache(self, caches, max_len: int):
-        return T.pad_cache(caches, self.cfg, max_len)
+        with self._ctx():
+            return self.shard_cache(T.pad_cache(caches, self.cfg, max_len))
 
     def init_cache(self, batch: int, max_len: int):
-        return self.api.init_cache(batch, max_len)
+        return self.shard_cache(self.api.init_cache(batch, max_len))
 
     @torch.no_grad()
     def sample(self, logits, temperatures, generator: torch.Generator) -> torch.Tensor:
         """Greedy/categorical per row: ``logits (B, V_padded) -> (B,)``.
         Rows with temperature 0 take the argmax; the others sample by the
-        Gumbel-max rule with noise from ``generator``."""
+        Gumbel-max rule with noise from ``generator``. Vocab-sharded
+        logits (the ``head`` rule) are gathered whole first."""
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
         logits = logits[:, : self.cfg.vocab_size].float()
         greedy = logits.argmax(dim=-1)
         if not any(t > 0 for t in temperatures):
@@ -125,10 +158,6 @@ class _ModelRunner:
 
 class _EngineBase:
     def __init__(self, cfg: ArchConfig, *, params, seed, recorder, device, mesh):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs executed sharding (ROADMAP A10 part 2), not ported yet"
-            )
         self.cfg = cfg
         self._runner = _ModelRunner(cfg, params=params, seed=seed, device=device, mesh=mesh)
         self.api = self._runner.api
@@ -137,6 +166,8 @@ class _EngineBase:
         # its decomposer call sequence (actual launched shapes), stamped with
         # its wall-clock after a device sync
         self.recorder = recorder
+        if recorder is not None and mesh is not None:
+            recorder.bind_mesh(self._runner.tp, self._runner.pp)
 
     @property
     def params(self):
@@ -269,9 +300,12 @@ class _Slot:
 def _copy_slot(full, one, i: int):
     """``full_leaf[:, i] = one_leaf[:, 0]`` for each pair of leaves of two
     cache trees of the same structure (a leaf's slot axis is 1: the
-    continuous engine's families stack their leaves once, over layers)."""
+    continuous engine's families stack their leaves once, over layers). A
+    DTensor leaf's slot is written by the ranks that hold it."""
     if isinstance(full, torch.Tensor):
-        full[:, i] = one[:, 0]
+        local, slots, (row,) = write_target(full, 1, one[:, 0])
+        if slots.start <= i < slots.stop:
+            local[:, i - slots.start] = row
     elif isinstance(full, dict):
         for k in full:
             _copy_slot(full[k], one[k], i)

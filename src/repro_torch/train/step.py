@@ -66,7 +66,7 @@ def init_train_state(api: ModelApi, optimizer: AdamW, seed: int = 0,
     compressing so that the state's structure is the same every step."""
     params = T.tree_map(lambda t: t.detach(), api.init(seed))
     err = (
-        tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         if compress_grads
         else None
     )
@@ -118,8 +118,7 @@ def make_train_step(api: ModelApi, optimizer: AdamW, tc: TrainConfig):
             return x.reshape(m, x.shape[0] // m, *x.shape[1:])
 
         micro = {k: split(v) for k, v in batch.items()}
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in tree_leaves(params)]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
         loss_sum = 0.0
         for i in range(m):
             loss, metrics, grads = grads_of(params, {k: v[i] for k, v in micro.items()})

@@ -10,8 +10,13 @@
   * straggler watchdog: logs steps slower than ``watchdog_factor`` x the
     running median.
 
-It runs on one device, ``"cuda"`` unless the caller asks for the CPU;
-``mesh=`` raises until the port executes sharding (ROADMAP A10 part 2).
+It runs on ``"cuda"`` unless the caller asks for the CPU. With ``mesh=`` (a
+``DeviceMesh`` over the process group, ``launch.mesh.make_mesh``) every rank
+runs the same loop: the state is placed by ``state_shardings`` (default:
+``train.step.train_state_pspecs``), each rank draws the same batch and
+keeps its ``batch_shardings`` shard (default: ``dist.sharding.batch_pspecs``),
+and each step runs under ``use_mesh(mesh)`` on DTensors. Checkpoints hold
+full arrays and restore onto whatever mesh the run has (an elastic restart).
 """
 from __future__ import annotations
 
@@ -25,14 +30,29 @@ import time
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.registry import build_model
-from repro_torch.train.step import TrainConfig, init_train_state, make_optimizer, make_train_step
+from repro_torch.dist.sharding import batch_pspecs, device_mesh, place, to_named, use_mesh
+from repro_torch.train.step import (
+    TrainConfig,
+    init_train_state,
+    make_optimizer,
+    make_train_step,
+    train_state_pspecs,
+)
 
 log = logging.getLogger("repro_torch.train")
+
+
+def _host(v) -> float:
+    """A metric as a Python float (a DTensor's whole value)."""
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
+    return float(v)
 
 
 def default_ckpt_dir() -> str:
@@ -62,11 +82,12 @@ class Trainer:
         batch_shardings=None,
         device="cuda",
     ):
-        if mesh is not None or state_shardings is not None or batch_shardings is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) needs executed sharding (ROADMAP A10 part 2)"
-            )
+        if mesh is None and (state_shardings is not None or batch_shardings is not None):
+            raise ValueError("state_shardings=/batch_shardings= place on a mesh; pass mesh=")
         self.cfg = cfg
+        self.mesh = None if mesh is None else device_mesh(mesh)
+        self.state_shardings = state_shardings
+        self.batch_shardings = batch_shardings
         self.api = build_model(cfg, device)
         self.device = self.api.device
         self.tc = tc
@@ -76,15 +97,27 @@ class Trainer:
         self.ckpt = CheckpointManager(
             trainer_cfg.ckpt_dir, keep=trainer_cfg.keep, async_save=trainer_cfg.async_save
         )
-        self.train_step = make_train_step(self.api, self.optimizer, tc)
+        step_fn = make_train_step(self.api, self.optimizer, tc)
+        self.train_step = step_fn if mesh is None else self._on_mesh(step_fn)
         self._preempted = False
         self.step_times: list[float] = []
         self.metrics_history: list[dict] = []
 
     # ------------------------------------------------------------------
+    def _on_mesh(self, step_fn):
+        def step(state, batch):
+            with use_mesh(self.mesh):
+                return step_fn(state, batch)
+
+        return step
+
     def init_or_restore(self, seed: int = 0):
         state = init_train_state(self.api, self.optimizer, seed,
                                  compress_grads=self.tc.compress_grads)
+        if self.mesh is not None:
+            if self.state_shardings is None:
+                self.state_shardings = to_named(train_state_pspecs(state, self.mesh), self.mesh)
+            state = place(state, self.state_shardings, self.mesh)
         restored = self.ckpt.restore_latest(state)
         if restored is not None:
             step, state, extra = restored
@@ -96,8 +129,15 @@ class Trainer:
         self._preempted = True
 
     def batch_at(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
-                for k, v in self.data.batch_at(step).items()}
+        """The step's batch on the device; on a mesh, this rank's shard of it
+        (every rank draws the same batch)."""
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in self.data.batch_at(step).items()}
+        if self.mesh is None:
+            return batch
+        if self.batch_shardings is None:
+            self.batch_shardings = to_named(batch_pspecs(batch, self.mesh), self.mesh)
+        return place(batch, self.batch_shardings, self.mesh)
 
     # ------------------------------------------------------------------
     def run(self, seed: int = 0, preempt_after: Optional[int] = None):
@@ -110,11 +150,12 @@ class Trainer:
             batch = self.batch_at(step)
             t0 = time.perf_counter()
             state, metrics = self.train_step(state, batch)
-            loss = float(metrics["loss"])  # waits for the step's work on the device
+            metrics = {k: _host(v) for k, v in metrics.items()}
+            loss = metrics["loss"]  # waits for the step's work on the device
             dt = time.perf_counter() - t0
             self._watchdog(step, dt)
             losses.append(loss)
-            self.metrics_history.append({k: float(v) for k, v in metrics.items()})
+            self.metrics_history.append(metrics)
             if (step + 1) % self.tcfg.log_every == 0:
                 log.info("step %d loss %.4f (%.2fs)", step + 1, loss, dt)
             if (step + 1) % self.tcfg.ckpt_every == 0 or step + 1 == self.tcfg.total_steps:

@@ -135,7 +135,7 @@ def test_training_runs_on_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
                            "--ckpt-dir", str(tmp_path)])
     assert launch_train.parse_args(["--arch", "qwen3-0.6b"]).device == "cuda"
     assert Trainer(cfg, data, TrainConfig(), tcfg, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # a mesh must be able to place
         Trainer(cfg, data, TrainConfig(), tcfg, mesh=object(), device="cpu")
 
 

@@ -133,16 +133,34 @@ def test_sampling_follows_the_distribution(setup):
     assert torch.allclose(freq, expect, atol=0.03)
 
 
-def test_engine_options_of_later_slices_raise(setup):
-    """Predicted admission and ``audit=`` are ported; what still raises:
-    ``mesh=`` (A10 part 2), predicted admission without its predictor or
-    SLO, an unknown admission policy, and a family without a KV cache.
-    ``audit=True`` without a predictor audits nothing, as the reference's."""
+def test_engine_options_validate_and_mesh_runs_on_a_device_mesh(setup, tmp_path):
+    """``mesh=`` takes a ``DeviceMesh``: on a (1, 1) mesh of one rank both
+    engines give the meshless tokens at ``tp == pp == 1``, and anything that
+    cannot place tensors is refused (tests/test_torch_dist_serve.py runs a
+    (2, 2) mesh). What raises besides: predicted admission without its
+    predictor or SLO, an unknown admission policy, and a family without a
+    KV cache. ``audit=True`` without a predictor audits nothing, as the
+    reference's."""
+    from repro_torch.launch.mesh import make_mesh, process_group
+
     _, _, cfg, params = setup
     eng = ContinuousBatchingEngine(cfg, params=params, audit=True, device="cpu")
     assert eng.tp == eng.pp == 1 and eng.mesh is None
+    prompts = _prompts(2, seed=7)
+    with process_group(str(tmp_path / "store")):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        for cls, kw in ((ServeEngine, {"max_batch": 2}),
+                        (ContinuousBatchingEngine, {"slots": 2, "max_len": 40})):
+            got = []
+            for m in (None, mesh):
+                e = cls(cfg, params=params, mesh=m, device="cpu", **kw)
+                for i, p in enumerate(prompts):
+                    e.submit(Request(rid=i, prompt=p, max_new=3))
+                out = e.step_batch() if cls is ServeEngine else e.run_to_completion()
+                got.append(sorted((r.rid, r.tokens) for r in out))
+            assert got[0] == got[1] and e.mesh is mesh and (e.tp, e.pp) == (1, 1)
     for cls in (ServeEngine, ContinuousBatchingEngine):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             cls(cfg, params=params, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="admission="):
         ContinuousBatchingEngine(cfg, params=params, admission="predicted", device="cpu")

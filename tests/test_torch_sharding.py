@@ -268,7 +268,16 @@ def test_a_rule_that_shards_a_stack_dim_is_refused():
 # ----------------------------------------------------------------------
 
 
-def test_constrain_is_the_identity_without_a_mesh_and_raises_under_one():
+def test_constrain_is_the_identity_without_a_mesh_and_places_under_one(tmp_path):
+    """Without a mesh ``constrain`` returns its input; the spec is resolved
+    first under any mesh; on a ``DeviceMesh`` (one rank here, a (1, 1)
+    mesh) it returns a DTensor placed as ``to_named`` says, the same one
+    again where it is already so placed; an axis-size mapping cannot place
+    and raises."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_mesh, process_group
+
     x = torch.zeros(4, 8, 16)
     assert port.active_mesh() is None
     assert port.constrain(x, ("batch", None, None)) is x
@@ -277,14 +286,73 @@ def test_constrain_is_the_identity_without_a_mesh_and_raises_under_one():
         assert port.active_mesh() is outer
         with port.use_mesh(inner):
             assert port.active_mesh() is inner
-            with pytest.raises(NotImplementedError, match="A10 part 2"):
+            with pytest.raises(TypeError, match="DeviceMesh"):
                 port.constrain(x, ("batch", None, None))
             with pytest.raises(ValueError, match="vs roles"):  # the spec is resolved first
                 port.constrain(x, ("batch",))
         assert port.active_mesh() is outer
     assert port.active_mesh() is None
-    with pytest.raises(NotImplementedError, match="A10 part 2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.to_named({"x": port.PartitionSpec()}, outer)
+    with process_group(str(tmp_path / "store")):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        with port.use_mesh(mesh):
+            y = port.constrain(x, ("batch", None, "tp"))
+            assert isinstance(y, DTensor) and torch.equal(y.full_tensor(), x)
+            spec = port.resolve_pspec(x.shape, ("batch", None, "tp"), mesh)
+            assert spec == port.PartitionSpec("data", None, "model")
+            # a mesh dim of size 1 replicates: its one shard is the whole
+            assert y.placements == port.to_named(spec, mesh) == (Replicate(), Replicate())
+            assert port.constrain(y, ("batch", None, "tp")) is y
+        assert port.to_named({"a": [spec], "n": None}, mesh) == {
+            "a": [(Replicate(), Replicate())], "n": None}
+    # placements on a (2, 2) mesh, read off its sizes alone
+    fake = _FakeDeviceMesh((2, 2), ("data", "model"))
+    assert port.placements(port.PartitionSpec("data", None, "model"), fake) == (Shard(0), Shard(2))
+    assert port.placements(port.PartitionSpec(("data", "model")), fake) == (Shard(0), Shard(0))
+    with pytest.raises(ValueError, match="axis order"):
+        port.placements(port.PartitionSpec(("model", "data")), fake)
+
+
+class _FakeDeviceMesh(torch.distributed.device_mesh.DeviceMesh):
+    """Sizes and dim names of a DeviceMesh, without a process group (what
+    ``placements`` and ``_mesh_sizes`` read)."""
+
+    def __init__(self, shape, names):
+        self._shape, self._names = tuple(shape), tuple(names)
+
+    @property
+    def mesh_dim_names(self):
+        return self._names
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def ndim(self):
+        return len(self._shape)
+
+    def size(self, mesh_dim=None):
+        return self._shape[mesh_dim]
+
+
+def test_mesh_sizes_read_a_device_mesh_a_mapping_and_a_mesh_shape(tmp_path):
+    """``_mesh_sizes`` (and so ``resolve_pspec`` and ``mesh_degrees``) reads a
+    ``DeviceMesh`` by its dim names, a ``{axis: size}`` mapping, and
+    anything whose ``.shape`` is such a mapping."""
+    from repro_torch.launch.mesh import make_mesh, process_group
+
+    fake = _FakeDeviceMesh((2, 4), ("data", "model"))
+    assert port._mesh_sizes(fake) == {"data": 2, "model": 4}
+    assert port.mesh_degrees(fake) == (4, 1)
+    assert port._mesh_sizes({"data": 2, "model": 4}) == {"data": 2, "model": 4}
+    assert port._mesh_sizes(MeshShape(MESHES["16x16"])) == {"data": 16, "model": 16}
+    assert port.resolve_pspec((8, 12), ("batch", "tp"), fake) == port.PartitionSpec("data", "model")
+    with process_group(str(tmp_path / "store")):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        assert port._mesh_sizes(mesh) == {"data": 1, "model": 1}
+        assert port.mesh_degrees(mesh) == (1, 1)
 
 
 def _recorder(calls):

@@ -350,11 +350,22 @@ def test_launch_train_trajectory_matches_reference(tmp_path, capsys, extra):
     assert line == f"finished at step 6; loss {losses[0]:.4f} -> {losses[-1]:.4f}"
 
 
-def test_launch_train_refuses_a_mesh(tmp_path):
-    for flags in (["--mesh", "2x2"], ["--devices", "4"]):
-        with pytest.raises(NotImplementedError, match="A10"):
-            launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1",
-                               "--ckpt-dir", str(tmp_path), "--device", "cpu", *flags])
+def test_launch_train_mesh_flags_check_their_rank_counts(tmp_path, monkeypatch):
+    """``--mesh RxC`` spawns ``R*C`` ranks (``tests/test_torch_dist.py`` runs
+    a 2x2 mesh); ``--devices`` must agree with it and means nothing without
+    it; NCCL ranks need one GPU each, and more than the machine has are
+    refused before any process starts, never moved to the CPU."""
+    base = ["--arch", "qwen3-0.6b", "--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)]
+    args = launch_train.parse_args(base + ["--mesh", "2x2", "--device", "cpu"])
+    assert launch_train.mesh_shape(args) == (2, 2)
+    assert launch_train.mesh_shape(launch_train.parse_args(base)) == ()
+    for flags, match in ((["--devices", "4"], "pass --mesh"),
+                         (["--mesh", "2x2", "--devices", "3"], "--devices says 3")):
+        with pytest.raises(ValueError, match=match):
+            launch_train.main(base + ["--device", "cpu", *flags])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 NCCL ranks need 2 GPUs"):
+        launch_train.main(base + ["--mesh", "1x2"])
 
 
 # ----------------------------------------------------------------------
@@ -377,8 +388,29 @@ def test_checkpoint_roundtrip(tmp_path):
     assert torch.equal(new_state["a"], state["a"]) and torch.equal(new_state["h"], state["h"])
     assert new_state["n"] == 7 and new_state["none"] is None
     assert mgr.restore(6, like)[0]["b"]["c"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="A10"):
-        mgr.restore(9, like, shardings={"a": None})
+    # restore(shardings=) places each leaf on the active mesh (one rank here)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.sharding import PartitionSpec, use_mesh
+    from repro_torch.launch.mesh import make_mesh, process_group
+
+    with pytest.raises(ValueError, match="use_mesh"):
+        mgr.restore(9, like, shardings={"a": PartitionSpec("data", None)})
+    with process_group(str(tmp_path / "store")):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        with use_mesh(mesh):
+            placed, _ = mgr.restore(9, like, shardings={
+                "a": PartitionSpec("data", None), "b": {"c": (Replicate(), Replicate())},
+                "h": None, "n": PartitionSpec(), "none": None})
+        assert isinstance(placed["a"], DTensor) and isinstance(placed["b"]["c"], DTensor)
+        assert placed["a"].placements == (Replicate(), Replicate())
+        assert torch.equal(placed["a"].full_tensor(), state["a"])
+        assert not isinstance(placed["h"], DTensor) and torch.equal(placed["h"], state["h"])
+        assert placed["n"] == 7
+        # a DTensor leaf of ``like`` comes back placed as it is
+        again, _ = mgr.restore(9, placed)
+        assert again["a"].placements == placed["a"].placements
+        assert torch.equal(again["b"]["c"].full_tensor(), state["b"]["c"])
 
 
 def test_checkpoint_layout_is_the_references(tmp_path):
