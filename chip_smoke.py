@@ -159,6 +159,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    all-reduce and all-to-all take them; PERF.md), and NCCL takes one rank
    a device.
 
+13. the dry run and the roofline, on this machine's CPU with no card: (a)
+   ``python -m repro_torch.launch.dryrun`` at full width on fake process
+   groups, one process a cell, all at once: qwen3-0.6b x {train_4k,
+   prefill_32k, decode_32k} on the 16x16 mesh and dbrx-132b x train_4k on
+   2x16x16; then ``python -m repro_torch.roofline.report`` over their
+   JSONs, and each cell's lowering seconds, per-device TFLOP, HBM GB,
+   collective GB by kind and dominant term under the H100's peaks; (b) the
+   op counter (``roofline.op_cost``) over the steps this script timed on
+   the card, counted on fake CPU tensors with no mesh: phase 10 (b)'s
+   training step, phase 6's qwen3-0.6b decode tick (its cache cut to the
+   live span) and 1024-token prefill, their (S, S) attention ops cut to
+   the causal pairs; each step's compute and memory terms under this
+   card's peaks, and the larger one over its measured wall and
+   device-busy time; (c) the dry
+   run's ``argument_bytes`` for that training step equal, byte for byte,
+   to the ``nbytes`` of the train state and batch phase 10 (b) held on the
+   card.
+
 It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -184,26 +202,10 @@ MODEL_TOL = 1e-4
 # about 5e-6 of max|ref|
 MOE_F32_TOL = 1e-4
 SMM_TOL = 1e-2
-# published dense peaks: device memory bytes/s; bf16 tensor-core FLOP/s;
-# f32 FLOP/s outside the tensor cores; int8 tensor-core ops/s; TF32
-# tensor-core FLOP/s
-PEAKS = [
-    ("H100 NVL", 3.9e12, 835e12, 60e12, 1670e12, 418e12),
-    ("H100 PCIe", 2.0e12, 756e12, 51e12, 1513e12, 378e12),
-    ("H100", 3.35e12, 989e12, 67e12, 1979e12, 495e12),  # SXM, "H100 80GB HBM3"
-    ("H200", 4.8e12, 989e12, 67e12, 1979e12, 495e12),
-]
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_peaks(name):
-    for key, bw, bf16, f32, int8, tf32 in PEAKS:
-        if key in name:
-            return {"bytes": bw, "bfloat16": bf16, "float32": f32, "int8": int8, "tf32": tf32}
-    raise RuntimeError(f"no published peaks known for {name!r}")
 
 
 def bound(peaks, nbytes, ops, kind):
@@ -237,6 +239,7 @@ def main():
     from repro_torch.kernels.rmsnorm import kernel as rms_k
     from repro_torch.kernels.scaled_mm import kernel as smm_k
     from repro_torch.kernels.silu_mul import kernel as silu_k
+    from repro_torch.roofline.analysis import card_peaks
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -288,7 +291,7 @@ def main():
 
     # ---------------------------------------------------------------- 6
     t0 = time.perf_counter()
-    where_time_goes(torch, dev, params)
+    served_steps = where_time_goes(torch, dev, params)
     del params
     torch.cuda.empty_cache()
     where_time_goes_moe(torch, dev)
@@ -319,7 +322,7 @@ def main():
 
     # ---------------------------------------------------------------- 10
     t0 = time.perf_counter()
-    trained = training(torch, dev)
+    trained, trained_step = training(torch, dev)
     for k, v in trained.items():
         launches[k] = launches.get(k, 0) + v
     log(f"[10 training] passed in {time.perf_counter() - t0:.1f}s; launches {trained}")
@@ -340,6 +343,11 @@ def main():
     for k, v in sharded.items():
         launches[k] = launches.get(k, 0) + v
     log(f"[12 mesh path] passed in {time.perf_counter() - t0:.1f}s; launches {sharded}")
+
+    # ---------------------------------------------------------------- 13
+    t0 = time.perf_counter()
+    dry_run_and_roofline(src, name, smi, served_steps, trained_step)
+    log(f"[13 dry run and roofline] passed in {time.perf_counter() - t0:.1f}s")
 
     sources = {
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/_triton.py",
@@ -369,7 +377,7 @@ def main():
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": max_err[k], **rows[k],
         })
-    log(f"[done] phases 1-12 in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1579,7 +1587,10 @@ def profiled(torch, fn, steps):
 def where_time_goes(torch, dev, params, cfg=None, max_len=4096, prompt_len=1024):
     """Profile decode ticks of a full slot pool and one prefill of
     ``cfg`` (default: qwen3-0.6b with bf16 compute, as served in phase 4),
-    every prompt ``prompt_len`` tokens."""
+    every prompt ``prompt_len`` tokens. Returns each step's shape, median
+    unprofiled wall and device-busy ms: ``{"decode": {...}, "prefill":
+    {...}}``, the decode tick's with ``kv``, its mean attended cache span
+    (phase 13 bounds them)."""
     from repro_torch.configs import get_arch
     from repro_torch.serve.engine import ContinuousBatchingEngine, Request
 
@@ -1599,9 +1610,12 @@ def where_time_goes(torch, dev, params, cfg=None, max_len=4096, prompt_len=1024)
         eng.step()
     prefill()
     torch.cuda.synchronize()
-    for label, fn, steps in ((f"{cfg.name} decode tick ({slots} slots, {prompt_len}-token "
-                              f"prompts)", eng.step, ticks),
-                             (f"{cfg.name} prefill (1 x {prompt_len} tokens)", prefill, 3)):
+    steps_seen = {}
+    for kind, B, S, label, fn, steps in (
+            ("decode", slots, max_len, f"{cfg.name} decode tick ({slots} slots, {prompt_len}-token "
+             f"prompts)", eng.step, ticks),
+            ("prefill", 1, prompt_len, f"{cfg.name} prefill (1 x {prompt_len} tokens)", prefill, 3)):
+        span = max(s.pos for s in eng.slots) + 1  # the next tick's attended cache span
         walls = []
         for _ in range(steps):
             t0 = time.perf_counter()
@@ -1614,6 +1628,11 @@ def where_time_goes(torch, dev, params, cfg=None, max_len=4096, prompt_len=1024)
             f"unprofiled wall {float(np.median(walls)):.3f} ms")
         for name, n, ms in r["top"]:
             log(f"    {ms:9.4f} ms  x{n:<6g} {name}")
+        steps_seen[kind] = {"B": B, "S": S, "wall_ms": float(np.median(walls)),
+                            "busy_ms": r["busy_ms"]}
+        if kind == "decode":  # the mean span of the 2 x ticks ticks measured, rounded up
+            steps_seen[kind]["kv"] = span + steps
+    return steps_seen
 
 
 def where_time_goes_gemma2(torch, dev):
@@ -1976,7 +1995,10 @@ def training_launches(cfg):
 
 def training(torch, dev):
     """Phase 10 (the module docstring's (a), (b), (c)). Returns the launches
-    of the full-depth training run (b)."""
+    of the full-depth training run (b), and its step: ``B``, ``S``, the
+    median unprofiled step wall and the profiled step's device-busy ms, and
+    the bytes of the train state and batch it held on the card (phase 13
+    bounds it)."""
     import gc
     import os
     import shutil
@@ -1985,6 +2007,7 @@ def training(torch, dev):
 
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.dryrun import local_nbytes
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import tree_leaves
@@ -2076,6 +2099,8 @@ def training(torch, dev):
             assert np.isfinite(losses).all() and losses[-1] < losses[0], f"(b) losses {losses}"
             step_ms = 1e3 * float(np.median(tr.step_times[1:]))
             n = sum(p.numel() for p in tree_leaves(state["params"]))
+            batch = tr.batch_at(steps)
+            held_bytes = local_nbytes(state) + local_nbytes(batch)
             log(f"  (b) qwen3-0.6b, 28 layers ({n / 1e9:.4f}B parameters), bf16 compute, f32 "
                 f"master weights, B{B} S{S}: {steps} steps in {wall:.1f}s (checkpoints at 5 and "
                 f"10 included); losses {[round(x, 4) for x in losses]}")
@@ -2084,7 +2109,6 @@ def training(torch, dev):
                 f"{B * S / step_ms * 1e3:.0f} tokens/s; torch.cuda.max_memory_allocated "
                 f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held before the run "
                 f"began; launches a step {per_step}")
-            batch = tr.batch_at(steps)
 
             def one_step():
                 nonlocal state
@@ -2096,6 +2120,8 @@ def training(torch, dev):
                 f"{r['launches']:.0f} launches")
             for name, k, ms in r["top"]:
                 log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
+            measured = {"B": B, "S": S, "wall_ms": step_ms, "busy_ms": r["busy_ms"],
+                        "held_bytes": held_bytes}
             del state, tr
             torch.cuda.empty_cache()
             shutil.rmtree(os.path.join(tmp, f"step_{steps:010d}"))
@@ -2130,7 +2156,7 @@ def training(torch, dev):
         log(f"  (c) {label}: losses {ls} ({time.perf_counter() - t0:.1f}s)")
         del st
         torch.cuda.empty_cache()
-    return moved
+    return moved, measured
 
 
 # ======================================================================
@@ -2367,6 +2393,143 @@ def mesh_path(torch, dev, kinds, smi):
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return totals
+
+
+# ======================================================================
+# phase 13: the dry run and the roofline
+# ======================================================================
+
+# (arch, shape, multi-pod): the production cells phase 13 (a) lowers
+DRYRUN_CELLS = [("qwen3-0.6b", "train_4k", False), ("qwen3-0.6b", "prefill_32k", False),
+                ("qwen3-0.6b", "decode_32k", False), ("dbrx-132b", "train_4k", True)]
+# seconds one cell's lowering may take on the host (the slowest, dbrx-132b on
+# 2x16x16, takes tens of seconds; PERF.md)
+DRYRUN_TIMEOUT_S = 300
+
+
+def dry_run_and_roofline(src, name, smi, served, trained):
+    """Phase 13 (the module docstring's (a), (b), (c)). ``served`` and
+    ``trained`` are the steps phases 6 and 10 (b) timed on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import lower_step
+    from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+    from repro_torch.roofline.analysis import H100_SXM, card_peaks, load_rows
+    from repro_torch.roofline.op_cost import analyze_ledger, count
+
+    # the counter on this machine's torch: a DTensor matmul on the 16x16 fake
+    # mesh counts its local product only (each rank 1/16 of the rows and of
+    # the columns)
+    with fake_process_group(256):
+        mesh = make_production_mesh()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            a = distribute_tensor(torch.empty(4096, 1024), mesh, [Shard(0), Replicate()],
+                                  src_data_rank=None)
+            w = distribute_tensor(torch.empty(1024, 4096), mesh, [Replicate(), Shard(1)],
+                                  src_data_rank=None)
+            _, c = count(lambda: a @ w)
+        got, want = c.summary().dot_flops, 2 * 256 * 1024 * 256
+        assert got == want, f"(a) a DTensor matmul counted {got} FLOP, its local product {want}"
+
+    # (a) the dry run at full width, one process a cell, all at once
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--out", out] + (["--multi-pod"] if multi_pod else [])
+            procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        for (arch, shape, _), p in zip(DRYRUN_CELLS, procs):
+            text, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            fails = "".join(f.read_text()[-4000:]
+                            for f in Path(out).glob(f"{arch}__{shape}__*.fail"))
+            assert p.returncode == 0, (
+                f"(a) the dry run of {arch} x {shape} failed:\n{text[-2000:]}{fails}")
+        log(f"  (a) {len(DRYRUN_CELLS)} cells lowered in {time.perf_counter() - t0:.1f}s "
+            f"(wall, in parallel)")
+        rep = subprocess.run([sys.executable, "-m", "repro_torch.roofline.report", "--dir", out],
+                             env=env, capture_output=True, text=True, check=True, timeout=120)
+        log(rep.stdout)
+        rows = {(r.arch, r.shape): r for r in load_rows(out, H100_SXM)}
+        for path in sorted(Path(out).glob("*.json")):
+            d = json.loads(path.read_text())
+            assert d["dot_flops"] > 0 and d["hbm_bytes"] > 0 and not d["unknown_ops"], (
+                f"(a) {path.name}: {d['dot_flops']} dot FLOP, {d['hbm_bytes']} B, unknown ops "
+                f"{d['unknown_ops']}")
+            assert ("ep_alltoall" in d) == bool(get_arch(d["arch"]).n_experts), path.name
+            r = rows[(d["arch"], d["shape"])]
+            coll = {k: round(v["bytes"] / 1e9, 3) for k, v in d["collectives"].items()
+                    if isinstance(v, dict)}
+            log(f"  (a) {d['arch']} x {d['shape']} on {d['mesh']}: lowered in {d['compile_s']} s; "
+                f"per device {d['flops'] / 1e12:.3f} TFLOP ({d['dot_flops'] / 1e12:.3f} in dots), "
+                f"{d['hbm_bytes'] / 1e9:.1f} GB HBM (eager, unfused), collectives GB {coll}, "
+                f"{d['hlo_lines']} ledger lines; under the H100's peaks compute "
+                f"{r.compute_s:.4g} s, memory {r.memory_s:.4g} s, collective {r.collective_s:.4g} s:"
+                f" {r.dominant}-bound")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+
+    # (b) the card's own steps, counted on fake CPU tensors with no mesh, at
+    # what each needs: a decode tick's cache cut to its live span, and the
+    # plain program's whole (S, S) attention cut to the causal pairs
+    peaks = card_peaks(name)
+    cfg = get_arch("qwen3-0.6b")
+    dec = served["decode"]
+    steps = [("train", trained, trained["S"],
+              f"training step (phase 10 (b), B{trained['B']} S{trained['S']})"),
+             ("decode", dec, dec["kv"], f"decode tick (phase 6, {dec['B']} slots, cache span "
+                                        f"{dec['kv']} of max_len {dec['S']})"),
+             ("prefill", served["prefill"], served["prefill"]["S"],
+              f"prefill (phase 6, 1 x {served['prefill']['S']})")]
+    lowered = {}
+    for kind, meas, S, label in steps:
+        lw = lower_step(cfg, kind, meas["B"], S, compute_params=kind != "train")
+        lowered[kind] = lw
+        whole = lw.counter.summary()
+        assert whole.dot_flops > 0 and not whole.unknown_ops, f"(b) {label}: {whole.as_dict()}"
+        c = analyze_ledger(lw.counter.ledger_lines(),
+                           causal=None if kind == "decode" else (S, meas["B"] * cfg.n_heads))
+        # compute: the dots at the bf16 tensor-core peak or the vector ops at
+        # the f32 one, whichever takes longer (the two units run at once);
+        # memory: the step's inputs read once and its new outputs written
+        # once (the plain program's unfused traffic is logged beside it)
+        dots_ms = 1e3 * c.dot_flops / peaks["bfloat16"]
+        vector_ms = 1e3 * c.vector_ops / peaks["float32"]
+        compute_ms = max(dots_ms, vector_ms)
+        least = lw.argument_bytes + lw.new_output_bytes
+        memory_ms = 1e3 * least / peaks["bytes"]
+        bound_ms = max(compute_ms, memory_ms)
+        log(f"  (b) qwen3-0.6b {label}, counted in {lw.seconds:.1f}s: {c.dot_flops:.6g} dot FLOP, "
+            f"{c.vector_ops:.6g} vector ops needed (the plain program: {whole.dot_flops:.6g}, "
+            f"{whole.vector_ops:.6g}); {lw.argument_bytes} B in, {lw.new_output_bytes} B "
+            f"of new outputs; compute term {compute_ms:.4f} ms (dots {dots_ms:.4f}, vector "
+            f"{vector_ms:.4f}), memory term {memory_ms:.4f} ms: bound {bound_ms:.4f} ms by "
+            f"{'operations' if compute_ms >= memory_ms else 'bytes'} (the eager plain program "
+            f"moves {whole.hbm_bytes:.6g} B, {1e3 * whole.hbm_bytes / peaks['bytes']:.3f} ms); "
+            f"measured unprofiled wall {meas['wall_ms']:.3f} ms, bound/wall "
+            f"{bound_ms / meas['wall_ms']:.4f}; device busy {meas['busy_ms']:.3f} ms, bound/busy "
+            f"{bound_ms / meas['busy_ms']:.4f}; {smi}")
+
+    # (c) the dry run's argument bytes against what phase 10 (b) held on the card
+    got = lowered["train"].argument_bytes
+    assert got == trained["held_bytes"], (
+        f"(c) the dry run counts {got} argument bytes, the card held {trained['held_bytes']}")
+    log(f"  (c) training step's argument bytes: dry run {got}, train state and batch on the "
+        f"card {trained['held_bytes']}: equal")
 
 
 if __name__ == "__main__":

@@ -16,8 +16,8 @@ Three statically provable layers, per registry arch x request shape:
 * the MoE EP dispatch/combine ``CommCall("all_to_all")`` payloads must
   equal :func:`count_ep_alltoall_bytes` — the byte ledger derived from
   the executed model layer — bit-for-bit. The reference keeps that ledger
-  in ``launch.dryrun``, whose port waits for ROADMAP A12 part 2, so it
-  lives here.
+  in ``launch.dryrun``; the port keeps it here, and its ``launch.dryrun``
+  re-exports it.
 
 Every check takes an optional ``calls=`` stream so seeded-bug tests can
 re-introduce a historical bug and prove the diagnostic fires.

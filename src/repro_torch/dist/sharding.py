@@ -67,6 +67,7 @@ __all__ = [
     "placements",
     "place",
     "local_slice",
+    "unflatten",
     "write_target",
     "device_mesh",
     "as_dtensor",
@@ -288,10 +289,36 @@ def local_slice(x, dim: int) -> slice:
     (all of them for a plain tensor)."""
     if not isinstance(x, DTensor):
         return slice(0, x.shape[dim])
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    # each mesh dim that shards ``dim`` splits what the earlier ones left in
+    # torch.chunk's pieces (the last ones shorter or empty), as DTensor does;
+    # in plain integers, so that fake tensors (the dry run's) take it too
+    dim %= x.ndim
+    start, size = 0, x.shape[dim]
+    coord = x.device_mesh.get_coordinate()
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim == dim:
+            chunk = -(-size // x.device_mesh.size(m))
+            lo = min(coord[m] * chunk, size)
+            start, size = start + lo, min(chunk, size - lo)
+    return slice(start, start + size)
 
-    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
-    return slice(offset[dim], offset[dim] + shape[dim])
+
+def unflatten(x, dim: int, sizes: Sequence[int]):
+    """``x.unflatten(dim, sizes)``. A DTensor whose ``dim`` is sharded into
+    more pieces than ``sizes[0]`` splits into evenly (8 KV heads over a
+    16-way ``"model"`` axis) is first gathered over the mesh dims that shard
+    ``dim``: DTensor cannot view a shard apart across heads, where XLA
+    reshards such a reshape by itself. A plain tensor is only unflattened."""
+    if isinstance(x, DTensor):
+        d, parts = dim % x.ndim, 1
+        on_dim = [m for m, p in enumerate(x.placements)
+                  if isinstance(p, Shard) and p.dim % x.ndim == d]
+        for m in on_dim:
+            parts *= x.device_mesh.size(m)
+        if sizes[0] % parts:
+            want = [Replicate() if m in on_dim else p for m, p in enumerate(x.placements)]
+            x = x.redistribute(x.device_mesh, want)
+    return x.unflatten(dim, sizes)
 
 
 def write_target(dst, dim: int, *srcs):

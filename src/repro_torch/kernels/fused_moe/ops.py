@@ -49,11 +49,18 @@ def on_expert_shards(fn, x, w_gate, w_up, w_down):
     """``fn(x, w_gate, w_up, w_down)`` (a fused-MoE call) on each rank's
     experts through ``kernels.on_shards``: experts on dim 0 of ``x`` and of
     the three weights; ``x``'s rows may stay sharded too, where the weights
-    replicate (and their gradients are partial sums)."""
+    replicate (and their gradients are partial sums). Rows that a mesh dim
+    of more ranks replicates are split over it, each rank computing its
+    share, and the output rows gathered back: its ranks do not all compute
+    every row (a decode step's few dispatch groups)."""
     xp = kernel_placements(x, (0, 1))
-    wp = tuple(p if p == Shard(0) else Replicate() for p in xp)
-    wg = tuple(Partial() if p == Shard(1) else w for p, w in zip(xp, wp))
-    return on_shards(fn, (x, w_gate, w_up, w_down), (xp, wp, wp, wp), xp, (xp, wg, wg, wg))
+    mesh, R = x.device_mesh, x.shape[1]
+    run = tuple(Shard(1) if p == Replicate() and 1 < mesh.size(m) and R % mesh.size(m) == 0
+                else p for m, p in enumerate(xp))
+    wp = tuple(p if p == Shard(0) else Replicate() for p in run)
+    wg = tuple(Partial() if p == Shard(1) else w for p, w in zip(run, wp))
+    out = on_shards(fn, (x, w_gate, w_up, w_down), (run, wp, wp, wp), run, (run, wg, wg, wg))
+    return out if run == xp else out.redistribute(mesh, xp)
 
 
 def fused_moe(

@@ -6,9 +6,11 @@ meet through a ``FileStore`` and each run one function; ``process_group``
 makes the calling process one rank of a group (alone, by default). Defined as
 functions, so importing this module touches no device or process group.
 
-The production meshes (256 and 512 ranks) are lowered only by the dry run,
-which needs a fake process group: ``make_production_mesh`` waits for it
-(ROADMAP A12 part 2) and raises.
+The production meshes (256 and 512 ranks) are built by
+``make_production_mesh`` inside ``fake_process_group``: one process plays
+rank 0 of a group whose collectives move nothing, which is what the dry run
+(``launch.dryrun``) lowers against, in place of the reference's 512 forced
+host devices.
 """
 from __future__ import annotations
 
@@ -24,13 +26,43 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """This process as rank 0 of a ``world_size``-rank group on torch's
+    ``"fake"`` backend (over its ``FakeStore``): collectives return at once
+    and move nothing, so DTensors of any mesh can be built and run on fake
+    tensors by one process. The group is destroyed when the block ends,
+    however it ends; a process that is already in a group is refused."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already; fake_process_group makes its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_production_mesh(*, multi_pod: bool = False, pipeline: bool = False):
-    """The reference's 16x16 / 2x16x16 / 4x8x8 / 2x4x8x8 meshes need 256 or
-    512 ranks on a fake process group, which the port's dry run brings."""
-    raise NotImplementedError(
-        f"make_production_mesh({mesh_tag(multi_pod=multi_pod, pipeline=pipeline)}) needs the "
-        "dry run's fake process group (ROADMAP A12 part 2), not ported yet"
-    )
+    """The production meshes the dry run lowers against, as ``DeviceMesh``es
+    of ``device_type="cpu"`` over the current (fake) process group.
+
+    Default: one pod as 16 data x 16 model; ``multi_pod`` stacks a leading
+    2-pod axis. ``pipeline`` carves a 4-way ``pipe`` axis out of the pod
+    (4 stages x 8 data x 8 model, the same 256 ranks): the axis
+    ``dist.pipeline.pipeline_forward`` schedules over and
+    ``dist.sharding`` resolves the ``"pipe"`` role onto. Combined with
+    ``multi_pod`` this is the 512-rank 2 x 4 x 8 x 8 mesh. Raises
+    ``ValueError`` naming the ranks it needs when the group has another
+    size or there is none (``fake_process_group(256)`` or ``(512)``)."""
+    if pipeline:
+        shape = (2, 4, 8, 8) if multi_pod else (4, 8, 8)
+        axes = (("pod",) if multi_pod else ()) + ("pipe", "data", "model")
+    else:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type="cpu")
 
 
 def mesh_tag(*, multi_pod: bool = False, pipeline: bool = False) -> str:

@@ -16,10 +16,11 @@ their hand-written backward kernels, so training runs through them too.
 from __future__ import annotations
 
 import math
+import operator
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -27,6 +28,7 @@ from repro_torch.dist.sharding import (
     active_mesh,
     constrain,
     resolve_pspec,
+    unflatten,
     write_target,
 )
 from repro_torch.kernels import is_dtensor, kernel_placements, on_shards
@@ -139,14 +141,14 @@ def _block_attend(
         (qpos.shape[0], qpos.shape[1], kpos.shape[1]), dtype=torch.bool, device=s.device
     )
     if causal:
-        mask &= kpos[:, None, :] <= qpos[:, :, None]
+        mask = mask & (kpos[:, None, :] <= qpos[:, :, None])
     if window is not None:
         win_ok = kpos[:, None, :] > (qpos[:, :, None] - window)
         if prefix:
             win_ok |= (kpos < prefix)[:, None, :]
-        mask &= win_ok
+        mask = mask & win_ok
     if kv_valid is not None:
-        mask &= kv_valid[:, None, :]
+        mask = mask & kv_valid[:, None, :]
     s = s.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)  # fully masked rows stay finite
     p = torch.exp(s - m)
@@ -236,7 +238,7 @@ def chunked_attention(
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Sq, Hkv, G, D)
+    qg = unflatten(q, 2, (Hkv, G))
 
     if (causal_sparse and causal and window is None and kv_valid is None and prefix == 0
             and Sq == Skv and Sq % q_block == 0 and Sq // q_block >= 2):
@@ -300,9 +302,9 @@ def init_attention(gen, cfg: ArchConfig, dtype, device):
 def _project_qkv(p, x, cfg: ArchConfig, positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).view(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).view(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).view(B, S, cfg.n_kv_heads, hd)
+    q = unflatten(x @ p["wq"], 2, (cfg.n_heads, hd))
+    k = unflatten(x @ p["wk"], 2, (cfg.n_kv_heads, hd))
+    v = unflatten(x @ p["wv"], 2, (cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -413,9 +415,9 @@ def cross_attention_layer(p, x, kv_src, cfg: ArchConfig):
     B, S, _ = x.shape
     Skv = kv_src.shape[1]
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).view(B, S, cfg.n_heads, hd)
-    k = (kv_src @ p["wk"]).view(B, Skv, cfg.n_kv_heads, hd)
-    v = (kv_src @ p["wv"]).view(B, Skv, cfg.n_kv_heads, hd)
+    q = unflatten(x @ p["wq"], 2, (cfg.n_heads, hd))
+    k = unflatten(kv_src @ p["wk"], 2, (cfg.n_kv_heads, hd))
+    v = unflatten(kv_src @ p["wv"], 2, (cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -428,7 +430,7 @@ def cross_attention_cached(p, x, ck, cv, cfg: ArchConfig):
     prefill, on the plain chunked path like decode self-attention."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).view(B, S, cfg.n_heads, hd)
+    q = unflatten(x @ p["wq"], 2, (cfg.n_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
     zeros = lambda n: torch.zeros((B, n), dtype=torch.long, device=x.device)
@@ -480,8 +482,24 @@ def init_embed(gen, cfg: ArchConfig, dtype, device):
     }
 
 
+def lookup_rows(table, index):
+    """``table[index]``. On a mesh each rank looks its own index rows up in
+    the whole table (gathered as FSDP gathers a weight), and the table's
+    gradient sums over the ranks' rows: DTensor's rules for an index with
+    sharded indices fail (torch 2.11), in the backward and, on a 3-D mesh,
+    in the forward."""
+    if not is_dtensor(table, index):
+        return table[index]
+    mesh = next(t.device_mesh for t in (table, index) if is_dtensor(t))
+    rows = kernel_placements(index, (0,)) if is_dtensor(index) else None
+    rows = rows or (Replicate(),) * mesh.ndim
+    whole = (Replicate(),) * len(rows)
+    grad = tuple(Partial() if isinstance(r, Shard) else r for r in rows)
+    return on_shards(operator.getitem, (table, index), (whole, rows), rows, (grad, rows))
+
+
 def embed_tokens(p, tokens, cfg: ArchConfig, compute_dtype):
-    x = p["tok"][tokens].to(compute_dtype)
+    x = lookup_rows(p["tok"], tokens).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
     return x

@@ -13,14 +13,16 @@ the function the reference's Pallas kernel computes.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import constrain
-from repro_torch.kernels import is_dtensor
+from repro_torch.dist.sharding import constrain, placements, resolve_pspec
+from repro_torch.kernels import is_dtensor, on_shards
 from repro_torch.kernels.fused_moe import ops as moe_ops
 from repro_torch.models.layers import dense_init, ffn, init_ffn
 
@@ -75,6 +77,44 @@ def expert_ffn(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return out[:, :R] if pad else out
 
 
+def _expert_placements(combine, cfg: ArchConfig):
+    """On a mesh: the placements of the dispatched ``(G, E, C, d)`` tensor
+    (its constraint's), and those of ``combine`` ``(G, Sg, E, C)`` and of
+    the grouped tokens ``(G, Sg, d)`` that match them."""
+    mesh = combine.device_mesh
+    G, _, E, C = combine.shape
+    xe = placements(resolve_pspec((G, E, C, cfg.d_model), ("batch", "experts", None, None),
+                                  mesh), mesh)
+    cp = tuple(Shard(2) if p == Shard(1) else p for p in xe)
+    xg = tuple(p if p == Shard(0) else Replicate() for p in xe)
+    return xe, cp, xg
+
+
+def _dispatch(dispatch, xg, cfg: ArchConfig):
+    """``einsum("gsec,gsd->gecd")``. On a mesh each rank computes its own
+    experts' slots, where they are sharded (as XLA's propagation from the
+    constraint on the result places the product); the tokens' gradient is
+    then a sum over the ranks' experts."""
+    if not is_dtensor(dispatch, xg):
+        return torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    xe, cp, xp = _expert_placements(dispatch, cfg)
+    xg_grad = tuple(Partial() if p == Shard(1) else q for p, q in zip(xe, xp))
+    return on_shards(functools.partial(torch.einsum, "gsec,gsd->gecd"), (dispatch, xg),
+                     (cp, xp), xe, (cp, xg_grad))
+
+
+def _combine(combine, ye, cfg: ArchConfig):
+    """``einsum("gsec,gecd->gsd")``. On a mesh each rank sums over its own
+    experts and the output is a pending sum over the expert-parallel dims,
+    reduced where it is next used: no rank gathers the experts' outputs."""
+    if not is_dtensor(combine, ye):
+        return torch.einsum("gsec,gecd->gsd", combine, ye)
+    xe, cp, xp = _expert_placements(combine, cfg)
+    out = tuple(Partial() if p == Shard(1) else q for p, q in zip(xe, xp))
+    return on_shards(functools.partial(torch.einsum, "gsec,gecd->gsd"), (combine, ye),
+                     (cp, xe), out)
+
+
 def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
     """x: (B, S, d) -> (out, aux_loss)."""
     B, S, d = x.shape
@@ -106,7 +146,7 @@ def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
     if cfg.moe_bf16_combine:  # bf16 dispatch/combine in bf16 compute
         combine = combine.to(x.dtype)
     dispatch = (combine > 0).to(x.dtype)
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)  # (G, E, C, d)
+    xe = _dispatch(dispatch, xg, cfg)  # (G, E, C, d)
     xe = constrain(xe, ("batch", "experts", None, None))
 
     # ---- expert FFN (SwiGLU), one fused_moe call over (E, G*C, d) rows -----
@@ -114,7 +154,7 @@ def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
     w = [p[k].to(x.dtype) for k in ("w_gate", "w_up", "w_down")]
     ye = expert_ffn(rows, *w).reshape(E, G, C, d).transpose(0, 1)  # (G, E, C, d)
 
-    out = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye).reshape(B, S, d)
+    out = _combine(combine.to(x.dtype), ye, cfg).reshape(B, S, d)
 
     # ---- auxiliary load-balancing loss (Switch) ---------------------------
     me = probs.mean(dim=(0, 1))  # mean router prob per expert

@@ -557,7 +557,7 @@ def _embed_input(params, cfg: ArchConfig, tokens, base_positions):
     else:
         pos = base_positions
     if cfg.family == "audio":
-        x = x + params["dec_pos"][base_positions].to(cdt)
+        x = x + L.lookup_rows(params["dec_pos"], base_positions).to(cdt)
     return x, pos
 
 
@@ -616,7 +616,7 @@ def decode_step(params, cfg: ArchConfig, caches, tokens, positions):
     cdt = torch_dtype(cfg.compute_dtype)
     x = L.embed_tokens(params["embed"], tokens[:, None], cfg, cdt)
     if cfg.family == "audio":
-        x = x + params["dec_pos"][positions[:, None]].to(cdt)
+        x = x + L.lookup_rows(params["dec_pos"], positions[:, None]).to(cdt)
     ctx = Ctx(cfg=cfg, dec_positions=positions + (cfg.meta_tokens or 0))
     for seg, seg_params, seg_cache in zip(build_segments(cfg), params["segments"], caches):
         x, _, _ = seg.apply(seg_params, x, ctx, "decode", cache=seg_cache)
