@@ -29,13 +29,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    (4608 tokens, window 4096, softcap 50, head dim 256), whisper-base's
    encoder and cross attention (1500 frames), llama-3.2-vision's cross
    attention (1601 patches) and stablelm-3b's head dim 80; silu_mul geglu
-   at gemma2-2b's (4608, 9216); and the three backward kernels (rmsnorm,
-   silu_mul, flash attention) against their plain backward formulas, at
-   qwen3-0.6b's training shapes (B4 S2048; rmsnorm also at its q and k
-   norms' rows), stablelm-3b's (B1 S2048, 32/32 heads of 80, bf16 and
-   f32) and the reference's kernel test shapes (causal and not, a window,
-   a softcap, GQA, rows that see no key), each gradient within f32 2e-5 /
-   bf16 2e-2 of its max|ref|, and bit-equal when run twice;
+   at gemma2-2b's (4608, 9216); and the four backward kernels (rmsnorm,
+   silu_mul, flash attention, fused MoE) against their plain backward
+   formulas, at qwen3-0.6b's training shapes (B4 S2048; rmsnorm also at
+   its q and k norms' rows), stablelm-3b's (B1 S2048, 32/32 heads of 80,
+   bf16 and f32), gemma2-2b's (head dim 256 with causal, window and
+   softcap 50 masks, small and at B1 S4096 8/4 heads), the reference's
+   kernel test shapes (causal and not, a window, a softcap, GQA, rows that
+   see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
+   640 rows) and arctic-480b-wide (D 7168, F 4864, 40 rows) shapes, each
+   gradient within f32 2e-5 / bf16 2e-2 of its max|ref|, and bit-equal
+   when run twice;
 3. whole-model parity, random weights from one seed, f32 compute: prefill
    of a 64-token prompt and 8 greedy decode steps on the card (kernels) and
    on the CPU (plain versions), same weights: full-width qwen3-0.6b, and
@@ -67,7 +71,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward kernels at qwen3-0.6b's training shapes, beside their plain
    backward formulas and the backward of ``F.rms_norm`` and of SDPA (rows
    logged beside them: rmsnorm's at the q and k norms' (131072, 128) and
-   (65536, 128), flash attention's at stablelm-3b's head dim 80);
+   (65536, 128), flash attention's at stablelm-3b's head dim 80 and at
+   gemma2-2b's training shape, no library: SDPA takes no softcap); fused
+   MoE's backward at dbrx-132b's training shape (E16, 640 rows, bf16) and
+   at the tuner's E16 C256 (f32), beside ``autograd.grad`` of three
+   ``bmm`` and silu * u;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``, for qwen3-0.6b, for 2-layer dbrx-132b and for
@@ -110,8 +118,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    with prompts of 512-6000 tokens, then each other family through
    ``ServeEngine`` at its depth of (b), every step recorded and re-lowered
    and every kernel's launch count exact (``family_launches``);
-10. training, the third main path: (a) qwen3-0.6b and stablelm-3b (head
-   dim 80) at full width cut to 2 layers, f32, one loss and every gradient
+10. training, the third main path: (a) qwen3-0.6b, stablelm-3b (head
+   dim 80) and gemma2-2b (head dim 256) at full width cut to 2 layers (B2
+   S256, gemma2 B1 S256) and dbrx-132b cut to 1 layer (B1 S128, gradients
+   only), f32, one loss and every gradient
    leaf on the card (kernels and backward kernels) against the CPU (plain
    versions, autograd) on the same weights: the loss within 1e-5 relative,
    each leaf within 1e-4 of its max|g|, every leaf's gradient present and
@@ -125,7 +135,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    step-5 checkpoint gives steps 6-10's losses bit for bit under
    ``torch.use_deterministic_algorithms``; (c) two steps with int8
    error-feedback compression (bucketed) and two with 2 microbatches, at
-   full width and depth, all losses finite;
+   full width and depth, all losses finite; (d) gemma2-2b at full width
+   and depth (26 layers, or the deepest that fits), bf16, B1 S4096, 5 steps
+   through ``make_train_step`` with the loss falling and the launch counts
+   exact, its step wall, tokens/s, memory peak and one profiled step's
+   device-busy share; (e) one full-width dbrx-132b layer's forward and
+   backward, bf16, 2048 tokens: its wall, launch counts exact, and fused
+   MoE's backward kernels' share of the device time;
 11. the static auditor: (a) ``python -m repro_torch.analysis --all --strict
    --json`` in a subprocess exits 0 with only info-severity findings, one
    SP105 (no cached dry-run ledger) for each registry arch, and the CUDA
@@ -162,8 +178,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 13. the dry run and the roofline, on this machine's CPU with no card: (a)
    ``python -m repro_torch.launch.dryrun`` at full width on fake process
    groups, one process a cell, all at once: qwen3-0.6b x {train_4k,
-   prefill_32k, decode_32k} on the 16x16 mesh and dbrx-132b x train_4k on
-   2x16x16; then ``python -m repro_torch.roofline.report`` over their
+   prefill_32k, decode_32k} on the 16x16 mesh, dbrx-132b x train_4k on
+   2x16x16, and on 16x16 one cell of each class the card host's torch once
+   refused: mamba2-370m x decode_32k, gemma2-2b x train_4k, dbrx-132b x
+   decode_32k and stablelm-3b x decode_32k; then
+   ``python -m repro_torch.roofline.report`` over their
    JSONs, and each cell's lowering seconds, per-device TFLOP, HBM GB,
    collective GB by kind and dominant term under the H100's peaks; (b) the
    op counter (``roofline.op_cost``) over the steps this script timed on
@@ -177,12 +196,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+It prints one ``{"kernels": [...]}`` line (nine entries: the five kernels
+and the backwards of rmsnorm, silu_mul, flash attention and fused MoE),
+the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
 result.
 """
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -248,9 +270,9 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(5) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, moe_k.library,
-                                           smm_k.library)]
+                                           moe_k.bwd_library, smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
         rms_k.rmsnorm_bwd_cuda(x, x, torch.zeros(1024, device=dev))
@@ -260,7 +282,7 @@ def main():
             b.result()
     torch.cuda.synchronize()
     log(f"[1 build] nvcc + triton: {time.perf_counter() - t0:.1f}s")
-    ptxas_report(fa_k)
+    ptxas_report(fa_k, moe_k)
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
@@ -285,6 +307,9 @@ def main():
 
     # ---------------------------------------------------------------- 5
     t0 = time.perf_counter()
+    gc.collect()  # phase 4's engines, in reference cycles: fused MoE's plain backward needs 28 GB
+    torch.cuda.empty_cache()
+    log(f"  held on the card before phase 5: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rows = kernel_times(torch, dev, peaks)
     rows.update(backward_times(torch, dev, peaks))
     log(f"[5 kernel times] done in {time.perf_counter() - t0:.1f}s")
@@ -370,6 +395,8 @@ def main():
         "flash_attention_bwd": (
             "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:30"),
+        "fused_moe_bwd": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd.cu",
+                          "src/repro/kernels/fused_moe/kernel.py:27"),
     }
     kernels = []
     for k, (route, source, replaces) in sources.items():
@@ -385,29 +412,45 @@ def main():
     return 0
 
 
-def ptxas_report(fa_k):
+def ptxas_report(fa_k, moe_k=None):
     """Phase 1's record of the backward kernels: ptxas's registers and
-    spills for each instance built (``-Xptxas -v``), and the geometry
-    ``bwd_launch_plan`` gives at qwen3-0.6b's training shape."""
+    spills for each instance built (``-Xptxas -v``) of flash attention's
+    backward and of fused MoE's, each held to at most 1 KB of spill stores,
+    and the geometry ``bwd_launch_plan`` gives at qwen3-0.6b's training
+    shape."""
     import re
 
     from repro_torch.kernels._build import build_log
 
-    kernel = None
-    for line in build_log("flash_attention_bwd", fa_k.BWD_SOURCES).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            # the Itanium mangling keeps each name and template argument readable
-            name = re.search(r"(fa_bwd_\w+?_kernel)(?:I(.*?)EEv)?", m.group(1))
-            kernel = m.group(1) if not name else name.group(1) + (
-                "<" + ", ".join(re.findall(r"Li(\d+)E", name.group(2) + "E")) + ">"
-                if name.group(2) else "")
-        elif kernel and ("spill" in line or "Used" in line):
-            log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    logs = [("flash_attention_bwd", fa_k.BWD_SOURCES)]
+    if moe_k is not None:
+        logs.append(("fused_moe_bwd", moe_k.BWD_SOURCES))
+    for lib, sources in logs:
+        kernel = None
+        for line in build_log(lib, sources).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                # the Itanium mangling keeps each name and template argument readable
+                name = re.search(r"((?:fa_bwd_\w+?_kernel)|moe_bwd_gemm)(?:I(.*?)EEv)?", m.group(1))
+                if not name:
+                    kernel = m.group(1)
+                    continue
+                args = name.group(2) or ""
+                kind = ["bf16"] if "__nv_bfloat16" in args else ["f32"] if args[:1] == "f" else []
+                vals = kind + re.findall(r"L[ib](\d+)E", args + "E")
+                kernel = name.group(1) + (f"<{', '.join(vals)}>" if vals else "")
+            elif kernel and ("spill" in line or "Used" in line):
+                log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+                spill = re.search(r"(\d+) bytes spill stores", line)
+                assert spill is None or int(spill.group(1)) <= 1024, f"{kernel} spills: {line}"
     for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
         log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
             f"{kern.rows} rows a CTA, steps of {kern.step}, {kern.stages} stages, "
             f"{kern.warps} warps, {kern.smem} shared bytes")
+    if moe_k is not None:
+        for kern in moe_k.bwd_launch_plan(16, 640, 6144, 10752):
+            log(f"  fused_moe backward plan, E16 C640 D6144 F10752 bf16: {kern.name} "
+                f"{kern.layout} grid {kern.grid}, {kern.stages} stages, {kern.smem} shared bytes")
 
 
 # ======================================================================
@@ -722,19 +765,22 @@ def moe_serving_parity(torch, dev, max_err):
 
 
 def backward_parity(torch, dev):
-    """The three backward kernels against their plain backward formulas
+    """The four backward kernels against their plain backward formulas
     (``ref.py``) on the same inputs: each gradient within F32_TOL / BF16_TOL
     of its max|ref|, at qwen3-0.6b's training shapes (B4 S2048: 8192 rows
     of d 1024 and d_ff 3072, 131072 q-norm and 65536 k-norm rows of 128,
-    16/8 heads of 128), stablelm-3b's (B1 S2048, 32/32 heads of 80) and the
-    reference's kernel test shapes; each kernel run twice gives the
-    same bits (no float atomics). Returns the max abs err at the training
-    shapes."""
+    16/8 heads of 128), stablelm-3b's (B1 S2048, 32/32 heads of 80),
+    gemma2-2b's (head dim 256), the reference's kernel test shapes, and
+    fused MoE's at dbrx-132b's and arctic-480b's widths; each kernel run
+    twice gives the same bits (no float atomics). Returns the max abs err
+    at the training shapes."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.fused_moe.kernel import fused_moe_bwd_cuda
+    from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
     from repro_torch.kernels.silu_mul.kernel import silu_mul_bwd_cuda
@@ -742,7 +788,8 @@ def backward_parity(torch, dev):
 
     rng = np.random.default_rng(SEED + 7)
     f32, bf16 = torch.float32, torch.bfloat16
-    max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0}
+    max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0,
+               "fused_moe_bwd": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         a = (scale * rng.standard_normal(shape)).astype(np.float32)
@@ -799,6 +846,10 @@ def backward_parity(torch, dev):
         (1, 77, 200, 2, 1, 64, False, 50, 20.0, f32, False),
         (1, 200, 50, 2, 1, 64, False, 10, None, bf16, False),  # rows that see no key
         (1, 200, 50, 2, 1, 64, True, 10, None, f32, False),
+        # head dim 256 with gemma2-2b's masks: small, then its training shape
+        (2, 200, 200, 4, 2, 256, True, 64, 50.0, f32, False),
+        (2, 200, 200, 4, 2, 256, True, 64, 50.0, bf16, False),
+        (1, 4096, 4096, 8, 4, 256, True, 4096, 50.0, bf16, False),
     ]:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         dout = randn((B, S, Hq, D), dt)
@@ -809,6 +860,28 @@ def backward_parity(torch, dev):
               lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
               attention_bwd_ref(q, k, v, dout, **kw), main)
         del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+    # fused MoE's backward: small (vectorised and element-by-element rows),
+    # dbrx-132b's width with 2 experts (640 rows: its training dispatch of
+    # 2048 tokens) and arctic-480b's expert width (40 rows)
+    moe = ("fused_moe_bwd", ("dx", "dw_gate", "dw_up", "dw_down"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)  # drawn on the card: 400 M values
+
+    def drawn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    for E, C, D, F, dt, main in [
+        (2, 64, 48, 96, f32, False), (2, 64, 48, 96, bf16, False),
+        (3, 20, 36, 44, f32, False), (3, 20, 36, 44, bf16, False),
+        (2, 640, 6144, 10752, bf16, True), (2, 640, 6144, 10752, f32, False),
+        (2, 40, 7168, 4864, bf16, False), (2, 40, 7168, 4864, f32, False),
+    ]:
+        x, dy = drawn((E, C, D), dt), drawn((E, C, D), dt)
+        ws = [drawn(s, dt, 1.0 / np.sqrt(s[1])) for s in ((E, D, F), (E, D, F), (E, F, D))]
+        check(f"fused_moe bwd E{E} C{C} D{D} F{F} {dt}", moe,
+              lambda: fused_moe_bwd_cuda(x, *ws, dy), fused_moe_bwd_ref(x, *ws, dy), main)
+        del x, dy, ws
     torch.cuda.empty_cache()
     return max_err
 
@@ -1210,6 +1283,8 @@ def cuda_ms(torch, fn, inputs, iters):
         for a in inputs[:2]:
             fn(*a)
     torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the side stream's cached blocks: a large plain call needs them
     for a in inputs[:2]:  # and on this stream, whose allocator pool the eager calls draw from
         fn(*a)
     torch.cuda.synchronize()
@@ -1220,6 +1295,7 @@ def cuda_ms(torch, fn, inputs, iters):
     end.record()
     end.synchronize()
     eager = start.elapsed_time(end) / iters
+    torch.cuda.empty_cache()  # the eager calls' cached blocks, before the graph's own pool
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(iters):
@@ -1448,6 +1524,8 @@ def backward_times(torch, dev, peaks):
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.fused_moe.kernel import fused_moe_bwd_cuda
+    from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
     from repro_torch.kernels.silu_mul.kernel import silu_mul_bwd_cuda
@@ -1538,6 +1616,50 @@ def backward_times(torch, dev, peaks):
         into=logged)
     del q, k, v, dout, out, lse, qt, kt, vt
     torch.cuda.empty_cache()
+    # gemma2-2b's training shape, B1 S4096 8/4 heads of 256, window 4096,
+    # softcap 50 (a logged row; no library call: SDPA takes no softcap);
+    # the window cuts no causal pair at S 4096
+    B, S4, Hq, Hkv, D = 1, 4096, 8, 4, 256
+    q, dout = randn(B, S4, Hq, D), randn(B, S4, Hq, D)
+    k, v = randn(B, S4, Hkv, D), randn(B, S4, Hkv, D)
+    gkw = dict(causal=True, window=4096, softcap=50.0)
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **gkw)
+    pairs = B * Hq * S4 * (S4 + 1) // 2
+    row("flash_attention_bwd (gemma2-2b, D256)",
+        lambda *a: flash_attention_bwd_cuda(*a, **gkw),
+        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, **gkw), None,
+        [(q, k, v, out, lse, dout)], 5,
+        *bound(peaks, 2 * (4 * B * S4 * Hq * D + 4 * B * S4 * Hkv * D) + 4 * B * Hq * S4,
+               10 * D * pairs, "bfloat16"), into=logged)
+    del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+    # fused MoE's backward at dbrx-132b's training shape (E16, 640 rows an
+    # expert from 2048 tokens, bf16: the kernel's row), then at the tuner's
+    # E16 C256 (f32, bounded as 3xTF32, the path its kernel runs: a logged
+    # row); the library is three bmm and silu * u, differentiated by autograd
+    def moe_lib(x_, g_, u_, d_):
+        return torch.bmm(F.silu(torch.bmm(x_, g_)) * torch.bmm(x_, u_), d_)
+
+    for kname, E, C, dt, iters, into in (("fused_moe_bwd", 16, 640, bf16, 5, rows),
+                                         ("fused_moe_bwd (tuner E16 C256, f32)", 16, 256,
+                                          torch.float32, 3, logged)):
+        D, F_ = 6144, 10752
+        x, dy = randn(E, C, D, dtype=dt), randn(E, C, D, dtype=dt)
+        ws = [randn(*s_, scale=s_[1] ** -0.5, dtype=dt) for s_ in ((E, D, F_), (E, D, F_),
+                                                                  (E, F_, D))]
+        size = x.element_size()
+        flops = 16 * E * C * D * F_
+        nbytes = size * (3 * E * C * D + 6 * E * D * F_)  # x, dy, dx; the weights, their grads
+        lib = [(*(t.detach().requires_grad_() for t in (x, *ws)), dy)]
+        row(kname, fused_moe_bwd_cuda, fused_moe_bwd_ref, (moe_lib, lib), [(x, *ws, dy)], iters,
+            *(bound(peaks, nbytes, 3 * flops, "tf32") if dt == torch.float32
+              else bound(peaks, nbytes, flops, "bfloat16")), into=into)
+        r = into[kname]
+        log(f"  {kname}: {flops / 1e12:.3f} TFLOP in its products, {nbytes / 1e9:.2f} GB; "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound")
+        del x, dy, ws, lib
+        torch.cuda.empty_cache()
     for kname, r in (rows | logged).items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
@@ -1552,11 +1674,12 @@ def backward_times(torch, dev, peaks):
 # ======================================================================
 
 
-def profiled(torch, fn, steps):
+def profiled(torch, fn, steps, named=()):
     """Run ``fn`` ``steps`` times under ``torch.profiler``. Per step: the
     wall-clock of the profiled window (ended by a device sync), the device's
     busy time in that window (the union of its kernels and copies), the
-    idle share left, the launches, and the kernels taking the most time."""
+    idle share left, the launches, the kernels taking the most time, and
+    the device ms of the kernels whose names hold each string of ``named``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1581,7 +1704,9 @@ def profiled(torch, fn, steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": max(0.0, 1 - busy_ms / wall_ms),
             "launches": len(work) / steps,
-            "top": [(name[:90], n / steps, us / 1e3 / steps) for name, (n, us) in top]}
+            "top": [(name[:90], n / steps, us / 1e3 / steps) for name, (n, us) in top],
+            "named_ms": {k: sum(us for name, (_, us) in by_name.items() if k in name) / 1e3 / steps
+                         for k in named}}
 
 
 def where_time_goes(torch, dev, params, cfg=None, max_len=4096, prompt_len=1024):
@@ -1966,11 +2091,13 @@ def kernel_counts(zero=False):
     """Every forward and backward kernel's launch count (set to 0 first
     with ``zero``)."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.fused_moe import kernel as moe_k
     from repro_torch.kernels.rmsnorm import kernel as rms_k
     from repro_torch.kernels.silu_mul import kernel as silu_k
 
     counters = {}
-    for name, mod in (("rmsnorm", rms_k), ("silu_mul", silu_k), ("flash_attention", fa_k)):
+    for name, mod in (("rmsnorm", rms_k), ("silu_mul", silu_k), ("flash_attention", fa_k),
+                      ("fused_moe", moe_k)):
         counters[name] = (mod, "launches")
         counters[name + "_bwd"] = (mod, "bwd_launches")
     if zero:
@@ -1980,17 +2107,22 @@ def kernel_counts(zero=False):
 
 
 def training_launches(cfg):
-    """What one training step of a dense decoder adds to each count: under
-    layer remat each layer's forward runs twice (in the forward pass and
-    again in the backward pass), the final norm once; each backward once."""
+    """What one training step of a dense or MoE decoder adds to each count:
+    under layer remat each layer's forward runs twice (in the forward pass
+    and again in the backward pass), the final norm once; each backward
+    once. An MoE layer's FFN is one fused_moe call (and a silu_mul one for
+    a dense residual FFN)."""
     n = cfg.n_layers
     twice = 2 if cfg.remat == "layer" else 1
     # rmsnorm's launches a layer (layernorm is plain PyTorch), and the final norm's
     norms, final = (0, 0) if cfg.norm == "layernorm" else (
         2 + 2 * cfg.qk_norm + 2 * cfg.post_norms, 1)
+    moe = cfg.family == "moe"
+    dense = n if not moe or cfg.dense_residual else 0
     return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
-            "silu_mul": twice * n, "silu_mul_bwd": n,
-            "flash_attention": twice * n, "flash_attention_bwd": n}
+            "silu_mul": twice * dense, "silu_mul_bwd": dense,
+            "flash_attention": twice * n, "flash_attention_bwd": n,
+            "fused_moe": twice * n * moe, "fused_moe_bwd": n * moe}
 
 
 def training(torch, dev):
@@ -1999,7 +2131,6 @@ def training(torch, dev):
     median unprofiled step wall and the profiled step's device-busy ms, and
     the bytes of the train state and batch it held on the card (phase 13
     bounds it)."""
-    import gc
     import os
     import shutil
     import tempfile
@@ -2024,44 +2155,59 @@ def training(torch, dev):
     log(f"  held on the card before phase 10: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     # (a) one loss and its gradients, card against CPU, same weights:
-    # qwen3-0.6b, and stablelm-3b through the backward kernel's head dim 80
-    for arch in ("qwen3-0.6b", "stablelm-3b"):
+    # qwen3-0.6b, stablelm-3b (the backward kernel's head dim 80), gemma2-2b
+    # (head dim 256, its windows and softcaps) and one full-width dbrx-132b
+    # layer (fused_moe's backward; gradients only: the optimizer state would
+    # not fit beside a full-width f32 layer)
+    for arch, depth, B_, S_ in (("qwen3-0.6b", 2, 2, 256), ("stablelm-3b", 2, 2, 256),
+                                ("gemma2-2b", 2, 1, 256), ("dbrx-132b", 1, 1, 128)):
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_arch(arch), n_layers=2, compute_dtype="float32")
+        cfg = dataclasses.replace(get_arch(arch), n_layers=depth, compute_dtype="float32")
         params = build_model(cfg, "cuda").init(SEED)
-        tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (2, 256))
+        tokens = np.random.default_rng(SEED + 3).integers(0, cfg.vocab_size, (B_, S_))
 
         def loss_and_grads(tree, device, cfg=cfg, tokens=tokens):
             leaves_tree = T.trainable(tree)
             leaves = tree_leaves(leaves_tree)
             loss, _ = build_model(cfg, device).loss(
                 leaves_tree, {"tokens": torch.from_numpy(tokens).to(device)})
-            return float(loss), [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+            return float(loss), [g.float() for g in torch.autograd.grad(loss, leaves)]
 
         kernel_counts(zero=True)
-        loss_gpu, g_gpu = loss_and_grads(params, dev)
+        loss_gpu, g_gpu = loss_and_grads(params, dev)  # kept on the card
         torch.cuda.synchronize()
         moved = kernel_counts()
         assert moved == training_launches(cfg), f"(a) {arch} launches {moved}"
         t1 = time.perf_counter()
-        loss_cpu, g_cpu = loss_and_grads(T.tree_map(lambda a: a.detach().cpu(), params), "cpu")
+        host = T.tree_map(lambda a: a.detach().cpu(), params)
         del params
+        loss_cpu, g_cpu = loss_and_grads(host, "cpu")
+        del host
         rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
         assert rel <= TRAIN_LOSS_RTOL, (
             f"(a) {arch} loss {loss_gpu} on the card, {loss_cpu} on the CPU")
-        ratios = []
-        for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
+
+        def ratio(a, b, i, arch=arch):
+            """|a - b| over max|b| of one leaf, compared on the card (18 GB for dbrx)."""
+            b = b.to(dev)
             scale = float(b.abs().max())
             assert float(a.abs().max()) > 0 and scale > 0, f"(a) {arch} gradient leaf {i} is zero"
-            ratios.append(float((a - b).abs().max()) / scale)
+            return float((a - b).abs().max()) / scale
+
+        ratios = []
+        for i, (a, b) in enumerate(zip(g_gpu, g_cpu)):
+            ratios.append(ratio(a, b, i))
             assert ratios[-1] <= TRAIN_GRAD_TOL, (
                 f"(a) {arch} gradient leaf {i}: {ratios[-1]:.3g} of max|g|")
-        log(f"  (a) {arch} full width, 2 layers, f32, B2 S256: loss {loss_gpu:.6f} on the card, "
-            f"{loss_cpu:.6f} on the CPU (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); {len(ratios)} "
-            f"gradient leaves, each present and non-zero, the worst {max(ratios):.3g} of its "
-            f"max|g| (median {float(np.median(ratios)):.3g}, tol {TRAIN_GRAD_TOL}); launches "
-            f"{moved}; card {t1 - t0:.1f}s, CPU {time.perf_counter() - t1:.1f}s")
+        del a, b
+        log(f"  (a) {arch} full width, {depth} layer(s), f32, B{B_} S{S_}: loss {loss_gpu:.6f} on "
+            f"the card, {loss_cpu:.6f} on the CPU (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL}); "
+            f"{len(ratios)} gradient leaves, each present and non-zero, the worst "
+            f"{max(ratios):.3g} of its max|g| (median {float(np.median(ratios)):.3g}, tol "
+            f"{TRAIN_GRAD_TOL}); launches {moved}; card {t1 - t0:.1f}s, CPU "
+            f"{time.perf_counter() - t1:.1f}s")
         del g_gpu, g_cpu
+        gc.collect()
         torch.cuda.empty_cache()
 
     # (b) full depth through Trainer, checkpoints, a bit-equal restart
@@ -2156,7 +2302,149 @@ def training(torch, dev):
         log(f"  (c) {label}: losses {ls} ({time.perf_counter() - t0:.1f}s)")
         del st
         torch.cuda.empty_cache()
+    del api, source
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) gemma2-2b at full width, 5 bf16 steps of B1 S4096 (f32 master
+    # weights, layer remat): at full depth if the train state fits beside its
+    # activations, else at the deepest that does (an even depth: its layers
+    # alternate local and global)
+    g_cfg = get_arch("gemma2-2b")
+    card = torch.cuda.mem_get_info()[1]
+
+    def need(n):
+        """Bytes a step at ``n`` layers peaks at: f32 parameters, their
+        gradients and both moments, and AdamW's functional update's new
+        parameters and moments and scaled gradients (8 x 4 bytes a
+        parameter), beside the f32 logits' work (3 x 4 bytes a logit)."""
+        params = dataclasses.replace(g_cfg, n_layers=n).n_params()
+        return 32 * params + 12 * 4096 * g_cfg.padded_vocab
+
+    depths = [n for n in range(g_cfg.n_layers, 0, -2) if need(n) <= card]
+    log(f"  (d) gemma2-2b: {g_cfg.n_layers} layers need about {need(g_cfg.n_layers) / 1e9:.1f} GB "
+        f"({g_cfg.n_params() / 1e9:.3f} B parameters), the card holds {card / 1e9:.1f}: "
+        f"the deepest that fits is {depths[0]}")
+    for depth in depths[:3]:
+        try:
+            run = train_steps(torch, dev, dataclasses.replace(g_cfg, n_layers=depth), 1, 4096, 5)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"  (d) gemma2-2b at {depth} layers does not fit: {str(e).splitlines()[0]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise RuntimeError(f"(d) gemma2-2b does not train at {depths[:3]} layers")
+    prof = run["prof"]
+    log(f"  (d) gemma2-2b, {depth} layers ({run['params'] / 1e9:.4f}B parameters), bf16 compute, "
+        f"f32 master weights, B1 S4096: losses {[round(x, 4) for x in run['losses']]}; step "
+        f"wall-clock median {run['step_ms']:.1f} ms (steps 2-5; the first "
+        f"{run['first_ms']:.1f} ms), {4096 / run['step_ms'] * 1e3:.0f} tokens/s; "
+        f"torch.cuda.max_memory_allocated {run['peak'] / 2**30:.2f} GiB; one more step under "
+        f"torch.profiler: wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy), {prof['launches']:.0f} "
+        f"launches; launches a step {run['per_step']}")
+    for name, k, ms in prof["top"]:
+        log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
+    for k, v in run["moved"].items():
+        moved[k] += v
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) one full-width dbrx-132b layer's forward and backward, bf16
+    # compute, 2048 tokens, and fused_moe's backward share of its device time
+    cfg = dataclasses.replace(get_arch("dbrx-132b"), n_layers=1)
+    api = build_model(cfg, "cuda")
+    tree = T.trainable(api.init(SEED))
+    leaves = tree_leaves(tree)
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED + 4).integers(0, cfg.vocab_size, (1, 2048))).to(dev)
+
+    def fwd_bwd():
+        loss, _ = api.loss(tree, {"tokens": tokens})
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    kernel_counts(zero=True)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, grads = fwd_bwd()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    layer_moved = kernel_counts()
+    assert layer_moved == {k: 3 * v for k, v in training_launches(cfg).items()}, (
+        f"(e) launches {layer_moved}")
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+    del grads
+    r = profiled(torch, fwd_bwd, 1, named=("moe_bwd_gemm", "moe_gate_up", "moe_down"))
+    share = r["named_ms"]["moe_bwd_gemm"] / r["busy_ms"]
+    log(f"  (e) dbrx-132b, 1 layer at full width, bf16 compute, B1 S2048: forward and backward "
+        f"median {float(np.median(walls)):.1f} ms, {2048 / float(np.median(walls)) * 1e3:.0f} "
+        f"tokens/s; under torch.profiler: wall {r['wall_ms']:.3f} ms, device busy "
+        f"{r['busy_ms']:.3f} ms (idle {100 * r['idle_share']:.1f}%), {r['launches']:.0f} launches; "
+        f"fused_moe's backward kernels {r['named_ms']['moe_bwd_gemm']:.3f} ms "
+        f"({100 * share:.1f}% of device busy), its forward's "
+        f"{r['named_ms']['moe_gate_up'] + r['named_ms']['moe_down']:.3f} ms")
+    for name, k, ms in r["top"]:
+        log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
+    for k, v in layer_moved.items():
+        moved[k] += v
+    del api, tree, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
     return moved, measured
+
+
+def train_steps(torch, dev, cfg, B, S, steps):
+    """``steps`` training steps of ``cfg`` through ``make_train_step`` from
+    a fresh train state, then one more under ``torch.profiler``: the losses,
+    the median step wall (steps 2 on), the first step's, the memory peak,
+    the launches (each count exactly ``steps`` x ``training_launches``), the
+    parameter count and the profile."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import (
+        TrainConfig,
+        init_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    api = build_model(cfg, "cuda")
+    tc = TrainConfig(lr=3e-4, warmup=1, total_steps=steps + 1)  # launch.train's rate
+    opt = make_optimizer(tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(api, opt, SEED)
+    step = make_train_step(api, opt, tc)
+    source = SyntheticLM(cfg, DataConfig(batch=B, seq_len=S, seed=SEED))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in source.batch_at(i).items()}
+               for i in range(steps + 1)]
+    kernel_counts(zero=True)
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(float(m["loss"]))
+        times.append(1e3 * (time.perf_counter() - t0))
+    moved = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = training_launches(cfg)
+    assert moved == {k: steps * v for k, v in per_step.items()}, f"launches {moved}"
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], f"losses {losses}"
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batches[steps])
+
+    prof = profiled(torch, one_step, 1)
+    n = sum(p.numel() for p in tree_leaves(state["params"]))
+    return {"losses": losses, "step_ms": float(np.median(times[1:])), "first_ms": times[0],
+            "peak": peak, "moved": moved, "per_step": per_step, "params": n, "prof": prof}
 
 
 # ======================================================================
@@ -2224,7 +2512,6 @@ def static_audit(torch, dev, smi):
 def mesh_path(torch, dev, kinds, smi):
     """Phase 12 (the module docstring's (a), (b), (c)). Returns the launches
     of the mesh engines' runs in (a) and the mesh forward in (c)."""
-    import gc
     import os
     import shutil
     import tempfile
@@ -2401,7 +2688,12 @@ def mesh_path(torch, dev, kinds, smi):
 
 # (arch, shape, multi-pod): the production cells phase 13 (a) lowers
 DRYRUN_CELLS = [("qwen3-0.6b", "train_4k", False), ("qwen3-0.6b", "prefill_32k", False),
-                ("qwen3-0.6b", "decode_32k", False), ("dbrx-132b", "train_4k", True)]
+                ("qwen3-0.6b", "decode_32k", False), ("dbrx-132b", "train_4k", True),
+                # one 16x16 cell of each class the card host's torch once refused:
+                # the SSM's convs, a head merge the model axis splits apart, the
+                # MoE's routing on sharded groups, decode attention on head shards
+                ("mamba2-370m", "decode_32k", False), ("gemma2-2b", "train_4k", False),
+                ("dbrx-132b", "decode_32k", False), ("stablelm-3b", "decode_32k", False)]
 # seconds one cell's lowering may take on the host (the slowest, dbrx-132b on
 # 2x16x16, takes tens of seconds; PERF.md)
 DRYRUN_TIMEOUT_S = 300

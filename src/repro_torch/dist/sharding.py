@@ -52,7 +52,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 __all__ = [
@@ -68,6 +68,7 @@ __all__ = [
     "place",
     "local_slice",
     "unflatten",
+    "flatten",
     "write_target",
     "device_mesh",
     "as_dtensor",
@@ -308,17 +309,56 @@ def unflatten(x, dim: int, sizes: Sequence[int]):
     more pieces than ``sizes[0]`` splits into evenly (8 KV heads over a
     16-way ``"model"`` axis) is first gathered over the mesh dims that shard
     ``dim``: DTensor cannot view a shard apart across heads, where XLA
-    reshards such a reshape by itself. A plain tensor is only unflattened."""
+    reshards such a reshape by itself. A pending sum (``Partial``, a
+    product whose contraction dim was sharded) is reduced first, onto
+    ``Shard(dim)`` where ``sizes[0]`` divides over its mesh dim, else onto
+    ``Replicate()``: DTensor views no pending sum. A plain tensor is only
+    unflattened."""
     if isinstance(x, DTensor):
         d, parts = dim % x.ndim, 1
         on_dim = [m for m, p in enumerate(x.placements)
                   if isinstance(p, Shard) and p.dim % x.ndim == d]
         for m in on_dim:
             parts *= x.device_mesh.size(m)
+        want = list(x.placements)
         if sizes[0] % parts:
-            want = [Replicate() if m in on_dim else p for m, p in enumerate(x.placements)]
+            parts = 1
+            for m in on_dim:
+                want[m] = Replicate()
+        for m, p in enumerate(want):
+            if isinstance(p, Partial):
+                n = x.device_mesh.size(m)
+                want[m] = Shard(d) if sizes[0] % (parts * n) == 0 else Replicate()
+                parts *= n if want[m] == Shard(d) else 1
+        if want != list(x.placements):
             x = x.redistribute(x.device_mesh, want)
     return x.unflatten(dim, sizes)
+
+
+class _Flatten(torch.autograd.Function):
+    """``x.flatten(dim, dim + 1)`` of a DTensor, whose backward splits the
+    gradient through :func:`unflatten`: the gradient of a head merge comes
+    back sharded on the merged dim (from the output projection's rows) in
+    pieces that need not line up with the heads, and DTensor refuses that
+    view (gemma2-2b's 8 heads of 256 on a 16-way ``"model"`` axis)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.sizes = dim, (x.shape[dim], x.shape[dim + 1])
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, ctx.dim, ctx.sizes), None
+
+
+def flatten(x, dim: int):
+    """``x.flatten(dim, dim + 1)``: heads and head dim merged back into the
+    model width. On a DTensor its backward goes through :func:`unflatten`;
+    a plain tensor is only flattened."""
+    if isinstance(x, DTensor):
+        return _Flatten.apply(x, dim % x.ndim)
+    return x.flatten(dim, dim + 1)
 
 
 def write_target(dst, dim: int, *srcs):

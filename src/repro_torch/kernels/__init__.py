@@ -7,6 +7,7 @@ of its tensor: CUDA launches the kernel, CPU takes the plain version).
 """
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import Placement
 from torch.distributed.tensor.experimental import local_map
 
 
@@ -64,13 +65,16 @@ def on_shards(fn, args, in_placements, out_placements, grad_placements=None):
     and its output is a DTensor with ``out_placements``.
     ``grad_placements`` are the inputs' gradient placements (default: their
     own): a replicated weight applied to sharded rows has a ``Partial()``
-    gradient on those rows' mesh dims. Differentiable."""
+    gradient on those rows' mesh dims. A ``fn`` with several outputs takes
+    a list of placements for each. Differentiable."""
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
     args = [a if isinstance(a, DTensor) else
             DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
             for a in args]
-    # one output's placements are a list; a tuple of lists is one per output
-    return local_map(fn, out_placements=list(out_placements), in_placements=tuple(in_placements),
+    # local_map takes one output's placements as a list, several as a tuple of lists
+    several = len(out_placements) > 0 and not isinstance(out_placements[0], Placement)
+    outs = tuple(list(p) for p in out_placements) if several else list(out_placements)
+    return local_map(fn, out_placements=outs, in_placements=tuple(in_placements),
                      in_grad_placements=tuple(grad_placements or in_placements),
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 

@@ -69,8 +69,25 @@
 // transposed in shared memory as f32 and read as float4; a Delta kernel,
 // then dK/dV, then dQ, one stage.
 //
-// Head dims 8, 16, 32, 64, 80 and 128; other head dims are refused by the
-// wrapper.
+// Head dim 256 (gemma2-2b). Registers are the constraint: a warp's 16 rows
+// of dK and dV over all 256 columns would take 256 registers a thread
+// before S and dP. Of the two ways to split the head dim, the FA2 split
+// across a CTA's warps (P and dS passed through shared memory) and two CTAs
+// a block each owning one 128-wide half of the outputs, this takes the
+// second, for both kernels: grid z picks the half, and each CTA computes S
+// = Q K^T and dP = dO V^T over all 256 columns from shared memory (twice
+// the score products of one CTA, against no new exchange through shared
+// memory and the same per-warp code as head dim 128: dK/dV holds 128
+// accumulator registers, as at 128, and dQ 64). The tiles are the other
+// head dims' (64 q rows or keys a step, a two-stage ring, 4 warps), whose
+// 204 KB of shared memory at 256 leave one CTA an SM. The f32 kernels keep
+// their whole-head-dim accumulators (4 rows x 16 columns of each of dK and
+// dV a thread: 128 registers) but hold 128 of the 256 columns of each
+// shared tile at a time: S and dP sum over the two halves, and the sums
+// into dK, dV and dQ take each half in turn.
+//
+// Head dims 8, 16, 32, 64, 80, 128 and 256; other head dims are refused by
+// the wrapper.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,27 +130,6 @@ __device__ __forceinline__ void load_t(float* dst, const float* src, size_t stri
   for (int i = threadIdx.x; i < BB * D; i += NTH) {
     const int r = i / D, d = i % D;
     dst[d * BS + r] = (r0 + r < limit) ? src[(size_t)(r0 + r) * stride + d] : 0.f;
-  }
-}
-
-// acc[r][c] = sum_d a[d][ty*4 + r] * b[d][tx*4 + c] over two transposed tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* aT, const float* bT,
-                                         int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&aT[d * BS + ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&bT[d * BS + tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
   }
 }
 
@@ -187,11 +183,40 @@ __global__ void __launch_bounds__(NTH) fa_bwd_delta_kernel(const float* __restri
 
 // ---------------------------------------------------------------- dK, dV
 
+// The f32 kernels hold DC columns of each head-dim tile in shared memory at
+// a time: the whole head dim up to 128; at 256, 128 (four 256-column tiles
+// would take 279 KB). There S and dP are summed over the two halves, and
+// the sums into dK, dV or dQ take each half in turn.
 template <int D>
-struct BwdSmem {
-  static constexpr size_t dkdv = sizeof(float) * (4 * D * BS + 2 * BB * BS + 2 * BB);
-  static constexpr size_t dq = sizeof(float) * (4 * D * BS + BB * BS + 2 * BB);
+struct F32Chunks {
+  static constexpr int DC = D > 128 ? 128 : D, N = D / DC;
+  static constexpr size_t dkdv = sizeof(float) * (4 * DC * BS + 2 * BB * BS + 2 * BB);
+  static constexpr size_t dq = sizeof(float) * (4 * DC * BS + BB * BS + 2 * BB);
 };
+
+// acc[r][c] += sum_d a[d][ty*4 + r] * b[d][tx*4 + c] over two transposed tiles
+template <int D>
+__device__ __forceinline__ void tile_dot_add(float (&acc)[4][4], const float* aT, const float* bT,
+                                             int ty, int tx) {
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float4 a = *reinterpret_cast<const float4*>(&aT[d * BS + ty * 4]);
+    const float4 b = *reinterpret_cast<const float4*>(&bT[d * BS + tx * 4]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  }
+}
+
+__device__ __forceinline__ void zero44(float (&a)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[r][c] = 0.f;
+}
 
 template <int D>
 __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
@@ -199,12 +224,13 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
     int Skv, int Hq, int Hkv, int causal, int window, float softcap, float scale) {
+  constexpr int DC = F32Chunks<D>::DC, NCH = F32Chunks<D>::N;
   extern __shared__ __align__(16) float smem[];
-  float* kT = smem;             // [D][BS]
-  float* vT = kT + D * BS;      // [D][BS]
-  float* qT = vT + D * BS;      // [D][BS]
-  float* doT = qT + D * BS;     // [D][BS]
-  float* pS = doT + D * BS;     // [BB][BS]: P, a row per query
+  float* kT = smem;             // [DC][BS]
+  float* vT = kT + DC * BS;     // [DC][BS]
+  float* qT = vT + DC * BS;     // [DC][BS]
+  float* doT = qT + DC * BS;    // [DC][BS]
+  float* pS = doT + DC * BS;    // [BB][BS]: P, a row per query
   float* dS = pS + BB * BS;     // [BB][BS]: dS, a row per query
   float* rowL = dS + BB * BS;   // [BB]: lse of the tile's rows
   float* rowD = rowL + BB;      // [BB]: Delta of the tile's rows
@@ -214,10 +240,15 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
   const int k0 = blockIdx.y * BB, k1 = min(k0 + BB, Skv) - 1;
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
   constexpr int DPT = (D + 15) / 16;  // columns of a thread: tx + 16 c
+  constexpr int CPC = DC / 16;        // of them in one chunk (D > 128 only)
   const bool any_no_key = window > 0 && S >= Skv + window;
+  const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
-  load_t<D>(kT, k + ((size_t)b * Skv * Hkv + hk) * D, kv_step, k0, Skv);
-  load_t<D>(vT, v + ((size_t)b * Skv * Hkv + hk) * D, kv_step, k0, Skv);
+  if (NCH == 1) {
+    load_t<DC>(kT, kb, kv_step, k0, Skv);
+    load_t<DC>(vT, vb, kv_step, k0, Skv);
+  }
   float adk[4][DPT], adv[4][DPT];  // keys ty*4 + r
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -234,18 +265,26 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
       const int q1 = min(q0 + BB, S) - 1;
       if (!tile_sees(q0, q1, k0, k1, causal, window) && !(any_no_key && no_key(q1, Skv, window)))
         continue;
-      __syncthreads();  // the last tile's readers of qT, doT, pS, dS are done
-      load_t<D>(qT, qb, q_step, q0, S);
-      load_t<D>(doT, ob, q_step, q0, S);
-      if (tid < BB) {
-        rowL[tid] = (q0 + tid < S) ? lb[q0 + tid] : 0.f;
-        rowD[tid] = (q0 + tid < S) ? db[q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
       float s[4][4], dp[4][4];
-      tile_dot<D>(s, qT, kT, ty, tx);
-      tile_dot<D>(dp, doT, vT, ty, tx);
+      zero44(s);
+      zero44(dp);
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        __syncthreads();  // the last readers of qT, doT (kT, vT), pS, dS are done
+        load_t<DC>(qT, qb + ch * DC, q_step, q0, S);
+        load_t<DC>(doT, ob + ch * DC, q_step, q0, S);
+        if (NCH > 1) {
+          load_t<DC>(kT, kb + ch * DC, kv_step, k0, Skv);
+          load_t<DC>(vT, vb + ch * DC, kv_step, k0, Skv);
+        }
+        if (ch == 0 && tid < BB) {
+          rowL[tid] = (q0 + tid < S) ? lb[q0 + tid] : 0.f;
+          rowD[tid] = (q0 + tid < S) ? db[q0 + tid] : 0.f;
+        }
+        __syncthreads();
+        tile_dot_add<DC>(s, qT, kT, ty, tx);
+        tile_dot_add<DC>(dp, doT, vT, ty, tx);
+      }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = ty * 4 + r;
@@ -262,20 +301,28 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
         *reinterpret_cast<float4*>(&dS[row * BS + tx * 4]) =
             make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
       }
-      __syncthreads();
 
-      // dV[key][d] += sum_q P[q][key] dO[q][d];  dK[key][d] += sum_q dS[q][key] Q[q][d]
-#pragma unroll 4
-      for (int qq = 0; qq < BB; ++qq) {
-        const float4 p4 = *reinterpret_cast<const float4*>(&pS[qq * BS + ty * 4]);
-        const float4 d4 = *reinterpret_cast<const float4*>(&dS[qq * BS + ty * 4]);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+      // dV[key][d] += sum_q P[q][key] dO[q][d];  dK[key][d] += sum_q dS[q][key] Q[q][d],
+      // the last chunk's columns first (its q and dO tiles are in place)
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-          const int col = tx + 16 * c;
-          if (D % 16 == 0 || col < D) {
-            const float o = doT[col * BS + qq], x = qT[col * BS + qq];
+      for (int ch = NCH - 1; ch >= 0; --ch) {
+        if (ch != NCH - 1) {
+          __syncthreads();
+          load_t<DC>(qT, qb + ch * DC, q_step, q0, S);
+          load_t<DC>(doT, ob + ch * DC, q_step, q0, S);
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int qq = 0; qq < BB; ++qq) {
+          const float4 p4 = *reinterpret_cast<const float4*>(&pS[qq * BS + ty * 4]);
+          const float4 d4 = *reinterpret_cast<const float4*>(&dS[qq * BS + ty * 4]);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+          const float dsv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int c = 0; c < DPT; ++c) {
+            const int col = tx + 16 * c;
+            if ((NCH > 1 && c / CPC != ch) || (D % 16 != 0 && col >= D)) continue;
+            const float o = doT[(col - ch * DC) * BS + qq], x = qT[(col - ch * DC) * BS + qq];
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               adv[r][c] = fmaf(pv[r], o, adv[r][c]);
@@ -311,12 +358,13 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int S, int Skv, int Hq, int Hkv,
     int causal, int window, float softcap, float scale) {
+  constexpr int DC = F32Chunks<D>::DC, NCH = F32Chunks<D>::N;
   extern __shared__ __align__(16) float smem[];
-  float* qT = smem;             // [D][BS]
-  float* doT = qT + D * BS;     // [D][BS]
-  float* kT = doT + D * BS;     // [D][BS]
-  float* vT = kT + D * BS;      // [D][BS]
-  float* dsT = vT + D * BS;     // [BB][BS]: dS, a row per key
+  float* qT = smem;             // [DC][BS]
+  float* doT = qT + DC * BS;    // [DC][BS]
+  float* kT = doT + DC * BS;    // [DC][BS]
+  float* vT = kT + DC * BS;     // [DC][BS]
+  float* dsT = vT + DC * BS;    // [BB][BS]: dS, a row per key
   float* rowL = dsT + BB * BS;  // [BB]
   float* rowD = rowL + BB;      // [BB]
 
@@ -325,11 +373,16 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
   const int q0 = heavy_first(blockIdx.y, gridDim.y, BB, S) * BB, q1 = min(q0 + BB, S) - 1;
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
   constexpr int DPT = (D + 15) / 16;
+  constexpr int CPC = DC / 16;
+  const float* qb = q + ((size_t)b * S * Hq + h) * D;
+  const float* ob = dout + ((size_t)b * S * Hq + h) * D;
   const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
   const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
-  load_t<D>(qT, q + ((size_t)b * S * Hq + h) * D, q_step, q0, S);
-  load_t<D>(doT, dout + ((size_t)b * S * Hq + h) * D, q_step, q0, S);
+  if (NCH == 1) {
+    load_t<DC>(qT, qb, q_step, q0, S);
+    load_t<DC>(doT, ob, q_step, q0, S);
+  }
   if (tid < BB) {
     const size_t at = ((size_t)b * Hq + h) * S + q0 + tid;
     rowL[tid] = (q0 + tid < S) ? lse[at] : 0.f;
@@ -343,14 +396,22 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
 
   for (int k0 = 0; k0 < Skv; k0 += BB) {
     if (!tile_sees(q0, q1, k0, min(k0 + BB, Skv) - 1, causal, window)) continue;
-    __syncthreads();  // q's loads have landed; the last tile's readers of kT, vT, dsT are done
-    load_t<D>(kT, kb, kv_step, k0, Skv);
-    load_t<D>(vT, vb, kv_step, k0, Skv);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    tile_dot<D>(s, qT, kT, ty, tx);
-    tile_dot<D>(dp, doT, vT, ty, tx);
+    zero44(s);
+    zero44(dp);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      __syncthreads();  // q's loads have landed; the last tile's readers are done
+      if (NCH > 1) {
+        load_t<DC>(qT, qb + ch * DC, q_step, q0, S);
+        load_t<DC>(doT, ob + ch * DC, q_step, q0, S);
+      }
+      load_t<DC>(kT, kb + ch * DC, kv_step, k0, Skv);
+      load_t<DC>(vT, vb + ch * DC, kv_step, k0, Skv);
+      __syncthreads();
+      tile_dot_add<DC>(s, qT, kT, ty, tx);
+      tile_dot_add<DC>(dp, doT, vT, ty, tx);
+    }
     float dsv[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -364,18 +425,24 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
     for (int c = 0; c < 4; ++c)
       *reinterpret_cast<float4*>(&dsT[(tx * 4 + c) * BS + ty * 4]) =
           make_float4(dsv[0][c], dsv[1][c], dsv[2][c], dsv[3][c]);
-    __syncthreads();
 
-    // dQ[q][d] += sum_key dS[q][key] K[key][d]
-#pragma unroll 4
-    for (int kk = 0; kk < BB; ++kk) {
-      const float4 d4 = *reinterpret_cast<const float4*>(&dsT[kk * BS + ty * 4]);
-      const float dv4[4] = {d4.x, d4.y, d4.z, d4.w};
+    // dQ[q][d] += sum_key dS[q][key] K[key][d], the last chunk's columns first
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = tx + 16 * c;
-        if (D % 16 == 0 || col < D) {
-          const float x = kT[col * BS + kk];
+    for (int ch = NCH - 1; ch >= 0; --ch) {
+      if (ch != NCH - 1) {
+        __syncthreads();
+        load_t<DC>(kT, kb + ch * DC, kv_step, k0, Skv);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < BB; ++kk) {
+        const float4 d4 = *reinterpret_cast<const float4*>(&dsT[kk * BS + ty * 4]);
+        const float dv4[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) {
+          const int col = tx + 16 * c;
+          if ((NCH > 1 && c / CPC != ch) || (D % 16 != 0 && col >= D)) continue;
+          const float x = kT[(col - ch * DC) * BS + kk];
 #pragma unroll
           for (int r = 0; r < 4; ++r) adq[r][c] = fmaf(dv4[r], x, adq[r][c]);
         }
@@ -502,16 +569,17 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&x)[2 
   }
 }
 
-// acc (16 x DP) += X (16 x 16 * KS, bf16 A fragments) . Y, where Y is [k][n]
-// in shared memory at yt_addr (a transposing ldmatrix base address)
-template <int DP, int KS>
-__device__ __forceinline__ void mma_acc(float (&acc)[DP / 8][4], const uint32_t (&x)[KS][4],
+// acc (16 x DO) += X (16 x 16 * KS, bf16 A fragments) . Y, where Y is [k][n]
+// in shared memory (rows of DP columns) at yt_addr (a transposing ldmatrix
+// base address, at the CTA's first output column)
+template <int DP, int DO, int KS>
+__device__ __forceinline__ void mma_acc(float (&acc)[DO / 8][4], const uint32_t (&x)[KS][4],
                                         uint32_t yt_addr) {
   constexpr int LD = ld_of(DP);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
-    for (int d2 = 0; d2 < DP / 16; ++d2) {
+    for (int d2 = 0; d2 < DO / 16; ++d2) {
       uint32_t b[4];
       ldsm_x4_t(b, yt_addr + (kk * 16 * LD + d2 * 16) * 2);
       mma_bf16(acc[2 * d2], x[kk], b[0], b[1]);
@@ -520,13 +588,14 @@ __device__ __forceinline__ void mma_acc(float (&acc)[DP / 8][4], const uint32_t 
   }
 }
 
-// Store a warp's 16 x DP f32 accumulator rows (row0 + lane/4, + 8) as bf16.
-template <int DP>
-__device__ __forceinline__ void store_rows(bf16* base, size_t stride, const float (&acc)[DP / 8][4],
+// Store a warp's 16 x DO f32 accumulator rows (row0 + lane/4, + 8) as bf16,
+// columns below D.
+template <int DO>
+__device__ __forceinline__ void store_rows(bf16* base, size_t stride, const float (&acc)[DO / 8][4],
                                            int row0, int limit, int D) {
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int d = 0; d < DP / 8; ++d) {
+  for (int d = 0; d < DO / 8; ++d) {
     const int c = d * 8 + (lane % 4) * 2;
     if (c >= D) continue;
 #pragma unroll
@@ -594,15 +663,21 @@ __host__ __device__ constexpr size_t dkdv_smem(int DP, int rows, int TQ, int ST)
 __host__ __device__ constexpr size_t dq_smem(int DP, int rows, int TK, int ST) {
   return sizeof(bf16) * ld_of(DP) * (2 * rows + 2 * ST * TK);
 }
+// The output columns a CTA owns: the whole head dim up to 128; at 256, one
+// 128-wide half (grid z picks it), since a warp's 16 rows of dK and dV over
+// all 256 columns would take 256 registers a thread. Both halves' CTAs
+// compute S and dP over all 256 columns.
+__host__ __device__ constexpr int out_cols(int DP) { return DP > 128 ? 128 : DP; }
 
-template <int DP, int TQ, int ST, int W>
+template <int DP, int TQ, int ST, int W, int DO>
 __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Skv, int Hq, int Hkv, int D,
     int causal, int window, float softcap, float scale) {
-  constexpr int LD = ld_of(DP), NT = TQ / 8, DT = DP / 8, QT = TQ * LD;
+  constexpr int LD = ld_of(DP), NT = TQ / 8, DT = DO / 8, QT = TQ * LD;
   constexpr int BR = 16 * W, NTHR = 32 * W;  // keys of the CTA, 16 a warp; threads
+  const int c0 = blockIdx.z * DO;            // the CTA's dK and dV columns: c0 .. c0 + DO - 1
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);        // [BR][LD]
   bf16* sV = sK + BR * LD;                              // [BR][LD]
@@ -661,8 +736,8 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
   const uint32_t qn_addr = smem_u32(sQ + bn_row * LD + bn_col);
   const uint32_t on_addr = smem_u32(sO + bn_row * LD + bn_col);
   const int bt_row = (lane % 8) + ((lane / 8) % 2) * 8, bt_col = (lane / 16) * 8;
-  const uint32_t qt_addr = smem_u32(sQ + bt_row * LD + bt_col);
-  const uint32_t ot_addr = smem_u32(sO + bt_row * LD + bt_col);
+  const uint32_t qt_addr = smem_u32(sQ + bt_row * LD + bt_col + c0);
+  const uint32_t ot_addr = smem_u32(sO + bt_row * LD + bt_col + c0);
 
   for (int slot = 0; !walk.done(); slot = (slot + 1 == ST) ? 0 : slot + 1) {
     cp_async_wait<ST - 2>();  // this thread's copies of this tile have landed
@@ -709,8 +784,8 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
       uint32_t pa[TQ / 16][4], da[TQ / 16][4];  // P^T and dS^T as bf16 A fragments
       pack_a<TQ / 16>(pa, s);
       pack_a<TQ / 16>(da, dp);
-      mma_acc<DP, TQ / 16>(adv, pa, ot_addr + off);  // dV += P^T dO
-      mma_acc<DP, TQ / 16>(adk, da, qt_addr + off);  // dK += dS^T Q
+      mma_acc<DP, DO, TQ / 16>(adv, pa, ot_addr + off);  // dV += P^T dO
+      mma_acc<DP, DO, TQ / 16>(adk, da, qt_addr + off);  // dK += dS^T Q
     }
     walk.next();
   }
@@ -719,19 +794,20 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
   for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[d][e] *= scale;
-  const size_t kbase = ((size_t)b * Skv * Hkv + hk) * D;
-  store_rows<DP>(dk + kbase, kv_step, adk, wk0, Skv, D);
-  store_rows<DP>(dv + kbase, kv_step, adv, wk0, Skv, D);
+  const size_t kbase = ((size_t)b * Skv * Hkv + hk) * D + c0;
+  store_rows<DO>(dk + kbase, kv_step, adk, wk0, Skv, D - c0);
+  store_rows<DO>(dv + kbase, kv_step, adv, wk0, Skv, D - c0);
 }
 
-template <int DP, int TK, int ST, int W>
+template <int DP, int TK, int ST, int W, int DO>
 __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, bf16* __restrict__ dq, int S, int Skv, int Hq, int Hkv, int D,
     int causal, int window, float softcap, float scale) {
-  constexpr int LD = ld_of(DP), NT = TK / 8, DT = DP / 8, KT = TK * LD;
+  constexpr int LD = ld_of(DP), NT = TK / 8, DT = DO / 8, KT = TK * LD;
   constexpr int BR = 16 * W, NTHR = 32 * W;  // q rows of the CTA, 16 a warp; threads
+  const int c0 = blockIdx.z * DO;            // the CTA's dQ columns: c0 .. c0 + DO - 1
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [BR][LD]
   bf16* sO = sQ + BR * LD;                        // [BR][LD]: dO
@@ -786,7 +862,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
     }
   }
   dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-  if (lane % 2 == 0 && dr < S) delta[((size_t)b * Hq + h) * S + dr] = dsum;
+  if (lane % 2 == 0 && dr < S && blockIdx.z == 0) delta[((size_t)b * Hq + h) * S + dr] = dsum;
   // this thread's rows wq0 + lane/4 and + 8: their Delta and lse (also in log2 units)
   const int r_lo = wq0 + lane / 4;
   float dl[2], ll[2], ll2[2];
@@ -809,7 +885,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
   const uint32_t kn_addr = smem_u32(sK + bn_row * LD + bn_col);
   const uint32_t vn_addr = smem_u32(sV + bn_row * LD + bn_col);
   const int bt_row = (lane % 8) + ((lane / 8) % 2) * 8, bt_col = (lane / 16) * 8;
-  const uint32_t kt_addr = smem_u32(sK + bt_row * LD + bt_col);
+  const uint32_t kt_addr = smem_u32(sK + bt_row * LD + bt_col + c0);
 
   for (int slot = 0; !walk.done(); slot = (slot + 1 == ST) ? 0 : slot + 1) {
     cp_async_wait<ST - 2>();
@@ -847,7 +923,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
       }
       uint32_t da[TK / 16][4];  // dS as bf16 A fragments
       pack_a<TK / 16>(da, s);
-      mma_acc<DP, TK / 16>(adq, da, kt_addr + off);  // dQ += dS K
+      mma_acc<DP, DO, TK / 16>(adq, da, kt_addr + off);  // dQ += dS K
     }
     walk.next();
   }
@@ -856,7 +932,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
   for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adq[d][e] *= scale;
-  store_rows<DP>(dq + qbase, q_step, adq, wq0, S, D);
+  store_rows<DO>(dq + qbase + c0, q_step, adq, wq0, S, D - c0);
 }
 
 struct BwdArgs {
@@ -887,12 +963,12 @@ cudaError_t opt_in(bool (&done)[kMaxDevices], Kernel kernel, size_t bytes) {
 template <int DP, int TK, int ST, int W>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t st) {
   static bool opted_in[kMaxDevices] = {};
-  constexpr int rows = 16 * W;
+  constexpr int rows = 16 * W, DO = out_cols(DP);
   constexpr size_t smem = dq_smem(DP, rows, TK, ST);
-  cudaError_t err = opt_in(opted_in, fa_bwd_dq_mma_kernel<DP, TK, ST, W>, smem);
+  cudaError_t err = opt_in(opted_in, fa_bwd_dq_mma_kernel<DP, TK, ST, W, DO>, smem);
   if (err != cudaSuccess) return err;
-  fa_bwd_dq_mma_kernel<DP, TK, ST, W>
-      <<<dim3(a.B * a.Hq, (a.S + rows - 1) / rows), 32 * W, smem, st>>>(
+  fa_bwd_dq_mma_kernel<DP, TK, ST, W, DO>
+      <<<dim3(a.B * a.Hq, (a.S + rows - 1) / rows, DP / DO), 32 * W, smem, st>>>(
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
           static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.S,
@@ -903,12 +979,12 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t st) {
 template <int DP, int TQ, int ST, int W>
 cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t st) {
   static bool opted_in[kMaxDevices] = {};
-  constexpr int rows = 16 * W;
+  constexpr int rows = 16 * W, DO = out_cols(DP);
   constexpr size_t smem = dkdv_smem(DP, rows, TQ, ST);
-  cudaError_t err = opt_in(opted_in, fa_bwd_dkdv_mma_kernel<DP, TQ, ST, W>, smem);
+  cudaError_t err = opt_in(opted_in, fa_bwd_dkdv_mma_kernel<DP, TQ, ST, W, DO>, smem);
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_mma_kernel<DP, TQ, ST, W>
-      <<<dim3(a.B * a.Hkv, (a.Skv + rows - 1) / rows), 32 * W, smem, st>>>(
+  fa_bwd_dkdv_mma_kernel<DP, TQ, ST, W, DO>
+      <<<dim3(a.B * a.Hkv, (a.Skv + rows - 1) / rows, DP / DO), 32 * W, smem, st>>>(
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
           static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.Skv, a.Hq, a.Hkv, a.D,
@@ -933,8 +1009,8 @@ cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t st) {
 template <int D>
 cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
   static bool dkdv_in[kMaxDevices] = {}, dq_in[kMaxDevices] = {};
-  cudaError_t err = opt_in(dkdv_in, fa_bwd_dkdv_kernel<D>, BwdSmem<D>::dkdv);
-  if (err == cudaSuccess) err = opt_in(dq_in, fa_bwd_dq_kernel<D>, BwdSmem<D>::dq);
+  cudaError_t err = opt_in(dkdv_in, fa_bwd_dkdv_kernel<D>, F32Chunks<D>::dkdv);
+  if (err == cudaSuccess) err = opt_in(dq_in, fa_bwd_dq_kernel<D>, F32Chunks<D>::dq);
   if (err != cudaSuccess) return err;
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
@@ -944,11 +1020,11 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
   fa_bwd_delta_kernel<<<(rows + NTH / 32 - 1) / (NTH / 32), NTH, 0, st>>>(
       static_cast<const float*>(a.o), dout, a.delta, rows, a.S, a.Hq, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dkdv_kernel<D><<<dim3(a.B * a.Hkv, (a.Skv + BB - 1) / BB), NTH, BwdSmem<D>::dkdv, st>>>(
+  fa_bwd_dkdv_kernel<D><<<dim3(a.B * a.Hkv, (a.Skv + BB - 1) / BB), NTH, F32Chunks<D>::dkdv, st>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
       a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.softcap, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  fa_bwd_dq_kernel<D><<<dim3(a.B * a.Hq, (a.S + BB - 1) / BB), NTH, BwdSmem<D>::dq, st>>>(
+  fa_bwd_dq_kernel<D><<<dim3(a.B * a.Hq, (a.S + BB - 1) / BB), NTH, F32Chunks<D>::dq, st>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.Skv, a.Hq, a.Hkv,
       a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
@@ -960,7 +1036,7 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
 // kernels, rows 16-byte aligned); q, k, v, o, dout, dq, dk, dv all of it.
 // lse: the forward's (B, Hq, S) f32 log-sum-exp; delta: (B, Hq, S) f32
 // scratch. window <= 0: none; softcap <= 0: none. Head dims 8, 16, 32, 64,
-// 80, 128. tq, kv_stages, kv_warps, tk, q_stages, q_warps: the launch
+// 80, 128, 256. tq, kv_stages, kv_warps, tk, q_stages, q_warps: the launch
 // plan's tiles (kernel.bwd_launch_plan): the q rows of a dK/dV step, its
 // ring's stages and its CTA's warps, and the same of dQ (keys a step); the
 // f32 kernels take (64, 1, 8, 64, 1, 8).
@@ -988,6 +1064,7 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
       case 64: return launch_bwd_f32<64>(a, st);
       case 80: return launch_bwd_f32<80>(a, st);
       case 128: return launch_bwd_f32<128>(a, st);
+      case 256: return launch_bwd_f32<256>(a, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1001,6 +1078,7 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v, const vo
     case 64: return launch_bwd_mma<64>(a, st);
     case 80: return launch_bwd_mma<80>(a, st);
     case 128: return launch_bwd_mma<128>(a, st);
+    case 256: return launch_bwd_mma<256>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -42,9 +42,8 @@ last_grid: tuple | None = None
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
-#: head dims of the backward kernels (gemma2-2b's 256 is not among them
-#: yet: ROADMAP D13)
-BWD_HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+#: head dims of the backward kernels
+BWD_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 #: bf16 backward tiles, the one set ``csrc`` builds: for dK/dV the q rows of
 #: a step, the stages of its ring and the warps a CTA (16 keys each); for dQ
 #: the keys of a step, its stages and warps (16 q rows each)
@@ -87,7 +86,7 @@ def launch_plan(
 
 class BwdKernel(NamedTuple):
     name: str  # "delta", "dq" or "dkdv"
-    grid: tuple  # the CUDA grid
+    grid: tuple  # the CUDA grid; bf16 at head dim 256 adds z = 2, the 128-column halves
     order: tuple  # the block blockIdx.y = 0, 1, ... takes: q blocks (dq), key blocks (dkdv)
     rows: int  # q rows (dq) or keys (dkdv) a CTA owns; rows (delta) of a CTA
     step: int  # keys (dq) or q rows (dkdv) of one step of the CTA's walk
@@ -112,20 +111,22 @@ def bwd_launch_plan(
     """The backward's kernels in launch order, with the geometry
     ``csrc/flash_attention_bwd.cu`` launches. bf16: dQ (which also writes
     Delta), then dK/dV, their tiles and warps from ``BWD_TILES``; f32:
-    Delta, dK/dV, dQ on 64 x 64 tiles, one stage. Both grids put the block
-    that the most causal pairs fall in first. Raises on a head dim the
-    kernels do not take."""
+    Delta, dK/dV, dQ on 64 x 64 tiles, one stage, holding at most 128
+    head-dim columns of a shared tile at a time. Both grids put the block
+    that the most causal pairs fall in first. At head dim 256 each bf16
+    block is two CTAs, each owning 128 columns of dQ (or of dK and dV).
+    Raises on a head dim the kernels do not take."""
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention backward: head dim {D} not in {BWD_HEAD_DIMS}")
     if dtype == torch.float32:
-        bb, bs = _F32_BLOCK, _F32_STRIDE
+        bb, bs, dc = _F32_BLOCK, _F32_STRIDE, min(D, 128)
         nq, nk, rows = -(-S // bb), -(-Skv // bb), B * S * Hq
         return (
             BwdKernel("delta", (-(-rows // 8),), (), 8, 0, 0, 8, 0),
             BwdKernel("dkdv", (B * Hkv, nk), tuple(range(nk)), bb, bb, 1, 8,
-                      4 * (4 * D * bs + 2 * bb * bs + 2 * bb)),
+                      4 * (4 * dc * bs + 2 * bb * bs + 2 * bb)),
             BwdKernel("dq", (B * Hq, nq), _heavy_first(nq, bb, S), bb, bb, 1, 8,
-                      4 * (4 * D * bs + bb * bs + 2 * bb)),
+                      4 * (4 * dc * bs + bb * bs + 2 * bb)),
         )
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention backward: type {dtype}; expected float32 or bfloat16")
@@ -133,11 +134,12 @@ def bwd_launch_plan(
     ld = max(D, 16) + 8  # a shared row: head dims below 16 pad to 16, plus 16 bytes
     kv_rows, q_rows = 16 * kv_warps, 16 * q_warps
     nq, nk = -(-S // q_rows), -(-Skv // kv_rows)
+    halves = (2,) if D > 128 else ()
     return (
-        BwdKernel("dq", (B * Hq, nq), _heavy_first(nq, q_rows, S), q_rows, tk, q_stages, q_warps,
-                  2 * ld * (2 * q_rows + 2 * q_stages * tk)),
-        BwdKernel("dkdv", (B * Hkv, nk), tuple(range(nk)), kv_rows, tq, kv_stages, kv_warps,
-                  2 * ld * (2 * kv_rows + 2 * kv_stages * tq) + 4 * 2 * kv_stages * tq),
+        BwdKernel("dq", (B * Hq, nq, *halves), _heavy_first(nq, q_rows, S), q_rows, tk, q_stages,
+                  q_warps, 2 * ld * (2 * q_rows + 2 * q_stages * tk)),
+        BwdKernel("dkdv", (B * Hkv, nk, *halves), tuple(range(nk)), kv_rows, tq, kv_stages,
+                  kv_warps, 2 * ld * (2 * kv_rows + 2 * kv_stages * tq) + 4 * 2 * kv_stages * tq),
     )
 
 

@@ -88,8 +88,8 @@ def attention(
     if needs_grad(q, k, v):
         if q.shape[-1] not in BWD_HEAD_DIMS:
             raise NotImplementedError(
-                f"flash attention: no backward kernel for head dim {q.shape[-1]} yet "
-                f"(it has {BWD_HEAD_DIMS}); train this model on the CPU, or see ROADMAP D13"
+                f"flash attention: no backward kernel for head dim {q.shape[-1]} "
+                f"(it has {BWD_HEAD_DIMS}); train this model on the CPU"
             )
         return _Attention.apply(q, k, v, causal, window, softcap, block_q, block_k)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,

@@ -2,7 +2,12 @@
 the plain version for CPU tensors. Same signature as
 ``repro.kernels.fused_moe.ops.fused_moe``; ``block_m``/``block_f`` reach the
 kernel's launch (``kernel.last_grid == grid_shape(...)``). DTensors run
-the same call on each rank's experts (and rows) through ``kernels.on_shards``."""
+the same call on each rank's experts (and rows) through ``kernels.on_shards``.
+
+On CUDA tensors that autograd records, the call is a
+``torch.autograd.Function`` whose backward is the CUDA backward kernel
+(``kernel.fused_moe_bwd_cuda``), which recomputes g and u; on CPU tensors
+autograd differentiates the plain version."""
 from __future__ import annotations
 
 from functools import partial
@@ -10,8 +15,8 @@ from functools import partial
 import torch
 from torch.distributed.tensor import Partial, Replicate, Shard
 
-from repro_torch.kernels import is_dtensor, kernel_placements, on_shards, refuse_grad
-from repro_torch.kernels.fused_moe.kernel import fused_moe_cuda
+from repro_torch.kernels import is_dtensor, kernel_placements, needs_grad, on_shards
+from repro_torch.kernels.fused_moe.kernel import fused_moe_bwd_cuda, fused_moe_cuda
 from repro_torch.kernels.fused_moe.ref import fused_moe_ref
 
 
@@ -77,5 +82,17 @@ def fused_moe(
                                 x, w_gate, w_up, w_down)
     if x.device.type == "cpu":
         return fused_moe_ref(x, w_gate, w_up, w_down)
-    refuse_grad("fused_moe", x, w_gate, w_up, w_down)
+    if needs_grad(x, w_gate, w_up, w_down):
+        return _FusedMoE.apply(x, w_gate, w_up, w_down, block_m, block_f)
     return fused_moe_cuda(x, w_gate, w_up, w_down, block_m=block_m, block_f=block_f)
+
+
+class _FusedMoE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, block_m, block_f):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return fused_moe_cuda(x, w_gate, w_up, w_down, block_m=block_m, block_f=block_f)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*fused_moe_bwd_cuda(*ctx.saved_tensors, dy.contiguous()), None, None)

@@ -9,11 +9,17 @@ raises rather than falling back. ``--mesh RxC`` trains on a (data, model)
 mesh of ``R*C`` ranks, spawned as gloo processes with ``--device cpu`` and
 as NCCL processes one a GPU on the card; more ranks than GPUs is refused.
 ``--devices`` is kept for the reference's command line: the mesh sets the
-rank count, and ``--devices``, when given, must equal it.
+rank count, and ``--devices``, when given, must equal it. ``--layers N``
+cuts the depth at full width, for an arch whose train state does not fit
+one card at full depth:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b --layers 10 \
+      --steps 5 --batch 1 --seq 4096
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \
       --mesh 2x2 --devices 4 --device cpu"""
 import argparse
+import dataclasses
 import logging
 import os
 import sys
@@ -26,6 +32,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, at full width (0: the config's)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -54,17 +62,25 @@ def mesh_shape(args) -> tuple:
     return (r, c)
 
 
-def build_trainer(args, mesh=None):
-    """The Trainer that ``main`` runs for these arguments (on ``mesh``, a
-    ``DeviceMesh`` this rank belongs to, when given)."""
+def arch_config(args):
+    """The arch's config these arguments train: ``--smoke``'s reduced one,
+    and ``--layers``' depth."""
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataConfig
-    from repro_torch.train.step import TrainConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
 
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    return dataclasses.replace(cfg, n_layers=args.layers) if args.layers else cfg
+
+
+def build_trainer(args, mesh=None):
+    """The Trainer that ``main`` runs for these arguments (on ``mesh``, a
+    ``DeviceMesh`` this rank belongs to, when given)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = arch_config(args)
     data = DataConfig(batch=args.batch, seq_len=args.seq)
     tc = TrainConfig(
         lr=args.lr,

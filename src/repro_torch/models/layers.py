@@ -15,6 +15,7 @@ their hand-written backward kernels, so training runs through them too.
 """
 from __future__ import annotations
 
+import functools
 import math
 import operator
 from typing import Optional
@@ -27,6 +28,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.sharding import (
     active_mesh,
     constrain,
+    flatten,
     resolve_pspec,
     unflatten,
     write_target,
@@ -156,6 +158,24 @@ def _block_attend(
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
+def _attend_on_shards(fn, qb, k, v, qpos, kpos, kv_valid):
+    """``fn`` (``_block_attend``) on each rank's batch and KV-head shards
+    through ``kernels.on_shards``: its einsums flatten (b, h) into one
+    batched product, which DTensor refuses for a sharded h. The shards are
+    the cache's (k's) over batch (dim 0) and heads (dim 2), which ``qb``
+    (B, bq, Hkv, G, D) takes too, so no rank gathers the cache; the
+    positions and the validity mask follow the batch shards."""
+    pl = kernel_placements(k if is_dtensor(k) else qb, (0, 2))
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    extra = () if kv_valid is None else (kv_valid,)
+
+    def local(qb, k, v, qp, kp, *kvv):
+        return fn(qb, k, v, qp, kp, kv_valid=kvv[0] if kvv else None)
+
+    return on_shards(local, (qb, k, v, qpos, kpos, *extra),
+                     (pl, pl, pl, rows, rows, *(rows,) * len(extra)), pl)
+
+
 def triangular_attention(
     qg,  # (B, Sq, Hkv, G, D) grouped queries
     k,  # (B, Sq, Hkv, D)
@@ -244,14 +264,17 @@ def chunked_attention(
             and Sq == Skv and Sq % q_block == 0 and Sq // q_block >= 2):
         out = triangular_attention(qg, k, v, qpos, kpos, softcap=softcap, scale=scale,
                                    q_block=q_block)
-        return out.reshape(B, Sq, Hq, D)
+        return flatten(out, 2)
 
     def attend(qb, kk, vv, qp, kp, kvv):
-        return _block_attend(qb, kk, vv, qp, kp, causal=causal, window=window,
-                             softcap=softcap, scale=scale, kv_valid=kvv, prefix=prefix)
+        fn = functools.partial(_block_attend, causal=causal, window=window, softcap=softcap,
+                               scale=scale, prefix=prefix)
+        if is_dtensor(qb, kk, vv):
+            return _attend_on_shards(fn, qb, kk, vv, qp, kp, kvv)
+        return fn(qb, kk, vv, qp, kp, kv_valid=kvv)
 
     if Sq <= q_block:
-        return attend(qg, k, v, qpos, kpos, kv_valid).reshape(B, Sq, Hq, D)
+        return flatten(attend(qg, k, v, qpos, kpos, kv_valid), 2)
 
     if Sq % q_block:  # pad to a whole number of blocks; sliced off below
         pad = q_block - Sq % q_block
@@ -277,7 +300,7 @@ def chunked_attention(
                                qp, slice_kv(kpos, start), kvv))
         else:
             outs.append(attend(qb, k, v, qp, kpos, kv_valid))
-    return torch.cat(outs, dim=1)[:, :Sq].reshape(B, Sq, Hq, D)
+    return flatten(torch.cat(outs, dim=1)[:, :Sq], 2)
 
 
 # ----------------------------------------------------------------------
@@ -353,7 +376,7 @@ def attention_layer(p, x, cfg: ArchConfig, positions, *, window: Optional[int],
                 "attention_layer: the kernel needs positions 0..S-1 in every row",
             )
         out = fa_ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    return flatten(out, 2) @ p["wo"], (k, v)
 
 
 def write_rows(at, *pairs) -> None:
@@ -400,7 +423,7 @@ def attention_decode(
         causal=True, window=window, softcap=cfg.attn_softcap,
         q_block=cfg.q_block, kv_valid=valid, prefix=cfg.meta_tokens,
     )
-    return out.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+    return flatten(out, 2) @ p["wo"], cache_k, cache_v
 
 
 def init_cross_attention(gen, cfg: ArchConfig, dtype, device):
@@ -422,7 +445,7 @@ def cross_attention_layer(p, x, kv_src, cfg: ArchConfig):
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     out = fa_ops.attention(q, k, v, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    return flatten(out, 2) @ p["wo"], (k, v)
 
 
 def cross_attention_cached(p, x, ck, cv, cfg: ArchConfig):
@@ -436,7 +459,7 @@ def cross_attention_cached(p, x, ck, cv, cfg: ArchConfig):
     zeros = lambda n: torch.zeros((B, n), dtype=torch.long, device=x.device)
     out = chunked_attention(q, ck, cv, zeros(S), zeros(ck.shape[1]), causal=False,
                             q_block=cfg.q_block)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return flatten(out, 2) @ p["wo"]
 
 
 # ----------------------------------------------------------------------

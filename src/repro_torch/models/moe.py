@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import constrain, placements, resolve_pspec
-from repro_torch.kernels import is_dtensor, on_shards
+from repro_torch.dist.sharding import constrain, local_slice, placements, resolve_pspec
+from repro_torch.kernels import is_dtensor, kernel_placements, on_shards
 from repro_torch.kernels.fused_moe import ops as moe_ops
 from repro_torch.models.layers import dense_init, ffn, init_ffn
 
@@ -115,16 +115,23 @@ def _combine(combine, ye, cfg: ArchConfig):
                      (cp, xe), out)
 
 
-def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
-    """x: (B, S, d) -> (out, aux_loss)."""
-    B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    T = B * S
-    G, Sg, C = dispatch_geometry(cfg, T, train=train)
-    xg = x.reshape(G, Sg, d)
-
-    # ---- routing --------------------------------------------------------
-    logits = (xg @ p["router"]).float()  # (G, Sg, E)
+def _route(logits, K: int, C: int, rows=None):
+    """Top-K routing and capacity assignment of ``(G, Sg, E)`` router
+    logits: ``(combine (G, Sg, E, C), probs (G, Sg, E), top1 (G, Sg, E))``,
+    ``top1`` the one-hot of each token's first expert; ``rows`` keeps a
+    slice of the group's tokens in the outputs. Each dispatch group is
+    ranked on its own, so on a mesh each rank routes its own groups, each
+    whole (``kernels.on_shards``), and keeps the tokens it holds: the
+    dropped (token, slot) set is the meshless one, no sharded dim is viewed
+    apart, and the combine's product runs on the rank's tokens only (the
+    logits' gradient there is a pending sum over the token shards)."""
+    if is_dtensor(logits):
+        lp = kernel_placements(logits, (0,))
+        op = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in logits.placements)
+        grad = tuple(Partial() if p == Shard(1) else q for p, q in zip(logits.placements, lp))
+        fn = functools.partial(_route, K=K, C=C, rows=local_slice(logits, 1))
+        return on_shards(fn, (logits,), (lp,), [op, op, op], (grad,))
+    G, Sg, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
     top_w, top_ids = torch.topk(probs, K, dim=-1)  # (G, Sg, K), descending
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -139,10 +146,28 @@ def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
     keep = pos < C
     top_w = top_w * keep  # dropped tokens lose their expert
 
-    # ---- dispatch / combine tensors --------------------------------------
+    # ---- the combine tensor ----------------------------------------------
     # one_hot(pos, C), all zeros where pos >= C (as jax.nn.one_hot gives)
-    pos_oh = (pos[..., None] == torch.arange(C, device=x.device)).float() * keep[..., None]
-    combine = torch.einsum("gske,gskc->gsec", onehot * top_w[..., None], pos_oh)
+    pos_oh = (pos[..., None] == torch.arange(C, device=logits.device)).float() * keep[..., None]
+    weighted = onehot * top_w[..., None]
+    top1 = F.one_hot(top_ids[..., 0], E).float()
+    if rows is not None:
+        weighted, pos_oh, probs, top1 = (t[:, rows] for t in (weighted, pos_oh, probs, top1))
+    combine = torch.einsum("gske,gskc->gsec", weighted, pos_oh)
+    return combine, probs, top1
+
+
+def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
+    """x: (B, S, d) -> (out, aux_loss)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    G, Sg, C = dispatch_geometry(cfg, T, train=train)
+    xg = x.reshape(G, Sg, d)
+
+    # ---- routing and capacity assignment, each dispatch group alone ------
+    logits = (xg @ p["router"]).float()  # (G, Sg, E)
+    combine, probs, top1 = _route(logits, K, C)
     if cfg.moe_bf16_combine:  # bf16 dispatch/combine in bf16 compute
         combine = combine.to(x.dtype)
     dispatch = (combine > 0).to(x.dtype)
@@ -158,7 +183,7 @@ def moe_layer(p, x, cfg: ArchConfig, *, train: bool):
 
     # ---- auxiliary load-balancing loss (Switch) ---------------------------
     me = probs.mean(dim=(0, 1))  # mean router prob per expert
-    ce = (F.one_hot(top_ids[..., 0], E).float().sum(dim=1) / Sg).mean(dim=0)
+    ce = (top1.sum(dim=1) / Sg).mean(dim=0)
     aux = E * (me * ce).sum()
 
     if cfg.dense_residual:

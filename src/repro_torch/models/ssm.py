@@ -10,13 +10,16 @@ card).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import is_dtensor, kernel_placements, on_shards
 from repro_torch.models.layers import dense_init, rmsnorm
 
 
@@ -69,13 +72,70 @@ def _split_proj(cfg: ArchConfig, zxbcdt):
     return z, xBC, dt
 
 
+def _conv_placements(x, cdim: int):
+    """On a mesh, the placements a depthwise conv runs its shards at: x's
+    batch (dim 0) and channel (``cdim``) shards, never its sequence or
+    window dim; the weight ``(C, W)`` and the bias ``(C,)`` shard their
+    channels with x's, and where x's batch is sharded their gradients are
+    pending sums. Exact: each channel is its own conv."""
+    xp = kernel_placements(x, (0, cdim))
+    wp = tuple(Shard(0) if p == Shard(cdim) else Replicate() for p in xp)
+    wg = tuple(Partial() if p == Shard(0) else w for p, w in zip(xp, wp))
+    return xp, wp, wg
+
+
 def _causal_conv(xBC, w, b):
-    """Depthwise causal conv, width W. xBC: (B, L, C); w: (C, W)."""
+    """Depthwise causal conv, width W. xBC: (B, L, C); w: (C, W). On a mesh,
+    on each rank's batch and channel shards (``_conv_placements``)."""
+    if is_dtensor(xBC, w, b):
+        xp, wp, wg = _conv_placements(xBC, 2)
+        return on_shards(_causal_conv, (xBC, w, b), (xp, wp, wp), xp, (xp, wg, wg))
     W = w.shape[-1]
     L = xBC.shape[1]
     pads = F.pad(xBC, (0, 0, W - 1, 0))
     out = sum(pads[:, i:i + L, :] * w[None, None, :, W - 1 - i] for i in range(W))
     return F.silu(out + b[None, None, :])
+
+
+def _conv_tail(raw, W: int):
+    """The conv state: the last W-1 pre-activation inputs of raw (B, L, C),
+    oldest first, zeros before the first: (B, W-1, C). On a mesh, on each
+    rank's batch and channel shards."""
+    if is_dtensor(raw):
+        xp = kernel_placements(raw, (0, 2))
+        return on_shards(functools.partial(_conv_tail, W=W), (raw,), (xp,), xp)
+    L = raw.shape[1]
+    return F.pad(raw, (0, 0, W - 1, 0))[:, L:L + W - 1, :]
+
+
+def _decode_conv(win, w, b):
+    """One decode step's conv: silu(sum_w win[:, :, w] w[:, W-1-w] + b) in
+    f32, win (B, C, W) with the newest input last. On a mesh, on each rank's
+    batch and channel shards."""
+    if is_dtensor(win, w, b):
+        xp, wp, _ = _conv_placements(win, 1)
+        return on_shards(_decode_conv, (win, w, b), (xp, wp, wp), xp)
+    conv_out = torch.einsum("bcw,cw->bc", win.float(), w.float().flip(-1))
+    return F.silu(conv_out + b.float())
+
+
+def _cumsum(x, dim: int):
+    """``torch.cumsum`` along ``dim``. On a mesh, on each rank's shards of
+    the other dims: its backward flips, and DTensor has no rule for flip."""
+    if is_dtensor(x):
+        pl = kernel_placements(x, tuple(d for d in range(x.ndim) if d != dim % x.ndim))
+        return on_shards(functools.partial(torch.cumsum, dim=dim), (x,), (pl,), pl)
+    return torch.cumsum(x, dim=dim)
+
+
+def _state_out(ssm, Ch):
+    """``einsum("bhpn,bhn->bhp")``, a decode step's output from its state. On
+    a mesh, on each rank's batch and head shards: the einsum's batched
+    product flattens (b, h), which DTensor refuses for a sharded h."""
+    if is_dtensor(ssm, Ch):
+        pl = kernel_placements(ssm, (0, 1))
+        return on_shards(functools.partial(torch.einsum, "bhpn,bhn->bhp"), (ssm, Ch), (pl, pl), pl)
+    return torch.einsum("bhpn,bhn->bhp", ssm, Ch)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int):
@@ -105,7 +165,7 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     Bh = B.float().reshape(b, nc, Q, g, n).repeat_interleave(rep, dim=3)  # (b, nc, Q, h, n)
     Ch = C.float().reshape(b, nc, Q, g, n).repeat_interleave(rep, dim=3)
 
-    cum = torch.cumsum(dA, dim=2)  # (b, nc, Q, h)
+    cum = _cumsum(dA, 2)  # (b, nc, Q, h)
 
     # intra-chunk (block-diagonal) term: L[i, j] = exp(cum_i - cum_j) for
     # i >= j, the masked entries -inf before the exp
@@ -154,9 +214,7 @@ def ssm_layer(p, x, cfg: ArchConfig):
     y = rmsnorm(y * F.silu(z), p["gate_norm"])
     out = y @ p["out_proj"]
     # the conv state holds the *pre-activation* last W-1 inputs, oldest first
-    W = cfg.conv_width
-    pad = F.pad(raw_xBC, (0, 0, W - 1, 0))
-    conv_state = pad[:, L:L + W - 1, :].transpose(1, 2)  # (B, C, W-1)
+    conv_state = _conv_tail(raw_xBC, cfg.conv_width).transpose(1, 2)  # (B, C, W-1)
     return out, SSMState(conv=conv_state.to(x.dtype).contiguous(), ssm=final)
 
 
@@ -169,8 +227,7 @@ def ssm_decode(p, x, cfg: ArchConfig, state: SSMState):
     z, xBC, dt = _split_proj(cfg, zxbcdt)
     # rolling conv window; win[..., -1] is the newest input and pairs with conv_w[:, 0]
     win = torch.cat([state.conv, xBC[:, :, None]], dim=2)  # (B, C, W)
-    conv_out = torch.einsum("bcw,cw->bc", win.float(), p["conv_w"].float().flip(-1))
-    xBC_a = F.silu(conv_out + p["conv_b"].float()).to(x.dtype)
+    xBC_a = _decode_conv(win, p["conv_w"], p["conv_b"]).to(x.dtype)
     xs = xBC_a[..., :di].reshape(Bsz, H, P)
     Bm = xBC_a[..., di:di + G * N].reshape(Bsz, G, N)
     Cm = xBC_a[..., di + G * N:].reshape(Bsz, G, N)
@@ -182,7 +239,7 @@ def ssm_decode(p, x, cfg: ArchConfig, state: SSMState):
     dA = torch.exp(dt * A[None, :])  # (B, H)
     upd = (dt[:, :, None] * xs.float())[:, :, :, None] * Bh.float()[:, :, None, :]
     ssm = state.ssm * dA[:, :, None, None] + upd  # (B, H, P, N)
-    y = torch.einsum("bhpn,bhn->bhp", ssm, Ch.float())
+    y = _state_out(ssm, Ch.float())
     y = y + p["D"][None, :, None] * xs.float()
     y = y.reshape(Bsz, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["gate_norm"])

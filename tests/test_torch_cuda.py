@@ -599,15 +599,27 @@ def test_kernel_ops_record_their_backward_kernels(dev):
     assert w.grad.dtype == torch.float32
 
 
-@pytest.mark.parametrize("D", [256])
-def test_flash_attention_without_a_backward_head_dim_raises_under_grad(dev, D):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_trains_at_head_dim_256(dev, dtype):
+    """gemma2-2b's head dim 256 trains on the card: ``ops.attention`` under
+    grad runs the backward kernel, whose gradients equal
+    ``attention_bwd_ref``'s with gemma2's masks (causal, a window, softcap
+    50), and a rerun gives the same bits."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
     rng = np.random.default_rng(0)
-    q = _randn(rng, (1, 32, 2, D), torch.bfloat16, dev).requires_grad_()
-    k, v = (_randn(rng, (1, 32, 2, D), torch.bfloat16, dev) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="head dim .* ROADMAP D13"):
-        fa_ops.attention(q, k, v)
-    with torch.no_grad():
-        assert fa_ops.attention(q, k, v).shape == q.shape  # serving is unaffected
+    shapes = [(2, 200, 4, 256), (2, 200, 2, 256), (2, 200, 2, 256)]
+    card = [_randn(rng, s, dtype, dev).requires_grad_() for s in shapes]
+    g = _randn(rng, shapes[0], dtype, dev)
+    kw = dict(causal=True, window=64, softcap=50.0)
+    n0 = fa_kernel.bwd_launches
+    got = torch.autograd.grad(fa_ops.attention(*card, **kw), card, g)
+    again = torch.autograd.grad(fa_ops.attention(*card, **kw), card, g)
+    assert fa_kernel.bwd_launches == n0 + 2
+    want = attention_bwd_ref(*(t.detach() for t in card), g, **kw)
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+        _rel_close(a, r, dtype, name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -629,14 +641,30 @@ def test_flash_attention_trains_at_head_dim_80(dev, dtype):
         _rel_close(a.cpu(), r, dtype, name)
 
 
-def test_fused_moe_and_scaled_mm_raise_under_grad(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_moe_trains_on_the_card(dev, dtype):
+    """``fused_moe`` under grad runs ``fused_moe_bwd.cu``'s kernels: the
+    gradients of x and the three weights equal ``fused_moe_bwd_ref``'s, on
+    a ragged shape too, and a rerun gives the same bits."""
+    from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
+
     rng = np.random.default_rng(0)
-    x = _randn(rng, (2, 32, 16), torch.float32, dev).requires_grad_()
-    ws = [_randn(rng, s, torch.float32, dev) for s in ((2, 16, 32), (2, 16, 32), (2, 32, 16))]
-    with pytest.raises(NotImplementedError, match="fused_moe"):
-        moe_ops.fused_moe(x, *ws)
-    with torch.no_grad():
-        assert moe_ops.fused_moe(x, *ws).shape == x.shape
+    for E, C, D, F in ((2, 64, 48, 96), (3, 20, 36, 44)):
+        x = _randn(rng, (E, C, D), dtype, dev).requires_grad_()
+        ws = [_randn(rng, s, dtype, dev, 0.2).requires_grad_()
+              for s in ((E, D, F), (E, D, F), (E, F, D))]
+        dy = _randn(rng, (E, C, D), dtype, dev)
+        n0, b0 = moe_kernel.launches, moe_kernel.bwd_launches
+        got = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
+        again = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
+        assert (moe_kernel.launches, moe_kernel.bwd_launches) == (n0 + 2, b0 + 2)
+        want = fused_moe_bwd_ref(x.detach(), *(w.detach() for w in ws), dy)
+        for name, a, b, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, want):
+            assert a.dtype == dtype and torch.equal(a, b)
+            _rel_close(a, r, dtype, name)
+
+
+def test_scaled_mm_raises_under_grad(dev):
     xi = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device=dev)
     wi = torch.randint(-127, 128, (64, 64), dtype=torch.int8, device=dev)
     sx = torch.ones(64, device=dev, requires_grad=True)

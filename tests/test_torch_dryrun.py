@@ -116,7 +116,7 @@ import jax
 import repro.launch.dryrun as RD
 from repro.configs import SHAPES, get_arch
 
-mesh = jax.make_mesh((2, 2), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+mesh = jax.make_mesh(MESH, ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
 RD.make_production_mesh = lambda multi_pod=False, pipeline=False: mesh
 RD.get_arch = lambda arch: get_arch(arch).smoke()
 out = {}
@@ -129,17 +129,24 @@ print(json.dumps(out))
 """
 
 
-@pytest.fixture(scope="module")
-def ref_on_2x2():
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+def _ref_on_mesh(mesh_shape, cases):
+    """The reference's own dry run of ``cases`` on a ``("data", "model")``
+    mesh of this shape, in a subprocess on as many forced host devices."""
+    n = mesh_shape[0] * mesh_shape[1]
+    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={n}",
                JAX_PLATFORMS="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(root, "src"), env.get("PYTHONPATH", "")])
-    script = f"CASES, B, S = {CASES!r}, {B}, {S}\n" + _REF_ON_2X2
+    script = f"CASES, B, S, MESH = {cases!r}, {B}, {S}, {tuple(mesh_shape)!r}\n" + _REF_ON_2X2
     r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                        timeout=600, cwd=root, env=env)
     assert r.returncode == 0, r.stderr[-4000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def ref_on_2x2():
+    return _ref_on_mesh((2, 2), CASES)
 
 
 @pytest.mark.parametrize("arch,kind", CASES)
@@ -320,3 +327,52 @@ def test_fake_group_leaves_torch_usable():
     with fake_process_group(4):
         pass
     assert torch.ones(2).sum().item() == 2.0
+
+
+#: the cells whose classes failed to lower at 16 ways on the card host's
+#: torch (2.11), each on a ``("data", "model")`` mesh whose model axis
+#: shards the smoke configs' dims as 16 ways shard the full ones: mamba2's
+#: depthwise conv on channel shards (prefill) and its decode conv, gemma2's
+#: head merge under a model axis that its 4 heads do not divide (8 heads of
+#: 256 over 16), and stablelm's decode projections, a pending sum viewed
+#: into heads (32 heads over 16: 4 over 4). ``exact``: the port replicates
+#: no work there, so each device's dot FLOPs are held within 2% of the
+#: reference's; elsewhere the port replicates by design what the reference
+#: shards (the SSD scan, which runs on whole heads, and attention over
+#: heads the model axis does not divide; ROADMAP queue C), so each device's
+#: are held between the reference's and the meshless step's
+CASES_MESH = [("mamba2-370m", "prefill", (1, 8), False), ("mamba2-370m", "decode", (1, 8), False),
+              ("gemma2-2b", "train", (1, 8), False), ("stablelm-3b", "decode", (1, 4), True)]
+
+
+@pytest.fixture(scope="module")
+def ref_on_meshes():
+    out = {}
+    for shape in sorted({c[2] for c in CASES_MESH}):
+        cases = [(a, k) for a, k, m, _ in CASES_MESH if m == shape]
+        out[shape] = _ref_on_mesh(shape, cases)
+    return out
+
+
+@pytest.mark.parametrize("arch,kind,shape,exact", CASES_MESH)
+def test_repaired_cells_lower_on_a_fake_mesh(arch, kind, shape, exact, ref_on_meshes):
+    """Each cell lowers on its mesh with no unknown op; its per-device dot
+    FLOPs (the padded loss rows that the port does not compute on DTensors
+    taken out of the reference's) are within 2% of the reference's own dry
+    run where ``exact``, and never below it nor above the meshless step's."""
+    cfg = get_arch(arch).smoke()
+    n = shape[0] * shape[1]
+    with fake_process_group(n):
+        mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
+        lw = D.lower_step(cfg, kind, B, S, mesh=mesh)
+    assert not dist.is_initialized()
+    got = lw.counter.summary()
+    want = ref_on_meshes[shape][f"{arch}/{kind}"]["dot_flops"] - _unpadded_loss_rows(cfg, kind) / n
+    whole = _meshless(arch, kind)
+    if exact:
+        assert abs(got.dot_flops - want) <= DOT_RTOL * want, (got.dot_flops, want)
+    assert (1 - DOT_RTOL) * want <= got.dot_flops, (got.dot_flops, want)
+    assert got.dot_flops <= (1 + DOT_RTOL) * whole.counter.summary().dot_flops
+    assert not got.unknown_ops, got.unknown_ops
+    assert got.collective_bytes == sum(v["bytes"] for v in got.collectives.values())
+    assert lw.argument_bytes < whole.argument_bytes

@@ -257,6 +257,16 @@ def test_moe_and_scaled_mm_sources_are_in_the_package(name, mod):
     assert _build.library_path(name, mod.SOURCES).suffix == ".so"
 
 
+def test_backward_sources_build_apart_from_their_forwards():
+    """Each backward is its own library, so that phase 1 builds it beside
+    its forward: a source of its own, another name, another library."""
+    for name, mod in (("flash_attention", fa_kernel), ("fused_moe", moe_kernel)):
+        assert all(p.is_file() and p.suffix == ".cu" for p in mod.BWD_SOURCES)
+        assert not set(mod.BWD_SOURCES) & set(mod.SOURCES)
+        assert (_build.library_path(name + "_bwd", mod.BWD_SOURCES)
+                != _build.library_path(name, mod.SOURCES))
+
+
 # ----------------------------------------------------------------------
 # launch geometry: every knob reaches the launch
 # ----------------------------------------------------------------------
@@ -477,8 +487,50 @@ def test_flash_attention_bwd_plan_rings_and_shared_bytes():
     assert dq.smem == 2 * ld * (2 * 16 * qw + 2 * qst * tk)
     assert dkdv.smem == 2 * ld * (2 * 16 * kw + 2 * kst * tq) + 8 * kst * tq
     assert dq.grid == (64, -(-2048 // (16 * qw))) and dkdv.grid == (32, -(-2048 // (16 * kw)))
+    # head dim 256: two CTAs a block, each owning 128 columns of dQ (or dK and dV)
+    ld = 256 + 8
+    dq, dkdv = fa_kernel.bwd_launch_plan(1, 4096, 4096, 8, 4, 256)
+    assert dq.grid == (8, -(-4096 // (16 * qw)), 2) and dkdv.grid == (4, -(-4096 // (16 * kw)), 2)
+    assert dq.smem == 2 * ld * (2 * 16 * qw + 2 * qst * tk)
+    assert dkdv.smem == 2 * ld * (2 * 16 * kw + 2 * kst * tq) + 8 * kst * tq
+    f32 = fa_kernel.bwd_launch_plan(1, 4096, 4096, 8, 4, 256, torch.float32)
+    assert f32[1].smem == 4 * (4 * 128 * 68 + 2 * 64 * 68 + 2 * 64)  # 128 columns at a time
     with pytest.raises(ValueError, match="head dim"):
-        fa_kernel.bwd_launch_plan(1, 64, 64, 2, 2, 256)
+        fa_kernel.bwd_launch_plan(1, 64, 64, 2, 2, 96)
+
+
+MOE_BWD_SHAPES = [(16, 640, 6144, 10752), (16, 256, 6144, 10752), (2, 40, 7168, 4864),
+                  (4, 32, 64, 128), (3, 20, 36, 44), (1, 1, 8, 8), (8, 129, 136, 264)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MOE_BWD_SHAPES)
+def test_fused_moe_bwd_plan_covers_every_output_once(shape, dtype):
+    """Four launches in order; each product's (M, N, K) is the backward's
+    maths (g, u; dh; dWd, dWg, dWu; dx over two K segments of F); the grid's
+    128 x 128 tiles cover the largest product of a launch, its z axis every
+    (expert, product); the products come to 16 E C D F operations (eight
+    of 2 E C D F); each CTA's shared bytes fit, two to an SM in bf16."""
+    E, C, D, F = shape
+    plan = moe_kernel.bwd_launch_plan(E, C, D, F, dtype)
+    assert [k.name for k in plan] == ["gate_up", "dh", "dw", "dx"]
+    assert [k.layout for k in plan] == ["NN", "NT", "TN", "NT"]
+    assert [k.products for k in plan] == [
+        ((C, F, D, 1), (C, F, D, 1)), ((C, F, D, 1),),
+        ((F, D, C, 1), (D, F, C, 1), (D, F, C, 1)), ((C, D, F, 2),)]
+    mt, nt = moe_kernel.BWD_TILE
+    ops = 0
+    for k in plan:
+        assert k.grid[2] == E * len(k.products) and k.stages >= 2
+        for M, N, K, seg in k.products:
+            assert (k.grid[0] - 1) * mt < max(m for m, *_ in k.products) <= k.grid[0] * mt
+            assert M <= k.grid[0] * mt and N <= k.grid[1] * nt
+            ops += 2 * E * M * N * K * seg
+        per_sm = 2 if dtype == torch.bfloat16 else 1
+        assert 0 < k.smem and per_sm * (k.smem + 1024) <= 233472
+    assert ops == 16 * E * C * D * F
+    with pytest.raises(TypeError, match="type"):
+        moe_kernel.bwd_launch_plan(E, C, D, F, torch.float16)
 
 
 @pytest.mark.parametrize("R, d", [(8192, 1024), (131072, 128), (65536, 128), (8192, 3072),

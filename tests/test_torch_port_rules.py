@@ -77,7 +77,8 @@ def test_port_files_exist():
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu",
-               "kernels/flash_attention/csrc/flash_attention_bwd.cu"):
+               "kernels/flash_attention/csrc/flash_attention_bwd.cu",
+               "kernels/fused_moe/csrc/fused_moe_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / cu).is_file()
 
 
@@ -89,7 +90,7 @@ LIBRARY_PRODUCTS = ("torch.matmul", "bmm", "einsum", "_int_mm", "cublas")
 def test_kernels_compute_their_own_products(kernel):
     """The kernel and its binding call no library product: the plain
     version (``ref.py``) may, the kernel may not. That covers the backward
-    kernels of flash attention, rmsnorm and silu_mul."""
+    kernels of flash attention, rmsnorm, silu_mul and fused_moe."""
     pkg = ROOT / "src" / "repro_torch" / "kernels" / kernel
     for path in [pkg / "kernel.py", *sorted(pkg.glob("_triton.py")),
                  *sorted((pkg / "csrc").glob("*.cu"))]:

@@ -40,6 +40,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dist import collectives as C
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref, fused_moe_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.kernels.silu_mul.ref import silu_mul_bwd_ref, silu_mul_ref
 from repro_torch.launch import train as launch_train
@@ -368,6 +369,20 @@ def test_launch_train_mesh_flags_check_their_rank_counts(tmp_path, monkeypatch):
         launch_train.main(base + ["--mesh", "1x2"])
 
 
+def test_launch_train_layers_cuts_the_depth_at_full_width(tmp_path):
+    """``--layers N`` trains the arch's own widths at N layers (the config's
+    depth without it), so a model whose train state does not fit one card
+    at full depth trains on it cut."""
+    base = ["--arch", "gemma2-2b", "--steps", "1", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    full = get_arch("gemma2-2b")
+    assert launch_train.arch_config(launch_train.parse_args(base)) == full
+    cut = launch_train.arch_config(launch_train.parse_args(base + ["--layers", "2"]))
+    assert cut == dataclasses.replace(full, n_layers=2)
+    smoke = launch_train.parse_args(base + ["--smoke", "--layers", "4"])
+    assert launch_train.arch_config(smoke) == dataclasses.replace(full.smoke(), n_layers=4)
+    assert launch_train.build_trainer(smoke).cfg.n_layers == 4
+
+
 # ----------------------------------------------------------------------
 # checkpoints and fault tolerance (tests/test_substrate.py's, on the port)
 # ----------------------------------------------------------------------
@@ -573,6 +588,8 @@ FA_BWD_CASES = [
     # stablelm-3b's head dim 80: causal, and windowed and soft-capped with GQA
     (1, 48, 48, 2, 2, 80, True, None, None),
     (1, 40, 56, 4, 2, 80, True, 16, 30.0),
+    # gemma2-2b's head dim 256 with its masks: causal, a window, softcap 50
+    (1, 40, 40, 4, 2, 256, True, 16, 50.0),
 ]
 
 
@@ -586,3 +603,50 @@ def test_attention_plain_backward_is_autograd(case):
     dout, grads = _autograd(attention_ref, [q, k, v], kw, 1)
     for ref, got in zip(attention_bwd_ref(q, k, v, dout, **kw), grads):
         torch.testing.assert_close(ref, got, **F32)
+
+
+MOE_BWD_CASES = [
+    # (E, C, D, F): the reference's kernel cases, and ragged rows and widths
+    (4, 32, 64, 128),
+    (2, 64, 32, 64),
+    (8, 16, 48, 96),
+    (3, 20, 36, 44),
+]
+
+
+def _moe_operands(rng, E, C, D, F):
+    """x, the three expert weights and the output gradient, as f32 numpy."""
+    shapes = [(E, C, D), (E, D, F), (E, D, F), (E, F, D), (E, C, D)]
+    scales = [0.5, 0.1, 0.1, 0.1, 1.0]
+    return [(s * rng.standard_normal(shape)).astype(np.float32) for s, shape in zip(scales, shapes)]
+
+
+@pytest.mark.parametrize("case", MOE_BWD_CASES)
+def test_fused_moe_plain_backward_is_autograd(case):
+    """``fused_moe_bwd_ref``'s formulas equal autograd of ``fused_moe_ref``."""
+    *ins, dy = (torch.from_numpy(a) for a in _moe_operands(np.random.default_rng(0), *case))
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    grads = torch.autograd.grad(fused_moe_ref(*leaves), leaves, dy)
+    for ref, got in zip(fused_moe_bwd_ref(*ins, dy), grads):
+        torch.testing.assert_close(ref, got, **F32)
+
+
+@pytest.mark.parametrize("case", MOE_BWD_CASES)
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+def test_fused_moe_plain_backward_matches_jax_grad(case, name):
+    """``fused_moe_bwd_ref`` against ``jax.vjp`` of the reference's
+    ``repro.kernels.fused_moe.ref.fused_moe_ref`` on the same inputs, in
+    both types: f32 2e-5, bf16 2e-2 (the reference's kernel tolerances)."""
+    from repro.kernels.fused_moe.ref import fused_moe_ref as ref_fused_moe_ref
+
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[name]
+    arrays = _moe_operands(np.random.default_rng(1), *case)
+    *jins, jdy = (jnp.asarray(a).astype(jdt) for a in arrays)
+    _, vjp = jax.vjp(ref_fused_moe_ref, *jins)
+    want = vjp(jdy)
+    got = fused_moe_bwd_ref(*(torch.from_numpy(a).to(tdt) for a in arrays))
+    tol = F32 if name == "float32" else dict(rtol=2e-2, atol=2e-2)
+    for w, g in zip(want, got):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w, np.float32), **tol)
