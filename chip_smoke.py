@@ -6,10 +6,13 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the CUDA sources (flash attention, its backward, fused
-   MoE, scaled_mm) with nvcc, one process each, all at once, and the Triton
-   kernels (rmsnorm, silu_mul and their backwards), from the sources in
-   this checkout; ptxas's registers and spills of each backward
-   flash-attention instance, and the backward's launch plan, are logged;
+   MoE, its two backward engines, scaled_mm) with nvcc, one process each,
+   all at once, and the Triton kernels (rmsnorm, silu_mul and their
+   backwards), from the sources in this checkout; ptxas's registers and
+   spills of each backward instance (flash attention, fused MoE's mma.sync
+   and wgmma engines), the backwards' launch plans, and the wgmma engine's
+   SASS instruction counts (HGMMA, TMA loads and stores, mbarrier waits)
+   are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
@@ -38,8 +41,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel test shapes (causal and not, a window, a softcap, GQA, rows that
    see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
    640 rows) and arctic-480b-wide (D 7168, F 4864, 40 rows) shapes, each
-   gradient within f32 2e-5 / bf16 2e-2 of its max|ref|, and bit-equal
-   when run twice;
+   gradient within f32 2e-5 / bf16 2e-2 of its max|ref| (fused MoE's on
+   the engine ``bwd_engine`` picks: the wgmma engine for bf16 with 16-byte
+   rows, among them a ragged (3, 200, 520, 776) shape, dbrx's and
+   arctic's); every case, forward and backward, runs again after the
+   caching allocator's free memory is filled with NaN
+   (``poison_free_memory``) and must give the same bits;
 3. whole-model parity, random weights from one seed, f32 compute: prefill
    of a 64-token prompt and 8 greedy decode steps on the card (kernels) and
    on the CPU (plain versions), same weights: full-width qwen3-0.6b, and
@@ -73,8 +80,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    logged beside them: rmsnorm's at the q and k norms' (131072, 128) and
    (65536, 128), flash attention's at stablelm-3b's head dim 80 and at
    gemma2-2b's training shape, no library: SDPA takes no softcap); fused
-   MoE's backward at dbrx-132b's training shape (E16, 640 rows, bf16) and
-   at the tuner's E16 C256 (f32), beside ``autograd.grad`` of three
+   MoE's backward at dbrx-132b's training shape (E16, 640 rows, bf16) on
+   the wgmma engine, each of its four launches under the profiler beside
+   its bound, and on the mma.sync engine on the same inputs, and at the
+   tuner's E16 C256 (f32, mma.sync), beside ``autograd.grad`` of three
    ``bmm`` and silu * u;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
@@ -140,8 +149,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    through ``make_train_step`` with the loss falling and the launch counts
    exact, its step wall, tokens/s, memory peak and one profiled step's
    device-busy share; (e) one full-width dbrx-132b layer's forward and
-   backward, bf16, 2048 tokens: its wall, launch counts exact, and fused
-   MoE's backward kernels' share of the device time;
+   backward, bf16, 2048 tokens: its wall, launch counts exact (fused MoE's
+   backward on the wgmma engine), and fused MoE's backward kernels' share
+   of the device time;
 11. the static auditor: (a) ``python -m repro_torch.analysis --all --strict
    --json`` in a subprocess exits 0 with only info-severity findings, one
    SP105 (no cached dry-run ledger) for each registry arch, and the CUDA
@@ -196,8 +206,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line (nine entries: the five kernels
-and the backwards of rmsnorm, silu_mul, flash attention and fused MoE),
+It prints one ``{"kernels": [...]}`` line (ten entries: the five kernels
+and the backwards of rmsnorm, silu_mul, flash attention and fused MoE's
+two engines),
 the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -228,6 +239,42 @@ SMM_TOL = 1e-2
 
 def log(msg):
     print(msg, flush=True)
+
+
+#: bytes of the large block that ``poison_free_memory`` fills: more than any
+#: phase 2 case allocates after its inputs
+POISON_BYTES = 8 << 30
+#: phase 2's cases rerun after ``poison_free_memory``, by kernel
+poison_checks: dict = {}
+
+
+def poison_free_memory(torch):
+    """Fill with NaN what the caching allocator hands out next: its cached
+    free blocks are released, then one large block (``POISON_BYTES``) and 16
+    blocks of its small pool (1 MiB each: 8 of its 2 MiB segments, more
+    than a case's small workspaces take) are allocated, filled with NaN and
+    freed back into its cache, where the next allocations are carved from.
+    A kernel that reads memory it has not written then reads NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nan = float("nan")
+    big = torch.empty(POISON_BYTES // 4, device="cuda").fill_(nan)
+    small = [torch.empty(1 << 18, device="cuda").fill_(nan) for _ in range(16)]
+    torch.cuda.synchronize()
+    del big, small
+
+
+def same_after_poison(torch, kname, label, fn, first):
+    """``fn()`` again after ``poison_free_memory``: each of its outputs must
+    be bit-equal to ``first``'s (one tensor or a tuple)."""
+    poison_free_memory(torch)
+    again = fn()
+    torch.cuda.synchronize()
+    a = first if isinstance(first, (tuple, list)) else (first,)
+    b = again if isinstance(again, (tuple, list)) else (again,)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)), (
+        f"{label}: the output changed after the free device memory was filled with NaN")
+    poison_checks[kname] = poison_checks.get(kname, 0) + 1
 
 
 def bound(peaks, nbytes, ops, kind):
@@ -270,9 +317,10 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(6) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, moe_k.library,
-                                           moe_k.bwd_library, smm_k.library)]
+                                           moe_k.bwd_library, moe_k.wgmma_library,
+                                           smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
         rms_k.rmsnorm_bwd_cuda(x, x, torch.zeros(1024, device=dev))
@@ -397,7 +445,12 @@ def main():
             "src/repro/kernels/flash_attention/kernel.py:30"),
         "fused_moe_bwd": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd.cu",
                           "src/repro/kernels/fused_moe/kernel.py:27"),
+        "fused_moe_bwd_wgmma": (
+            "cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd_wgmma.cu",
+            "src/repro/kernels/fused_moe/kernel.py:27"),
     }
+    idle = [k for k in sources if not launches.get(k)]
+    assert not idle, f"kernels the main paths never launched: {idle}"
     kernels = []
     for k, (route, source, replaces) in sources.items():
         kernels.append({
@@ -412,6 +465,23 @@ def main():
     return 0
 
 
+def wgmma_sass(moe_k):
+    """What the wgmma engine's library holds, from ``cuobjdump --dump-sass``:
+    its kernels hold warpgroup products (HGMMA), TMA loads and stores
+    (UTMALDG, UTMASTG) and mbarrier waits (SYNCS)."""
+    import collections
+    import re
+
+    from repro_torch.kernels._build import _nvcc, library_path
+
+    so = library_path("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)
+    sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "--dump-sass", str(so)],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    ops = collections.Counter(re.findall(r"\b(HGMMA|UTMALDG|UTMASTG|SYNCS)\b", sass))
+    log(f"  fused_moe_bwd_wgmma SASS: {dict(sorted(ops.items()))}")
+    assert all(ops[k] for k in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")), ops
+
+
 def ptxas_report(fa_k, moe_k=None):
     """Phase 1's record of the backward kernels: ptxas's registers and
     spills for each instance built (``-Xptxas -v``) of flash attention's
@@ -420,18 +490,22 @@ def ptxas_report(fa_k, moe_k=None):
     shape."""
     import re
 
+    import torch
+
     from repro_torch.kernels._build import build_log
 
     logs = [("flash_attention_bwd", fa_k.BWD_SOURCES)]
     if moe_k is not None:
-        logs.append(("fused_moe_bwd", moe_k.BWD_SOURCES))
+        logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
+                 ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)]
     for lib, sources in logs:
         kernel = None
         for line in build_log(lib, sources).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 # the Itanium mangling keeps each name and template argument readable
-                name = re.search(r"((?:fa_bwd_\w+?_kernel)|moe_bwd_gemm)(?:I(.*?)EEv)?", m.group(1))
+                name = re.search(r"((?:fa_bwd_\w+?_kernel)|moe_bwd_gemm|moe_bwd_wgmma)(?:I(.*?)EEv)?",
+                                 m.group(1))
                 if not name:
                     kernel = m.group(1)
                     continue
@@ -448,9 +522,14 @@ def ptxas_report(fa_k, moe_k=None):
             f"{kern.rows} rows a CTA, steps of {kern.step}, {kern.stages} stages, "
             f"{kern.warps} warps, {kern.smem} shared bytes")
     if moe_k is not None:
-        for kern in moe_k.bwd_launch_plan(16, 640, 6144, 10752):
-            log(f"  fused_moe backward plan, E16 C640 D6144 F10752 bf16: {kern.name} "
+        for kern in moe_k.bwd_launch_plan(16, 640, 6144, 10752, torch.float32):
+            log(f"  fused_moe backward plan (mma.sync), E16 C640 D6144 F10752 f32: {kern.name} "
                 f"{kern.layout} grid {kern.grid}, {kern.stages} stages, {kern.smem} shared bytes")
+        for kern in moe_k.wgmma_plan(16, 640, 6144, 10752):
+            log(f"  fused_moe backward plan (wgmma), E16 C640 D6144 F10752 bf16: {kern.name} "
+                f"{kern.layout} tiles an expert {kern.tiles}, {kern.ctas} persistent CTAs, "
+                f"{kern.stages} stages, staged output {kern.staged}, {kern.smem} shared bytes")
+        wgmma_sass(moe_k)
 
 
 # ======================================================================
@@ -475,11 +554,14 @@ def kernel_parity(torch, dev):
         a = (scale * rng.standard_normal(shape)).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
-    def check(label, kname, out, ref, dtype, main, per_row=False):
-        """Within the reference's tolerance; with ``per_row``, also each
-        output row within BF16_TOL of its own max|ref| plus one bf16 ulp of
-        it, which holds long rows (outputs far below 1) to their scale."""
+    def check(label, kname, fn, ref, dtype, main, per_row=False):
+        """``fn()`` within the reference's tolerance, and bit-equal when run
+        again over poisoned memory; with ``per_row``, also each output row
+        within BF16_TOL of its own max|ref| plus one bf16 ulp of it, which
+        holds long rows (outputs far below 1) to their scale."""
+        out = fn()
         torch.cuda.synchronize()
+        same_after_poison(torch, kname, label, fn, out)
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
         tol = F32_TOL if dtype == f32 else BF16_TOL
@@ -505,7 +587,7 @@ def kernel_parity(torch, dev):
         ((2, 7, 48), f32, f32, False), ((2, 7, 48), bf16, bf16, False),
     ]:
         x, w = randn(shape, xd), randn(shape[-1:], wd, 0.1)
-        check(f"rmsnorm {shape} x={xd} w={wd}", "rmsnorm", rmsnorm_cuda(x, w),
+        check(f"rmsnorm {shape} x={xd} w={wd}", "rmsnorm", lambda: rmsnorm_cuda(x, w),
               rmsnorm_ref(x, w), xd, main)
     for shape, dt, main, acts in [((8192, 3072), bf16, True, ("silu", "geglu")),
                                   ((8192, 3072), f32, False, ("silu", "geglu")),
@@ -513,7 +595,8 @@ def kernel_parity(torch, dev):
                                   ((4608, 9216), bf16, True, ("geglu",))]:  # gemma2-2b prefill
         for act in acts:
             g, u = randn(shape, dt, 3.0), randn(shape, dt)
-            check(f"silu_mul {shape} {act} {dt}", "silu_mul", silu_mul_cuda(g, u, act=act),
+            check(f"silu_mul {shape} {act} {dt}", "silu_mul",
+                  lambda: silu_mul_cuda(g, u, act=act),
                   silu_mul_ref(g, u, act=act), dt, main and (act == "silu" or shape[1] == 9216))
     fa_cases = [
         # (B, S, Skv, Hq, Hkv, D, causal, window, softcap, dtype, main path)
@@ -524,6 +607,7 @@ def kernel_parity(torch, dev):
         (2, 512, 512, 16, 8, 128, True, None, 50.0, bf16, False),
         (2, 512, 512, 16, 8, 128, False, None, None, bf16, False),
         (1, 32, 128, 2, 2, 16, False, None, None, f32, False),
+        (1, 64, 64, 2, 2, 16, True, None, None, f32, False),  # queue C's intermittent case
         (1, 64, 64, 2, 1, 16, True, 32, None, f32, False),
         (2, 128, 128, 4, 2, 32, True, None, None, f32, False),
         # rows q >= Skv + window - 1 see no key and average v over every key
@@ -546,20 +630,19 @@ def kernel_parity(torch, dev):
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in fa_cases:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
-        out = flash_attention_cuda(q, k, v, **kw)
         ref = attention_ref(q, k, v, **kw)
         check(f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
-              f"window={window} softcap={softcap} {dt}", "flash_attention", out, ref, dt, main,
-              per_row=main)
+              f"window={window} softcap={softcap} {dt}", "flash_attention",
+              lambda: flash_attention_cuda(q, k, v, **kw), ref, dt, main, per_row=main)
     # the block knobs' corners at the main shape: each launches the grid it names
     B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
     q, k, v = randn((B, S, Hq, D), bf16), randn((B, S, Hkv, D), bf16), randn((B, S, Hkv, D), bf16)
     ref = attention_ref(q, k, v, causal=True)
     for bq, bk in ((32, 32), (32, 512), (512, 32), (512, 512), (64, 256)):
-        out = flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk)
+        check(f"flash_attention main shape blocks ({bq}, {bk})", "flash_attention",
+              lambda: flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk), ref,
+              bf16, True, per_row=True)
         assert fa_k.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
-        check(f"flash_attention main shape blocks ({bq}, {bk}) grid {fa_k.last_grid}",
-              "flash_attention", out, ref, bf16, True, per_row=True)
     return max_err
 
 
@@ -595,6 +678,8 @@ def tuner_kernel_parity(torch, dev):
         tolerances, or within ``rel_tol`` of max|ref| where given."""
         out = moe_k.fused_moe_cuda(*args, **blocks)
         assert moe_k.last_grid == moe_ops.grid_shape(**kw, **blocks), (label, moe_k.last_grid)
+        same_after_poison(torch, "fused_moe", label,
+                          lambda: moe_k.fused_moe_cuda(*args, **blocks), out)
         ref = fused_moe_ref(*args)
         torch.cuda.synchronize()
         assert out.dtype == args[0].dtype and bool(torch.isfinite(out).all()), label
@@ -618,6 +703,8 @@ def tuner_kernel_parity(torch, dev):
         x, w, sx, sw = args
         out = smm_k.scaled_mm_cuda(x, w, sx, sw, **blocks)
         assert smm_k.last_grid == smm_ops.grid_shape(**kw, **blocks), (label, smm_k.last_grid)
+        same_after_poison(torch, "scaled_mm", label,
+                          lambda: smm_k.scaled_mm_cuda(x, w, sx, sw, **blocks), out)
         unit = smm_k.scaled_mm_cuda(x, w, torch.ones_like(sx), torch.ones_like(sw),
                                     out_dtype=f32, **blocks)
         acc = scaled_mm_acc_ref(x, w)
@@ -693,6 +780,8 @@ def tuner_kernel_parity(torch, dev):
         for c in survivors:
             out = kernel_entry(kernel)(*args, **c.blocks)
             assert mod.last_grid == ops.grid_shape(**kw, **c.blocks), (kernel, c.blocks)
+            same_after_poison(torch, kernel, f"{kernel} {kw} {c.blocks}",
+                              lambda: kernel_entry(kernel)(*args, **c.blocks), out)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, ref, rtol=F32_TOL, atol=F32_TOL,
                                        msg=lambda m: f"{kernel} {kw} {c.blocks}: {m}")
@@ -748,6 +837,8 @@ def moe_serving_parity(torch, dev, max_err):
         x = randn((E, rows, D))
         out = expert_ffn(x, *w)
         grid = moe_k.last_grid
+        same_after_poison(torch, "fused_moe", f"fused_moe dbrx {label}",
+                          lambda: expert_ffn(x, *w), out)
         ref = fused_moe_ref(x, *w)
         torch.cuda.synchronize()
         assert out.shape == ref.shape and bool(torch.isfinite(out).all()), label
@@ -789,18 +880,18 @@ def backward_parity(torch, dev):
     rng = np.random.default_rng(SEED + 7)
     f32, bf16 = torch.float32, torch.bfloat16
     max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0,
-               "fused_moe_bwd": 0.0}
+               "fused_moe_bwd": 0.0, "fused_moe_bwd_wgmma": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         a = (scale * rng.standard_normal(shape)).astype(np.float32)
         return torch.from_numpy(a).to(dev, dtype)
 
     def check(label, kname, fn, refs, main):
-        """Each gradient within the tolerance of its own type."""
+        """Each gradient within the tolerance of its own type, and bit-equal
+        when run again over poisoned memory."""
         got = fn()
-        again = fn()
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: not deterministic"
+        same_after_poison(torch, kname[0], label, fn, got)
         notes = []
         for name, a, r in zip(kname[1], got, refs):
             tol = F32_TOL if a.dtype == f32 else BF16_TOL
@@ -811,7 +902,7 @@ def backward_parity(torch, dev):
             notes.append(f"{name} {err:.3g} of {scale:.3g} (tol {tol})")
             if main:
                 max_err[kname[0]] = max(max_err[kname[0]], err)
-        log(f"  {label}: " + ", ".join(notes) + "; bit-equal twice")
+        log(f"  {label}: " + ", ".join(notes) + "; bit-equal over poisoned memory")
 
     rms = ("rmsnorm_bwd", ("dx", "dw"))
     for shape, xd, wd, main in [((8192, 1024), bf16, bf16, True), ((8192, 1024), bf16, f32, True),
@@ -835,6 +926,7 @@ def backward_parity(torch, dev):
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
         (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),  # stablelm-3b training
         (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
+        (2, 96, 96, 4, 2, 80, True, 64, None, f32, False),  # queue C's head dim 80 case
         (1, 64, 64, 2, 2, 16, True, None, None, f32, False),  # the reference's cases
         (2, 128, 128, 4, 2, 32, True, None, None, f32, False),
         (1, 64, 64, 2, 1, 16, True, 32, None, f32, False),
@@ -862,10 +954,16 @@ def backward_parity(torch, dev):
         del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
 
-    # fused MoE's backward: small (vectorised and element-by-element rows),
-    # dbrx-132b's width with 2 experts (640 rows: its training dispatch of
-    # 2048 tokens) and arctic-480b's expert width (40 rows)
-    moe = ("fused_moe_bwd", ("dx", "dw_gate", "dw_up", "dw_down"))
+    # fused MoE's backward on the engine bwd_engine picks: small
+    # (vectorised and element-by-element rows), ragged 16-byte rows (M, N
+    # and K no tile multiples), dbrx-132b's width with 2 experts (640 rows:
+    # its training dispatch of 2048 tokens) and arctic-480b's expert width
+    # (40 rows); bf16 with 16-byte rows runs the wgmma engine, f32 and the
+    # 36/44-wide rows the mma.sync engine. The main paths: dbrx's bf16
+    # training (wgmma) and its f32 gradients (phase 10 (a), mma.sync)
+    from repro_torch.kernels.fused_moe.kernel import bwd_engine
+
+    grads = ("dx", "dw_gate", "dw_up", "dw_down")
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)  # drawn on the card: 400 M values
 
     def drawn(shape, dtype, scale=1.0):
@@ -874,15 +972,20 @@ def backward_parity(torch, dev):
     for E, C, D, F, dt, main in [
         (2, 64, 48, 96, f32, False), (2, 64, 48, 96, bf16, False),
         (3, 20, 36, 44, f32, False), (3, 20, 36, 44, bf16, False),
-        (2, 640, 6144, 10752, bf16, True), (2, 640, 6144, 10752, f32, False),
+        (3, 200, 520, 776, bf16, False),
+        (2, 640, 6144, 10752, bf16, True), (2, 640, 6144, 10752, f32, True),
         (2, 40, 7168, 4864, bf16, False), (2, 40, 7168, 4864, f32, False),
     ]:
         x, dy = drawn((E, C, D), dt), drawn((E, C, D), dt)
         ws = [drawn(s, dt, 1.0 / np.sqrt(s[1])) for s in ((E, D, F), (E, D, F), (E, F, D))]
-        check(f"fused_moe bwd E{E} C{C} D{D} F{F} {dt}", moe,
+        engine = bwd_engine(dt, D, F)
+        kname = "fused_moe_bwd_wgmma" if engine == "wgmma" else "fused_moe_bwd"
+        check(f"fused_moe bwd E{E} C{C} D{D} F{F} {dt} ({engine})", (kname, grads),
               lambda: fused_moe_bwd_cuda(x, *ws, dy), fused_moe_bwd_ref(x, *ws, dy), main)
         del x, dy, ws
     torch.cuda.empty_cache()
+    log("  reruns over NaN-filled free memory, bit-equal, by kernel: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(poison_checks.items())))
     return max_err
 
 
@@ -1509,6 +1612,37 @@ def kernel_times(torch, dev, peaks):
     return rows
 
 
+def moe_launch_times(torch, moe_k, peaks, args):
+    """Each of the wgmma engine's four launches at these inputs: its device
+    ms under ``torch.profiler`` (the mean of 5 calls) beside the bound of
+    its products at the bf16 peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w_gate = args[0], args[1]
+    E, C, D = x.shape
+    F_ = w_gate.shape[2]
+    moe_k.fused_moe_bwd_wgmma_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            moe_k.fused_moe_bwd_wgmma_cuda(*args)
+        torch.cuda.synchronize()
+    # the launches' instances, in order: (A MN-major, B MN-major, epilogue)
+    instance = {"gate_up": "<false, true, 1>", "dh": "<false, false, 2>",
+                "dw": "<true, true, 4>", "dx": "<false, false, 3>"}
+    times = {e.key: e.device_time_total / 1e3 / e.count for e in prof.key_averages()
+             if "moe_bwd_wgmma" in e.key and e.device_time_total > 0}
+    total = 0.0
+    for launch in moe_k.wgmma_plan(E, C, D, F_):
+        ms = sum(v for k, v in times.items() if instance[launch.name] in k)
+        flops = sum(2 * E * M * N * K * seg for M, N, K, seg in launch.products)
+        b = 1e3 * flops / peaks["bfloat16"]
+        total += ms
+        log(f"  fused_moe_bwd_wgmma launch {launch.name} ({launch.layout}): {ms:.4f} ms, bound "
+            f"{b:.4f} (operations), {b / ms:.4f} of it")
+    log(f"  fused_moe_bwd_wgmma: the four launches {total:.4f} ms under the profiler")
+
+
 def backward_times(torch, dev, peaks):
     """Phase 5 for the backward kernels at qwen3-0.6b's training shapes
     (B4 S2048, bf16): device ms from a CUDA-graph replay, eager ms, the
@@ -1524,7 +1658,7 @@ def backward_times(torch, dev, peaks):
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
-    from repro_torch.kernels.fused_moe.kernel import fused_moe_bwd_cuda
+    from repro_torch.kernels.fused_moe import kernel as moe_k
     from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
@@ -1635,16 +1769,17 @@ def backward_times(torch, dev, peaks):
     torch.cuda.empty_cache()
 
     # fused MoE's backward at dbrx-132b's training shape (E16, 640 rows an
-    # expert from 2048 tokens, bf16: the kernel's row), then at the tuner's
-    # E16 C256 (f32, bounded as 3xTF32, the path its kernel runs: a logged
-    # row); the library is three bmm and silu * u, differentiated by autograd
+    # expert from 2048 tokens, bf16): the wgmma engine's row, then the
+    # mma.sync engine's on the same inputs (the two compared in one call;
+    # its plain and library times are the same call's), then the mma.sync
+    # engine at the tuner's E16 C256 in f32 (bounded as 3xTF32, the path it
+    # runs: a logged row); the library is three bmm and silu * u,
+    # differentiated by autograd
     def moe_lib(x_, g_, u_, d_):
         return torch.bmm(F.silu(torch.bmm(x_, g_)) * torch.bmm(x_, u_), d_)
 
-    for kname, E, C, dt, iters, into in (("fused_moe_bwd", 16, 640, bf16, 5, rows),
-                                         ("fused_moe_bwd (tuner E16 C256, f32)", 16, 256,
-                                          torch.float32, 3, logged)):
-        D, F_ = 6144, 10752
+    D, F_ = 6144, 10752
+    for E, C, dt in ((16, 640, bf16), (16, 256, torch.float32)):
         x, dy = randn(E, C, D, dtype=dt), randn(E, C, D, dtype=dt)
         ws = [randn(*s_, scale=s_[1] ** -0.5, dtype=dt) for s_ in ((E, D, F_), (E, D, F_),
                                                                   (E, F_, D))]
@@ -1652,12 +1787,22 @@ def backward_times(torch, dev, peaks):
         flops = 16 * E * C * D * F_
         nbytes = size * (3 * E * C * D + 6 * E * D * F_)  # x, dy, dx; the weights, their grads
         lib = [(*(t.detach().requires_grad_() for t in (x, *ws)), dy)]
-        row(kname, fused_moe_bwd_cuda, fused_moe_bwd_ref, (moe_lib, lib), [(x, *ws, dy)], iters,
-            *(bound(peaks, nbytes, 3 * flops, "tf32") if dt == torch.float32
-              else bound(peaks, nbytes, flops, "bfloat16")), into=into)
-        r = into[kname]
-        log(f"  {kname}: {flops / 1e12:.3f} TFLOP in its products, {nbytes / 1e9:.2f} GB; "
-            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound")
+        if dt == bf16:
+            row("fused_moe_bwd_wgmma", moe_k.fused_moe_bwd_wgmma_cuda, fused_moe_bwd_ref,
+                (moe_lib, lib), [(x, *ws, dy)], 5, *bound(peaks, nbytes, flops, "bfloat16"))
+            ms, eager["fused_moe_bwd"] = cuda_ms(torch, moe_k.fused_moe_bwd_mma_sync_cuda,
+                                                 [(x, *ws, dy)], 5)
+            rows["fused_moe_bwd"] = dict(rows["fused_moe_bwd_wgmma"], ms=ms)
+            moe_launch_times(torch, moe_k, peaks, (x, *ws, dy))
+            names = ("fused_moe_bwd_wgmma", "fused_moe_bwd")
+        else:
+            names = ("fused_moe_bwd (tuner E16 C256, f32)",)
+            row(names[0], moe_k.fused_moe_bwd_mma_sync_cuda, fused_moe_bwd_ref, (moe_lib, lib),
+                [(x, *ws, dy)], 3, *bound(peaks, nbytes, 3 * flops, "tf32"), into=logged)
+        for kname in names:
+            r = (rows | logged)[kname]
+            log(f"  {kname}: {flops / 1e12:.3f} TFLOP in its products, {nbytes / 1e9:.2f} GB; "
+                f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound")
         del x, dy, ws, lib
         torch.cuda.empty_cache()
     for kname, r in (rows | logged).items():
@@ -2100,6 +2245,7 @@ def kernel_counts(zero=False):
                       ("fused_moe", moe_k)):
         counters[name] = (mod, "launches")
         counters[name + "_bwd"] = (mod, "bwd_launches")
+    counters["fused_moe_bwd_wgmma"] = (moe_k, "bwd_wgmma_launches")
     if zero:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -2111,7 +2257,12 @@ def training_launches(cfg):
     under layer remat each layer's forward runs twice (in the forward pass
     and again in the backward pass), the final norm once; each backward
     once. An MoE layer's FFN is one fused_moe call (and a silu_mul one for
-    a dense residual FFN)."""
+    a dense residual FFN), whose backward runs on the engine
+    ``bwd_engine`` picks for the compute type and widths."""
+    import torch
+
+    from repro_torch.kernels.fused_moe.kernel import bwd_engine
+
     n = cfg.n_layers
     twice = 2 if cfg.remat == "layer" else 1
     # rmsnorm's launches a layer (layernorm is plain PyTorch), and the final norm's
@@ -2119,15 +2270,19 @@ def training_launches(cfg):
         2 + 2 * cfg.qk_norm + 2 * cfg.post_norms, 1)
     moe = cfg.family == "moe"
     dense = n if not moe or cfg.dense_residual else 0
+    wgmma = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model,
+                               cfg.moe_hidden) == "wgmma"
     return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
             "silu_mul": twice * dense, "silu_mul_bwd": dense,
             "flash_attention": twice * n, "flash_attention_bwd": n,
-            "fused_moe": twice * n * moe, "fused_moe_bwd": n * moe}
+            "fused_moe": twice * n * moe, "fused_moe_bwd": n * moe * (not wgmma),
+            "fused_moe_bwd_wgmma": n * moe * wgmma}
 
 
 def training(torch, dev):
-    """Phase 10 (the module docstring's (a), (b), (c)). Returns the launches
-    of the full-depth training run (b), and its step: ``B``, ``S``, the
+    """Phase 10 (the module docstring's (a)-(e)). Returns the launches of
+    the gradient runs (a), the full-depth training run (b) and the runs of
+    (d) and (e), and (b)'s step: ``B``, ``S``, the
     median unprofiled step wall and the profiled step's device-busy ms, and
     the bytes of the train state and batch it held on the card (phase 13
     bounds it)."""
@@ -2158,7 +2313,9 @@ def training(torch, dev):
     # qwen3-0.6b, stablelm-3b (the backward kernel's head dim 80), gemma2-2b
     # (head dim 256, its windows and softcaps) and one full-width dbrx-132b
     # layer (fused_moe's backward; gradients only: the optimizer state would
-    # not fit beside a full-width f32 layer)
+    # not fit beside a full-width f32 layer); their launches join the ones
+    # returned (f32 training: fused_moe's backward on its mma.sync engine)
+    grad_runs = {}
     for arch, depth, B_, S_ in (("qwen3-0.6b", 2, 2, 256), ("stablelm-3b", 2, 2, 256),
                                 ("gemma2-2b", 2, 1, 256), ("dbrx-132b", 1, 1, 128)):
         t0 = time.perf_counter()
@@ -2178,6 +2335,8 @@ def training(torch, dev):
         torch.cuda.synchronize()
         moved = kernel_counts()
         assert moved == training_launches(cfg), f"(a) {arch} launches {moved}"
+        for k, v in moved.items():
+            grad_runs[k] = grad_runs.get(k, 0) + v
         t1 = time.perf_counter()
         host = T.tree_map(lambda a: a.detach().cpu(), params)
         del params
@@ -2379,18 +2538,20 @@ def training(torch, dev):
         f"(e) launches {layer_moved}")
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
     del grads
-    r = profiled(torch, fwd_bwd, 1, named=("moe_bwd_gemm", "moe_gate_up", "moe_down"))
-    share = r["named_ms"]["moe_bwd_gemm"] / r["busy_ms"]
+    assert layer_moved["fused_moe_bwd_wgmma"] == 3 and layer_moved["fused_moe_bwd"] == 0, (
+        f"(e) fused_moe's backward did not run on the wgmma engine: {layer_moved}")
+    r = profiled(torch, fwd_bwd, 1, named=("moe_bwd_", "moe_gate_up", "moe_down"))
+    share = r["named_ms"]["moe_bwd_"] / r["busy_ms"]
     log(f"  (e) dbrx-132b, 1 layer at full width, bf16 compute, B1 S2048: forward and backward "
         f"median {float(np.median(walls)):.1f} ms, {2048 / float(np.median(walls)) * 1e3:.0f} "
         f"tokens/s; under torch.profiler: wall {r['wall_ms']:.3f} ms, device busy "
         f"{r['busy_ms']:.3f} ms (idle {100 * r['idle_share']:.1f}%), {r['launches']:.0f} launches; "
-        f"fused_moe's backward kernels {r['named_ms']['moe_bwd_gemm']:.3f} ms "
+        f"fused_moe's backward kernels (wgmma) {r['named_ms']['moe_bwd_']:.3f} ms "
         f"({100 * share:.1f}% of device busy), its forward's "
         f"{r['named_ms']['moe_gate_up'] + r['named_ms']['moe_down']:.3f} ms")
     for name, k, ms in r["top"]:
         log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
-    for k, v in layer_moved.items():
+    for k, v in (*layer_moved.items(), *grad_runs.items()):
         moved[k] += v
     del api, tree, leaves
     gc.collect()

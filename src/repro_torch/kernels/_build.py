@@ -3,8 +3,10 @@
 ``load_cuda_library(name, sources)`` compiles ``csrc/*.cu`` with ``nvcc``
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds) and caches it under ``src/repro_torch/_build/``,
-keyed by a hash of the sources and flags: an edited source rebuilds, an
-unchanged one loads the library already built. ptxas reports each kernel's
+keyed by a hash of the sources, the shared headers and the flags: an
+edited source or header rebuilds, an unchanged one loads the library
+already built. Every build sees ``kernels/_hopper/`` on its include path
+(``hopper.cuh``: TMA, mbarriers, wgmma). ptxas reports each kernel's
 registers, spills and shared bytes (``-Xptxas -v``); ``build_log(name,
 sources)`` returns that report, kept beside the library.
 ``import_triton()`` points Triton's own kernel cache into the same
@@ -25,9 +27,12 @@ import threading
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+#: the directory of the headers every library may include
+HEADER_DIR = Path(__file__).resolve().parent / "_hopper"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    "-I", str(HEADER_DIR),
 )
 
 _lock = threading.Lock()  # guards _name_locks
@@ -45,9 +50,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str, sources: list[Path]) -> Path:
-    """Where the library built from ``sources`` lives (content-addressed)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(sources):
+    """Where the library built from ``sources`` lives (content-addressed:
+    the flags less the checkout's own path, the sources and the headers)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS[:-1]).encode())
+    for src in [*sorted(sources), *sorted(HEADER_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -12,6 +12,13 @@
 // reference differentiates its plain products): the port trains through its
 // forward kernel (fused_moe.cu), so this is that kernel's backward.
 //
+// This engine takes the f32 calls and the bf16 calls whose rows are not
+// 16-byte multiples; bf16 with 16-byte rows (dbrx-132b's and arctic-480b's
+// training) runs on fused_moe_bwd_wgmma.cu, the same four launches on
+// wgmma fed by TMA (kernel.bwd_engine chooses). f32 stays here: tf32 wgmma
+// takes K-major operands only, so the NN and TN launches would need
+// transposed copies, and 3xTF32 would run each product three times.
+//
 // What bounds it on an H100 SXM. At dbrx-132b's training shape (E=16, 640
 // rows an expert from 2048 tokens, D=6144, F=10752) the products are eight
 // of 2 x 640 x 6144 x 10752 operations an expert (g, u, dh, the three

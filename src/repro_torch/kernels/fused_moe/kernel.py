@@ -9,10 +9,23 @@ ctypes on PyTorch's current stream. A failed build or launch raises.
 ``launch_plan`` computes both launches' geometry in Python, so the CPU
 tests reach it.
 
-``fused_moe_bwd_cuda`` is the backward (``csrc/fused_moe_bwd.cu``, its own
-library, so that its build runs beside the forward's): four launches of
-one grouped-GEMM kernel, whose geometry ``bwd_launch_plan`` computes in
-Python as ``launch_plan`` does the forward's.
+``fused_moe_bwd_cuda`` is the backward: four launches (g and u; dh with
+the silu-mul backward in its epilogue; the three weight gradients; dx) of
+one of two grouped-GEMM engines, each its own library so that the builds
+run side by side:
+
+- ``csrc/fused_moe_bwd_wgmma.cu`` (bf16 whose rows and bases are 16-byte
+  multiples: dbrx-132b's and arctic-480b's training): ``wgmma`` fed by TMA
+  through a ring of mbarriers, one persistent CTA an SM walking the
+  launch's live 128 x 256 tiles; ``wgmma_plan`` and ``wgmma_walk`` give
+  its geometry and each CTA's tiles;
+- ``csrc/fused_moe_bwd.cu`` (f32 as 3xTF32, and bf16 rows that TMA cannot
+  address): ``mma.sync`` fed by ``cp.async``, a CTA a 128 x 128 tile;
+  ``bwd_launch_plan`` gives its geometry.
+
+``bwd_engine`` chooses between them from the type and the strides alone;
+each engine counts its own calls (``bwd_wgmma_launches``,
+``bwd_launches``), so a run shows which one ran.
 """
 from __future__ import annotations
 
@@ -27,9 +40,12 @@ from repro_torch.kernels._build import load_cuda_library
 #: kernel launches since the count was last set to 0 (one a wrapper call,
 #: which launches the gate/up and the down kernels)
 launches = 0
-#: backward calls since the count was last set to 0 (each launches the
-#: four kernels of ``bwd_launch_plan``)
+#: backward calls on the ``mma.sync`` engine since the count was last set
+#: to 0 (each launches the four kernels of ``bwd_launch_plan``)
 bwd_launches = 0
+#: backward calls on the ``wgmma`` engine (each launches the four kernels
+#: of ``wgmma_plan``)
+bwd_wgmma_launches = 0
 #: ``(E, C/block_m, F/block_f)`` of the last launch: the gate/up launch's
 #: grid; the down launch covers ``(E, C/block_m, ceil(D/128))`` output tiles
 #: and walks the ``F/block_f`` steps in order
@@ -37,6 +53,7 @@ last_grid: tuple | None = None
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd.cu"]
+WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd_wgmma.cu"]
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 D_TILE = 128  # output columns of a down-launch CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -111,6 +128,86 @@ def bwd_launch_plan(E: int, C: int, D: int, F: int,
     return tuple(out)
 
 
+#: the wgmma engine's output tile (rows x columns), k depth of a stage and
+#: stages (``csrc/fused_moe_bwd_wgmma.cu``); the dw launch stages its output
+#: in shared memory for TMA stores, 128 columns at a time (32 KB), and dh and
+#: dx write bf16 rows through 2 KB of shared memory a consumer warp
+WGMMA_TILE = (128, 256)
+WGMMA_K, WGMMA_STAGES = 64, 4
+WGMMA_STAGED = 128 * 128 * 2
+WGMMA_ROW_SCRATCH = 8 * 2048
+#: the wgmma library returns this plus a CUresult where a tensor map could
+#: not be encoded (its ``kEncodeError``)
+_ENCODE_ERROR = 100000
+
+
+def bwd_engine(dtype: torch.dtype, D: int, F: int, aligned: bool = True) -> str:
+    """Which engine runs the backward: ``"wgmma"`` for bf16 whose rows (D
+    and F values) and bases (``aligned``) are 16-byte multiples, as TMA
+    addresses them; ``"mma_sync"`` otherwise (f32 takes 3xTF32 there)."""
+    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 and aligned \
+        else "mma_sync"
+
+
+class WgmmaLaunch(NamedTuple):
+    name: str  # "gate_up", "dh", "dw" or "dx"
+    products: tuple  # each product's (M, N, K, K segments), out = A B
+    layout: str  # A then B: "K" stored K-major (K contiguous), "M" MN-major
+    tiles: tuple  # each product's (row tiles, column tiles) an expert
+    tiles_e: int  # tiles an expert: the walk covers E * tiles_e
+    ctas: int  # the grid: min(SMs, live tiles), each CTA persistent
+    stages: int  # shared-memory stages of the ring the K tiles stream through
+    staged: bool  # the output goes out through a shared tile and TMA stores
+    scratch: int  # shared bytes through which the consumer warps write bf16 rows
+    smem: int  # dynamic shared bytes a CTA
+
+
+def wgmma_plan(E: int, C: int, D: int, F: int, sms: int = 132) -> tuple[WgmmaLaunch, ...]:
+    """The wgmma engine's four launches in order, as
+    ``csrc/fused_moe_bwd_wgmma.cu`` launches them: the same products as
+    ``bwd_launch_plan``, each operand staged as it lies (gate_up: x K-major,
+    Wg and Wu MN-major; dh: dy and Wd K-major; dw: h, x, dy, dg, du
+    MN-major; dx: dg, du, Wg, Wu K-major). A CTA walks the tiles ``t =
+    cta, cta + ctas, ...`` of the flat walk ``wgmma_walk`` decodes."""
+    if min(E, C, D, F, sms) <= 0:
+        raise ValueError(f"fused_moe backward: shapes E={E} C={C} D={D} F={F}, {sms} SMs")
+    bm, bn = WGMMA_TILE
+    stage = (bm + bn) * WGMMA_K * 2
+    out = []
+    for name, products, layout in (
+        ("gate_up", ((C, F, D, 1), (C, F, D, 1)), "KM"),
+        ("dh", ((C, F, D, 1),), "KK"),
+        ("dw", ((F, D, C, 1), (D, F, C, 1), (D, F, C, 1)), "MM"),
+        ("dx", ((C, D, F, 2),), "KK"),
+    ):
+        tiles = tuple((-(-m // bm), -(-n // bn)) for m, n, *_ in products)
+        tiles_e = sum(mt * nt for mt, nt in tiles)
+        staged = name == "dw"
+        scratch = WGMMA_ROW_SCRATCH if name in ("dh", "dx") else 0
+        # alignment slack, the ring, the staged half tiles or row scratch, the ring's barriers
+        smem = (1024 + WGMMA_STAGES * stage + staged * WGMMA_STAGED + scratch
+                + 2 * WGMMA_STAGES * 8)
+        out.append(WgmmaLaunch(name, products, layout, tiles, tiles_e, min(sms, E * tiles_e),
+                               WGMMA_STAGES, staged, scratch, smem))
+    return tuple(out)
+
+
+def wgmma_walk(launch: WgmmaLaunch, E: int, cta: int):
+    """The tiles CTA ``cta`` of ``launch`` computes, in order, as
+    ``(expert, product, first row, first column)``: tile t of the flat walk
+    is expert ``t // tiles_e``, then product by product, column tiles
+    outer and row tiles fastest (``tile_of`` in the source)."""
+    bm, bn = WGMMA_TILE
+    for t in range(cta, E * launch.tiles_e, launch.ctas):
+        e, r = divmod(t, launch.tiles_e)
+        p = 0
+        while p + 1 < len(launch.tiles) and r >= launch.tiles[p][0] * launch.tiles[p][1]:
+            r -= launch.tiles[p][0] * launch.tiles[p][1]
+            p += 1
+        mt = launch.tiles[p][0]
+        yield e, p, (r % mt) * bm, (r // mt) * bn
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("fused_moe", SOURCES)
@@ -129,6 +226,17 @@ def bwd_library() -> ctypes.CDLL:
     lib.fused_moe_backward.restype = ctypes.c_int
     lib.fused_moe_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fused_moe_bwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def wgmma_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the wgmma engine."""
+    lib = load_cuda_library("fused_moe_bwd_wgmma", WGMMA_SOURCES)
+    lib.fused_moe_backward_wgmma.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.fused_moe_backward_wgmma.restype = ctypes.c_int
+    lib.fused_moe_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_moe_bwd_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -210,33 +318,80 @@ def fused_moe_bwd_cuda(
     dy: torch.Tensor,  # (E, C, D): the output's gradient
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dw_gate, dw_up, dw_down)`` of ``fused_moe_cuda`` for the
-    output gradient ``dy``, in x's type: four launches of
-    ``bwd_launch_plan``, with f32 g and u and typed h, dg, du workspaces."""
-    global bwd_launches
+    output gradient ``dy``, in x's type, on the engine ``bwd_engine`` picks."""
     ts = (x, w_gate, w_up, w_down, dy)
     E, C, D, F = _check("fused_moe_bwd_cuda", ts)
-    grads = tuple(torch.empty_like(t) for t in (x, w_gate, w_up, w_down))
+    if bwd_engine(x.dtype, D, F, all(t.data_ptr() % 16 == 0 for t in ts)) == "wgmma":
+        return fused_moe_bwd_wgmma_cuda(*ts)
+    return fused_moe_bwd_mma_sync_cuda(*ts)
+
+
+def _workspaces(name, ts):
+    """The shapes, the gradients and the f32 g, u and typed h, dg, du
+    workspaces of a backward call."""
+    x = ts[0]
+    E, C, D, F = _check(name, ts)
+    grads = tuple(torch.empty_like(t) for t in ts[:4])
+    f32 = dict(dtype=torch.float32, device=x.device)
+    work = (torch.empty((E, C, F), **f32), torch.empty((E, C, F), **f32),
+            *(torch.empty((E, C, F), dtype=x.dtype, device=x.device) for _ in range(3)))
+    return (E, C, D, F), grads, work
+
+
+def fused_moe_bwd_wgmma_cuda(x, w_gate, w_up, w_down, dy):
+    """The backward on the wgmma engine (``csrc/fused_moe_bwd_wgmma.cu``):
+    bf16 whose rows and bases are 16-byte multiples; raises otherwise."""
+    global bwd_wgmma_launches
+    ts = (x, w_gate, w_up, w_down, dy)
+    (E, C, D, F), grads, work = _workspaces("fused_moe_bwd_wgmma_cuda", ts)
+    if bwd_engine(x.dtype, D, F, all(t.data_ptr() % 16 == 0 for t in (*ts, *grads, *work))) \
+            != "wgmma":
+        raise ValueError(f"fused_moe_bwd_wgmma_cuda: {x.dtype} with D={D}, F={F} or a base "
+                         f"that is not a 16-byte multiple")
+    if x.numel() == 0 or F == 0:
+        return tuple(g.zero_() for g in grads)
+    lib = wgmma_library()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for i, launch in enumerate(wgmma_plan(E, C, D, F, sms)):
+        if lib.fused_moe_bwd_wgmma_smem_bytes(i) != launch.smem or launch.smem > SMEM_LIMIT:
+            raise RuntimeError(f"fused_moe_bwd_wgmma_cuda: {launch.name} takes "
+                               f"{lib.fused_moe_bwd_wgmma_smem_bytes(i)} shared bytes, the "
+                               f"plan {launch.smem}, the limit {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_moe_backward_wgmma(*(t.data_ptr() for t in (*ts, *work, *grads)),
+                                           E, C, D, F, sms, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"fused_moe_bwd_wgmma_cuda: a tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"fused_moe_bwd_wgmma_cuda: launch failed with cudaError {err}")
+    bwd_wgmma_launches += 1
+    return grads
+
+
+def fused_moe_bwd_mma_sync_cuda(x, w_gate, w_up, w_down, dy):
+    """The backward on the mma.sync engine (``csrc/fused_moe_bwd.cu``):
+    f32 or bf16, rows of any width."""
+    global bwd_launches
+    ts = (x, w_gate, w_up, w_down, dy)
+    (E, C, D, F), grads, work = _workspaces("fused_moe_bwd_mma_sync_cuda", ts)
     if x.numel() == 0 or F == 0:
         return tuple(g.zero_() for g in grads)
     lib = bwd_library()
     code = _DTYPE_CODE[x.dtype]
     for i, launch in enumerate(bwd_launch_plan(E, C, D, F, x.dtype)):
         if lib.fused_moe_bwd_smem_bytes(code, i) != launch.smem:
-            raise RuntimeError(f"fused_moe_bwd_cuda: {launch.name} takes "
+            raise RuntimeError(f"fused_moe_bwd_mma_sync_cuda: {launch.name} takes "
                                f"{lib.fused_moe_bwd_smem_bytes(code, i)} shared bytes, the "
                                f"plan {launch.smem}")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    gw, uw = torch.empty((E, C, F), **f32), torch.empty((E, C, F), **f32)
-    h, dg, du = (torch.empty((E, C, F), dtype=x.dtype, device=x.device) for _ in range(3))
-    vec = all(t.data_ptr() % 16 == 0 for t in (*ts, *grads, gw, uw, h, dg, du)) and all(
+    vec = all(t.data_ptr() % 16 == 0 for t in (*ts, *grads, *work)) and all(
         n * x.element_size() % 16 == 0 for n in (D, F))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.fused_moe_backward(
-            *(t.data_ptr() for t in (*ts, gw, uw, h, dg, du, *grads)),
-            code, E, C, D, F, int(vec), stream,
-        )
+        err = lib.fused_moe_backward(*(t.data_ptr() for t in (*ts, *work, *grads)),
+                                     code, E, C, D, F, int(vec), stream)
     if err != 0:
-        raise RuntimeError(f"fused_moe_bwd_cuda: launch failed with cudaError {err}")
+        raise RuntimeError(f"fused_moe_bwd_mma_sync_cuda: launch failed with cudaError {err}")
     bwd_launches += 1
     return grads

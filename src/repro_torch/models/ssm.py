@@ -72,13 +72,33 @@ def _split_proj(cfg: ArchConfig, zxbcdt):
     return z, xBC, dt
 
 
-def _conv_placements(x, cdim: int):
+def _split_replicated(x, dim: int, placements) -> tuple:
+    """``placements`` (of ``x`` on its mesh) with each mesh dim of more than
+    one rank that replicates ``x`` turned into ``Shard(dim)``, as long as
+    ``x``'s length along ``dim`` divides over the ranks that shard it: work
+    that every rank of that mesh dim would repeat is split over them, as
+    XLA splits the reference's step."""
+    mesh, size = x.device_mesh, x.shape[dim]
+    ways = math.prod(mesh.size(m) for m, p in enumerate(placements) if p == Shard(dim))
+    out = []
+    for m, p in enumerate(placements):
+        if p == Replicate() and mesh.size(m) > 1 and size % (ways * mesh.size(m)) == 0:
+            p, ways = Shard(dim), ways * mesh.size(m)
+        out.append(p)
+    return tuple(out)
+
+
+def _conv_placements(x, cdim: int, split: bool = False):
     """On a mesh, the placements a depthwise conv runs its shards at: x's
     batch (dim 0) and channel (``cdim``) shards, never its sequence or
-    window dim; the weight ``(C, W)`` and the bias ``(C,)`` shard their
-    channels with x's, and where x's batch is sharded their gradients are
-    pending sums. Exact: each channel is its own conv."""
+    window dim (with ``split``, channels also over the mesh dims that
+    replicate x: ``_split_replicated``); the weight ``(C, W)`` and the
+    bias ``(C,)`` shard their channels with x's, and where x's batch is
+    sharded their gradients are pending sums. Exact: each channel is its
+    own conv."""
     xp = kernel_placements(x, (0, cdim))
+    if split:
+        xp = _split_replicated(x, cdim, xp)
     wp = tuple(Shard(0) if p == Shard(cdim) else Replicate() for p in xp)
     wg = tuple(Partial() if p == Shard(0) else w for p, w in zip(xp, wp))
     return xp, wp, wg
@@ -111,9 +131,10 @@ def _conv_tail(raw, W: int):
 def _decode_conv(win, w, b):
     """One decode step's conv: silu(sum_w win[:, :, w] w[:, W-1-w] + b) in
     f32, win (B, C, W) with the newest input last. On a mesh, on each rank's
-    batch and channel shards."""
+    batch and channel shards, the channels split over the mesh dims that
+    replicate win."""
     if is_dtensor(win, w, b):
-        xp, wp, _ = _conv_placements(win, 1)
+        xp, wp, _ = _conv_placements(win, 1, split=True)
         return on_shards(_decode_conv, (win, w, b), (xp, wp, wp), xp)
     conv_out = torch.einsum("bcw,cw->bc", win.float(), w.float().flip(-1))
     return F.silu(conv_out + b.float())
@@ -128,14 +149,35 @@ def _cumsum(x, dim: int):
     return torch.cumsum(x, dim=dim)
 
 
-def _state_out(ssm, Ch):
-    """``einsum("bhpn,bhn->bhp")``, a decode step's output from its state. On
-    a mesh, on each rank's batch and head shards: the einsum's batched
-    product flattens (b, h), which DTensor refuses for a sharded h."""
-    if is_dtensor(ssm, Ch):
-        pl = kernel_placements(ssm, (0, 1))
-        return on_shards(functools.partial(torch.einsum, "bhpn,bhn->bhp"), (ssm, Ch), (pl, pl), pl)
-    return torch.einsum("bhpn,bhn->bhp", ssm, Ch)
+def _head_placements(x, hdim: int, B, gdim: int):
+    """On a mesh, the placements of a scan over heads: ``x``'s batch (dim 0)
+    and head (``hdim``) shards, the heads also split over the mesh dims that
+    replicate x (``_split_replicated``). Returns them with those of a
+    per-head vector ``(h,)``, of ``B``/``C`` (batch, and groups where the
+    head shards divide them, else replicated), and the gradients of the
+    per-head vector and of ``B``/``C``: pending sums over the mesh dims where
+    a rank sees part of the batch or only its heads of a replicated group."""
+    run = _split_replicated(x, hdim, kernel_placements(x, (0, hdim)))
+    mesh, g = x.device_mesh, B.shape[gdim]
+    ways = math.prod(mesh.size(m) for m, p in enumerate(run) if p == Shard(hdim))
+    vec = tuple(Shard(0) if p == Shard(hdim) else Replicate() for p in run)
+    grp = tuple(p if p == Shard(0) else Shard(gdim) if p == Shard(hdim) and g % ways == 0
+                else Replicate() for p in run)
+    vec_grad = tuple(Partial() if p == Shard(0) else v for p, v in zip(run, vec))
+    grp_grad = tuple(Partial() if p == Shard(hdim) and q == Replicate() else q
+                     for p, q in zip(run, grp))
+    return run, vec, grp, vec_grad, grp_grad
+
+
+def _expand_groups(B, rep: int, dim: int, gidx):
+    """B's groups repeated for their heads along ``dim``: without ``gidx``
+    each group ``rep`` times; with it (on a rank's head shard, the global
+    group of each of its heads, ``head // (h / g)``), the groups those heads
+    read, out of the ones B holds: all g, or the rank's shard of them, which
+    starts at a multiple of its own length."""
+    if gidx is None:
+        return B.repeat_interleave(rep, dim=dim)
+    return B.index_select(dim, gidx % B.shape[dim])
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int):
@@ -143,7 +185,26 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
 
     x: (b, l, h, p); dt: (b, l, h) positive; A: (h,) negative; B, C:
     (b, l, g, n). Returns y (b, l, h, p) in f32 and the final state
-    (b, h, p, n)."""
+    (b, h, p, n). On a mesh, on each rank's batch and head shards
+    (``_head_placements``): y on x's, the state on the same batch and head
+    shards, as the decode cache holds it."""
+    if is_dtensor(x, dt, A, B, C):
+        h, g = x.shape[2], B.shape[2]
+        run, vec, grp, vec_grad, grp_grad = _head_placements(x, 2, B, 2)
+        rows = tuple(p if p == Shard(0) else Shard(1) if p == Shard(2) else Replicate()
+                     for p in run)  # (b, l, h) and the state (b, h, p, n)
+        dtp = tuple(p if p == Shard(0) else Shard(2) if p == Shard(2) else Replicate()
+                    for p in run)
+        gidx = torch.arange(g, device=x.device).repeat_interleave(h // g)  # each head's group
+        return on_shards(functools.partial(_ssd, chunk=chunk), (x, dt, A, B, C, gidx),
+                         (run, dtp, vec, grp, grp, vec), [run, rows],
+                         (run, dtp, vec_grad, grp_grad, grp_grad, vec))
+    return _ssd(x, dt, A, B, C, chunk=chunk)
+
+
+def _ssd(x, dt, A, B, C, gidx=None, *, chunk: int):
+    """``ssd_chunked`` on whole arrays, or on one rank's shards with the
+    global group of each of its heads (``gidx``)."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     l_orig = l
@@ -162,8 +223,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     f32 = torch.float32
     xdt = (x.float() * dt[..., None].float()).reshape(b, nc, Q, h, p)
     dA = (dt.float() * A.float()[None, None, :]).reshape(b, nc, Q, h)
-    Bh = B.float().reshape(b, nc, Q, g, n).repeat_interleave(rep, dim=3)  # (b, nc, Q, h, n)
-    Ch = C.float().reshape(b, nc, Q, g, n).repeat_interleave(rep, dim=3)
+    Bh = _expand_groups(B.float().reshape(b, nc, Q, g, n), rep, 3, gidx)  # (b, nc, Q, h, n)
+    Ch = _expand_groups(C.float().reshape(b, nc, Q, g, n), rep, 3, gidx)
 
     cum = _cumsum(dA, 2)  # (b, nc, Q, h)
 
@@ -193,6 +254,29 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, prev_states, decay_from_start)
     y = (y_diag + y_off).reshape(b, l, h, p)
     return y[:, :l_orig], s
+
+
+def _decode_state(xs, dt, A, Bm, Cm, ssm, gidx=None):
+    """One decode step of the recurrence: xs (B, H, P), dt (B, H), A (H,),
+    Bm and Cm (B, G, N), the state ssm (B, H, P, N) in f32. Returns the
+    output read from the new state (B, H, P) and the new state. On a mesh,
+    on each rank's batch and head shards (``_head_placements``, the state's
+    placements first: the decode cache holds it on head shards)."""
+    if is_dtensor(xs, dt, A, Bm, Cm, ssm):
+        H, G = ssm.shape[1], Bm.shape[1]
+        run, vec, grp, vec_grad, grp_grad = _head_placements(ssm, 1, Bm, 1)
+        rows = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in run)  # (B, H, ...)
+        gidx = torch.arange(G, device=ssm.device).repeat_interleave(H // G)
+        return on_shards(_decode_state, (xs, dt, A, Bm, Cm, ssm, gidx),
+                         (rows, rows, vec, grp, grp, run, vec), [rows, run],
+                         (rows, rows, vec_grad, grp_grad, grp_grad, run, vec))
+    rep = ssm.shape[1] // Bm.shape[1]
+    Bh = _expand_groups(Bm, rep, 1, gidx)  # (B, H, N)
+    Ch = _expand_groups(Cm, rep, 1, gidx)
+    dA = torch.exp(dt * A[None, :])  # (B, H)
+    upd = (dt[:, :, None] * xs.float())[:, :, :, None] * Bh.float()[:, :, None, :]
+    ssm = ssm * dA[:, :, None, None] + upd  # (B, H, P, N)
+    return torch.einsum("bhpn,bhn->bhp", ssm, Ch.float()), ssm
 
 
 def ssm_layer(p, x, cfg: ArchConfig):
@@ -231,15 +315,9 @@ def ssm_decode(p, x, cfg: ArchConfig, state: SSMState):
     xs = xBC_a[..., :di].reshape(Bsz, H, P)
     Bm = xBC_a[..., di:di + G * N].reshape(Bsz, G, N)
     Cm = xBC_a[..., di + G * N:].reshape(Bsz, G, N)
-    rep = H // G
-    Bh = Bm.repeat_interleave(rep, dim=1)  # (B, H, N)
-    Ch = Cm.repeat_interleave(rep, dim=1)
     dt = _softplus(dt.float() + p["dt_bias"][None, :])  # (B, H)
     A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A[None, :])  # (B, H)
-    upd = (dt[:, :, None] * xs.float())[:, :, :, None] * Bh.float()[:, :, None, :]
-    ssm = state.ssm * dA[:, :, None, None] + upd  # (B, H, P, N)
-    y = _state_out(ssm, Ch.float())
+    y, ssm = _decode_state(xs, dt, A, Bm, Cm, state.ssm)
     y = y + p["D"][None, :, None] * xs.float()
     y = y.reshape(Bsz, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["gate_norm"])

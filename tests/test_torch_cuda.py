@@ -643,9 +643,11 @@ def test_flash_attention_trains_at_head_dim_80(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_moe_trains_on_the_card(dev, dtype):
-    """``fused_moe`` under grad runs ``fused_moe_bwd.cu``'s kernels: the
-    gradients of x and the three weights equal ``fused_moe_bwd_ref``'s, on
-    a ragged shape too, and a rerun gives the same bits."""
+    """``fused_moe`` under grad runs the backward engine ``bwd_engine``
+    picks (bf16 with 16-byte rows: the wgmma engine; f32, and the ragged
+    36/44-wide bf16 rows: the mma.sync engine): the gradients of x and the
+    three weights equal ``fused_moe_bwd_ref``'s, on a ragged shape too, and
+    a rerun gives the same bits."""
     from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
 
     rng = np.random.default_rng(0)
@@ -654,14 +656,68 @@ def test_fused_moe_trains_on_the_card(dev, dtype):
         ws = [_randn(rng, s, dtype, dev, 0.2).requires_grad_()
               for s in ((E, D, F), (E, D, F), (E, F, D))]
         dy = _randn(rng, (E, C, D), dtype, dev)
-        n0, b0 = moe_kernel.launches, moe_kernel.bwd_launches
+        wgmma = moe_kernel.bwd_engine(dtype, D, F) == "wgmma"
+        assert wgmma == (dtype == torch.bfloat16 and D == 48)
+        counts = lambda: (moe_kernel.launches, moe_kernel.bwd_launches,  # noqa: E731
+                          moe_kernel.bwd_wgmma_launches)
+        n0, b0, w0 = counts()
         got = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
         again = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
-        assert (moe_kernel.launches, moe_kernel.bwd_launches) == (n0 + 2, b0 + 2)
+        assert counts() == (n0 + 2, b0 + 2 * (not wgmma), w0 + 2 * wgmma)
         want = fused_moe_bwd_ref(x.detach(), *(w.detach() for w in ws), dy)
         for name, a, b, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, want):
             assert a.dtype == dtype and torch.equal(a, b)
             _rel_close(a, r, dtype, name)
+
+
+#: bf16 shapes whose rows are 16-byte multiples: ragged M, N and K (none a
+#: tile multiple), one expert, and arctic-480b's expert width (40 rows)
+WGMMA_SHAPES = [(2, 64, 48, 96), (3, 200, 520, 776), (1, 1, 8, 8), (2, 40, 7168, 4864)]
+
+
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_fused_moe_bwd_wgmma_matches_plain_and_mma_sync(dev, shape):
+    """The wgmma engine (``csrc/fused_moe_bwd_wgmma.cu``): each gradient
+    within bf16 2e-2 of ``fused_moe_bwd_ref``'s max|ref| and of the mma.sync
+    engine's on the same inputs, bit-equal on a rerun; its count moves by
+    one a call and the mma.sync engine's not at all; each launch's shared
+    bytes are the library's."""
+    from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
+
+    E, C, D, F = shape
+    rng = np.random.default_rng(1)
+    x, dy = _randn(rng, (E, C, D), torch.bfloat16, dev), _randn(rng, (E, C, D), torch.bfloat16, dev)
+    ws = [_randn(rng, s, torch.bfloat16, dev, s[1] ** -0.5)
+          for s in ((E, D, F), (E, D, F), (E, F, D))]
+    assert moe_kernel.bwd_engine(torch.bfloat16, D, F) == "wgmma"
+    b0, w0 = moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches
+    got = moe_kernel.fused_moe_bwd_cuda(x, *ws, dy)
+    again = moe_kernel.fused_moe_bwd_wgmma_cuda(x, *ws, dy)
+    assert (moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches) == (b0, w0 + 2)
+    old = moe_kernel.fused_moe_bwd_mma_sync_cuda(x, *ws, dy)
+    want = fused_moe_bwd_ref(x, *ws, dy)
+    for name, a, b, o, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, old, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
+        _rel_close(a, r, torch.bfloat16, name)
+        _rel_close(a, o, torch.bfloat16, name + " against the mma.sync engine")
+    lib = moe_kernel.wgmma_library()
+    for i, launch in enumerate(moe_kernel.wgmma_plan(E, C, D, F)):
+        assert lib.fused_moe_bwd_wgmma_smem_bytes(i) == launch.smem <= moe_kernel.SMEM_LIMIT
+
+
+def test_fused_moe_bwd_wgmma_refuses_what_tma_cannot_address(dev):
+    """f32, and bf16 rows that are not 16-byte multiples, are not the wgmma
+    engine's: it raises, and ``fused_moe_bwd_cuda`` takes the mma.sync
+    engine for them."""
+    rng = np.random.default_rng(2)
+    for dtype, D, F in ((torch.float32, 48, 96), (torch.bfloat16, 36, 44)):
+        x, dy = _randn(rng, (2, 8, D), dtype, dev), _randn(rng, (2, 8, D), dtype, dev)
+        ws = [_randn(rng, s, dtype, dev, 0.2) for s in ((2, D, F), (2, D, F), (2, F, D))]
+        with pytest.raises(ValueError, match="16-byte"):
+            moe_kernel.fused_moe_bwd_wgmma_cuda(x, *ws, dy)
+        b0 = moe_kernel.bwd_launches
+        moe_kernel.fused_moe_bwd_cuda(x, *ws, dy)
+        assert moe_kernel.bwd_launches == b0 + 1
 
 
 def test_scaled_mm_raises_under_grad(dev):

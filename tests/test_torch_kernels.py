@@ -533,6 +533,61 @@ def test_fused_moe_bwd_plan_covers_every_output_once(shape, dtype):
         moe_kernel.bwd_launch_plan(E, C, D, F, torch.float16)
 
 
+#: dbrx-132b's and arctic-480b's training shapes (640 and 40 rows an
+#: expert), and ragged ones whose rows are 16-byte multiples
+WGMMA_PLAN_SHAPES = [(16, 640, 6144, 10752), (2, 40, 7168, 4864), (3, 200, 520, 776),
+                     (1, 1, 8, 8), (8, 129, 136, 264)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("shape", WGMMA_PLAN_SHAPES)
+def test_fused_moe_wgmma_walk_covers_every_tile_once(shape, sms):
+    """The wgmma engine's four launches: the same products as the mma.sync
+    engine's plan, each operand staged as it lies; across the persistent
+    CTAs of a launch (as many as SMs, never more than live tiles) the walk
+    visits every 128 x 256 output tile of every product of every expert
+    exactly once, and the tiles cover each product's M x N output; each
+    CTA's shared bytes fit an SM."""
+    E, C, D, F = shape
+    plan = moe_kernel.wgmma_plan(E, C, D, F, sms)
+    assert [k.name for k in plan] == ["gate_up", "dh", "dw", "dx"]
+    assert [k.products for k in plan] == [
+        k.products for k in moe_kernel.bwd_launch_plan(E, C, D, F)]
+    assert [k.layout for k in plan] == ["KM", "KK", "MM", "KK"]
+    assert [k.staged for k in plan] == [False, False, True, False]
+    bm, bn = moe_kernel.WGMMA_TILE
+    for k in plan:
+        tiles = {(e, p, mt, nt) for e in range(E) for p, (M, N, *_) in enumerate(k.products)
+                 for mt in range(-(-M // bm)) for nt in range(-(-N // bn))}
+        assert k.tiles_e * E == len(tiles) and k.ctas == min(sms, len(tiles))
+        walked = [(e, p, m0 // bm, n0 // bn) for cta in range(k.ctas)
+                  for e, p, m0, n0 in moe_kernel.wgmma_walk(k, E, cta)]
+        assert len(walked) == len(tiles) and set(walked) == tiles
+        for e, p, mt, nt in walked:
+            M, N = k.products[p][:2]
+            assert mt * bm < M and nt * bn < N
+        assert k.stages == 4 and k.smem <= moe_kernel.SMEM_LIMIT
+        stage = (bm + bn) * moe_kernel.WGMMA_K * 2
+        assert k.scratch == (moe_kernel.WGMMA_ROW_SCRATCH if k.name in ("dh", "dx") else 0)
+        assert k.smem == (1024 + k.stages * stage + k.staged * moe_kernel.WGMMA_STAGED
+                          + k.scratch + 16 * k.stages)
+
+
+def test_fused_moe_bwd_engine_follows_type_and_strides():
+    """bf16 whose rows (D and F values) and bases are 16-byte multiples
+    takes the wgmma engine; f32, other rows and other bases take the
+    mma.sync engine."""
+    engine = moe_kernel.bwd_engine
+    assert engine(torch.bfloat16, 6144, 10752) == "wgmma"
+    assert engine(torch.bfloat16, 7168, 4864) == "wgmma"
+    assert engine(torch.bfloat16, 8, 8) == "wgmma"
+    assert engine(torch.float32, 6144, 10752) == "mma_sync"
+    assert engine(torch.bfloat16, 36, 44) == "mma_sync"
+    assert engine(torch.bfloat16, 6144, 10756) == "mma_sync"
+    assert engine(torch.bfloat16, 6144, 10752, aligned=False) == "mma_sync"
+    assert engine(torch.float16, 6144, 10752) == "mma_sync"
+
+
 @pytest.mark.parametrize("R, d", [(8192, 1024), (131072, 128), (65536, 128), (8192, 3072),
                                   (777, 1024), (14, 48), (1, 1), (100003, 128)])
 @pytest.mark.parametrize("sms", [132, 114, 1])
