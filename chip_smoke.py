@@ -5,14 +5,14 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: compile the CUDA sources (flash attention, its backward, fused
-   MoE, its two backward engines, scaled_mm) with nvcc, one process each,
-   all at once, and the Triton kernels (rmsnorm, silu_mul and their
-   backwards), from the sources in this checkout; ptxas's registers and
-   spills of each backward instance (flash attention, fused MoE's mma.sync
-   and wgmma engines), the backwards' launch plans, and the wgmma engine's
-   SASS instruction counts (HGMMA, TMA loads and stores, mbarrier waits)
-   are logged;
+1. build: compile the CUDA sources (flash attention, its two backward
+   engines, fused MoE, its two backward engines, scaled_mm) with nvcc, one
+   process each, all at once, and the Triton kernels (rmsnorm, silu_mul
+   and their backwards), from the sources in this checkout; ptxas's
+   registers and spills of each backward instance (flash attention's and
+   fused MoE's mma.sync and wgmma engines), the backwards' launch plans,
+   and each wgmma engine's SASS instruction counts (HGMMA, TMA loads and
+   stores, mbarrier waits, all asserted present) are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
@@ -37,9 +37,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    formulas, at qwen3-0.6b's training shapes (B4 S2048; rmsnorm also at
    its q and k norms' rows), stablelm-3b's (B1 S2048, 32/32 heads of 80,
    bf16 and f32), gemma2-2b's (head dim 256 with causal, window and
-   softcap 50 masks, small and at B1 S4096 8/4 heads), the reference's
-   kernel test shapes (causal and not, a window, a softcap, GQA, rows that
-   see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
+   softcap 50 masks, small and at B1 S4096 8/4 heads; bf16 there runs
+   flash attention's wgmma engine, also small, ragged (S 130) with each
+   mask alone, with rows that see no key and unmasked at B1 S4096, each
+   also held to the mma.sync engine's gradients), query offsets (a rank's
+   block of rows: forward and backward on both engines, f32 and bf16), the
+   reference's kernel test shapes (causal and not, a window, a softcap,
+   GQA, rows that see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
    640 rows) and arctic-480b-wide (D 7168, F 4864, 40 rows) shapes, each
    gradient within f32 2e-5 / bf16 2e-2 of its max|ref| (fused MoE's on
    the engine ``bwd_engine`` picks: the wgmma engine for bf16 with 16-byte
@@ -78,8 +82,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward kernels at qwen3-0.6b's training shapes, beside their plain
    backward formulas and the backward of ``F.rms_norm`` and of SDPA (rows
    logged beside them: rmsnorm's at the q and k norms' (131072, 128) and
-   (65536, 128), flash attention's at stablelm-3b's head dim 80 and at
-   gemma2-2b's training shape, no library: SDPA takes no softcap); fused
+   (65536, 128), flash attention's at stablelm-3b's head dim 80); flash
+   attention's backward at gemma2-2b's training shape on the wgmma engine
+   (no library: SDPA takes no softcap), in turns with the mma.sync engine
+   on the same inputs, each wgmma launch under the profiler beside the
+   bound of its products, and causal only beside SDPA's backward; fused
    MoE's backward at dbrx-132b's training shape (E16, 640 rows, bf16) on
    the wgmma engine, each of its four launches under the profiler beside
    its bound, and on the mma.sync engine on the same inputs, and at the
@@ -147,8 +154,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    full width and depth, all losses finite; (d) gemma2-2b at full width
    and depth (26 layers, or the deepest that fits), bf16, B1 S4096, 5 steps
    through ``make_train_step`` with the loss falling and the launch counts
-   exact, its step wall, tokens/s, memory peak and one profiled step's
-   device-busy share; (e) one full-width dbrx-132b layer's forward and
+   exact (flash attention's backward on the wgmma engine), its step wall,
+   tokens/s, memory peak and one profiled step's device-busy share and
+   flash attention's backward share of it; (e) one full-width dbrx-132b layer's forward and
    backward, bf16, 2048 tokens: its wall, launch counts exact (fused MoE's
    backward on the wgmma engine), and fused MoE's backward kernels' share
    of the device time;
@@ -317,9 +325,9 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:  # one nvcc per CUDA source, all at once
-        builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, moe_k.library,
-                                           moe_k.bwd_library, moe_k.wgmma_library,
+    with ThreadPoolExecutor(7) as pool:  # one nvcc per CUDA source, all at once
+        builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, fa_k.wgmma_library,
+                                           moe_k.library, moe_k.bwd_library, moe_k.wgmma_library,
                                            smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
@@ -443,6 +451,9 @@ def main():
         "flash_attention_bwd": (
             "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention/kernel.py:30"),
+        "flash_attention_bwd_wgmma": (
+            "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30"),
         "fused_moe_bwd": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd.cu",
                           "src/repro/kernels/fused_moe/kernel.py:27"),
         "fused_moe_bwd_wgmma": (
@@ -465,8 +476,8 @@ def main():
     return 0
 
 
-def wgmma_sass(moe_k):
-    """What the wgmma engine's library holds, from ``cuobjdump --dump-sass``:
+def wgmma_sass(lib, sources):
+    """What a wgmma engine's library holds, from ``cuobjdump --dump-sass``:
     its kernels hold warpgroup products (HGMMA), TMA loads and stores
     (UTMALDG, UTMASTG) and mbarrier waits (SYNCS)."""
     import collections
@@ -474,11 +485,11 @@ def wgmma_sass(moe_k):
 
     from repro_torch.kernels._build import _nvcc, library_path
 
-    so = library_path("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)
+    so = library_path(lib, sources)
     sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "--dump-sass", str(so)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
     ops = collections.Counter(re.findall(r"\b(HGMMA|UTMALDG|UTMASTG|SYNCS)\b", sass))
-    log(f"  fused_moe_bwd_wgmma SASS: {dict(sorted(ops.items()))}")
+    log(f"  {lib} SASS: {dict(sorted(ops.items()))}")
     assert all(ops[k] for k in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")), ops
 
 
@@ -494,7 +505,8 @@ def ptxas_report(fa_k, moe_k=None):
 
     from repro_torch.kernels._build import build_log
 
-    logs = [("flash_attention_bwd", fa_k.BWD_SOURCES)]
+    logs = [("flash_attention_bwd", fa_k.BWD_SOURCES),
+            ("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)]
     if moe_k is not None:
         logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
                  ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)]
@@ -504,8 +516,8 @@ def ptxas_report(fa_k, moe_k=None):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 # the Itanium mangling keeps each name and template argument readable
-                name = re.search(r"((?:fa_bwd_\w+?_kernel)|moe_bwd_gemm|moe_bwd_wgmma)(?:I(.*?)EEv)?",
-                                 m.group(1))
+                name = re.search(r"((?:fa_bwd_\w+?_kernel)|fa_bwd_dq_wgmma|fa_bwd_dkdv_wgmma|"
+                                 r"moe_bwd_gemm|moe_bwd_wgmma)(?:I(.*?)EEv)?", m.group(1))
                 if not name:
                     kernel = m.group(1)
                     continue
@@ -521,6 +533,11 @@ def ptxas_report(fa_k, moe_k=None):
         log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
             f"{kern.rows} rows a CTA, steps of {kern.step}, {kern.stages} stages, "
             f"{kern.warps} warps, {kern.smem} shared bytes")
+    for kern in fa_k.bwd_wgmma_plan(1, 4096, 4096, 8, 4):
+        log(f"  backward plan (wgmma), B1 S4096 8/4x256 bf16: {kern.name} grid {kern.grid}, "
+            f"{kern.rows} rows a CTA, steps of {kern.step}, ring slots {kern.stages}, "
+            f"{kern.warpgroups} consumer warpgroups, {kern.smem} shared bytes")
+    wgmma_sass("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)
     if moe_k is not None:
         for kern in moe_k.bwd_launch_plan(16, 640, 6144, 10752, torch.float32):
             log(f"  fused_moe backward plan (mma.sync), E16 C640 D6144 F10752 f32: {kern.name} "
@@ -529,7 +546,7 @@ def ptxas_report(fa_k, moe_k=None):
             log(f"  fused_moe backward plan (wgmma), E16 C640 D6144 F10752 bf16: {kern.name} "
                 f"{kern.layout} tiles an expert {kern.tiles}, {kern.ctas} persistent CTAs, "
                 f"{kern.stages} stages, staged output {kern.staged}, {kern.smem} shared bytes")
-        wgmma_sass(moe_k)
+        wgmma_sass("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)
 
 
 # ======================================================================
@@ -865,11 +882,12 @@ def backward_parity(torch, dev):
     fused MoE's at dbrx-132b's and arctic-480b's widths; each kernel run
     twice gives the same bits (no float atomics). Returns the max abs err
     at the training shapes."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
     )
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
     from repro_torch.kernels.fused_moe.kernel import fused_moe_bwd_cuda
     from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
@@ -880,7 +898,8 @@ def backward_parity(torch, dev):
     rng = np.random.default_rng(SEED + 7)
     f32, bf16 = torch.float32, torch.bfloat16
     max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0,
-               "fused_moe_bwd": 0.0, "fused_moe_bwd_wgmma": 0.0}
+               "flash_attention_bwd_wgmma": 0.0, "fused_moe_bwd": 0.0,
+               "fused_moe_bwd_wgmma": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         a = (scale * rng.standard_normal(shape)).astype(np.float32)
@@ -920,8 +939,14 @@ def backward_parity(torch, dev):
             check(f"silu_mul bwd {shape} {a} {dt}", act,
                   lambda: silu_mul_bwd_cuda(dh, g, u, act=a),
                   silu_mul_bwd_ref(dh, g, u, act=a), main and a == "silu")
-    fa = ("flash_attention_bwd", ("dq", "dk", "dv"))
-    for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in [
+    # flash attention's backward on the engine bwd_engine picks: bf16 at head
+    # dim 256 runs the wgmma engine, and is also checked against the
+    # mma.sync engine's gradients on the same inputs; the last cases take a
+    # query offset (a rank's block of rows under ops.row_split), whose
+    # forward is checked against the plain version too. The main paths:
+    # qwen3's training (mma.sync) and gemma2's (wgmma)
+    fa_grads = ("dq", "dk", "dv")
+    for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in [(*c, 0) for c in [
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
         (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),  # stablelm-3b training
@@ -941,17 +966,58 @@ def backward_parity(torch, dev):
         # head dim 256 with gemma2-2b's masks: small, then its training shape
         (2, 200, 200, 4, 2, 256, True, 64, 50.0, f32, False),
         (2, 200, 200, 4, 2, 256, True, 64, 50.0, bf16, False),
-        (1, 4096, 4096, 8, 4, 256, True, 4096, 50.0, bf16, False),
+        (1, 4096, 4096, 8, 4, 256, True, 4096, 50.0, bf16, True),
+        # head dim 256 on the wgmma engine: small, ragged (S 130) without
+        # and with each mask, rows that see no key, gemma2's shape unmasked
+        (1, 64, 64, 2, 2, 256, True, None, None, bf16, False),
+        (2, 130, 130, 4, 2, 256, False, None, None, bf16, False),
+        (2, 130, 130, 4, 2, 256, True, None, None, bf16, False),
+        (1, 130, 130, 2, 1, 256, True, 64, None, bf16, False),
+        (1, 130, 130, 2, 1, 256, False, None, 50.0, bf16, False),
+        (1, 200, 50, 2, 1, 256, True, 10, None, bf16, False),
+        (1, 4096, 4096, 8, 4, 256, True, None, None, bf16, False),
+    ]] + [
+        # query offsets (a rank's rows), rows past Skv + window - 1 among them
+        (1, 64, 192, 4, 2, 128, True, None, None, bf16, False, 64),
+        (1, 100, 200, 4, 2, 64, True, 48, 30.0, f32, False, 60),
+        (1, 64, 96, 2, 1, 256, True, 32, 50.0, bf16, False, 100),
+        (1, 64, 96, 2, 1, 256, True, 32, 50.0, f32, False, 100),
+        (1, 1024, 4096, 8, 4, 256, True, 4096, 50.0, bf16, False, 3072),
+        (1, 130, 200, 2, 1, 256, False, 64, None, bf16, False, 40),
     ]:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         dout = randn((B, S, Hq, D), dt)
-        kw = dict(causal=causal, window=window, softcap=softcap)
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
         out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        check(f"flash_attention bwd B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
-              f"window={window} softcap={softcap} {dt}", fa,
-              lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
-              attention_bwd_ref(q, k, v, dout, **kw), main)
-        del q, k, v, dout, out, lse
+        label = (f"flash_attention bwd B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
+                 f"window={window} softcap={softcap} q_offset={off} {dt}")
+        if off:
+            torch.cuda.synchronize()
+            ref_out = attention_ref(q, k, v, **kw)
+            err = float((out.float() - ref_out.float()).abs().max())
+            tol = F32_TOL if dt == f32 else BF16_TOL
+            assert err <= tol * float(ref_out.float().abs().max()), f"{label}: forward {err:.3g}"
+            same_after_poison(torch, "flash_attention", label + " forward",
+                              lambda: flash_attention_cuda(q, k, v, **kw), out)
+            log(f"  {label}: forward {err:.3g} of max|ref| (tol {tol})")
+        refs = attention_bwd_ref(q, k, v, dout, **kw)
+        engine = fa_k.bwd_engine(dt, D)
+        kname = "flash_attention_bwd_wgmma" if engine == "wgmma" else "flash_attention_bwd"
+        check(f"{label} ({engine})", (kname, fa_grads),
+              lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), refs, main)
+        if engine == "wgmma":
+            new = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+            check(f"{label} (mma_sync)", ("flash_attention_bwd", fa_grads),
+                  lambda: fa_k.flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, **kw),
+                  refs, False)
+            old = fa_k.flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, **kw)
+            gaps = [float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+                    for a, b in zip(new, old)]
+            assert max(gaps) <= BF16_TOL, f"{label}: wgmma against mma_sync {gaps}"
+            log(f"  {label}: wgmma against mma_sync engine, of max|mma_sync|: "
+                + ", ".join(f"{n} {g:.3g}" for n, g in zip(fa_grads, gaps)))
+            del new, old
+        del q, k, v, dout, out, lse, refs
     torch.cuda.empty_cache()
 
     # fused MoE's backward on the engine bwd_engine picks: small
@@ -1643,6 +1709,33 @@ def moe_launch_times(torch, moe_k, peaks, args):
     log(f"  fused_moe_bwd_wgmma: the four launches {total:.4f} ms under the profiler")
 
 
+def fa_launch_times(torch, fa_k, peaks, args, kw, pairs):
+    """Each of flash attention's wgmma backward launches at these inputs:
+    its device ms under ``torch.profiler`` (the mean of 5 calls) beside the
+    bound of the products it computes (dQ: S, dP and dS K, ``6 D`` a
+    visible pair; dK/dV: S^T, dP^T, P^T dO and dS^T Q, ``8 D``) at the bf16
+    peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    D = args[0].shape[-1]
+    fa_k.flash_attention_bwd_wgmma_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fa_k.flash_attention_bwd_wgmma_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    times = {e.key: e.device_time_total / 1e3 / e.count for e in prof.key_averages()
+             if "_wgmma" in e.key and e.device_time_total > 0}
+    total = 0.0
+    for name, per_pair in (("dq", 6), ("dkdv", 8)):
+        ms = sum(v for k, v in times.items() if f"fa_bwd_{name}_wgmma" in k)
+        b = 1e3 * per_pair * D * pairs / peaks["bfloat16"]
+        total += ms
+        log(f"  flash_attention_bwd_wgmma launch {name}: {ms:.4f} ms, bound {b:.4f} "
+            f"(operations), {b / ms:.4f} of it")
+    log(f"  flash_attention_bwd_wgmma: the two launches {total:.4f} ms under the profiler")
+
+
 def backward_times(torch, dev, peaks):
     """Phase 5 for the backward kernels at qwen3-0.6b's training shapes
     (B4 S2048, bf16): device ms from a CUDA-graph replay, eager ms, the
@@ -1653,6 +1746,7 @@ def backward_times(torch, dev, peaks):
     (``10 D`` a visible pair) at the bf16 tensor-core peak."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
@@ -1751,7 +1845,12 @@ def backward_times(torch, dev, peaks):
     del q, k, v, dout, out, lse, qt, kt, vt
     torch.cuda.empty_cache()
     # gemma2-2b's training shape, B1 S4096 8/4 heads of 256, window 4096,
-    # softcap 50 (a logged row; no library call: SDPA takes no softcap);
+    # softcap 50: the wgmma engine's row (no library call: SDPA takes no
+    # softcap), then the mma.sync engine on the same inputs, the two in
+    # turns (wgmma, mma.sync, mma.sync, wgmma; kernel times drift as the card
+    # heats), each wgmma launch under the profiler beside the bound of its
+    # products, and the causal-only yardstick: the wgmma engine with window
+    # and softcap off beside SDPA's backward on those inputs (logged rows);
     # the window cuts no causal pair at S 4096
     B, S4, Hq, Hkv, D = 1, 4096, 8, 4, 256
     q, dout = randn(B, S4, Hq, D), randn(B, S4, Hq, D)
@@ -1759,13 +1858,35 @@ def backward_times(torch, dev, peaks):
     gkw = dict(causal=True, window=4096, softcap=50.0)
     out, lse = flash_attention_cuda(q, k, v, return_lse=True, **gkw)
     pairs = B * Hq * S4 * (S4 + 1) // 2
-    row("flash_attention_bwd (gemma2-2b, D256)",
-        lambda *a: flash_attention_bwd_cuda(*a, **gkw),
+    g_bytes = 2 * (4 * B * S4 * Hq * D + 4 * B * S4 * Hkv * D) + 4 * B * Hq * S4
+    g_bound = bound(peaks, g_bytes, 10 * D * pairs, "bfloat16")
+    g_in = [(q, k, v, out, lse, dout)]
+    row("flash_attention_bwd_wgmma", lambda *a: fa_k.flash_attention_bwd_wgmma_cuda(*a, **gkw),
         lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, **gkw), None,
-        [(q, k, v, out, lse, dout)], 5,
-        *bound(peaks, 2 * (4 * B * S4 * Hq * D + 4 * B * S4 * Hkv * D) + 4 * B * Hq * S4,
-               10 * D * pairs, "bfloat16"), into=logged)
-    del q, k, v, dout, out, lse
+        g_in, 5, *g_bound)
+    turns = {"wgmma": [rows["flash_attention_bwd_wgmma"]["ms"]], "mma_sync": []}
+    for engine in ("mma_sync", "mma_sync", "wgmma"):
+        fn = getattr(fa_k, f"flash_attention_bwd_{engine}_cuda")
+        turns[engine].append(cuda_ms(torch, lambda *a, fn=fn: fn(*a, **gkw), g_in, 5)[0])
+    logged["flash_attention_bwd (gemma2-2b, D256, mma.sync)"] = dict(
+        rows["flash_attention_bwd_wgmma"], ms=float(np.mean(turns["mma_sync"])))
+    r = rows["flash_attention_bwd_wgmma"]
+    log(f"  flash_attention_bwd at gemma2-2b's training shape, in turns (ms): wgmma "
+        f"{turns['wgmma']}, mma.sync {turns['mma_sync']}; the wgmma engine "
+        f"{10 * D * pairs / r['ms'] / 1e9:.1f} TFLOP/s of the 5 products, "
+        f"{r['bound_ms'] / r['ms']:.4f} of the bound, "
+        f"{np.mean(turns['mma_sync']) / np.mean(turns['wgmma']):.2f}x faster than mma.sync")
+    fa_launch_times(torch, fa_k, peaks, g_in[0], gkw, pairs)
+    ckw = dict(causal=True)
+    out_c, lse_c = flash_attention_cuda(q, k, v, return_lse=True, **ckw)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    row("flash_attention_bwd_wgmma (gemma2-2b shape, causal only)",
+        lambda *a: fa_k.flash_attention_bwd_wgmma_cuda(*a, **ckw),
+        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, **ckw),
+        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True, enable_gqa=True),
+         [(qt, kt, vt, dout.transpose(1, 2).contiguous())]),
+        [(q, k, v, out_c, lse_c, dout)], 5, *g_bound, into=logged)
+    del q, k, v, dout, out, lse, out_c, lse_c, qt, kt, vt, g_in
     torch.cuda.empty_cache()
 
     # fused MoE's backward at dbrx-132b's training shape (E16, 640 rows an
@@ -2246,6 +2367,7 @@ def kernel_counts(zero=False):
         counters[name] = (mod, "launches")
         counters[name + "_bwd"] = (mod, "bwd_launches")
     counters["fused_moe_bwd_wgmma"] = (moe_k, "bwd_wgmma_launches")
+    counters["flash_attention_bwd_wgmma"] = (fa_k, "bwd_wgmma_launches")
     if zero:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -2258,9 +2380,12 @@ def training_launches(cfg):
     and again in the backward pass), the final norm once; each backward
     once. An MoE layer's FFN is one fused_moe call (and a silu_mul one for
     a dense residual FFN), whose backward runs on the engine
-    ``bwd_engine`` picks for the compute type and widths."""
+    ``bwd_engine`` picks for the compute type and widths; flash attention's
+    backward runs on the engine its ``bwd_engine`` picks for the compute
+    type and head dim."""
     import torch
 
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.fused_moe.kernel import bwd_engine
 
     n = cfg.n_layers
@@ -2272,9 +2397,12 @@ def training_launches(cfg):
     dense = n if not moe or cfg.dense_residual else 0
     wgmma = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model,
                                cfg.moe_hidden) == "wgmma"
+    fa_wgmma = fa_k.bwd_engine(getattr(torch, cfg.compute_dtype),
+                               cfg.resolved_head_dim) == "wgmma"
     return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
             "silu_mul": twice * dense, "silu_mul_bwd": dense,
-            "flash_attention": twice * n, "flash_attention_bwd": n,
+            "flash_attention": twice * n, "flash_attention_bwd": n * (not fa_wgmma),
+            "flash_attention_bwd_wgmma": n * fa_wgmma,
             "fused_moe": twice * n * moe, "fused_moe_bwd": n * moe * (not wgmma),
             "fused_moe_bwd_wgmma": n * moe * wgmma}
 
@@ -2486,7 +2614,8 @@ def training(torch, dev):
         f"the deepest that fits is {depths[0]}")
     for depth in depths[:3]:
         try:
-            run = train_steps(torch, dev, dataclasses.replace(g_cfg, n_layers=depth), 1, 4096, 5)
+            run = train_steps(torch, dev, dataclasses.replace(g_cfg, n_layers=depth), 1, 4096, 5,
+                              named=("fa_bwd_", "fa_bf16_kernel"))
             break
         except torch.cuda.OutOfMemoryError as e:
             log(f"  (d) gemma2-2b at {depth} layers does not fit: {str(e).splitlines()[0]}")
@@ -2503,6 +2632,13 @@ def training(torch, dev):
         f"torch.profiler: wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
         f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}% busy), {prof['launches']:.0f} "
         f"launches; launches a step {run['per_step']}")
+    fa_bwd = prof["named_ms"]["fa_bwd_"]
+    log(f"  (d) gemma2-2b: flash attention's backward kernels {fa_bwd:.3f} ms "
+        f"({100 * fa_bwd / prof['busy_ms']:.1f}% of device busy; on the "
+        f"{'wgmma' if run['moved']['flash_attention_bwd_wgmma'] else 'mma.sync'} engine), its "
+        f"forward kernels {prof['named_ms']['fa_bf16_kernel']:.3f} ms")
+    assert run["moved"]["flash_attention_bwd_wgmma"] == 5 * depth, (
+        f"(d) flash attention's backward did not run on the wgmma engine: {run['moved']}")
     for name, k, ms in prof["top"]:
         log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
     for k, v in run["moved"].items():
@@ -2559,12 +2695,13 @@ def training(torch, dev):
     return moved, measured
 
 
-def train_steps(torch, dev, cfg, B, S, steps):
+def train_steps(torch, dev, cfg, B, S, steps, named=()):
     """``steps`` training steps of ``cfg`` through ``make_train_step`` from
     a fresh train state, then one more under ``torch.profiler``: the losses,
     the median step wall (steps 2 on), the first step's, the memory peak,
     the launches (each count exactly ``steps`` x ``training_launches``), the
-    parameter count and the profile."""
+    parameter count and the profile (with the device ms of the kernels
+    whose names hold each string of ``named``)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import tree_leaves
@@ -2602,7 +2739,7 @@ def train_steps(torch, dev, cfg, B, S, steps):
         nonlocal state
         state, _ = step(state, batches[steps])
 
-    prof = profiled(torch, one_step, 1)
+    prof = profiled(torch, one_step, 1, named=named)
     n = sum(p.numel() for p in tree_leaves(state["params"]))
     return {"losses": losses, "step_ms": float(np.median(times[1:])), "first_ms": times[0],
             "peak": peak, "moved": moved, "per_step": per_step, "params": n, "prof": prof}

@@ -3,8 +3,10 @@
 // Replaces `_fa_kernel` / `flash_attention_pallas` of
 // src/repro/kernels/flash_attention/kernel.py: FA2 online-softmax attention
 // with GQA, causal / sliding-window / tanh-softcap masks, f32 running max,
-// sum and accumulator, output acc / max(l, 1e-30). Positions of q and k both
-// start at 0, also when S != Skv.
+// sum and accumulator, output acc / max(l, 1e-30). The positions of k start
+// at 0, those of q at q_offset (0 unless a rank holds a block of the query
+// rows: ops.row_split), also when S != Skv; every mask and schedule below
+// takes a row's position, q_offset + its index.
 //
 // Layout: q and o are (B, S, Hq, D), k and v (B, Skv, Hkv, D), contiguous;
 // q head h reads kv head h / (Hq / Hkv). The kernel reads these strides
@@ -208,7 +210,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
     int S, int Skv, int Hq, int Hkv, int D, int bq, int bk, int causal, int window, float softcap,
-    float scale) {
+    float scale, int qoff) {
   constexpr int LD = ld_of(DP);
   constexpr int NT = KT / 8;  // n-tiles of the score tile
   constexpr int DT = DP / 8;  // n-tiles of the output rows
@@ -236,7 +238,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
 
   for (int q0 = qb0; q0 < qb_end; q0 += qsub) {
     const int q_last = min(q0 + qsub, qb_end) - 1;
-    Schedule sc = make_schedule(q0, q_last, Skv, causal, window, bk, KT, two_pass);
+    Schedule sc = make_schedule(q0 + qoff, q_last + qoff, Skv, causal, window, bk, KT, two_pass);
     __syncthreads();  // the last sub-block's output staging in sQ is written out
     load_rows<DP>(sQ, qb, q_step, q0, qsub, S, D);
     cp_async_commit();
@@ -255,6 +257,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
     float step_max[2] = {-INFINITY, -INFINITY};
     const int w0 = q0 + warp * 16;   // this warp's rows: w0 .. w0 + 15
     const int r_lo = w0 + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+    const int wp0 = w0 + qoff;       // the position of row w0
 
     while (sc.valid()) {
       Schedule nx = sc;
@@ -298,8 +301,8 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
       // one FFMA and one ex2. A tile inside the mask keeps the raw product
       // s and mul = scale * log2 e; other tiles are scored to log2 units.
       const int key0 = sc.key0(), kend = sc.step_end();
-      const bool masked = key0 + KT > kend || (causal && key0 + KT - 1 > w0) ||
-                          (window > 0 && key0 <= w0 + 15 - window);
+      const bool masked = key0 + KT > kend || (causal && key0 + KT - 1 > wp0) ||
+                          (window > 0 && key0 <= wp0 + 15 - window);
       float mul = scale_log2;
       if (masked || softcap > 0.f) {
         mul = 1.f;
@@ -307,7 +310,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int qi = r_lo + (e / 2) * 8;
+            const int qi = r_lo + (e / 2) * 8 + qoff;
             const int kj = key0 + n * 8 + (lane % 4) * 2 + (e % 2);
             s[n][e] = score(s[n][e], qi, kj, kend, causal, window, softcap, scale) * LOG2E;
           }
@@ -384,7 +387,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const int qi = r_lo + 8 * r;
       if (lse != nullptr && lane % 4 == 0 && qi <= q_last)
-        lse[((size_t)b * Hq + h) * S + qi] = (window > 0 && qi >= Skv + window - 1)
+        lse[((size_t)b * Hq + h) * S + qi] = (window > 0 && qi + qoff >= Skv + window - 1)
                                                  ? -INFINITY
                                                  : (m[r] + log2f(fmaxf(l[r], 1e-30f))) * LN2;
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
@@ -413,7 +416,7 @@ __global__ void __launch_bounds__(256) fa_bf16_kernel(
 template <int DP, int KT>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                         int Skv, int Hq, int Hkv, int D, int bq, int bk, int warps, int causal,
-                        int window, float softcap, float scale, cudaStream_t stream) {
+                        int window, float softcap, float scale, int qoff, cudaStream_t stream) {
   // raise the shared-memory limit once per device and size, so that a
   // launch a CUDA graph captures makes no call besides the launch itself
   static size_t configured[kMaxDevices] = {};
@@ -432,25 +435,26 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   fa_bf16_kernel<DP, KT><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Skv, Hq, Hkv,
-      D, bq, bk, causal, window, softcap, scale);
+      D, bq, bk, causal, window, softcap, scale, qoff);
   return cudaGetLastError();
 }
 
 template <int DP>
 cudaError_t dispatch_kt(int kt, const void* q, const void* k, const void* v, void* o, float* lse, int B,
                         int S, int Skv, int Hq, int Hkv, int D, int bq, int bk, int warps,
-                        int causal, int window, float softcap, float scale, cudaStream_t st) {
+                        int causal, int window, float softcap, float scale, int qoff,
+                        cudaStream_t st) {
   switch (kt) {
     case 32:
       return launch_bf16<DP, 32>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window,
-                                 softcap, scale, st);
+                                 softcap, scale, qoff, st);
     case 64:
       return launch_bf16<DP, 64>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window,
-                                 softcap, scale, st);
+                                 softcap, scale, qoff, st);
     case 128:
       if constexpr (DP <= 128)
         return launch_bf16<DP, 128>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal,
-                                    window, softcap, scale, st);
+                                    window, softcap, scale, qoff, st);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
@@ -474,7 +478,7 @@ template <int D>
 __global__ void __launch_bounds__(NTH) fa_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse, int S, int Skv, int Hq, int Hkv, int bq,
-    int bk, int causal, int window, float softcap, float scale) {
+    int bk, int causal, int window, float softcap, float scale, int qoff) {
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;                  // [D][QS]
   float* kv = qT + D * QS;           // k^T [D][KS], later v [BK][D]
@@ -514,7 +518,7 @@ __global__ void __launch_bounds__(NTH) fa_f32_kernel(
       for (int c = 0; c < DPT; ++c) acc[r][c] = 0.f;
     }
 
-    for (Schedule sc = make_schedule(q0, q_last, Skv, causal, window, bk, BK, two_pass);
+    for (Schedule sc = make_schedule(q0 + qoff, q_last + qoff, Skv, causal, window, bk, BK, two_pass);
          sc.valid(); sc.next()) {
       const int kt = sc.key0(), kend = sc.step_end();
       __syncthreads();  // q^T is stored; the last tile's readers of kv and p^T are done
@@ -548,7 +552,8 @@ __global__ void __launch_bounds__(NTH) fa_f32_kernel(
         rmax[r] = -INFINITY;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[r][c] = score(s[r][c], qi, kt + tx * 4 + c, kend, causal, window, softcap, scale);
+          s[r][c] = score(s[r][c], qi + qoff, kt + tx * 4 + c, kend, causal, window, softcap,
+                          scale);
           rmax[r] = fmaxf(rmax[r], s[r][c]);
         }
 #pragma unroll
@@ -619,7 +624,7 @@ __global__ void __launch_bounds__(NTH) fa_f32_kernel(
       const float denom = fmaxf(l[r], 1e-30f);
       if (lse != nullptr && tx == 0)
         lse[((size_t)b * Hq + h) * S + qi] =
-            (window > 0 && qi >= Skv + window - 1) ? -INFINITY : m[r] + logf(denom);
+            (window > 0 && qi + qoff >= Skv + window - 1) ? -INFINITY : m[r] + logf(denom);
 #pragma unroll
       for (int c = 0; c < DPT; ++c) {
         const int col = tx + 16 * c;
@@ -632,7 +637,7 @@ __global__ void __launch_bounds__(NTH) fa_f32_kernel(
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                        int Skv, int Hq, int Hkv, int bq, int bk, int causal, int window,
-                       float softcap, float scale, cudaStream_t stream) {
+                       float softcap, float scale, int qoff, cudaStream_t stream) {
   const size_t smem = F32Smem<D>::bytes;
   static bool opted_in[kMaxDevices] = {};
   int dev = 0;
@@ -648,7 +653,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   const dim3 grid(B * Hq, (S + bq - 1) / bq);
   fa_f32_kernel<D><<<grid, NTH, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale);
+      static_cast<float*>(o), lse, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale,
+      qoff);
   return cudaGetLastError();
 }
 
@@ -659,40 +665,41 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
 // to S and Skv). kt, warps: the bf16 path's key sub-tile (32, 64, or 128
 // for D <= 128) and warps a CTA; the f32 path takes kt = 64 and 8 warps.
 // lse: null, or (B, Hq, S) f32 for each row's log-sum-exp (the backward's).
+// q_offset >= 0: the position of q's first row.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* lse_out,
                           int dtype, int B,
                           int S, int Skv, int Hq, int Hkv, int D, int causal, int window,
                           float softcap, float scale, int bq, int bk, int kt, int warps,
-                          void* stream) {
+                          int qoff, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || bq <= 0 || bk <= 0 ||
-      bq > S || bk > Skv || warps < 1 || warps > 8)
+      bq > S || bk > Skv || warps < 1 || warps > 8 || qoff < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
   if (dtype == 0) {
     if (kt != BK || warps != NTH / 32) return cudaErrorInvalidValue;
     switch (D) {
-      case 8: return launch_f32<8>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 16: return launch_f32<16>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 32: return launch_f32<32>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 64: return launch_f32<64>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 80: return launch_f32<80>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 128: return launch_f32<128>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
-      case 256: return launch_f32<256>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, st);
+      case 8: return launch_f32<8>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
+      case 16: return launch_f32<16>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
+      case 32: return launch_f32<32>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
+      case 64: return launch_f32<64>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
+      case 80: return launch_f32<80>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
+      case 128: return launch_f32<128>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
+      case 256: return launch_f32<256>(q, k, v, o, lse, B, S, Skv, Hq, Hkv, bq, bk, causal, window, softcap, scale, qoff, st);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     switch (D) {
       case 8:
-      case 16: return dispatch_kt<16>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 32: return dispatch_kt<32>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 64: return dispatch_kt<64>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 16: return dispatch_kt<16>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, qoff, st);
+      case 32: return dispatch_kt<32>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, qoff, st);
+      case 64: return dispatch_kt<64>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, qoff, st);
       // stablelm-3b's head dim: tiles of 96 columns, the last 16 zero-filled
-      case 80: return dispatch_kt<96>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 128: return dispatch_kt<128>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
-      case 256: return dispatch_kt<256>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, st);
+      case 80: return dispatch_kt<96>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, qoff, st);
+      case 128: return dispatch_kt<128>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, qoff, st);
+      case 256: return dispatch_kt<256>(kt, q, k, v, o, lse, B, S, Skv, Hq, Hkv, D, bq, bk, warps, causal, window, softcap, scale, qoff, st);
       default: return cudaErrorInvalidValue;
     }
   }

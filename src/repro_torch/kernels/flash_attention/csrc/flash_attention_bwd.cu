@@ -11,7 +11,9 @@
 // Causal and window masks are the forward's: a masked pair has P = 0 and
 // dS = 0. A row that sees no key (a window with S >= Skv + window) gets
 // the plain version's output, the mean of v over every key, so there
-// P = 1 / Skv, dS = 0, and its dQ is 0.
+// P = 1 / Skv, dS = 0, and its dQ is 0. As in the forward, row i sits at
+// position q_offset + i (a rank's block of the query rows) for every mask,
+// tile skip and walk; its index still addresses q, o, dO, lse and Delta.
 //
 // Layout as the forward: q, o, dO, dQ are (B, S, Hq, D), k, v, dK, dV
 // (B, Skv, Hkv, D), contiguous; lse and Delta are (B, Hq, S) f32.
@@ -104,7 +106,8 @@ constexpr int kMaxDevices = 64;
 
 // The q block a dQ CTA takes at launch position y of n blocks of `rows`:
 // the last block, whose rows see the most keys under a causal mask, first;
-// a ragged last block, lighter than the full one before it, last.
+// a ragged last block, lighter than the full one before it, last. A query
+// offset moves every row alike, so the order stays.
 __device__ __forceinline__ int heavy_first(int y, int n, int rows, int S) {
   if (S % rows != 0) return y == n - 1 ? n - 1 : n - 2 - y;
   return n - 1 - y;
@@ -141,14 +144,14 @@ struct Grad {
 };
 __device__ __forceinline__ Grad pair_grad(float s, float dp, int qi, int kj, int S, int Skv,
                                           int causal, int window, float softcap, float scale,
-                                          float lse, float delta, float ds_scale) {
+                                          float lse, float delta, float ds_scale, int qoff) {
   Grad g = {0.f, 0.f};
   if (qi >= S || kj >= Skv) return g;
-  if (no_key(qi, Skv, window)) {
+  if (no_key(qi + qoff, Skv, window)) {
     g.p = 1.f / (float)Skv;
     return g;
   }
-  if (!visible(qi, kj, Skv, causal, window)) return g;
+  if (!visible(qi + qoff, kj, Skv, causal, window)) return g;
   float x = s * scale, dcap = 1.f;
   if (softcap > 0.f) {
     const float t = tanhf(x / softcap);
@@ -223,7 +226,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
-    int Skv, int Hq, int Hkv, int causal, int window, float softcap, float scale) {
+    int Skv, int Hq, int Hkv, int causal, int window, float softcap, float scale, int qoff) {
   constexpr int DC = F32Chunks<D>::DC, NCH = F32Chunks<D>::N;
   extern __shared__ __align__(16) float smem[];
   float* kT = smem;             // [DC][BS]
@@ -241,7 +244,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
   constexpr int DPT = (D + 15) / 16;  // columns of a thread: tx + 16 c
   constexpr int CPC = DC / 16;        // of them in one chunk (D > 128 only)
-  const bool any_no_key = window > 0 && S >= Skv + window;
+  const bool any_no_key = window > 0 && S + qoff >= Skv + window;
   const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
   const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
@@ -263,7 +266,8 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
     const float* db = delta + ((size_t)b * Hq + h) * S;
     for (int q0 = 0; q0 < S; q0 += BB) {
       const int q1 = min(q0 + BB, S) - 1;
-      if (!tile_sees(q0, q1, k0, k1, causal, window) && !(any_no_key && no_key(q1, Skv, window)))
+      if (!tile_sees(q0 + qoff, q1 + qoff, k0, k1, causal, window) &&
+          !(any_no_key && no_key(q1 + qoff, Skv, window)))
         continue;
       float s[4][4], dp[4][4];
       zero44(s);
@@ -292,7 +296,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dkdv_kernel(
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const Grad gr = pair_grad(s[r][c], dp[r][c], q0 + row, k0 + tx * 4 + c, S, Skv, causal,
-                                    window, softcap, scale, rowL[row], rowD[row], scale);
+                                    window, softcap, scale, rowL[row], rowD[row], scale, qoff);
           pv[c] = gr.p;
           dsv[c] = gr.ds;
         }
@@ -357,7 +361,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int S, int Skv, int Hq, int Hkv,
-    int causal, int window, float softcap, float scale) {
+    int causal, int window, float softcap, float scale, int qoff) {
   constexpr int DC = F32Chunks<D>::DC, NCH = F32Chunks<D>::N;
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;             // [DC][BS]
@@ -395,7 +399,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
     for (int c = 0; c < DPT; ++c) adq[r][c] = 0.f;
 
   for (int k0 = 0; k0 < Skv; k0 += BB) {
-    if (!tile_sees(q0, q1, k0, min(k0 + BB, Skv) - 1, causal, window)) continue;
+    if (!tile_sees(q0 + qoff, q1 + qoff, k0, min(k0 + BB, Skv) - 1, causal, window)) continue;
     float s[4][4], dp[4][4];
     zero44(s);
     zero44(dp);
@@ -419,7 +423,7 @@ __global__ void __launch_bounds__(NTH) fa_bwd_dq_kernel(
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         dsv[r][c] = pair_grad(s[r][c], dp[r][c], q0 + row, k0 + tx * 4 + c, S, Skv, causal,
-                              window, softcap, scale, rowL[row], rowD[row], scale).ds;
+                              window, softcap, scale, rowL[row], rowD[row], scale, qoff).ds;
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c)
@@ -610,13 +614,13 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, const floa
 
 // The q tiles a dK/dV CTA walks, in order: for each q head g of its group,
 // the tiles of t rows that see one of keys [k0, k1] or hold rows that see no
-// key. Every thread walks the same tiles.
+// key (rows at positions qoff + index). Every thread walks the same tiles.
 struct QTiles {
   int g, i;  // q head of the group and q tile; g == G once the walk is done
-  int G, n, t, S, Skv, k0, k1, causal, window;
+  int G, n, t, S, Skv, k0, k1, causal, window, qoff;
   bool any_no_key;
   __device__ bool needed() const {
-    const int q0 = i * t, q1 = min(q0 + t, S) - 1;
+    const int q0 = i * t + qoff, q1 = min(i * t + t, S) - 1 + qoff;
     return tile_sees(q0, q1, k0, k1, causal, window) || (any_no_key && no_key(q1, Skv, window));
   }
   __device__ void settle() {  // forward to the first needed tile at or after (g, i)
@@ -637,7 +641,7 @@ struct QTiles {
 };
 
 // The key tiles of t keys a dQ CTA walks, in order: those one of its rows
-// [q0, q1] sees.
+// (at positions [q0, q1]) sees.
 struct KTiles {
   int i, n, t, Skv, q0, q1, causal, window;
   __device__ bool needed() const {
@@ -674,7 +678,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Skv, int Hq, int Hkv, int D,
-    int causal, int window, float softcap, float scale) {
+    int causal, int window, float softcap, float scale, int qoff) {
   constexpr int LD = ld_of(DP), NT = TQ / 8, DT = DO / 8, QT = TQ * LD;
   constexpr int BR = 16 * W, NTHR = 32 * W;  // keys of the CTA, 16 a warp; threads
   const int c0 = blockIdx.z * DO;            // the CTA's dK and dV columns: c0 .. c0 + DO - 1
@@ -692,10 +696,10 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
   const int k0 = blockIdx.y * BR, k1 = min(k0 + BR, Skv) - 1;
   const int wk0 = k0 + warp * 16;  // this warp's keys: wk0 .. wk0 + 15
   const size_t q_step = (size_t)Hq * D, kv_step = (size_t)Hkv * D;
-  const bool any_no_key = window > 0 && S >= Skv + window;
+  const bool any_no_key = window > 0 && S + qoff >= Skv + window;
   const float scale_log2 = scale * LOG2E;
 
-  QTiles walk{0, 0, G, (S + TQ - 1) / TQ, TQ, S, Skv, k0, k1, causal, window, any_no_key};
+  QTiles walk{0, 0, G, (S + TQ - 1) / TQ, TQ, S, Skv, k0, k1, causal, window, qoff, any_no_key};
   walk.settle();
   QTiles ahead = walk;
   // the loads of tile `ahead` into ring slot `slot`, as one commit group
@@ -744,8 +748,9 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
     __syncthreads();          // everyone's have, and the last tile's slot is read
     issue(slot == 0 ? ST - 1 : slot - 1);  // the tile ST - 1 ahead, into that slot
     const int q0 = walk.i * TQ, q1 = min(q0 + TQ, S) - 1;
-    const bool sees = wk0 < Skv && (tile_sees(q0, q1, wk0, wk0 + 15, causal, window) ||
-                                    (any_no_key && no_key(q1, Skv, window)));
+    const int p0 = q0 + qoff, p1 = q1 + qoff;  // their positions
+    const bool sees = wk0 < Skv && (tile_sees(p0, p1, wk0, wk0 + 15, causal, window) ||
+                                    (any_no_key && no_key(p1, Skv, window)));
     if (sees) {  // this warp's keys take part in this tile
       const uint32_t off = slot * QT * sizeof(bf16);
       float s[NT][4], dp[NT][4];  // S^T and dP^T: this warp's 16 keys x TQ queries
@@ -758,7 +763,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
       const float* Dl = sD + slot * TQ;
       // a tile whose pairs are all visible skips the position tests
       const bool inside = softcap <= 0.f && q1 == q0 + TQ - 1 && wk0 + 15 < Skv &&
-                          (!causal || wk0 + 15 <= q0) && (window <= 0 || wk0 > q1 - window);
+                          (!causal || wk0 + 15 <= p0) && (window <= 0 || wk0 > p1 - window);
       if (inside) {
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -776,7 +781,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dkdv_mma_kernel(
           for (int e = 0; e < 4; ++e) {
             const int col = n * 8 + (lane % 4) * 2 + (e % 2);
             const Grad gr = pair_grad(s[n][e], dp[n][e], q0 + col, kj_lo + 8 * (e / 2), S, Skv,
-                                      causal, window, softcap, scale, L[col], Dl[col], 1.f);
+                                      causal, window, softcap, scale, L[col], Dl[col], 1.f, qoff);
             s[n][e] = gr.p;
             dp[n][e] = gr.ds;
           }
@@ -804,7 +809,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ delta, bf16* __restrict__ dq, int S, int Skv, int Hq, int Hkv, int D,
-    int causal, int window, float softcap, float scale) {
+    int causal, int window, float softcap, float scale, int qoff) {
   constexpr int LD = ld_of(DP), NT = TK / 8, DT = DO / 8, KT = TK * LD;
   constexpr int BR = 16 * W, NTHR = 32 * W;  // q rows of the CTA, 16 a warp; threads
   const int c0 = blockIdx.z * DO;            // the CTA's dQ columns: c0 .. c0 + DO - 1
@@ -824,7 +829,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
   const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
   const float scale_log2 = scale * LOG2E;
 
-  KTiles walk{0, (Skv + TK - 1) / TK, TK, Skv, q0, q1, causal, window};
+  KTiles walk{0, (Skv + TK - 1) / TK, TK, Skv, q0 + qoff, q1 + qoff, causal, window};
   walk.settle();
   KTiles ahead = walk;
   auto issue = [&](int slot) {  // as in the dK/dV kernel
@@ -892,8 +897,9 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
     __syncthreads();
     issue(slot == 0 ? ST - 1 : slot - 1);
     const int kt0 = walk.i * TK;
-    if (wq0 < S && tile_sees(wq0, min(wq0 + 15, S - 1), kt0, min(kt0 + TK, Skv) - 1, causal,
-                             window)) {
+    const int wp0 = wq0 + qoff;  // the position of row wq0
+    if (wq0 < S && tile_sees(wp0, min(wq0 + 15, S - 1) + qoff, kt0, min(kt0 + TK, Skv) - 1,
+                             causal, window)) {
       const uint32_t off = slot * KT * sizeof(bf16);
       float s[NT][4], dp[NT][4];  // S and dP: this warp's 16 rows x TK keys
 #pragma unroll
@@ -902,8 +908,8 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       mma_rows2<DP, NT>(s, q_addr, kn_addr + off, dp, o_addr, vn_addr + off);
       const bool inside = softcap <= 0.f && wq0 + 15 < S && kt0 + TK <= Skv &&
-                          (!causal || kt0 + TK - 1 <= wq0) &&
-                          (window <= 0 || kt0 > wq0 + 15 - window);
+                          (!causal || kt0 + TK - 1 <= wp0) &&
+                          (window <= 0 || kt0 > wp0 + 15 - window);
       if (inside) {
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -919,7 +925,7 @@ __global__ void __launch_bounds__(32 * W, 8 / W) fa_bwd_dq_mma_kernel(
           for (int e = 0; e < 4; ++e)
             s[n][e] = pair_grad(s[n][e], dp[n][e], r_lo + 8 * (e / 2),
                                 kt0 + n * 8 + (lane % 4) * 2 + (e % 2), S, Skv, causal, window,
-                                softcap, scale, ll[e / 2], dl[e / 2], 1.f).ds;
+                                softcap, scale, ll[e / 2], dl[e / 2], 1.f, qoff).ds;
       }
       uint32_t da[TK / 16][4];  // dS as bf16 A fragments
       pack_a<TK / 16>(da, s);
@@ -942,6 +948,7 @@ struct BwdArgs {
   void *dq, *dk, *dv;
   int B, S, Skv, Hq, Hkv, D, causal, window;
   float softcap, scale;
+  int qoff;
 };
 
 // Raise a kernel's shared-memory limit once per device, so that a launch a
@@ -972,7 +979,7 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t st) {
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
           static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.S,
-          a.Skv, a.Hq, a.Hkv, a.D, a.causal, a.window, a.softcap, a.scale);
+          a.Skv, a.Hq, a.Hkv, a.D, a.causal, a.window, a.softcap, a.scale, a.qoff);
   return cudaGetLastError();
 }
 
@@ -988,7 +995,7 @@ cudaError_t launch_dkdv(const BwdArgs& a, cudaStream_t st) {
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
           static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.S, a.Skv, a.Hq, a.Hkv, a.D,
-          a.causal, a.window, a.softcap, a.scale);
+          a.causal, a.window, a.softcap, a.scale, a.qoff);
   return cudaGetLastError();
 }
 
@@ -1022,11 +1029,11 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   fa_bwd_dkdv_kernel<D><<<dim3(a.B * a.Hkv, (a.Skv + BB - 1) / BB), NTH, F32Chunks<D>::dkdv, st>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.S,
-      a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.softcap, a.scale);
+      a.Skv, a.Hq, a.Hkv, a.causal, a.window, a.softcap, a.scale, a.qoff);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   fa_bwd_dq_kernel<D><<<dim3(a.B * a.Hq, (a.S + BB - 1) / BB), NTH, F32Chunks<D>::dq, st>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.S, a.Skv, a.Hq, a.Hkv,
-      a.causal, a.window, a.softcap, a.scale);
+      a.causal, a.window, a.softcap, a.scale, a.qoff);
   return cudaGetLastError();
 }
 
@@ -1039,20 +1046,22 @@ cudaError_t launch_bwd_f32(const BwdArgs& a, cudaStream_t st) {
 // 80, 128, 256. tq, kv_stages, kv_warps, tk, q_stages, q_warps: the launch
 // plan's tiles (kernel.bwd_launch_plan): the q rows of a dK/dV step, its
 // ring's stages and its CTA's warps, and the same of dQ (keys a step); the
-// f32 kernels take (64, 1, 8, 64, 1, 8).
+// f32 kernels take (64, 1, 8, 64, 1, 8). q_offset >= 0: the position of q's
+// first row.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int fa_backward(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, void* delta, void* dq, void* dk,
                            void* dv, int dtype, int B, int S, int Skv, int Hq, int Hkv, int D,
                            int causal, int window, float softcap, float scale, int tq,
                            int kv_stages, int kv_warps, int tk, int q_stages, int q_warps,
-                           void* stream) {
-  if (B <= 0 || S <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+                           int qoff, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || qoff < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   const BwdArgs a{q, k, v, o, dout, l, dl, dq, dk, dv, B, S, Skv, Hq, Hkv, D, causal, window,
-                  softcap, scale};
+                  softcap, scale, qoff};
   if (dtype == 0) {
     if (tq != BB || kv_stages != 1 || kv_warps != NTH / 32 || tk != BB || q_stages != 1 ||
         q_warps != NTH / 32)

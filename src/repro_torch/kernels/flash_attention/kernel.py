@@ -18,6 +18,22 @@ build runs beside the forward's), for head dims ``BWD_HEAD_DIMS``.
 does the forward's: the kernels in launch order, their grids, the block
 each launch position takes, the tiles, the ring's stages and the shared
 bytes; the wrapper passes the plan's tiles to the library.
+
+The backward has two engines, each its own library so that the builds run
+side by side, and ``bwd_engine`` chooses between them from the type, the
+head dim and the bases alone:
+
+- ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at head dim 256 whose bases
+  are 16-byte multiples: gemma2-2b's training): ``wgmma`` fed by TMA
+  through mbarrier rings, two consumer warpgroups a CTA;
+  ``bwd_wgmma_plan`` gives its geometry;
+- ``csrc/flash_attention_bwd.cu`` (every other head dim, f32, and bf16
+  bases TMA cannot address): ``mma.sync`` fed by ``cp.async``.
+
+Each engine counts its own calls (``bwd_wgmma_launches``,
+``bwd_launches``), so a run shows which one ran. ``q_offset``, on every
+entry point, is the position of q's first row for the masks (a rank's
+block of the query rows, ``ops.row_split``); the keys' start at 0.
 """
 from __future__ import annotations
 
@@ -32,15 +48,19 @@ from repro_torch.kernels._build import load_cuda_library
 
 #: kernel launches since the count was last set to 0
 launches = 0
-#: backward calls since the count was last set to 0 (each launches the
-#: kernels of ``bwd_launch_plan``)
+#: backward calls on the ``mma.sync`` engine since the count was last set
+#: to 0 (each launches the kernels of ``bwd_launch_plan``)
 bwd_launches = 0
+#: backward calls on the ``wgmma`` engine (each launches the two kernels of
+#: ``bwd_wgmma_plan``)
+bwd_wgmma_launches = 0
 #: ``(B*Hq, ceil(S/bq), ceil(Skv/bk))`` of the last launch: the CUDA grid is
 #: the first two; each CTA walks the third, its softmax steps, in order
 last_grid: tuple | None = None
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
+WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd_wgmma.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 #: head dims of the backward kernels
 BWD_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
@@ -143,13 +163,76 @@ def bwd_launch_plan(
     )
 
 
+#: the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``): its head dim;
+#: for dQ the q rows of a CTA (64 a consumer warpgroup), the keys of a step
+#: and the slots of its K and V rings; for dK/dV the keys of a CTA, the q
+#: rows of a step and the stages of its q/dO ring; consumer warpgroups a CTA
+#: (one more loads)
+WGMMA_D = 256
+WGMMA_DQ = (128, 64, (2, 1))
+WGMMA_DKDV = (64, 64, (2,))
+WGMMA_WARPGROUPS = 2
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+#: the wgmma library returns this plus a CUresult where a tensor map could
+#: not be encoded (its ``kEncodeError``)
+_ENCODE_ERROR = 100000
+
+
+def bwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
+    """Which engine runs the backward: ``"wgmma"`` for bf16 at head dim 256
+    whose bases (``aligned``) are 16-byte multiples, as TMA addresses them
+    (a row of 256 bf16 is 512 bytes); ``"mma_sync"`` otherwise."""
+    return "wgmma" if dtype == torch.bfloat16 and D == WGMMA_D and aligned else "mma_sync"
+
+
+class WgmmaKernel(NamedTuple):
+    name: str  # "dq" (which also writes Delta) or "dkdv", in launch order
+    grid: tuple  # the CUDA grid (heads, blocks)
+    order: tuple  # the block blockIdx.y = 0, 1, ... takes: q blocks (dq), key blocks (dkdv)
+    rows: int  # q rows (dq) or keys (dkdv) a CTA owns
+    step: int  # keys (dq) or q rows (dkdv) of one step of the CTA's walk
+    stages: tuple  # slots of each ring: K and V (dq), q and dO tiles together (dkdv)
+    warpgroups: int  # consumer warpgroups a CTA, each 128 threads; one more loads
+    smem: int  # dynamic shared bytes a CTA
+
+
+def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int = WGMMA_D
+                   ) -> tuple[WgmmaKernel, ...]:
+    """The wgmma engine's two launches in order, as
+    ``csrc/flash_attention_bwd_wgmma.cu`` launches them. dQ: a CTA owns
+    128 q rows of one head, 64 a consumer warpgroup, with Q and dO resident
+    and K and V tiles streaming through rings of 2 and 1 slots; heaviest
+    causal block first (``_heavy_first``). dK/dV: a CTA owns 64 keys of one
+    KV head, K and V resident, walking its group's q heads and tiles with
+    the q and dO tiles in a two-stage ring; each consumer warpgroup owns 128
+    of the 256 columns of dK and dV. Shared bytes: 1 KB of alignment slack,
+    the bf16 tiles (a 64 x 256 tile is 32 KB), P^T and dS^T (8 KB each,
+    twice: even and odd steps, dK/dV) and 8 bytes a barrier. Raises on a
+    shape the engine does not take."""
+    if D != WGMMA_D or min(B, S, Skv, Hkv) <= 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention wgmma backward: B={B} S={S} Skv={Skv} "
+                         f"Hq={Hq} Hkv={Hkv} D={D}; it takes head dim {WGMMA_D}")
+    tile = 64 * D * 2
+    (q_rows, tk, (k_slots, v_slots)), (kv_rows, tq, (st,)) = WGMMA_DQ, WGMMA_DKDV
+    nq, nk = -(-S // q_rows), -(-Skv // kv_rows)
+    dq_smem = 1024 + 2 * (q_rows // 64) * tile + (k_slots + v_slots) * tile \
+        + 8 * (1 + 2 * k_slots + 2 * v_slots)
+    dkdv_smem = 1024 + 2 * tile + st * 2 * tile + 2 * 2 * 64 * 64 * 2 + 8 * (1 + 2 * st)
+    return (
+        WgmmaKernel("dq", (B * Hq, nq), _heavy_first(nq, q_rows, S), q_rows, tk,
+                    (k_slots, v_slots), WGMMA_WARPGROUPS, dq_smem),
+        WgmmaKernel("dkdv", (B * Hkv, nk), tuple(range(nk)), kv_rows, tq, (st,),
+                    WGMMA_WARPGROUPS, dkdv_smem),
+    )
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("flash_attention", SOURCES)
     fn = lib.fa_forward
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib
@@ -160,8 +243,20 @@ def bwd_library() -> ctypes.CDLL:
     lib = load_cuda_library("flash_attention_bwd", BWD_SOURCES)
     fn = lib.fa_backward
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return lib
+
+
+def wgmma_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the wgmma engine."""
+    lib = load_cuda_library("flash_attention_bwd_wgmma", WGMMA_SOURCES)
+    lib.fa_backward_wgmma.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+        + [ctypes.c_int] + [ctypes.c_void_p])
+    lib.fa_backward_wgmma.restype = ctypes.c_int
+    lib.fa_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fa_bwd_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -177,9 +272,11 @@ def flash_attention_cuda(
     block_q: int = 128,
     block_k: int = 128,
     return_lse: bool = False,
+    q_offset: int = 0,
 ):
     """The attention output, and with ``return_lse`` also each row's
-    log-sum-exp ``(B, Hq, S)`` f32 (``-inf`` for a row that sees no key)."""
+    log-sum-exp ``(B, Hq, S)`` f32 (``-inf`` for a row that sees no key).
+    Row i is masked at position ``q_offset + i``."""
     global launches, last_grid
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_cuda: q, k, v must be CUDA tensors on one device")
@@ -202,6 +299,8 @@ def flash_attention_cuda(
         raise ValueError(f"flash_attention_cuda: softcap must be positive, got {softcap}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_cuda: q_offset must be >= 0, got {q_offset}")
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0 or Skv == 0:
@@ -217,13 +316,44 @@ def flash_attention_cuda(
             lse.data_ptr() if return_lse else None, _DTYPE_CODE[q.dtype],
             B, S, Skv, Hq, Hkv, D, int(causal), window or 0, float(softcap or 0.0),
             scale if scale is not None else 1.0 / math.sqrt(D),
-            plan.block_q, plan.block_k, plan.kt, plan.warps, stream,
+            plan.block_q, plan.block_k, plan.kt, plan.warps, q_offset, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed with cudaError {err}")
     launches += 1
     last_grid = plan.grid
     return (out, lse) if return_lse else out
+
+
+def _bwd_check(name: str, q, k, v, out, lse, dout, window, softcap, q_offset) -> tuple:
+    """``(B, S, Skv, Hq, Hkv, D)`` after the checks every backward makes."""
+    tensors = (q, k, v, out, lse, dout)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name}: every tensor must be on q's CUDA device")
+    if (q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in (k, v, out, dout))
+            or lse.dtype != torch.float32):
+        raise TypeError(f"{name}: q, k, v, out, dout of one type "
+                        "(float32 or bfloat16) and an f32 lse")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    B, S, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or out.shape != q.shape or dout.shape != q.shape
+            or lse.shape != (B, Hq, S) or k.shape[0] != B or k.shape[3] != D or Hq % Hkv):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}, "
+                         f"dout {tuple(dout.shape)}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {BWD_HEAD_DIMS}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: every tensor must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"{name}: softcap must be positive, got {softcap}")
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset must be >= 0, got {q_offset}")
+    return B, S, Skv, Hq, Hkv, D
 
 
 def flash_attention_bwd_cuda(
@@ -238,28 +368,60 @@ def flash_attention_bwd_cuda(
     window: int | None = None,
     softcap: float | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of ``flash_attention_cuda`` for the output gradient
-    ``dout``, in q's type."""
+    ``dout``, in q's type, on the engine ``bwd_engine`` picks."""
+    args = (q, k, v, out, lse, dout)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, q_offset=q_offset)
+    if bwd_engine(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in args)) == "wgmma":
+        return flash_attention_bwd_wgmma_cuda(*args, **kw)
+    return flash_attention_bwd_mma_sync_cuda(*args, **kw)
+
+
+def flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, *, causal=True, window=None,
+                                   softcap=None, scale=None, q_offset=0):
+    """The backward on the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``):
+    bf16 at head dim 256 whose bases are 16-byte multiples; raises
+    otherwise, and where a launch or a tensor map fails."""
+    global bwd_wgmma_launches
+    name = "flash_attention_bwd_wgmma_cuda"
+    B, S, Skv, Hq, Hkv, D = _bwd_check(name, q, k, v, out, lse, dout, window, softcap, q_offset)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, out, dout, lse, delta, dq, dk, dv)
+    if bwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in ts)) != "wgmma":
+        raise ValueError(f"{name}: {q.dtype} at head dim {D}, or a base that is not a "
+                         f"16-byte multiple; it takes bf16 at head dim {WGMMA_D}")
+    if q.numel() == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = wgmma_library()
+    for i, kern in enumerate(bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)):
+        if lib.fa_bwd_wgmma_smem_bytes(i) != kern.smem or kern.smem > SMEM_LIMIT:
+            raise RuntimeError(f"{name}: {kern.name} takes {lib.fa_bwd_wgmma_smem_bytes(i)} "
+                               f"shared bytes, the plan {kern.smem}, the limit {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.fa_backward_wgmma(
+            *(t.data_ptr() for t in ts), B, S, Skv, Hq, Hkv, int(causal), window or 0,
+            float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
+            q_offset, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: a tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+    bwd_wgmma_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, *, causal=True, window=None,
+                                      softcap=None, scale=None, q_offset=0):
+    """The backward on the mma.sync engine (``csrc/flash_attention_bwd.cu``):
+    f32 or bf16, every head dim of ``BWD_HEAD_DIMS``."""
     global bwd_launches
-    tensors = (q, k, v, out, lse, dout)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("flash_attention_bwd_cuda: every tensor must be on q's CUDA device")
-    if (q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in (k, v, out, dout))
-            or lse.dtype != torch.float32):
-        raise TypeError("flash_attention_bwd_cuda: q, k, v, out, dout of one type "
-                        "(float32 or bfloat16) and an f32 lse")
-    B, S, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    if (k.shape != v.shape or out.shape != q.shape or dout.shape != q.shape
-            or lse.shape != (B, Hq, S) or k.shape[0] != B or k.shape[3] != D or Hq % Hkv):
-        raise ValueError(f"flash_attention_bwd_cuda: shapes q {tuple(q.shape)}, k/v "
-                         f"{tuple(k.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}, "
-                         f"dout {tuple(dout.shape)}")
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in {BWD_HEAD_DIMS}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_attention_bwd_cuda: every tensor must be contiguous")
+    name = "flash_attention_bwd_mma_sync_cuda"
+    B, S, Skv, Hq, Hkv, D = _bwd_check(name, q, k, v, out, lse, dout, window, softcap, q_offset)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -276,9 +438,9 @@ def flash_attention_bwd_cuda(
             _DTYPE_CODE[q.dtype], B, S, Skv, Hq, Hkv, D, int(causal), window or 0,
             float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
             *(x for name in ("dkdv", "dq") for x in (plan[name].step, plan[name].stages,
-                                                      plan[name].warps)), stream,
+                                                      plan[name].warps)), q_offset, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_attention_bwd_mma_sync_cuda: launch failed with cudaError {err}")
     bwd_launches += 1
     return dq, dk, dv

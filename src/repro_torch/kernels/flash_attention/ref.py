@@ -1,5 +1,9 @@
 """Plain PyTorch flash-attention oracle: dense masked softmax attention on
-the kernel layout of ``repro.kernels.flash_attention.ref``."""
+the kernel layout of ``repro.kernels.flash_attention.ref``.
+
+``q_offset`` is the absolute position of q's first row: row i is masked
+at position ``q_offset + i`` (a rank holding a block of the query rows);
+the keys' positions start at 0. At 0 it is the reference's function."""
 from __future__ import annotations
 
 import math
@@ -17,6 +21,7 @@ def flash_attention_ref(
     window: int | None = None,
     softcap: float | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     _, S, D = q.shape
     Skv = k.shape[1]
@@ -26,20 +31,27 @@ def flash_attention_ref(
     s = torch.einsum("bqd,bkd->bqk", q.float(), kx) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    mask = visible_mask(S, Skv, causal, window, q_offset, q.device)
     s = s.masked_fill(~mask[None], -1.0e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return torch.einsum("bqk,bkd->bqd", p, vx).to(q.dtype)
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, softcap=None) -> torch.Tensor:
+def visible_mask(S, Skv, causal, window, q_offset, device) -> torch.Tensor:
+    """``(S, Skv)``: which keys row i (at position ``q_offset + i``) sees."""
+    qpos = q_offset + torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
+                  q_offset: int = 0) -> torch.Tensor:
     """The same function on the model layout: q ``(B, S, Hq, D)``, k/v
     ``(B, Skv, Hkv, D)``, through the reference's transposes."""
     B, S, Hq, D = q.shape
@@ -48,11 +60,13 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None) -> torch.T
     qf = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(B * Hkv * G, S, D)
     kf = k.permute(0, 2, 1, 3).reshape(B * Hkv, -1, D)
     vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, -1, D)
-    of = flash_attention_ref(qf, kf, vf, group=G, causal=causal, window=window, softcap=softcap)
+    of = flash_attention_ref(qf, kf, vf, group=G, causal=causal, window=window, softcap=softcap,
+                             q_offset=q_offset)
     return of.reshape(B, Hkv, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
 
 
-def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None):
+def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None,
+                      q_offset: int = 0):
     """The backward of :func:`attention_ref` as an explicit formula, dense
     and in f32, on the model layout: ``P = softmax(masked s')``,
     ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP - rowsum(P dP))`` times
@@ -72,13 +86,7 @@ def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None):
     if softcap is not None:
         t = torch.tanh(x / softcap)
         x, dcap = softcap * t, 1.0 - t * t
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    mask = visible_mask(S, Skv, causal, window, q_offset, q.device)
     p = torch.softmax(x.masked_fill(~mask, -1.0e30), dim=-1)  # a row with no key: uniform
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * dcap * scale

@@ -13,7 +13,8 @@ import glob
 import json
 import os
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import SHAPES, get_arch
+from repro_torch.kernels.flash_attention.ops import split_sizes
 from repro_torch.roofline.analysis import (
     H100_SXM,
     Peaks,
@@ -94,11 +95,14 @@ def report(dryrun_dir: str, baseline=None, section: str = "all", peaks: Peaks = 
 def notes(dryrun_dir: str) -> str:
     """What the port's counts of the JSONs in ``dryrun_dir`` hold beyond
     the program a production run would lower: every cell's memory term is
-    the eager plain program's, unfused; and a cell whose query or KV heads
-    the mesh's ``model`` axis does not divide runs its attention replicated
-    over that axis (``dist.sharding.unflatten`` gathers the heads first),
-    so its attention products are in every rank's compute term and the
-    gathers in its collective term."""
+    the eager plain program's, unfused; and in a cell whose query or KV
+    heads the mesh's ``model`` axis does not divide, a train or prefill
+    step splits its attention over h groups of KV heads and r blocks of
+    query rows where the axis factors so (``flash_attention.ops.row_split``),
+    and otherwise, as a decode step always does, runs it replicated over
+    that axis (``dist.sharding.unflatten`` gathers the heads first), so its
+    attention products are in every rank's compute term and the gathers in
+    its collective term."""
     out = ["Notes on the port's counts:",
            "- every memory term is the eager plain program's HBM traffic, unfused"]
     for p in sorted(glob.glob(os.path.join(dryrun_dir, "*.json"))):
@@ -108,9 +112,13 @@ def notes(dryrun_dir: str) -> str:
         model = int(d["mesh"].removesuffix("pp").split("x")[-1])
         heads = [n for n in (cfg.n_heads, cfg.n_kv_heads) if n]
         if cfg.family != "ssm" and any(n % model for n in heads):
+            shape = SHAPES[d["shape"]]
+            hr = None if shape.kind == "decode" else split_sizes(
+                model, shape.seq_len, cfg.n_heads, cfg.n_kv_heads)
+            how = ("attention replicated over it" if hr is None else
+                   f"attention split over {hr[0]} KV head groups x {hr[1]} query-row blocks")
             out.append(f"- {d['arch']}/{d['shape']}/{d['mesh']}: {cfg.n_heads} query and "
-                       f"{cfg.n_kv_heads} KV heads over a {model}-way model axis: attention "
-                       f"replicated over it")
+                       f"{cfg.n_kv_heads} KV heads over a {model}-way model axis: {how}")
     return "\n".join(out) + "\n"
 
 

@@ -602,9 +602,9 @@ def test_kernel_ops_record_their_backward_kernels(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_trains_at_head_dim_256(dev, dtype):
     """gemma2-2b's head dim 256 trains on the card: ``ops.attention`` under
-    grad runs the backward kernel, whose gradients equal
-    ``attention_bwd_ref``'s with gemma2's masks (causal, a window, softcap
-    50), and a rerun gives the same bits."""
+    grad runs the backward engine ``bwd_engine`` picks (bf16: wgmma; f32:
+    mma.sync), whose gradients equal ``attention_bwd_ref``'s with gemma2's
+    masks (causal, a window, softcap 50), and a rerun gives the same bits."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
     rng = np.random.default_rng(0)
@@ -612,14 +612,122 @@ def test_flash_attention_trains_at_head_dim_256(dev, dtype):
     card = [_randn(rng, s, dtype, dev).requires_grad_() for s in shapes]
     g = _randn(rng, shapes[0], dtype, dev)
     kw = dict(causal=True, window=64, softcap=50.0)
-    n0 = fa_kernel.bwd_launches
+    # bf16 runs on the wgmma engine, f32 on the mma.sync engine (bwd_engine)
+    count = "bwd_wgmma_launches" if dtype == torch.bfloat16 else "bwd_launches"
+    n0 = getattr(fa_kernel, count)
     got = torch.autograd.grad(fa_ops.attention(*card, **kw), card, g)
     again = torch.autograd.grad(fa_ops.attention(*card, **kw), card, g)
-    assert fa_kernel.bwd_launches == n0 + 2
+    assert getattr(fa_kernel, count) == n0 + 2
     want = attention_bwd_ref(*(t.detach() for t in card), g, **kw)
     for name, a, b, r in zip(("dq", "dk", "dv"), got, again, want):
         assert a.dtype == dtype and torch.equal(a, b)
         _rel_close(a, r, dtype, name)
+
+
+#: (B, S, Skv, Hq, Hkv, causal, window, softcap) at head dim 256: small,
+#: ragged, GQA, each mask alone and together, rows that see no key, and
+#: gemma2-2b's training shape (window 4096, softcap 50) with and without
+#: its masks
+FA_WGMMA_CASES = [
+    (1, 64, 64, 2, 2, True, None, None),
+    (2, 130, 130, 4, 2, True, None, None),
+    (2, 130, 130, 4, 2, False, None, None),
+    (1, 130, 130, 2, 1, True, 64, None),
+    (1, 130, 130, 2, 1, False, None, 50.0),
+    (1, 130, 130, 2, 1, True, 64, 50.0),
+    (1, 200, 50, 2, 1, True, 10, None),
+    (1, 77, 200, 4, 1, False, 50, 20.0),
+    (1, 4096, 4096, 8, 4, True, 4096, 50.0),
+    (1, 4096, 4096, 8, 4, True, None, None),
+    (1, 4096, 4096, 8, 4, False, None, None),
+]
+
+
+@pytest.mark.parametrize("case", FA_WGMMA_CASES)
+def test_flash_attention_bwd_wgmma_matches_plain_and_mma_sync(dev, case):
+    """The wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``): each
+    gradient within bf16 2e-2 of ``attention_bwd_ref``'s max|ref| and of the
+    mma.sync engine's on the same inputs, bit-equal on a rerun; its count
+    moves by one a call and the mma.sync engine's not at all; each launch's
+    shared bytes are the plan's."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    B, S, Skv, Hq, Hkv, causal, window, softcap = case
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(3)
+    q, dout = (_randn(rng, (B, S, Hq, 256), bf16, dev) for _ in range(2))
+    k, v = (_randn(rng, (B, Skv, Hkv, 256), bf16, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert fa_kernel.bwd_engine(bf16, 256) == "wgmma"
+    b0, w0 = fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    again = fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, **kw)
+    assert (fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches) == (b0, w0 + 2)
+    old = fa_kernel.flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, **kw)
+    want = attention_bwd_ref(q, k, v, dout, **kw)
+    for name, a, b, o, r in zip(("dq", "dk", "dv"), got, again, old, want):
+        assert a.dtype == bf16 and bool(torch.isfinite(a).all()) and torch.equal(a, b), name
+        _rel_close(a, r, bf16, name)
+        _rel_close(a, o, bf16, name + " against the mma.sync engine")
+    lib = fa_kernel.wgmma_library()
+    for i, kern in enumerate(fa_kernel.bwd_wgmma_plan(B, S, Skv, Hq, Hkv)):
+        assert lib.fa_bwd_wgmma_smem_bytes(i) == kern.smem <= fa_kernel.SMEM_LIMIT
+
+
+def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev):
+    """f32, head dims other than 256 and a base that is not a 16-byte
+    multiple are not the wgmma engine's: it raises, and
+    ``flash_attention_bwd_cuda`` takes the mma.sync engine for them."""
+    rng = np.random.default_rng(4)
+    for dtype, D, shift in ((torch.float32, 256, 0), (torch.bfloat16, 128, 0),
+                            (torch.bfloat16, 256, 1)):
+        q, dout = (_randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
+                   for _ in range(2))
+        k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
+        out, lse = fa_kernel.flash_attention_cuda(q.contiguous(), k, v, return_lse=True)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout)
+        b0 = fa_kernel.bwd_launches
+        fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        assert fa_kernel.bwd_launches == b0 + 1
+
+
+#: (B, rows, offset, Skv, Hq, Hkv, D, causal, window, softcap): a block of q
+#: rows at an offset (a rank's rows under ``ops.row_split``), rows past Skv +
+#: window - 1 that see no key among them
+FA_OFFSET_CASES = [
+    (1, 64, 64, 192, 4, 2, 128, True, None, None),
+    (2, 100, 60, 200, 4, 2, 64, True, 48, 30.0),
+    (1, 64, 100, 96, 2, 1, 256, True, 32, 50.0),
+    (1, 1024, 3072, 4096, 8, 4, 256, True, 4096, 50.0),
+    (1, 130, 40, 200, 2, 1, 256, False, 64, None),
+]
+
+
+@pytest.mark.parametrize("case", FA_OFFSET_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_q_offset_forward_and_backward(dev, case, dtype):
+    """With ``q_offset`` the forward, and the backward on each engine that
+    takes the type and head dim, equal the plain versions at that offset
+    (f32 2e-5, bf16 2e-2 of each gradient's max|ref|)."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    B, rows, off, Skv, Hq, Hkv, D, causal, window, softcap = case
+    rng = np.random.default_rng(5)
+    q, dout = (_randn(rng, (B, rows, Hq, D), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (B, Skv, Hkv, D), dtype, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    _rel_close(out, attention_ref(q, k, v, **kw), dtype, "out")
+    want = attention_bwd_ref(q, k, v, dout, **kw)
+    engines = [fa_kernel.flash_attention_bwd_mma_sync_cuda]
+    if fa_kernel.bwd_engine(dtype, D) == "wgmma":
+        engines.append(fa_kernel.flash_attention_bwd_wgmma_cuda)
+    for engine in engines:
+        got = engine(q, k, v, out, lse, dout, **kw)
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            _rel_close(a, r, dtype, f"{engine.__name__} {name}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -338,11 +338,13 @@ def test_fake_group_leaves_torch_usable():
 #: into heads (32 heads over 16: 4 over 4). ``exact``: the port replicates
 #: no work there (mamba2's SSD scan, its decode recurrence and decode conv
 #: run on head or channel shards split over the model axis), so each
-#: device's dot FLOPs are held within 2% of the reference's; gemma2's
-#: attention, whose 4 heads the model axis does not divide, runs replicated
-#: (XLA splits its KV heads 2 ways and its query rows 4 ways, which the
-#: kernel's entry point cannot take: ROADMAP queue C), so its are held
-#: between the reference's and the meshless step's
+#: device's dot FLOPs are held within 2% of the reference's. gemma2's
+#: attention, whose 4 query and 2 KV heads the model axis does not divide,
+#: splits its KV heads 2 ways and its query rows 4 ways, as XLA splits the
+#: reference's (``flash_attention.ops.row_split``); its o-projection's
+#: weight gradient still runs whole on every rank (DTensor saves the
+#: replicated attention output for it), so its count is held between the
+#: reference's and the meshless step's (ROADMAP queue C)
 CASES_MESH = [("mamba2-370m", "prefill", (1, 8), True), ("mamba2-370m", "decode", (1, 8), True),
               ("gemma2-2b", "train", (1, 8), False), ("stablelm-3b", "decode", (1, 4), True)]
 
@@ -378,3 +380,25 @@ def test_repaired_cells_lower_on_a_fake_mesh(arch, kind, shape, exact, ref_on_me
     assert not got.unknown_ops, got.unknown_ops
     assert got.collective_bytes == sum(v["bytes"] for v in got.collectives.values())
     assert lw.argument_bytes < whole.argument_bytes
+
+
+def _attention_dot_flops(lw) -> float:
+    """The dot FLOPs of a step's batched products: attention's (QK^T and PV
+    of the plain version, their recomputation and their backward)."""
+    from repro_torch.roofline.op_cost import analyze_ledger
+
+    return sum(analyze_ledger([line]).dot_flops for line in lw.counter.ledger_lines()
+               if '"op": "aten.bmm.' in line)
+
+
+def test_gemma2_attention_splits_over_kv_heads_and_rows():
+    """On the (1, 8) mesh, whose model axis divides neither of gemma2-2b's
+    head counts (4 and 2), each device computes an eighth of the meshless
+    step's attention products: 2 KV head groups x 4 blocks of query rows
+    (``flash_attention.ops.row_split``), as XLA splits the reference's."""
+    cfg = get_arch("gemma2-2b").smoke()
+    whole = _attention_dot_flops(_meshless("gemma2-2b", "train"))
+    with fake_process_group(8):
+        mesh = make_mesh((1, 8), ("data", "model"), device_type="cpu")
+        lw = D.lower_step(cfg, "train", B, S, mesh=mesh)
+    assert whole > 0 and _attention_dot_flops(lw) == whole / 8
