@@ -6,13 +6,15 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the CUDA sources (flash attention, its two backward
-   engines, fused MoE, its two backward engines, scaled_mm) with nvcc, one
+   engines, fused MoE's two forward and two backward engines, scaled_mm)
+   with nvcc, one
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
-   fused MoE's mma.sync and wgmma engines), the backwards' launch plans,
-   and each wgmma engine's SASS instruction counts (HGMMA, TMA loads and
-   stores, mbarrier waits, all asserted present) are logged;
+   fused MoE's mma.sync and wgmma engines) and of fused MoE's forward
+   wgmma engine, the launch plans, and each wgmma engine's SASS
+   instruction counts (HGMMA, TMA loads and stores, mbarrier waits, all
+   asserted present; the forward engine stores no tile by TMA) are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
@@ -27,7 +29,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    width (scaled_mm also with 32-deep steps, and at shapes it stages byte
    by byte); fused MoE in bf16 at dbrx-132b's serving shapes, through the
    model's ``expert_ffn``: a decode tick of 4 slots (4 rows an expert) and
-   the prefill of a prime-length prompt (8012 rows, padded to 8064); and
+   the prefill of a prime-length prompt (8012 rows, padded to 8064); fused
+   MoE's forward wgmma engine (bf16 with 16-byte rows at any rows and
+   block_m, chosen by ``fwd_engine``) at small ragged shapes over several (block_m, block_f)
+   and at dbrx-132b's width with 512 and 640 rows an expert, each also
+   within bf16 2e-2 of max|ref| of the mma.sync engine's output; and
    the remaining families' shapes: flash attention at gemma2-2b's prefill
    (4608 tokens, window 4096, softcap 50, head dim 256), whisper-base's
    encoder and cross attention (1500 frames), llama-3.2-vision's cross
@@ -66,7 +72,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    cut to 2 layers, bf16 compute, through both engines. Each run sets the
    launch counts to 0 before it and reads them after: every kernel's count
    must move by exactly what the path implies (fused MoE once per MoE layer
-   a step). Predicted seconds are printed on lines of their own, labelled
+   a step, on either forward engine). Predicted seconds are printed on lines of their own, labelled
    as predictions for the registry TPU;
 5. kernel times with CUDA events at the main paths' shapes (device time
    from a CUDA-graph replay; the eager time, launched from Python, is
@@ -75,9 +81,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the least time the card could take (its bound); flash attention
    also at gemma2-2b's prefill shape (no library call: SDPA takes no
    softcap); fused MoE in bf16 at
-   dbrx-132b's decode and prefill serving shapes, and at the tuner's
-   dbrx-132b workload (f32, bounded as 3xTF32, the path its kernel runs;
-   and bf16); silu_mul also at phase 4's prompt lengths, scaled_mm also
+   dbrx-132b's 1024-token prefill (the wgmma engine's JSON row) and decode
+   serving shapes, at the tuner's dbrx-132b workload (f32, bounded as
+   3xTF32: the mma.sync engine's JSON row; and bf16) and at phase 10 (e)'s
+   640 rows, each bf16 shape also on the mma.sync engine in turns on the
+   same inputs, with each wgmma launch under the profiler beside its own
+   bound; silu_mul also at phase 4's prompt lengths, scaled_mm also
    at the tuner's default workload beside ``torch._int_mm``; the three
    backward kernels at qwen3-0.6b's training shapes, beside their plain
    backward formulas and the backward of ``F.rms_norm`` and of SDPA (rows
@@ -158,8 +167,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens/s, memory peak and one profiled step's device-busy share and
    flash attention's backward share of it; (e) one full-width dbrx-132b layer's forward and
    backward, bf16, 2048 tokens: its wall, launch counts exact (fused MoE's
-   backward on the wgmma engine), and fused MoE's backward kernels' share
-   of the device time;
+   forward, twice under remat, and its backward on the wgmma engines), and
+   fused MoE's backward and forward kernels' device time;
 11. the static auditor: (a) ``python -m repro_torch.analysis --all --strict
    --json`` in a subprocess exits 0 with only info-severity findings, one
    SP105 (no cached dry-run ledger) for each registry arch, and the CUDA
@@ -214,9 +223,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line (ten entries: the five kernels
-and the backwards of rmsnorm, silu_mul, flash attention and fused MoE's
-two engines),
+It prints one ``{"kernels": [...]}`` line (twelve entries: the five
+kernels, fused MoE's forward wgmma engine, and the backwards of rmsnorm,
+silu_mul, flash attention's and fused MoE's two engines each),
 the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -285,6 +294,43 @@ def same_after_poison(torch, kname, label, fn, first):
     poison_checks[kname] = poison_checks.get(kname, 0) + 1
 
 
+class EngineCount:
+    """A kernel module's launch count kept under another name (fused MoE's
+    forward ``wgmma_launches``), read and set as ``launches``, as each of
+    ``main``'s ``kinds`` is."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr = mod, attr
+
+    @property
+    def launches(self):
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.mod, self.attr, value)
+
+
+def moe_fwd_wgmma(cfg):
+    """Whether ``cfg``'s fused MoE forward runs on the wgmma engine: what
+    ``fwd_engine`` gives its compute type and expert widths (at any rows)."""
+    import torch
+
+    from repro_torch.kernels.fused_moe.kernel import fwd_engine
+
+    return cfg.family == "moe" and fwd_engine(getattr(torch, cfg.compute_dtype), 1, cfg.d_model,
+                                              cfg.moe_hidden) == "wgmma"
+
+
+def moe_on_engine(cfg, counts):
+    """``counts``, whose fused MoE forward calls stand under ``fused_moe``,
+    with those calls under the engine that runs them for ``cfg``
+    (``moe_fwd_wgmma``): ``fused_moe`` (mma.sync) or ``fused_moe_wgmma``."""
+    n = counts.get("fused_moe", 0)
+    wgmma = moe_fwd_wgmma(cfg)
+    return {**counts, "fused_moe": n * (not wgmma), "fused_moe_wgmma": n * wgmma}
+
+
 def bound(peaks, nbytes, ops, kind):
     """``(bound_ms, bound_by)``: the larger of moving ``nbytes`` at the
     memory rate and doing ``ops`` at the peak rate of ``kind``."""
@@ -321,13 +367,15 @@ def main():
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
-    kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k, "fused_moe": moe_k}
+    kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k, "fused_moe": moe_k,
+             "fused_moe_wgmma": EngineCount(moe_k, "wgmma_launches")}
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(8) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, fa_k.wgmma_library,
-                                           moe_k.library, moe_k.bwd_library, moe_k.wgmma_library,
+                                           moe_k.library, moe_k.fwd_wgmma_library,
+                                           moe_k.bwd_library, moe_k.wgmma_library,
                                            smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
@@ -439,6 +487,8 @@ def main():
                             "src/repro/kernels/flash_attention/kernel.py:30"),
         "fused_moe": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe.cu",
                       "src/repro/kernels/fused_moe/kernel.py:27"),
+        "fused_moe_wgmma": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_wgmma.cu",
+                            "src/repro/kernels/fused_moe/kernel.py:27"),
         "scaled_mm": ("cuda", "src/repro_torch/kernels/scaled_mm/csrc/scaled_mm.cu",
                       "src/repro/kernels/scaled_mm/kernel.py:20"),
         # the backwards of the kernels training runs through; the TPU kernels
@@ -476,10 +526,10 @@ def main():
     return 0
 
 
-def wgmma_sass(lib, sources):
+def wgmma_sass(lib, sources, held=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")):
     """What a wgmma engine's library holds, from ``cuobjdump --dump-sass``:
     its kernels hold warpgroup products (HGMMA), TMA loads and stores
-    (UTMALDG, UTMASTG) and mbarrier waits (SYNCS)."""
+    (UTMALDG, UTMASTG) and mbarrier waits (SYNCS), each of ``held``."""
     import collections
     import re
 
@@ -490,15 +540,15 @@ def wgmma_sass(lib, sources):
                           capture_output=True, text=True, check=True, timeout=120).stdout
     ops = collections.Counter(re.findall(r"\b(HGMMA|UTMALDG|UTMASTG|SYNCS)\b", sass))
     log(f"  {lib} SASS: {dict(sorted(ops.items()))}")
-    assert all(ops[k] for k in ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")), ops
+    assert all(ops[k] for k in held), ops
 
 
 def ptxas_report(fa_k, moe_k=None):
-    """Phase 1's record of the backward kernels: ptxas's registers and
-    spills for each instance built (``-Xptxas -v``) of flash attention's
-    backward and of fused MoE's, each held to at most 1 KB of spill stores,
-    and the geometry ``bwd_launch_plan`` gives at qwen3-0.6b's training
-    shape."""
+    """Phase 1's record of the backward kernels and of fused MoE's forward
+    wgmma engine: ptxas's registers and spills for each instance built
+    (``-Xptxas -v``) of flash attention's backward and of fused MoE's, each
+    held to at most 1 KB of spill stores, and the geometry
+    ``bwd_launch_plan`` gives at qwen3-0.6b's training shape."""
     import re
 
     import torch
@@ -509,7 +559,8 @@ def ptxas_report(fa_k, moe_k=None):
             ("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)]
     if moe_k is not None:
         logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
-                 ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)]
+                 ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES),
+                 ("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES)]
     for lib, sources in logs:
         kernel = None
         for line in build_log(lib, sources).splitlines():
@@ -517,7 +568,8 @@ def ptxas_report(fa_k, moe_k=None):
             if m:
                 # the Itanium mangling keeps each name and template argument readable
                 name = re.search(r"((?:fa_bwd_\w+?_kernel)|fa_bwd_dq_wgmma|fa_bwd_dkdv_wgmma|"
-                                 r"moe_bwd_gemm|moe_bwd_wgmma)(?:I(.*?)EEv)?", m.group(1))
+                                 r"moe_bwd_gemm|moe_bwd_wgmma|moe_fwd_wgmma)(?:I(.*?)EEv)?",
+                                 m.group(1))
                 if not name:
                     kernel = m.group(1)
                     continue
@@ -547,6 +599,11 @@ def ptxas_report(fa_k, moe_k=None):
                 f"{kern.layout} tiles an expert {kern.tiles}, {kern.ctas} persistent CTAs, "
                 f"{kern.stages} stages, staged output {kern.staged}, {kern.smem} shared bytes")
         wgmma_sass("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)
+        for kern in moe_k.fwd_wgmma_plan(16, 512, 6144, 10752):
+            log(f"  fused_moe forward plan (wgmma), E16 C512 D6144 F10752 bf16: {kern.name} "
+                f"tiles {kern.tile}, {kern.tiles_e} an expert, {kern.ctas} persistent CTAs, "
+                f"K {kern.k}, {kern.stages} stages, {kern.smem} shared bytes")
+        wgmma_sass("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
 
 
 # ======================================================================
@@ -685,23 +742,37 @@ def tuner_kernel_parity(torch, dev):
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err = {"fused_moe": 0.0, "scaled_mm": 0.0}
+    max_err = {"fused_moe": 0.0, "fused_moe_wgmma": 0.0, "scaled_mm": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
     def moe(label, kw, blocks, args, rel_tol=None, main=False):
         """One launch against the plain version: within the reference's
-        tolerances, or within ``rel_tol`` of max|ref| where given."""
+        tolerances, or within ``rel_tol`` of max|ref| where given; on the
+        wgmma engine (``fwd_engine``) also within bf16 2e-2 of max|ref| of
+        the mma.sync engine's output on the same inputs."""
+        E, C, D, F = (kw[k] for k in "ECDF")
+        wgmma = moe_k.fwd_engine(args[0].dtype, C, D, F,
+                                 block_f=blocks.get("block_f", 256)) == "wgmma"
+        kname = "fused_moe_wgmma" if wgmma else "fused_moe"
+        w0 = moe_k.wgmma_launches
         out = moe_k.fused_moe_cuda(*args, **blocks)
+        assert moe_k.wgmma_launches == w0 + wgmma, label
         assert moe_k.last_grid == moe_ops.grid_shape(**kw, **blocks), (label, moe_k.last_grid)
-        same_after_poison(torch, "fused_moe", label,
+        same_after_poison(torch, kname, label,
                           lambda: moe_k.fused_moe_cuda(*args, **blocks), out)
         ref = fused_moe_ref(*args)
         torch.cuda.synchronize()
         assert out.dtype == args[0].dtype and bool(torch.isfinite(out).all()), label
         err = float((out.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
+        if wgmma:
+            gap = float((out.float() - moe_k.fused_moe_mma_sync_cuda(*args, **blocks).float())
+                        .abs().max())
+            log(f"  {label}: wgmma engine, {gap / scale:.3g} of max|ref| from the mma.sync "
+                f"engine's output (tol {BF16_TOL})")
+            assert gap <= BF16_TOL * scale, f"{label}: wgmma and mma.sync engines disagree"
         if rel_tol is None:
             tol = F32_TOL if out.dtype == f32 else BF16_TOL
             torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
@@ -712,7 +783,7 @@ def tuner_kernel_parity(torch, dev):
                 f"(tol {rel_tol} of it)")
             assert err <= rel_tol * scale, f"{label}: card and plain version disagree"
         if main:
-            max_err["fused_moe"] = max(max_err["fused_moe"], err)
+            max_err[kname] = max(max_err[kname], err)
 
     def smm(label, kw, blocks, args, main=False):
         """One launch against the plain version; the int32 sum is read
@@ -818,6 +889,19 @@ def tuner_kernel_parity(torch, dev):
                 rel_tol=MOE_F32_TOL if dt == f32 else BF16_TOL, main=True)
         del args
         torch.cuda.empty_cache()
+    # the forward wgmma engine: ragged C, D and F, one and two consumer
+    # warpgroups, row blocks in sub-tiles, F blocks cut inside a tile or
+    # spanning several; then dbrx-132b's width at its 1024-token prefill
+    # (512 rows an expert) and its training layer (640)
+    for E, C, D, F, bm, bf in [(3, 200, 520, 776, 100, 776), (2, 192, 136, 264, 64, 88),
+                               (2, 384, 200, 328, 192, 8), (4, 256, 256, 512, 128, 64),
+                               (16, 512, 6144, 10752, 128, 256), (16, 640, 6144, 10752, 128, 256)]:
+        args = (randn((E, C, D), bf16), randn((E, D, F), bf16, D ** -0.5),
+                randn((E, D, F), bf16, D ** -0.5), randn((E, F, D), bf16, F ** -0.5))
+        moe(f"fused_moe E{E} C{C} D{D} F{F} bm{bm} bf{bf} bf16", dict(E=E, C=C, D=D, F=F),
+            dict(block_m=bm, block_f=bf), args, rel_tol=BF16_TOL, main=C >= 512)
+        del args
+    torch.cuda.empty_cache()
     kw = arch_workload("scaled_mm", "dbrx-132b")
     args = make_inputs("scaled_mm", kw, device="cuda")
     for blocks in ({}, dict(block_m=512, block_n=512, block_k=512),
@@ -852,9 +936,11 @@ def moe_serving_parity(torch, dev, max_err):
         G, Sg, C = dispatch_geometry(cfg, tokens, train=False)
         rows = G * C
         x = randn((E, rows, D))
+        w0 = moe_k.wgmma_launches
         out = expert_ffn(x, *w)
+        kname = "fused_moe_wgmma" if moe_k.wgmma_launches > w0 else "fused_moe"
         grid = moe_k.last_grid
-        same_after_poison(torch, "fused_moe", f"fused_moe dbrx {label}",
+        same_after_poison(torch, kname, f"fused_moe dbrx {label}",
                           lambda: expert_ffn(x, *w), out)
         ref = fused_moe_ref(x, *w)
         torch.cuda.synchronize()
@@ -863,10 +949,11 @@ def moe_serving_parity(torch, dev, max_err):
         scale = float(ref.float().abs().max())
         bm = min(EXPERT_BLOCK_M, rows)
         log(f"  fused_moe dbrx {label}: (G, Sg, C) = {(G, Sg, C)}, {rows} rows an expert, "
-            f"padded to {-(-rows // bm) * bm} for block_m {bm}, launched grid {grid}; max abs "
+            f"padded to {-(-rows // bm) * bm} for block_m {bm}, launched grid {grid} on "
+            f"{kname}; max abs "
             f"err {err:.3g} = {err / scale:.3g} of max|ref| {scale:.4g} (tol {BF16_TOL} of it)")
         assert err <= BF16_TOL * scale, f"fused_moe dbrx {label}: card and plain version disagree"
-        max_err["fused_moe"] = max(max_err["fused_moe"], err)
+        max_err[kname] = max(max_err[kname], err)
         del x, out, ref
     del w
     torch.cuda.empty_cache()
@@ -1162,8 +1249,8 @@ def serve_run(torch, kinds, label, eng, prompts, max_new, per_forward, per_prefi
     pre = [m for m in rec.meta if m.phase == "prefill"]
     dec = [m for m in rec.meta if m.phase == "decode"]
     assert len(pre) + len(dec) == rec.n_steps and rec.n_steps > 0
-    expect = {k: per_forward.get(k, 0) * rec.n_steps + per_prefill.get(k, 0) * len(pre)
-              for k in kinds}
+    expect = moe_on_engine(cfg, {k: per_forward.get(k, 0) * rec.n_steps
+                                 + per_prefill.get(k, 0) * len(pre) for k in kinds})
     assert moved == expect, f"{label}: launches {moved}, expected {expect}"
     assert sorted(r.rid for r in results) == list(range(len(prompts)))
     if results_out is not None:
@@ -1302,7 +1389,10 @@ def serve(torch, dev, params, kinds):
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
-    assert all(v > 0 for v in totals.values()), totals
+    # dbrx's bf16 serving runs fused MoE's forward on the wgmma engine, its
+    # decode ticks too (the mma.sync engine takes f32: phases 3 and 10 (a))
+    assert all(v > 0 for k, v in totals.items() if k != "fused_moe"), totals
+    assert totals["fused_moe"] == 0, totals
     assert bool(finite), "non-finite logits on the serving path"
     return totals
 
@@ -1591,16 +1681,22 @@ def kernel_times(torch, dev, peaks):
     del q, k, v
 
     # fused MoE at dbrx-132b width, default blocks. The serving shapes, bf16
-    # as served: a decode tick of 4 slots (4 rows an expert; the JSON row)
-    # and a 1024-token prefill (groups of 512, 256 rows a group: 512 rows an
-    # expert), rows from the model's dispatch_geometry; and the tuner's dbrx
-    # workload (C256), f32 (its inputs) and bf16. Library yardstick: three
-    # bmm's with silu * mul.
+    # as served: a 1024-token prefill (groups of 512, 256 rows a group: 512
+    # rows an expert: the wgmma engine's JSON row) and a decode tick of 4
+    # slots (4 rows an expert), rows from the model's dispatch_geometry; the
+    # tuner's dbrx workload (C256), f32 (its inputs: the mma.sync engine's
+    # JSON row) and bf16; and the training layer of phase 10 (e) (2048
+    # tokens: 640 rows an expert). Library yardstick: three bmm's with silu
+    # * mul.
+    # Where the wgmma engine serves a shape, the mma.sync engine is timed on
+    # the same inputs in turns (wgmma, mma.sync, mma.sync, wgmma).
+    from repro_torch.kernels.fused_moe import kernel as moe_k
+
     dbrx = get_arch("dbrx-132b")
     E, D, Fm = dbrx.n_experts, dbrx.d_model, dbrx.moe_hidden
 
-    def rows_of(tokens):
-        G, _, C = dispatch_geometry(dbrx, tokens, train=False)
+    def rows_of(tokens, train=False):
+        G, _, C = dispatch_geometry(dbrx, tokens, train=train)
         return G * C
 
     def bmm_moe(x, wg, wu, wd):
@@ -1611,30 +1707,46 @@ def kernel_times(torch, dev, peaks):
     # the f32 FMA units' bound, which a kernel of this design can beat, is
     # logged beside it.
     C_tune = arch_workload("fused_moe", "dbrx-132b")["C"]
-    for kname, C, dt, iters in (("fused_moe", rows_of(4), bf16, 8),
-                                ("fused_moe prefill 1024 tokens", rows_of(1024), bf16, 4),
-                                ("fused_moe f32 tuner", C_tune, f32, 2),
-                                ("fused_moe bf16 tuner", C_tune, bf16, 2)):
+    for kname, C, dt, iters in (("fused_moe_wgmma", rows_of(1024), bf16, 4),
+                                ("fused_moe decode tick", rows_of(4), bf16, 8),
+                                ("fused_moe", C_tune, f32, 2),
+                                ("fused_moe bf16 tuner", C_tune, bf16, 2),
+                                ("fused_moe training layer", rows_of(2048, train=True), bf16, 2)):
         args = (randn(E, C, D, dtype=dt), randn(E, D, Fm, scale=D ** -0.5, dtype=dt),
                 randn(E, D, Fm, scale=D ** -0.5, dtype=dt), randn(E, Fm, D, scale=Fm ** -0.5, dtype=dt))
         nbytes = args[0].element_size() * (2 * E * C * D + 3 * E * D * Fm)
         flops = 6 * E * C * D * Fm
+        engine = moe_k.fwd_engine(dt, C, D, Fm)
+        assert engine == ("mma_sync" if dt == f32 else "wgmma"), (kname, C, engine)
         row(kname, fused_moe_cuda, fused_moe_ref, (bmm_moe, [args]), [args], iters,
             *(bound(peaks, nbytes, 3 * flops, "tf32") if dt == f32
               else bound(peaks, nbytes, flops, "bfloat16")))
         log(f"  {kname}: E{E} C{C} D{D} F{Fm} {dt}: {flops / 1e12:.4f} TFLOP, "
-            f"{nbytes / 1e9:.2f} GB")
+            f"{nbytes / 1e9:.2f} GB, the {engine} engine")
         if dt == f32:
             fma_ms, fma_by = bound(peaks, nbytes, flops, "float32")
             log(f"  {kname}: bound {rows[kname]['bound_ms']:.4f} ms as 3xTF32 (the row's), "
                 f"{fma_ms:.4f} ms by {fma_by} on the f32 FMA units")
-        # the split between its two launches, from the profiler's kernel
-        # times (a launch a call each: a count below 1 means the profiler
-        # lost events, and the split is not to be read)
-        split = profiled(torch, lambda: fused_moe_cuda(*args), 2)["top"]
-        log(f"  {kname} launches, ms a call: " + "; ".join(
-            f"{name.replace('void (anonymous namespace)::', '')[:40]} x{n:g} {ms:.3f} ms"
-            for name, n, ms in split))
+        if engine == "wgmma":
+            turns = [rows[kname]["ms"]]
+            turns += [cuda_ms(torch, moe_k.fused_moe_mma_sync_cuda, [args], iters)[0]
+                      for _ in range(2)]
+            turns.append(cuda_ms(torch, fused_moe_cuda, [args], iters)[0])
+            r = rows[kname]
+            log(f"  {kname} in turns: wgmma {turns[0]:.4f}, mma.sync {turns[1]:.4f}, mma.sync "
+                f"{turns[2]:.4f}, wgmma {turns[3]:.4f} ms (mma.sync "
+                f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f}x); "
+                f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound, "
+                f"{r['ms'] / r['library_ms']:.2f}x the library's {r['library_ms']:.4f} ms")
+            fwd_launch_times(torch, peaks, args)
+        else:
+            # the split between its two launches, from the profiler's kernel
+            # times (a launch a call each: a count below 1 means the
+            # profiler lost events, and the split is not to be read)
+            split = profiled(torch, lambda: fused_moe_cuda(*args), 2)["top"]
+            log(f"  {kname} launches, ms a call: " + "; ".join(
+                f"{name.replace('void (anonymous namespace)::', '')[:40]} x{n:g} {ms:.3f} ms"
+                for name, n, ms in split))
         del args
         torch.cuda.empty_cache()
 
@@ -1676,6 +1788,42 @@ def kernel_times(torch, dev, peaks):
     log("  eager launches from Python, ms a call: "
         + ", ".join(f"{k} {v:.4f}" for k, v in eager.items()))
     return rows
+
+
+def fwd_launch_times(torch, peaks, args):
+    """Each of the forward wgmma engine's two launches at these inputs: its
+    device ms under ``torch.profiler`` (the mean of 5 calls) beside its own
+    bound (gate/up: two products, x, Wg, Wu in and h out; down: one, h and
+    Wd in and y out)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.fused_moe.kernel import fused_moe_wgmma_cuda
+
+    x, w_gate = args[0], args[1]
+    E, C, D = x.shape
+    F_ = w_gate.shape[2]
+    fused_moe_wgmma_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fused_moe_wgmma_cuda(*args)
+        torch.cuda.synchronize()
+    times = {e.key: e.device_time_total / 1e3 / 5 for e in prof.key_averages()
+             if "moe_fwd_wgmma" in e.key and e.device_time_total > 0}
+    assert len(times) == 2, f"fused_moe_wgmma: the profiler saw {sorted(times)}"
+    total = 0.0
+    for key, ms in sorted(times.items()):
+        # the template's second argument: 1 the gate/up epilogue, 2 the down one
+        gate = re.search(r"moe_fwd_wgmma(?:<\d+, 1>|ILi\d+ELi1E)", key) is not None
+        products, nbytes = (2, E * C * D + 2 * E * D * F_ + E * C * F_) if gate else (
+            1, E * C * F_ + E * F_ * D + E * C * D)
+        b, by = bound(peaks, 2 * nbytes, products * 2 * E * C * D * F_, "bfloat16")
+        total += ms
+        log(f"  fused_moe_wgmma launch {'gate_up' if gate else 'down'}: {ms:.4f} ms, bound "
+            f"{b:.4f} ms ({by}), {b / ms:.4f} of it")
+    log(f"  fused_moe_wgmma: the two launches {total:.4f} ms under the profiler")
 
 
 def moe_launch_times(torch, moe_k, peaks, args):
@@ -2366,6 +2514,7 @@ def kernel_counts(zero=False):
                       ("fused_moe", moe_k)):
         counters[name] = (mod, "launches")
         counters[name + "_bwd"] = (mod, "bwd_launches")
+    counters["fused_moe_wgmma"] = (moe_k, "wgmma_launches")
     counters["fused_moe_bwd_wgmma"] = (moe_k, "bwd_wgmma_launches")
     counters["flash_attention_bwd_wgmma"] = (fa_k, "bwd_wgmma_launches")
     if zero:
@@ -2379,8 +2528,9 @@ def training_launches(cfg):
     under layer remat each layer's forward runs twice (in the forward pass
     and again in the backward pass), the final norm once; each backward
     once. An MoE layer's FFN is one fused_moe call (and a silu_mul one for
-    a dense residual FFN), whose backward runs on the engine
-    ``bwd_engine`` picks for the compute type and widths; flash attention's
+    a dense residual FFN), whose forward runs on the engine ``fwd_engine``
+    picks for the compute type and widths (``moe_fwd_wgmma``) and whose
+    backward on the engine ``bwd_engine`` picks; flash attention's
     backward runs on the engine its ``bwd_engine`` picks for the compute
     type and head dim."""
     import torch
@@ -2397,14 +2547,15 @@ def training_launches(cfg):
     dense = n if not moe or cfg.dense_residual else 0
     wgmma = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model,
                                cfg.moe_hidden) == "wgmma"
+    fwd = moe_fwd_wgmma(cfg)
     fa_wgmma = fa_k.bwd_engine(getattr(torch, cfg.compute_dtype),
                                cfg.resolved_head_dim) == "wgmma"
     return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
             "silu_mul": twice * dense, "silu_mul_bwd": dense,
             "flash_attention": twice * n, "flash_attention_bwd": n * (not fa_wgmma),
             "flash_attention_bwd_wgmma": n * fa_wgmma,
-            "fused_moe": twice * n * moe, "fused_moe_bwd": n * moe * (not wgmma),
-            "fused_moe_bwd_wgmma": n * moe * wgmma}
+            "fused_moe": twice * n * moe * (not fwd), "fused_moe_wgmma": twice * n * fwd,
+            "fused_moe_bwd": n * moe * (not wgmma), "fused_moe_bwd_wgmma": n * moe * wgmma}
 
 
 def training(torch, dev):
@@ -2528,7 +2679,8 @@ def training(torch, dev):
             moved = kernel_counts()
             peak = torch.cuda.max_memory_allocated()
             per_step = training_launches(cfg)
-            assert moved == {k: steps * v for k, v in per_step.items()}, f"(b) launches {moved}"
+            assert moved == {k: steps * v for k, v in per_step.items()}, (
+                f"(b) launches {moved}")
             assert np.isfinite(losses).all() and losses[-1] < losses[0], f"(b) losses {losses}"
             step_ms = 1e3 * float(np.median(tr.step_times[1:]))
             n = sum(p.numel() for p in tree_leaves(state["params"]))
@@ -2676,15 +2828,20 @@ def training(torch, dev):
     del grads
     assert layer_moved["fused_moe_bwd_wgmma"] == 3 and layer_moved["fused_moe_bwd"] == 0, (
         f"(e) fused_moe's backward did not run on the wgmma engine: {layer_moved}")
-    r = profiled(torch, fwd_bwd, 1, named=("moe_bwd_", "moe_gate_up", "moe_down"))
+    assert layer_moved["fused_moe_wgmma"] == 6 and layer_moved["fused_moe"] == 0, (
+        f"(e) fused_moe's forward (twice a step: remat) did not run on the wgmma engine: "
+        f"{layer_moved}")
+    r = profiled(torch, fwd_bwd, 1,
+                 named=("moe_bwd_", "moe_gate_up", "moe_down", "moe_fwd_wgmma"))
     share = r["named_ms"]["moe_bwd_"] / r["busy_ms"]
     log(f"  (e) dbrx-132b, 1 layer at full width, bf16 compute, B1 S2048: forward and backward "
         f"median {float(np.median(walls)):.1f} ms, {2048 / float(np.median(walls)) * 1e3:.0f} "
         f"tokens/s; under torch.profiler: wall {r['wall_ms']:.3f} ms, device busy "
         f"{r['busy_ms']:.3f} ms (idle {100 * r['idle_share']:.1f}%), {r['launches']:.0f} launches; "
         f"fused_moe's backward kernels (wgmma) {r['named_ms']['moe_bwd_']:.3f} ms "
-        f"({100 * share:.1f}% of device busy), its forward's "
-        f"{r['named_ms']['moe_gate_up'] + r['named_ms']['moe_down']:.3f} ms")
+        f"({100 * share:.1f}% of device busy), its forward's twice (wgmma) "
+        f"{r['named_ms']['moe_fwd_wgmma']:.3f} ms (mma.sync "
+        f"{r['named_ms']['moe_gate_up'] + r['named_ms']['moe_down']:.3f})")
     for name, k, ms in r["top"]:
         log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
     for k, v in (*layer_moved.items(), *grad_runs.items()):
@@ -2964,7 +3121,8 @@ def mesh_path(torch, dev, kinds, smi):
                         m.launches = 0
                     loss1 = float(api.loss(placed, batch)[0].full_tensor())
                 moved1 = {k: m.launches for k, m in kinds.items()}
-            assert moved1 == moved0 and moved1["fused_moe"] == 1, (moved1, moved0)
+            assert moved1 == moved0 and (moved1["fused_moe"], moved1["fused_moe_wgmma"]) == (
+                (0, 1) if moe_fwd_wgmma(cfg) else (1, 0)), (moved1, moved0)
             for k, v in moved1.items():
                 totals[k] += v
             rel = abs(loss1 - loss0) / abs(loss0)

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the port's hand-written kernels:
 // tensor maps and TMA loads, the mbarrier ring, wgmma descriptors and
-// instructions, register rebalancing between warpgroups. Each is a thin
-// wrapper over one PTX instruction or CUDA call; a kernel includes this
-// header and keeps its own tiling and epilogues. Build for sm_90a: wgmma and
-// setmaxnreg exist only there.
+// instructions, register rebalancing between warpgroups, the bf16 row
+// stores of a wgmma epilogue and the host side's shared-memory opt-in. Each
+// is a thin wrapper over one PTX instruction or CUDA call, or a few of them;
+// a kernel includes this header and keeps its own tiling and epilogues.
+// Build for sm_90a: wgmma and setmaxnreg exist only there.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
@@ -191,6 +193,36 @@ __device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&v)[4
                "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
                : "memory");
 }
+// two f32 values as the bf16 pair of one 32-bit register, rounded to nearest
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// 16 rows x 32 columns of bf16, a warp's rows and 4 n8 blocks of a wgmma
+// tile, from w[jj][h] (block jj, rows + 8 h: the accumulator's layout) to
+// `out` (its first row and column; `rows` x `cols` of it are stored, with
+// row stride `ldo`), through the warp's 2 KB of shared memory at `scratch`:
+// in by stmatrix, out 16 bytes a lane, so that each store writes whole
+// 32-byte sectors (a lane's two bf16 columns, stored from the accumulator's
+// layout, would write half sectors)
+__device__ __forceinline__ void store_rows(const uint32_t (&w)[4][2], uint32_t scratch,
+                                           __nv_bfloat16* out, int ldo, int rows, int cols,
+                                           int lane) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {  // matrices (2p, rows 0-7), (2p, 8-15), (2p + 1, ...)
+    const int R = ((lane / 8) % 2) * 8 + lane % 8, cc = 2 * p + lane / 16;
+    const uint32_t v[4] = {w[2 * p][0], w[2 * p][1], w[2 * p + 1][0], w[2 * p + 1][1]};
+    stmatrix_x4(scratch + R * 128 + ((cc ^ (lane % 8)) * 16), v);  // 16-byte chunks swizzled
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int R = 8 * i + lane % 8, cc = lane / 8;
+    const uint4 v = ld_shared_v4(scratch + R * 128 + ((cc ^ (lane % 8)) * 16));
+    if (R < rows && 8 * cc < cols) *reinterpret_cast<uint4*>(out + (size_t)R * ldo + 8 * cc) = v;
+  }
+  __syncwarp();
+}
 
 // ------------------------------------------------------------ warpgroups
 
@@ -367,4 +399,27 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
+
+// ------------------------------------------------------------ host side
+
+constexpr int kMaxDevices = 64;       // devices a library's opt-in records
+constexpr int kEncodeError = 100000;  // a failed tensor-map encode returns this + its CUresult
+
+// raise `kernel`'s dynamic shared-memory limit to `smem` bytes once per
+// device (`configured` holds each device's), so that a launch being
+// captured into a CUDA graph makes no attribute call
+template <typename K>
+inline cudaError_t opt_in(K kernel, int smem, int (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (configured[dev] < smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace hopper

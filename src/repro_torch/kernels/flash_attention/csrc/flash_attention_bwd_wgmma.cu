@@ -81,7 +81,6 @@ constexpr int TILE_BYTES = (D / 64) * BOX;        // 32 KB: 64 rows of 256 colum
 constexpr int kConsumers = 2;                     // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // the last warpgroup loads
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int kMaxDevices = 64;
 
 // dQ: q rows a CTA, slots of the K and V rings; its shared memory from the
 // 1024-aligned base: Q and dO of each consumer, the K and V slots, barriers
@@ -147,10 +146,6 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x on the special-function 
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The score's constants in log2 units: x = s scale, or c tanh(s scale / c)
@@ -613,19 +608,6 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
 
 // ---------------------------------------------------------------- host side
 
-template <typename K>
-cudaError_t opt_in(K kernel, int smem, int* configured, int dev) {
-  // raise a kernel's shared-memory limit once per device, so a launch being
-  // captured into a CUDA graph makes no attribute call
-  if (configured[dev] < smem) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured[dev] = smem;
-  }
-  return cudaSuccess;
-}
-
 // a map over (B, rows, heads, D) bf16 in boxes of 64 columns x 64 rows of one head
 int make_map(CUtensorMap* m, const void* base, int B, int rows, int heads) {
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads, (uint64_t)rows, (uint64_t)B};
@@ -634,9 +616,6 @@ int make_map(CUtensorMap* m, const void* base, int B, int rows, int heads) {
   const uint32_t box[4] = {64, 1, TILE, 1};
   return encode_bf16_4d(m, base, dims, strides, box);
 }
-
-// a failed tensor-map encode returns kEncodeError + its CUresult
-constexpr int kEncodeError = 100000;
 
 }  // namespace
 
@@ -677,13 +656,9 @@ int fa_backward_wgmma(const void* q, const void* k, const void* v, const void* o
   P.qoff = qoff, P.softcap = softcap, P.scale = scale;
 
   static int dq_in[kMaxDevices] = {}, dkdv_in[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if ((err = opt_in(fa_bwd_dq_wgmma, DqSmem::BYTES, dq_in, dev)) != cudaSuccess) return (int)err;
-  if ((err = opt_in(fa_bwd_dkdv_wgmma, DkdvSmem::BYTES, dkdv_in, dev)) != cudaSuccess)
-    return (int)err;
+  cudaError_t err;
+  if ((err = opt_in(fa_bwd_dq_wgmma, DqSmem::BYTES, dq_in)) != cudaSuccess) return (int)err;
+  if ((err = opt_in(fa_bwd_dkdv_wgmma, DkdvSmem::BYTES, dkdv_in)) != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   fa_bwd_dq_wgmma<<<dim3(B * Hq, (S + DQ_ROWS - 1) / DQ_ROWS), kThreads, DqSmem::BYTES, st>>>(P);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

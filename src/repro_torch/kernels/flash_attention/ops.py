@@ -136,6 +136,24 @@ def row_split(q, k, pl) -> tuple | None:
     return None
 
 
+def o_input(flat, q, k, wo):
+    """The o-projection's input: :func:`attention`'s output on ``q`` and
+    ``k`` flattened to (B, S, Hq D) as ``flat``. Where attention split
+    itself over a mesh dim (``row_split``) whose ranks shard ``wo``'s rows,
+    its output comes back replicated there; its columns are then split over
+    that dim as ``wo``'s rows are, so that each rank multiplies its share
+    and ``wo``'s gradient is a share, as XLA splits the reference's
+    o-projection. Elsewhere ``flat`` as it is."""
+    if not is_dtensor(flat, wo):
+        return flat
+    split = row_split(q, k, head_placements(q, k))
+    if split is None or wo.placements[split[0]] != Shard(0):
+        return flat
+    pl = list(flat.placements)
+    pl[split[0]] = Shard(2)
+    return flat.redistribute(flat.device_mesh, pl)
+
+
 def split_sizes(n: int, S: int, Hq: int, Hkv: int) -> tuple | None:
     """``(h, r)`` for n > 1 ranks that divide neither head count: h the
     largest divisor of n and of the KV heads whose r = n / h divides the S

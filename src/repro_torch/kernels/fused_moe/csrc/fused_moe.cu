@@ -47,9 +47,9 @@
 //   Shapes whose rows are not 16-byte multiples load element by element.
 // - bf16: mma.sync.m16n8k16 with f32 accumulation, operands by ldmatrix;
 //   two CTAs share an SM (128 registers a thread) to keep loads in flight.
-//   At dbrx width it takes about 7 ms on an H100 SXM (PERF.md), above the
-//   6 ms aimed at and 3.6x its byte bound; the gate/up launch is about
-//   70% of it. wgmma with TMA is still owed.
+//   bf16 whose rows TMA can address runs on fused_moe_wgmma.cu instead
+//   (kernel.fwd_engine), about 3x faster at dbrx width (PERF.md); this
+//   engine keeps unaligned rows.
 // - f32: 3xTF32 on mma.sync.m16n8k8: each operand is split into
 //   hi = tf32(x) and lo = tf32(x - hi), and the sum takes lo*hi + hi*lo +
 //   hi*hi (the lo*lo term is below f32's rounding). The tensor cores' own

@@ -74,7 +74,6 @@ constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int BOX = 64 * BK * 2;                  // an MN-major box: 64 k-rows of 128 bytes
 constexpr int OUT_BOX = 64 * 128;                 // a staged output box: 64 rows of 64 values
 constexpr int STAGED_BYTES = BM * 128 * 2;        // EPI_TMA: each warpgroup's 64 x 128 half tile
-constexpr int kMaxDevices = 64;
 
 constexpr int ROWS_SCRATCH = 2048;               // a consumer warp's: 16 rows of 128 bytes
 
@@ -137,11 +136,6 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 // The epilogues. acc[4j + 2h + c] is row 64 wg + 16 warp + lane / 4 + 8 h,
 // column 8 j + 2 (lane % 4) + c of the tile at (m0, n0) of expert e.
 
-__device__ __forceinline__ uint32_t pack2(float v0, float v1) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(v0, v1);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
 // EPI_TMA: each warpgroup's 64 rows, 128 columns at a time, into its 16 KB
 // of the staging tile as the output map's boxes lie (64 x 64, 128-byte
 // swizzle: stmatrix without conflicts), then two TMA stores by one of its
@@ -177,30 +171,6 @@ __device__ __forceinline__ void store_staged(const float (&acc)[BN / 2], const G
       bulk_commit();
     }
   }
-}
-
-// 16 rows x 32 columns of bf16, a warp's rows and 4 n8 blocks of the tile,
-// from w[jj][h] (block jj, rows + 8 h: the accumulator's layout) to `out` (its
-// first row and column; `rows` x `cols` of it exist), through the warp's 2 KB
-// of shared memory: in by stmatrix, out 16 bytes a lane, so that each store
-// writes whole 32-byte sectors (a lane's two bf16 columns, stored from the
-// accumulator's layout, would write half sectors)
-__device__ __forceinline__ void store_rows(const uint32_t (&w)[4][2], uint32_t scratch, bf16* out,
-                                           int ldo, int rows, int cols, int lane) {
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {  // matrices (2p, rows 0-7), (2p, 8-15), (2p + 1, ...)
-    const int R = ((lane / 8) % 2) * 8 + lane % 8, cc = 2 * p + lane / 16;
-    const uint32_t v[4] = {w[2 * p][0], w[2 * p][1], w[2 * p + 1][0], w[2 * p + 1][1]};
-    stmatrix_x4(scratch + R * 128 + ((cc ^ (lane % 8)) * 16), v);  // 16-byte chunks swizzled
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int R = 8 * i + lane % 8, cc = lane / 8;
-    const uint4 v = ld_shared_v4(scratch + R * 128 + ((cc ^ (lane % 8)) * 16));
-    if (R < rows && 8 * cc < cols) *reinterpret_cast<uint4*>(out + (size_t)R * ldo + 8 * cc) = v;
-  }
-  __syncwarp();
 }
 
 // EPI_F32: from registers, two columns a lane (a quad writes 32 bytes a row)
@@ -397,28 +367,11 @@ __global__ void __launch_bounds__(kThreads, 1) moe_bwd_wgmma(const __grid_consta
 
 // ---------------------------------------------------------------- host side
 
-template <typename K>
-cudaError_t opt_in(K kernel, int smem, int* configured, int dev) {
-  // raise a kernel's shared-memory limit once per device, so a launch being
-  // captured into a CUDA graph makes no attribute call
-  if (configured[dev] < smem) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured[dev] = smem;
-  }
-  return cudaSuccess;
-}
-
 template <bool A_MN, bool B_MN, int EPI>
 cudaError_t run(Launch& L, int ctas, cudaStream_t stream) {
   static int configured[kMaxDevices] = {};
   constexpr int smem = Smem<EPI>::BYTES;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  err = opt_in(moe_bwd_wgmma<A_MN, B_MN, EPI>, smem, configured, dev);
+  const cudaError_t err = opt_in(moe_bwd_wgmma<A_MN, B_MN, EPI>, smem, configured);
   if (err != cudaSuccess) return err;
   L.tiles_e = 0;
   for (int i = 0; i < L.nprod; ++i) L.tiles_e += L.g[i].mt * L.g[i].nt;
@@ -452,9 +405,6 @@ int product(Gemm& g, const void* const* a, const void* const* b, int nseg, int E
   g.mt = (M + BM - 1) / BM, g.nt = (N + BN - 1) / BN;
   return CUDA_SUCCESS;
 }
-
-// a failed tensor-map encode returns kEncodeError + its CUresult
-constexpr int kEncodeError = 100000;
 
 int backward(const void* x, const void* wg, const void* wu, const void* wd, const void* dy,
              float* gw, float* uw, bf16* h, bf16* dg, bf16* du, void* dx, void* dwg, void* dwu,

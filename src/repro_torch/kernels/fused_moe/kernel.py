@@ -1,13 +1,23 @@
-"""Binding of the Hopper fused-MoE kernel (``csrc/fused_moe.cu``).
+"""Binding of the Hopper fused-MoE kernels (``csrc/fused_moe.cu``,
+``csrc/fused_moe_wgmma.cu`` and their backwards).
 
 Replaces ``_moe_kernel`` / ``fused_moe_pallas`` of
-``repro/kernels/fused_moe/kernel.py``; the source file's head says what
-bounds the kernel and how it is laid out. The library is compiled with
+``repro/kernels/fused_moe/kernel.py``; each source file's head says what
+bounds its kernel and how it is laid out. Each library is compiled with
 ``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and called through
 ctypes on PyTorch's current stream. A failed build or launch raises.
 
 ``launch_plan`` computes both launches' geometry in Python, so the CPU
 tests reach it.
+
+The forward runs on one of two engines, each its own library, chosen by
+``fwd_engine`` from the type, the widths and the bases:
+``csrc/fused_moe_wgmma.cu`` (bf16 whose rows and bases are 16-byte
+multiples: dbrx-132b's serving and training) on ``wgmma`` fed by TMA, one
+persistent CTA an SM walking ``fwd_wgmma_plan``'s tiles
+(``fwd_wgmma_walk``); and ``csrc/fused_moe.cu`` (f32, unaligned rows) on
+``mma.sync``. Each counts its own calls (``wgmma_launches``,
+``launches``).
 
 ``fused_moe_bwd_cuda`` is the backward: four launches (g and u; dh with
 the silu-mul backward in its epilogue; the three weight gradients; dx) of
@@ -37,9 +47,12 @@ import torch
 
 from repro_torch.kernels._build import load_cuda_library
 
-#: kernel launches since the count was last set to 0 (one a wrapper call,
-#: which launches the gate/up and the down kernels)
+#: forward calls on the ``mma.sync`` engine since the count was last set to
+#: 0 (each launches the gate/up and the down kernels)
 launches = 0
+#: forward calls on the ``wgmma`` engine (each launches its gate/up and its
+#: down kernel)
+wgmma_launches = 0
 #: backward calls on the ``mma.sync`` engine since the count was last set
 #: to 0 (each launches the four kernels of ``bwd_launch_plan``)
 bwd_launches = 0
@@ -54,6 +67,7 @@ last_grid: tuple | None = None
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd.cu"]
 WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd_wgmma.cu"]
+FWD_WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_wgmma.cu"]
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 D_TILE = 128  # output columns of a down-launch CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -208,6 +222,89 @@ def wgmma_walk(launch: WgmmaLaunch, E: int, cta: int):
         yield e, p, (r % mt) * bm, (r // mt) * bn
 
 
+#: the forward wgmma engine's stages of the ring, its B columns a stage and
+#: the h columns of a gate/up tile (``csrc/fused_moe_wgmma.cu``)
+FWD_WGMMA_STAGES, FWD_WGMMA_N, FWD_GATE_COLS = 4, 256, 128
+
+
+def fwd_engine(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool = True, *,
+               block_f: int = 256) -> str:
+    """Which engine runs the forward: ``"wgmma"`` for bf16 with rows to
+    compute (C > 0) whose rows (D and F values) and bases (``aligned``) are
+    16-byte multiples, as TMA addresses them, and whose F blocks are whole
+    16-byte chunks; ``"mma_sync"`` otherwise (f32 takes 3xTF32 there). The
+    rows an expert set no threshold: at dbrx-132b's width the wgmma engine
+    was the faster from a decode tick's 4 rows an expert to 640 (PERF.md,
+    both engines timed in turns by ``tools/fused_moe_fwd_engines.py``)."""
+    return "wgmma" if (dtype == torch.bfloat16 and C > 0 and D % 8 == 0 and F % 8 == 0
+                       and aligned and min(block_f, F) % 8 == 0) else "mma_sync"
+
+
+class FwdWgmmaLaunch(NamedTuple):
+    name: str  # "gate_up" or "down"
+    tile: tuple  # (rows, columns) of a tile: rows 64 or 128; h's 128 or y's 256 columns
+    consumers: int  # consumer warpgroups of 64 rows
+    row_subs: int  # row sub-tiles a block of block_m rows
+    row_tiles: int  # row tiles an expert: C / block_m blocks x row_subs
+    col_block: int  # columns a column block: block_f (gate_up) or 256 (down)
+    col_subs: int  # column sub-tiles a column block
+    tiles_e: int  # tiles an expert: the walk covers E * tiles_e
+    ctas: int  # the grid: min(SMs, live tiles), each CTA persistent
+    k: int  # the summed dim, walked 64 deep a stage in order: D (gate_up) or F (down)
+    stages: int  # shared-memory stages of the ring
+    smem: int  # dynamic shared bytes a CTA
+
+
+def fwd_wgmma_plan(E: int, C: int, D: int, F: int, block_m: int = 128, block_f: int = 256,
+                   sms: int = 132) -> tuple[FwdWgmmaLaunch, ...]:
+    """The forward wgmma engine's two launches, as ``csrc/fused_moe_wgmma.cu``
+    launches them, after the reference's ``min(block, dim)`` clamp: (a)
+    gate/up writes h in tiles of 64 or 128 rows (block_m 64, or more:
+    sub-tiles of 128) by 128 of a block_f block's F columns (sub-tiles of
+    128, the last cut at the block's edge); (b) down writes y in tiles of
+    the same rows by 256 columns of D. A CTA walks the tiles ``t = cta,
+    cta + ctas, ...`` of the flat walk ``fwd_wgmma_walk`` decodes. A block
+    of fewer than 64 rows takes a 64-row tile and stores its own rows."""
+    plan = launch_plan(E, C, D, F, block_m=block_m, block_f=block_f)
+    bm, bf = plan.block_m, plan.block_f
+    if min(E, sms) <= 0:
+        raise ValueError(f"fused_moe wgmma forward: E={E}, {sms} SMs")
+    kc = 1 if bm <= 64 else 2
+    rows = 64 * kc
+    row_subs = -(-bm // rows)
+    row_tiles = C // bm * row_subs
+    # alignment slack, the ring (A: rows x 64 k; B: 256 columns x 64 k), each
+    # consumer warp's 2 KB of row scratch, the ring's full and empty barriers
+    smem = (1024 + FWD_WGMMA_STAGES * (rows + FWD_WGMMA_N) * 64 * 2 + 4 * kc * 2048
+            + 2 * FWD_WGMMA_STAGES * 8)
+    out = []
+    for name, cols, n, block, k in (("gate_up", FWD_GATE_COLS, F, bf, D),
+                                    ("down", FWD_WGMMA_N, D, FWD_WGMMA_N, F)):
+        col_subs = -(-block // cols)
+        tiles_e = row_tiles * -(-n // block) * col_subs
+        out.append(FwdWgmmaLaunch(name, (rows, cols), kc, row_subs, row_tiles, block, col_subs,
+                                  tiles_e, min(sms, E * tiles_e), k, FWD_WGMMA_STAGES, smem))
+    return tuple(out)
+
+
+def fwd_wgmma_walk(launch: FwdWgmmaLaunch, E: int, C: int, n: int, block_m: int, cta: int):
+    """The tiles CTA ``cta`` of ``launch`` computes and stores, in order, as
+    ``(expert, first row, rows, first column, columns)``: tile t of the flat
+    walk is expert ``t // tiles_e``, then column tile outer and row tile
+    fastest (``tile_of`` in the source); ``n`` is the output's columns (F
+    or D) and ``block_m`` the plan's clamped one."""
+    rows_t, cols_t = launch.tile
+    bm = min(block_m, C)
+    for t in range(cta, E * launch.tiles_e, launch.ctas):
+        e, r = divmod(t, launch.tiles_e)
+        ci, mi = divmod(r, launch.row_tiles)
+        mb, ms = divmod(mi, launch.row_subs)
+        cb, cs = divmod(ci, launch.col_subs)
+        n0 = cb * launch.col_block + cs * cols_t
+        yield (e, mb * bm + ms * rows_t, min(rows_t, bm - ms * rows_t), n0,
+               min(cols_t, launch.col_block - cs * cols_t, n - n0))
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("fused_moe", SOURCES)
@@ -237,6 +334,17 @@ def wgmma_library() -> ctypes.CDLL:
     lib.fused_moe_backward_wgmma.restype = ctypes.c_int
     lib.fused_moe_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_moe_bwd_wgmma_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def fwd_wgmma_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the forward wgmma engine."""
+    lib = load_cuda_library("fused_moe_wgmma", FWD_WGMMA_SOURCES)
+    lib.fused_moe_forward_wgmma.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.fused_moe_forward_wgmma.restype = ctypes.c_int
+    lib.fused_moe_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_moe_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -275,10 +383,58 @@ def fused_moe_cuda(
     block_m: int = 128,
     block_f: int = 256,
 ) -> torch.Tensor:
-    """Launch the kernels: ``(silu(x Wg) * (x Wu)) Wd`` per expert, in x's type."""
-    global launches, last_grid
+    """``(silu(x Wg) * (x Wu)) Wd`` per expert, in x's type, on the engine
+    ``fwd_engine`` picks."""
     ts = (x, w_gate, w_up, w_down)
     E, C, D, F = _check("fused_moe_cuda", ts)
+    if fwd_engine(x.dtype, C, D, F, all(t.data_ptr() % 16 == 0 for t in ts),
+                  block_f=block_f) == "wgmma":
+        return fused_moe_wgmma_cuda(*ts, block_m=block_m, block_f=block_f)
+    return fused_moe_mma_sync_cuda(*ts, block_m=block_m, block_f=block_f)
+
+
+def fused_moe_wgmma_cuda(x, w_gate, w_up, w_down, *, block_m: int = 128,
+                         block_f: int = 256) -> torch.Tensor:
+    """The forward on the wgmma engine (``csrc/fused_moe_wgmma.cu``): bf16
+    that ``fwd_engine`` gives to it; raises otherwise."""
+    global wgmma_launches, last_grid
+    ts = (x, w_gate, w_up, w_down)
+    E, C, D, F = _check("fused_moe_wgmma_cuda", ts)
+    plan = launch_plan(E, C, D, F, block_m=block_m, block_f=block_f)
+    out = torch.empty_like(x)
+    h = torch.empty((E, C, F), dtype=x.dtype, device=x.device)  # silu(x Wg) * (x Wu)
+    if fwd_engine(x.dtype, C, D, F, all(t.data_ptr() % 16 == 0 for t in (*ts, h, out)),
+                  block_f=block_f) != "wgmma":
+        raise ValueError(f"fused_moe_wgmma_cuda: {x.dtype} with C={C}, D={D}, F={F}, "
+                         f"block_f={block_f} or a base that is not a 16-byte multiple")
+    lib = fwd_wgmma_library()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    launch = fwd_wgmma_plan(E, C, D, F, plan.block_m, plan.block_f, sms)[0]
+    smem = lib.fused_moe_wgmma_smem_bytes(launch.consumers)
+    if smem != launch.smem or smem > SMEM_LIMIT:
+        raise RuntimeError(f"fused_moe_wgmma_cuda: the library takes {smem} shared bytes, the "
+                           f"plan {launch.smem}, the limit {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_moe_forward_wgmma(*(t.data_ptr() for t in (*ts, h, out)), E, C, D, F,
+                                          plan.block_m, plan.block_f, sms, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"fused_moe_wgmma_cuda: a tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"fused_moe_wgmma_cuda: launch failed with cudaError {err}")
+    wgmma_launches += 1
+    last_grid = plan.grid
+    return out
+
+
+def fused_moe_mma_sync_cuda(x, w_gate, w_up, w_down, *, block_m: int = 128,
+                            block_f: int = 256) -> torch.Tensor:
+    """The forward on the mma.sync engine (``csrc/fused_moe.cu``): f32 or
+    bf16, rows of any width."""
+    global launches, last_grid
+    ts = (x, w_gate, w_up, w_down)
+    E, C, D, F = _check("fused_moe_mma_sync_cuda", ts)
     out = torch.empty_like(x)
     if x.numel() == 0 or F == 0:
         return out

@@ -376,7 +376,7 @@ def attention_layer(p, x, cfg: ArchConfig, positions, *, window: Optional[int],
                 "attention_layer: the kernel needs positions 0..S-1 in every row",
             )
         out = fa_ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap)
-    return flatten(out, 2) @ p["wo"], (k, v)
+    return fa_ops.o_input(flatten(out, 2), q, k, p["wo"]) @ p["wo"], (k, v)
 
 
 def write_rows(at, *pairs) -> None:

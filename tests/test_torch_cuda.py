@@ -99,7 +99,8 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
         # say which side is off: both against the same function in float64
         exact = _attention_f64(q.cpu(), k.cpu(), v.cpu(), **kw)
         gaps = {name: float((t.double() - exact).abs().max()) for name, t in
-                (("kernel", out), ("plain", ref), ("kernel again", fa_ops.attention(q, k, v, **kw)))}
+                (("kernel", out), ("plain", ref),
+                 ("kernel again", fa_ops.attention(q, k, v, **kw).cpu()))}
         pytest.fail(f"kernel and plain version disagree; max abs err against float64: {gaps}")
 
 
@@ -225,9 +226,10 @@ def test_fused_moe_kernel_matches_plain(dev, case, dtype):
     x = _randn(rng, (E, C, D), dtype, dev, 0.5)
     wg, wu = _randn(rng, (E, D, F), dtype, dev, 0.1), _randn(rng, (E, D, F), dtype, dev, 0.1)
     wd = _randn(rng, (E, F, D), dtype, dev, 0.1)
-    n0 = moe_kernel.launches
+    wgmma = moe_kernel.fwd_engine(dtype, C, D, F, block_f=bf) == "wgmma"
+    n0, w0 = moe_kernel.launches, moe_kernel.wgmma_launches
     out = moe_ops.fused_moe(x, wg, wu, wd, block_m=bm, block_f=bf)
-    assert moe_kernel.launches == n0 + 1
+    assert (moe_kernel.launches, moe_kernel.wgmma_launches) == (n0 + (not wgmma), w0 + wgmma)
     assert moe_kernel.last_grid == moe_ops.grid_shape(E, C, D, F, block_m=bm, block_f=bf)
     ref = moe_ops.fused_moe(*(t.cpu() for t in (x, wg, wu, wd)))
     _close(out.cpu(), ref, dtype)
@@ -766,12 +768,16 @@ def test_fused_moe_trains_on_the_card(dev, dtype):
         dy = _randn(rng, (E, C, D), dtype, dev)
         wgmma = moe_kernel.bwd_engine(dtype, D, F) == "wgmma"
         assert wgmma == (dtype == torch.bfloat16 and D == 48)
-        counts = lambda: (moe_kernel.launches, moe_kernel.bwd_launches,  # noqa: E731
-                          moe_kernel.bwd_wgmma_launches)
-        n0, b0, w0 = counts()
+        # the forward runs on the engine fwd_engine picks: the same rule here
+        fwd = moe_kernel.fwd_engine(dtype, C, D, F) == "wgmma"
+        assert fwd == wgmma
+        counts = lambda: (moe_kernel.launches, moe_kernel.wgmma_launches,  # noqa: E731
+                          moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches)
+        n0, f0, b0, w0 = counts()
         got = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
         again = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
-        assert counts() == (n0 + 2, b0 + 2 * (not wgmma), w0 + 2 * wgmma)
+        assert counts() == (n0 + 2 * (not fwd), f0 + 2 * fwd, b0 + 2 * (not wgmma),
+                            w0 + 2 * wgmma)
         want = fused_moe_bwd_ref(x.detach(), *(w.detach() for w in ws), dy)
         for name, a, b, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, want):
             assert a.dtype == dtype and torch.equal(a, b)
@@ -811,6 +817,93 @@ def test_fused_moe_bwd_wgmma_matches_plain_and_mma_sync(dev, shape):
     lib = moe_kernel.wgmma_library()
     for i, launch in enumerate(moe_kernel.wgmma_plan(E, C, D, F)):
         assert lib.fused_moe_bwd_wgmma_smem_bytes(i) == launch.smem <= moe_kernel.SMEM_LIMIT
+
+
+#: the forward wgmma engine's shapes and knobs (E, C, D, F, block_m,
+#: block_f): ragged C, D and F, one and two consumer warpgroups, row blocks
+#: walked in sub-tiles, F blocks cut inside a tile or spanning several, an
+#: expert of 8 rows in one block, blocks of 32 and 8 rows of a larger expert
+#: (a 64-row tile storing the block's rows), and dbrx-132b's width at its
+#: decode tick (4 rows), 1024-token prefill (512) and training (640)
+FWD_WGMMA_SHAPES = [(2, 64, 64, 128, 64, 256), (3, 200, 520, 776, 100, 776),
+                    (3, 8, 264, 512, 128, 256), (16, 4, 6144, 10752, 128, 256),
+                    (2, 192, 136, 264, 64, 88), (2, 384, 200, 328, 192, 8),
+                    (1, 512, 256, 512, 512, 512), (4, 256, 256, 512, 128, 64),
+                    (4, 256, 256, 512, 32, 64), (2, 200, 136, 264, 8, 88),
+                    (16, 512, 6144, 10752, 128, 256), (16, 640, 6144, 10752, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", FWD_WGMMA_SHAPES)
+def test_fused_moe_fwd_wgmma_matches_plain_and_mma_sync(dev, shape):
+    """The forward wgmma engine (``csrc/fused_moe_wgmma.cu``): within bf16
+    2e-2 of ``fused_moe_ref``'s max|ref| and of the mma.sync engine's output
+    on the same inputs, bit-equal on a rerun; ``fused_moe_cuda`` picks it
+    and its count moves, the mma.sync engine's does not; the library's
+    shared bytes equal the plan's."""
+    from repro_torch.kernels.fused_moe.ref import fused_moe_ref
+
+    E, C, D, F, bm, bf = shape
+    gen = torch.Generator(device=dev).manual_seed(4)  # dbrx's 3.2 G weights drawn on the card
+
+    def randn(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    x = randn((E, C, D))
+    ws = [randn(s, n ** -0.5) for s, n in (((E, D, F), D), ((E, D, F), D), ((E, F, D), F))]
+    assert moe_kernel.fwd_engine(torch.bfloat16, C, D, F, block_f=bf) == "wgmma"
+    n0, w0 = moe_kernel.launches, moe_kernel.wgmma_launches
+    got = moe_kernel.fused_moe_cuda(x, *ws, block_m=bm, block_f=bf)
+    again = moe_kernel.fused_moe_wgmma_cuda(x, *ws, block_m=bm, block_f=bf)
+    assert (moe_kernel.launches, moe_kernel.wgmma_launches) == (n0, w0 + 2)
+    assert moe_kernel.last_grid == moe_ops.grid_shape(E, C, D, F, block_m=bm, block_f=bf)
+    old = moe_kernel.fused_moe_mma_sync_cuda(x, *ws, block_m=bm, block_f=bf)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    _rel_close(got, fused_moe_ref(x, *ws), torch.bfloat16, "y")
+    _rel_close(got, old, torch.bfloat16, "y against the mma.sync engine")
+    lib = moe_kernel.fwd_wgmma_library()
+    launch = moe_kernel.fwd_wgmma_plan(E, C, D, F, bm, bf)[0]
+    assert lib.fused_moe_wgmma_smem_bytes(launch.consumers) == launch.smem <= moe_kernel.SMEM_LIMIT
+
+
+def test_fused_moe_fwd_wgmma_trains_through_ops(dev):
+    """``ops.fused_moe`` under grad on bf16 blocks of 128 rows: the forward
+    on the wgmma engine, the backward on the backward's wgmma engine; the
+    output and the gradients of x and the three weights equal the plain
+    version's (``fused_moe_ref``, ``fused_moe_bwd_ref``)."""
+    from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref, fused_moe_ref
+
+    E, C, D, F = 4, 256, 264, 512
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (E, C, D), torch.bfloat16, dev).requires_grad_()
+    ws = [_randn(rng, s, torch.bfloat16, dev, n ** -0.5).requires_grad_()
+          for s, n in (((E, D, F), D), ((E, D, F), D), ((E, F, D), F))]
+    dy = _randn(rng, (E, C, D), torch.bfloat16, dev)
+    w0, b0 = moe_kernel.wgmma_launches, moe_kernel.bwd_wgmma_launches
+    out = moe_ops.fused_moe(x, *ws, block_m=128, block_f=256)
+    got = torch.autograd.grad(out, [x, *ws], dy)
+    assert (moe_kernel.wgmma_launches, moe_kernel.bwd_wgmma_launches) == (w0 + 1, b0 + 1)
+    plain = [t.detach() for t in (x, *ws)]
+    _rel_close(out, fused_moe_ref(*plain), torch.bfloat16, "y")
+    for name, a, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got,
+                          fused_moe_bwd_ref(*plain, dy)):
+        assert a.dtype == torch.bfloat16
+        _rel_close(a, r, torch.bfloat16, name)
+
+
+def test_fused_moe_fwd_wgmma_refuses_what_it_does_not_take(dev):
+    """f32, bf16 F blocks that are not whole 16-byte chunks and bf16 rows
+    that are not 16-byte multiples are not the forward wgmma engine's: it
+    raises, and ``fused_moe_cuda`` takes the mma.sync engine for them."""
+    rng = np.random.default_rng(3)
+    for dtype, D, F, bf in ((torch.float32, 48, 96, 256), (torch.bfloat16, 48, 96, 12),
+                            (torch.bfloat16, 36, 44, 256)):
+        x = _randn(rng, (2, 64, D), dtype, dev)
+        ws = [_randn(rng, s, dtype, dev, 0.2) for s in ((2, D, F), (2, D, F), (2, F, D))]
+        with pytest.raises(ValueError, match="16-byte"):
+            moe_kernel.fused_moe_wgmma_cuda(x, *ws, block_m=64, block_f=bf)
+        n0 = moe_kernel.launches
+        moe_kernel.fused_moe_cuda(x, *ws, block_m=64, block_f=bf)
+        assert moe_kernel.launches == n0 + 1
 
 
 def test_fused_moe_bwd_wgmma_refuses_what_tma_cannot_address(dev):

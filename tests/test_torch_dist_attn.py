@@ -39,6 +39,16 @@ def _attn_rank(rank):
         return split(*a, **kw)
 
     fa_ops._attention_split = counted
+    o_input, o_placements = fa_ops.o_input, []
+
+    def recorded(*a):
+        flat = o_input(*a)
+        if hasattr(flat, "placements"):  # on the mesh
+            o_placements.append(tuple((type(p).__name__, getattr(p, "dim", None))
+                                      for p in flat.placements))
+        return flat
+
+    fa_ops.o_input = recorded
     mesh = make_mesh(*MESH, device_type="cpu")
     cfg = _cfg("gemma2-2b")
     api = build_model(cfg, "cpu")
@@ -54,7 +64,7 @@ def _attn_rank(rank):
     out = {"loss": (float(loss), float(mloss.full_tensor())),
            "errs": [float((m.full_tensor() - g).abs().max() / g.abs().max().clamp_min(1e-30))
                     for m, g in zip(mgrads, grads)],
-           "splits": sorted(set(calls))}
+           "splits": sorted(set(calls)), "o_input": sorted(set(o_placements))}
     prompts = [np.arange(1, 9 + 4 * i) for i in range(3)]
     tokens = []
     for m in (None, mesh):
@@ -82,6 +92,15 @@ def test_split_attention_keeps_loss_and_gradients(attn_runs):
         loss, mloss = res["loss"]
         assert abs(mloss - loss) <= TOL * abs(loss), (mloss, loss)
         assert max(res["errs"]) <= TOL, res["errs"]
+
+
+def test_o_projection_input_is_split_on_the_mesh(attn_runs):
+    """The o-projection's input is no longer replicated on the mesh: its
+    columns are split over the model axis as ``wo``'s rows are
+    (``flash_attention.ops.o_input``), so each rank's ``wo`` gradient is its
+    share."""
+    for res in attn_runs:
+        assert res["o_input"] == [(("Replicate", None), ("Shard", 2))], res["o_input"]
 
 
 def test_split_attention_keeps_greedy_tokens(attn_runs):

@@ -588,6 +588,119 @@ def test_fused_moe_bwd_engine_follows_type_and_strides():
     assert engine(torch.float16, 6144, 10752) == "mma_sync"
 
 
+#: the forward wgmma engine's shapes and knobs: dbrx-132b's decode tick,
+#: 1024-token prefill and training (4, 512 and 640 rows an expert), the
+#: tuner's bf16 workload, an expert of 8 rows in one block, and ragged C, D
+#: and F with blocks of 64 rows (one consumer),
+#: 128, sub-tiles of 128 (192, 512) and F blocks cut inside a tile (64, 88,
+#: 8) or spanning several (512, 776)
+FWD_WGMMA_CASES = [(16, 4, 6144, 10752, 128, 256), (3, 8, 264, 512, 128, 256),
+                   (16, 512, 6144, 10752, 128, 256), (16, 640, 6144, 10752, 128, 256),
+                   (16, 256, 6144, 10752, 128, 256), (3, 200, 520, 776, 200, 776),
+                   (3, 200, 520, 776, 100, 776), (2, 192, 136, 264, 64, 88),
+                   (1, 512, 256, 512, 512, 512), (2, 384, 200, 328, 192, 8),
+                   (4, 256, 256, 512, 128, 64), (2, 128, 264, 520, 64, 520),
+                   (4, 256, 256, 512, 32, 64), (2, 200, 136, 264, 8, 88)]
+
+
+def _fwd_covered(plan, E, C, D, F, bm):
+    """How many times each output element of each launch is stored: h (E,
+    C, F) by gate_up, y (E, C, D) by down; and each tile's blocks."""
+    counts = []
+    for launch, n in zip(plan, (F, D)):
+        seen = np.zeros((E, C, n), dtype=np.int64)
+        tiles = 0
+        for cta in range(launch.ctas):
+            for e, m0, rows, n0, cols in moe_kernel.fwd_wgmma_walk(launch, E, C, n, bm, cta):
+                tiles += 1
+                assert 0 < rows <= launch.tile[0] and 0 < cols <= launch.tile[1]
+                # a tile's rows lie in one block of block_m rows, its columns
+                # in one column block
+                assert m0 // min(bm, C) == (m0 + rows - 1) // min(bm, C)
+                assert n0 // launch.col_block == (n0 + cols - 1) // launch.col_block
+                seen[e, m0:m0 + rows, n0:n0 + cols] += 1
+        assert tiles == E * launch.tiles_e
+        counts.append(seen)
+    return counts
+
+
+@pytest.mark.parametrize("case, sms", [(c, n) for c in FWD_WGMMA_CASES for n in (132, 114, 1)
+                                       if n == 132 or c[0] * c[1] * (c[2] + c[3]) < 4e6])
+def test_fused_moe_fwd_wgmma_walk_covers_every_tile_once(case, sms):
+    """The forward wgmma engine's two launches: across the persistent CTAs
+    of a launch (as many as SMs, never more than live tiles) the walk
+    stores every element of h (gate/up) and of y (down) exactly once; a
+    tile is 64 rows (block_m 64: one consumer warpgroup) or 128 (two), by
+    128 columns of F or 256 of D, and sums its whole K (D, then F); each
+    CTA's shared bytes fit an SM. The full-width shapes are walked at 132
+    SMs only."""
+    E, C, D, F, bm, bf = case
+    plan = moe_kernel.fwd_wgmma_plan(E, C, D, F, bm, bf, sms)
+    assert [k.name for k in plan] == ["gate_up", "down"]
+    kc = 1 if min(bm, C) <= 64 else 2
+    for launch, cols, k in zip(plan, (128, 256), (D, F)):
+        assert launch.tile == (64 * kc, cols) and launch.consumers == kc and launch.k == k
+        assert launch.ctas == min(sms, E * launch.tiles_e)
+        assert launch.stages == 4 and launch.smem <= moe_kernel.SMEM_LIMIT
+        assert launch.smem == (1024 + 4 * (64 * kc + 256) * 64 * 2 + 4 * kc * 2048 + 64)
+    for seen in _fwd_covered(plan, E, C, D, F, bm):
+        assert (seen == 1).all()
+
+
+def test_fused_moe_fwd_wgmma_knobs_reach_the_plan():
+    """block_m sets a tile's rows (64: one consumer; more: sub-tiles of
+    128) and block_f a gate/up tile's F columns (sub-tiles of 128 a block);
+    two knob pairs give two plans, each covering the outputs once;
+    ``launch_plan``'s clamp and divisibility hold (block_m clamps to C, a
+    block that does not divide its dim raises); a block under 64 rows takes
+    a 64-row tile of its own."""
+    E, C, D, F = 2, 512, 256, 1024
+    a = moe_kernel.fwd_wgmma_plan(E, C, D, F, 128, 256)
+    b = moe_kernel.fwd_wgmma_plan(E, C, D, F, 64, 512)
+    c = moe_kernel.fwd_wgmma_plan(E, C, D, F, 256, 64)
+    assert a != b and b != c and a != c
+    assert a[0].tile == (128, 128) and a[0].row_subs == 1 and a[0].col_subs == 2
+    assert b[0].tile == (64, 128) and b[0].col_subs == 4 and b[0].row_tiles == 8
+    assert c[0].row_subs == 2 and c[0].col_subs == 1 and c[0].tiles_e == 4 * 16
+    for plan, bm in ((a, 128), (b, 64), (c, 256)):
+        assert all((s == 1).all() for s in _fwd_covered(plan, E, C, D, F, bm))
+    assert moe_kernel.fwd_wgmma_plan(E, 64, D, F, 128, 256)[0].tile == (64, 128)
+    assert moe_kernel.fwd_wgmma_plan(E, C, D, F, 4096, 256) == moe_kernel.fwd_wgmma_plan(
+        E, C, D, F, 512, 256)
+    with pytest.raises(ValueError):
+        moe_kernel.fwd_wgmma_plan(E, C, D, F, 96, 256)  # 96 does not divide 512
+    d = moe_kernel.fwd_wgmma_plan(E, C, D, F, 32, 256)  # 16 blocks of 32 rows an expert
+    assert d[0].tile == (64, 128) and d[0].row_subs == 1 and d[0].row_tiles == 16
+    assert all((s == 1).all() for s in _fwd_covered(d, E, C, D, F, 32))
+    tick = moe_kernel.fwd_wgmma_plan(16, 4, 6144, 10752)  # a block of an expert's 4 rows
+    assert tick[0].tile == (64, 128) and tick[0].row_tiles == 1 and tick[1].tiles_e == 24
+
+
+def test_fused_moe_fwd_engine_follows_type_widths_rows_and_alignment():
+    """bf16 with rows to compute whose rows (D and F values) and bases are
+    16-byte multiples, and whose F blocks are whole 16-byte chunks, takes
+    the wgmma engine at every row count (a decode tick's 4 rows an expert
+    too); f32, no rows, other rows, other bases and other F blocks take the
+    mma.sync engine."""
+    engine = moe_kernel.fwd_engine
+    bf16 = torch.bfloat16
+    assert engine(bf16, 512, 6144, 10752) == "wgmma"  # dbrx's 1024-token prefill
+    assert engine(bf16, 640, 6144, 10752) == "wgmma"  # its training layer
+    assert engine(bf16, 64, 6144, 10752) == "wgmma"
+    assert engine(bf16, 4, 6144, 10752) == "wgmma"  # its decode tick
+    assert engine(bf16, 63, 6144, 10752) == "wgmma"
+    assert engine(bf16, 0, 6144, 10752) == "mma_sync"
+    assert engine(torch.float32, 512, 6144, 10752) == "mma_sync"
+    assert engine(torch.float16, 512, 6144, 10752) == "mma_sync"
+    assert engine(bf16, 512, 6148, 10752) == "mma_sync"
+    assert engine(bf16, 512, 6144, 10756) == "mma_sync"
+    assert engine(bf16, 512, 6144, 10752, False) == "mma_sync"
+    assert engine(bf16, 100, 200, 304, block_f=152) == "wgmma"
+    assert engine(bf16, 100, 200, 300, block_f=150) == "mma_sync"
+    assert engine(bf16, 512, 256, 520, block_f=260) == "mma_sync"
+    assert engine(bf16, 512, 256, 520, block_f=520) == "wgmma"
+
+
 @pytest.mark.parametrize("R, d", [(8192, 1024), (131072, 128), (65536, 128), (8192, 3072),
                                   (777, 1024), (14, 48), (1, 1), (100003, 128)])
 @pytest.mark.parametrize("sms", [132, 114, 1])
