@@ -5,24 +5,28 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: compile the CUDA sources (flash attention, its two backward
-   engines, fused MoE's two forward and two backward engines, scaled_mm)
-   with nvcc, one
+1. build: compile the CUDA sources (flash attention's two forward and two
+   backward engines, fused MoE's two forward and two backward engines,
+   scaled_mm) with nvcc, one
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
-   fused MoE's mma.sync and wgmma engines) and of fused MoE's forward
-   wgmma engine, the launch plans, and each wgmma engine's SASS
+   fused MoE's mma.sync and wgmma engines) and of the two forward wgmma
+   engines (flash attention's with no wgmma that ptxas serialized), the
+   launch plans, and each wgmma engine's SASS
    instruction counts (HGMMA, TMA loads and stores, mbarrier waits, all
-   asserted present; the forward engine stores no tile by TMA) are logged;
+   asserted present; the forward engines store no tile by TMA) are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
    reference's kernel tolerances; full-width f32 MoE sums relative to
    max|ref|; bf16 attention at the main shapes also row by row, within
-   2e-2 of each row's max|ref| plus one ulp); flash attention at the
-   lattice's block corners (bf16, the main shape) with its launched grid,
-   and rows that see no key; fused MoE and scaled_mm at every
+   2e-2 of each row's max|ref| plus one ulp); flash attention on the
+   engine ``fwd_engine`` picks (bf16 at head dims 128 and 256: the wgmma
+   engine, its lse against ``lse_ref`` too, then the mma.sync engine on
+   the same inputs), at the lattice's block corners (bf16, the main
+   shape) with its launched grid, and rows that see no key; fused MoE and
+   scaled_mm at every
    config the tuner's prefilter passes on its default workloads (fused MoE
    also in bf16), flash attention and silu_mul at every config it passes
    on their qwen3-0.6b workloads, and fused MoE and scaled_mm at dbrx-132b
@@ -72,15 +76,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    cut to 2 layers, bf16 compute, through both engines. Each run sets the
    launch counts to 0 before it and reads them after: every kernel's count
    must move by exactly what the path implies (fused MoE once per MoE layer
-   a step, on either forward engine). Predicted seconds are printed on lines of their own, labelled
-   as predictions for the registry TPU;
+   a step, on either forward engine; flash attention once per layer a
+   prefill, on the forward engine ``fwd_engine`` picks for the compute
+   type and head dim). Predicted seconds are printed on lines of their
+   own, labelled as predictions for the registry TPU;
 5. kernel times with CUDA events at the main paths' shapes (device time
    from a CUDA-graph replay; the eager time, launched from Python, is
    logged beside it), beside the plain version's time, one PyTorch library
    call's time where one exists (timed here only; the port never calls it)
-   and the least time the card could take (its bound); flash attention
-   also at gemma2-2b's prefill shape (no library call: SDPA takes no
-   softcap); fused MoE in bf16 at
+   and the least time the card could take (its bound); flash attention's
+   forward (bf16) on its wgmma engine and on its mma.sync engine on the
+   same inputs, in turns, at the main shape beside SDPA and at gemma2-2b's
+   prefill shape (no library call: SDPA takes no softcap; the wgmma
+   engine causal only beside SDPA as a logged yardstick, and at other
+   blocks); fused MoE in bf16 at
    dbrx-132b's 1024-token prefill (the wgmma engine's JSON row) and decode
    serving shapes, at the tuner's dbrx-132b workload (f32, bounded as
    3xTF32: the mma.sync engine's JSON row; and bf16) and at phase 10 (e)'s
@@ -223,9 +232,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line (twelve entries: the five
-kernels, fused MoE's forward wgmma engine, and the backwards of rmsnorm,
-silu_mul, flash attention's and fused MoE's two engines each),
+It prints one ``{"kernels": [...]}`` line (thirteen entries: the five
+kernels, flash attention's and fused MoE's forward wgmma engines, and the
+backwards of rmsnorm, silu_mul, flash attention's and fused MoE's two
+engines each),
 the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -296,8 +306,8 @@ def same_after_poison(torch, kname, label, fn, first):
 
 class EngineCount:
     """A kernel module's launch count kept under another name (fused MoE's
-    forward ``wgmma_launches``), read and set as ``launches``, as each of
-    ``main``'s ``kinds`` is."""
+    and flash attention's forward ``wgmma_launches``), read and set as
+    ``launches``, as each of ``main``'s ``kinds`` is."""
 
     def __init__(self, mod, attr):
         self.mod, self.attr = mod, attr
@@ -322,13 +332,27 @@ def moe_fwd_wgmma(cfg):
                                               cfg.moe_hidden) == "wgmma"
 
 
-def moe_on_engine(cfg, counts):
-    """``counts``, whose fused MoE forward calls stand under ``fused_moe``,
-    with those calls under the engine that runs them for ``cfg``
-    (``moe_fwd_wgmma``): ``fused_moe`` (mma.sync) or ``fused_moe_wgmma``."""
-    n = counts.get("fused_moe", 0)
-    wgmma = moe_fwd_wgmma(cfg)
-    return {**counts, "fused_moe": n * (not wgmma), "fused_moe_wgmma": n * wgmma}
+def fa_fwd_wgmma(cfg):
+    """Whether ``cfg``'s flash-attention forward runs on the wgmma engine:
+    what ``fwd_engine`` gives its compute type and head dim (the models'
+    q, k and v are fresh tensors, whose bases are 16-byte multiples)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import fwd_engine
+
+    return fwd_engine(getattr(torch, cfg.compute_dtype), cfg.resolved_head_dim) == "wgmma"
+
+
+def on_engines(cfg, counts):
+    """``counts``, whose fused MoE and flash attention forward calls stand
+    under ``fused_moe`` and ``flash_attention``, with those calls under the
+    engine that runs them for ``cfg`` (``moe_fwd_wgmma``, ``fa_fwd_wgmma``):
+    the mma.sync engine's name or the wgmma engine's (``..._wgmma``)."""
+    out = dict(counts)
+    for name, wgmma in (("fused_moe", moe_fwd_wgmma(cfg)), ("flash_attention", fa_fwd_wgmma(cfg))):
+        n = counts.get(name, 0)
+        out[name], out[name + "_wgmma"] = n * (not wgmma), n * wgmma
+    return out
 
 
 def bound(peaks, nbytes, ops, kind):
@@ -368,13 +392,15 @@ def main():
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
     kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k, "fused_moe": moe_k,
-             "fused_moe_wgmma": EngineCount(moe_k, "wgmma_launches")}
+             "fused_moe_wgmma": EngineCount(moe_k, "wgmma_launches"),
+             "flash_attention_wgmma": EngineCount(fa_k, "wgmma_launches")}
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:  # one nvcc per CUDA source, all at once
-        builds = [pool.submit(f) for f in (fa_k.library, fa_k.bwd_library, fa_k.wgmma_library,
-                                           moe_k.library, moe_k.fwd_wgmma_library,
+    with ThreadPoolExecutor(9) as pool:  # one nvcc per CUDA source, all at once
+        builds = [pool.submit(f) for f in (fa_k.library, fa_k.fwd_wgmma_library, fa_k.bwd_library,
+                                           fa_k.wgmma_library, moe_k.library,
+                                           moe_k.fwd_wgmma_library,
                                            moe_k.bwd_library, moe_k.wgmma_library,
                                            smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
@@ -485,6 +511,9 @@ def main():
                      "src/repro/kernels/silu_mul/kernel.py:13"),
         "flash_attention": ("cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:30"),
+        "flash_attention_wgmma": (
+            "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30"),
         "fused_moe": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe.cu",
                       "src/repro/kernels/fused_moe/kernel.py:27"),
         "fused_moe_wgmma": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_wgmma.cu",
@@ -544,11 +573,14 @@ def wgmma_sass(lib, sources, held=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")):
 
 
 def ptxas_report(fa_k, moe_k=None):
-    """Phase 1's record of the backward kernels and of fused MoE's forward
-    wgmma engine: ptxas's registers and spills for each instance built
-    (``-Xptxas -v``) of flash attention's backward and of fused MoE's, each
-    held to at most 1 KB of spill stores, and the geometry
-    ``bwd_launch_plan`` gives at qwen3-0.6b's training shape."""
+    """Phase 1's record of the backward kernels and of the forward wgmma
+    engines: ptxas's registers and spills for each instance built
+    (``-Xptxas -v``) of flash attention's backward and forward wgmma engine
+    and of fused MoE's, each held to at most 1 KB of spill stores; where
+    ptxas serialized a library's wgmma (its C7515 note), the count of such
+    notes, which flash attention's forward wgmma engine must not have; and
+    the geometry ``bwd_launch_plan`` gives at qwen3-0.6b's training
+    shape."""
     import re
 
     import torch
@@ -556,19 +588,25 @@ def ptxas_report(fa_k, moe_k=None):
     from repro_torch.kernels._build import build_log
 
     logs = [("flash_attention_bwd", fa_k.BWD_SOURCES),
-            ("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)]
+            ("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES),
+            ("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES)]
     if moe_k is not None:
         logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
                  ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES),
                  ("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES)]
     for lib, sources in logs:
         kernel = None
+        serialized = build_log(lib, sources).count("C7515")
+        if serialized:
+            log(f"  ptxas {lib}: {serialized} note(s) that wgmma instructions are serialized")
+        assert not (serialized and lib == "flash_attention_wgmma"), f"{lib}: wgmma serialized"
         for line in build_log(lib, sources).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 # the Itanium mangling keeps each name and template argument readable
                 name = re.search(r"((?:fa_bwd_\w+?_kernel)|fa_bwd_dq_wgmma|fa_bwd_dkdv_wgmma|"
-                                 r"moe_bwd_gemm|moe_bwd_wgmma|moe_fwd_wgmma)(?:I(.*?)EEv)?",
+                                 r"fa_fwd_wgmma|moe_bwd_gemm|moe_bwd_wgmma|moe_fwd_wgmma)"
+                                 r"(?:I(.*?)EEv)?",
                                  m.group(1))
                 if not name:
                     kernel = m.group(1)
@@ -590,6 +628,13 @@ def ptxas_report(fa_k, moe_k=None):
             f"{kern.rows} rows a CTA, steps of {kern.step}, ring slots {kern.stages}, "
             f"{kern.warpgroups} consumer warpgroups, {kern.smem} shared bytes")
     wgmma_sass("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)
+    for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4608, 4608, 8, 4))):
+        p = fa_k.fwd_wgmma_plan(*shape, D)
+        log(f"  forward plan (wgmma), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} bf16: grid "
+            f"{p.grid}, {p.block_q} q rows a CTA in sub-blocks of {p.sub_rows}, steps of "
+            f"{p.block_k} keys in {p.tiles_per_step} tile(s) of {p.tile_keys}, {p.stages} stages, "
+            f"{p.warpgroups} consumer warpgroups, {p.smem} shared bytes")
+    wgmma_sass("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
     if moe_k is not None:
         for kern in moe_k.bwd_launch_plan(16, 640, 6144, 10752, torch.float32):
             log(f"  fused_moe backward plan (mma.sync), E16 C640 D6144 F10752 f32: {kern.name} "
@@ -615,7 +660,7 @@ def kernel_parity(torch, dev):
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
@@ -654,7 +699,8 @@ def kernel_parity(torch, dev):
         if main:
             max_err[kname] = max(max_err[kname], err)
 
-    max_err = {"rmsnorm": 0.0, "silu_mul": 0.0, "flash_attention": 0.0}
+    max_err = {"rmsnorm": 0.0, "silu_mul": 0.0, "flash_attention": 0.0,
+               "flash_attention_wgmma": 0.0}
     for shape, xd, wd, main in [
         ((8192, 1024), bf16, f32, True), ((8192, 1024), bf16, bf16, True),
         ((8192 * 16, 128), bf16, bf16, True), ((8192, 1024), f32, f32, False),
@@ -701,19 +747,40 @@ def kernel_parity(torch, dev):
         (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, True),
         (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
     ]
+    # each case on the engine fwd_engine picks (the wgmma engine for bf16 at
+    # head dims 128 and 256: its lse too; then the mma.sync engine on the
+    # same inputs), the other engine's count not moving
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in fa_cases:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
         ref = attention_ref(q, k, v, **kw)
-        check(f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
-              f"window={window} softcap={softcap} {dt}", "flash_attention",
+        wgmma = fa_k.fwd_engine(dt, D) == "wgmma"
+        label = (f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
+                 f"window={window} softcap={softcap} {dt}")
+        n0, w0 = fa_k.launches, fa_k.wgmma_launches
+        check(f"{label} ({'wgmma' if wgmma else 'mma_sync'})",
+              "flash_attention_wgmma" if wgmma else "flash_attention",
               lambda: flash_attention_cuda(q, k, v, **kw), ref, dt, main, per_row=main)
-    # the block knobs' corners at the main shape: each launches the grid it names
+        assert (fa_k.launches - n0, fa_k.wgmma_launches - w0) == (2 * (not wgmma), 2 * wgmma)
+        if wgmma:
+            lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)[1]
+            want = lse_ref(q, k, v, **kw)
+            fin = torch.isfinite(want)
+            assert torch.equal(fin, torch.isfinite(lse)), f"{label}: lse's -inf rows differ"
+            lerr = float((lse[fin] - want[fin]).abs().max())
+            assert lerr <= BF16_TOL, f"{label}: lse off by {lerr:.3g}"
+            log(f"  {label} (wgmma) lse: max abs err {lerr:.3g} (tol {BF16_TOL})")
+            check(f"{label} (mma_sync)", "flash_attention",
+                  lambda: fa_k.flash_attention_mma_sync_cuda(q, k, v, **kw), ref, dt, main,
+                  per_row=main)
+        del q, k, v, ref
+    # the block knobs' corners at the main shape: each launches the grid it
+    # names, on the wgmma engine
     B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
     q, k, v = randn((B, S, Hq, D), bf16), randn((B, S, Hkv, D), bf16), randn((B, S, Hkv, D), bf16)
     ref = attention_ref(q, k, v, causal=True)
     for bq, bk in ((32, 32), (32, 512), (512, 32), (512, 512), (64, 256)):
-        check(f"flash_attention main shape blocks ({bq}, {bk})", "flash_attention",
+        check(f"flash_attention main shape blocks ({bq}, {bk}) (wgmma)", "flash_attention_wgmma",
               lambda: flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk), ref,
               bf16, True, per_row=True)
         assert fa_k.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
@@ -1249,8 +1316,8 @@ def serve_run(torch, kinds, label, eng, prompts, max_new, per_forward, per_prefi
     pre = [m for m in rec.meta if m.phase == "prefill"]
     dec = [m for m in rec.meta if m.phase == "decode"]
     assert len(pre) + len(dec) == rec.n_steps and rec.n_steps > 0
-    expect = moe_on_engine(cfg, {k: per_forward.get(k, 0) * rec.n_steps
-                                 + per_prefill.get(k, 0) * len(pre) for k in kinds})
+    expect = on_engines(cfg, {k: per_forward.get(k, 0) * rec.n_steps
+                              + per_prefill.get(k, 0) * len(pre) for k in kinds})
     assert moved == expect, f"{label}: launches {moved}, expected {expect}"
     assert sorted(r.rid for r in results) == list(range(len(prompts)))
     if results_out is not None:
@@ -1390,9 +1457,12 @@ def serve(torch, dev, params, kinds):
     del params
     torch.cuda.empty_cache()
     # dbrx's bf16 serving runs fused MoE's forward on the wgmma engine, its
-    # decode ticks too (the mma.sync engine takes f32: phases 3 and 10 (a))
-    assert all(v > 0 for k, v in totals.items() if k != "fused_moe"), totals
-    assert totals["fused_moe"] == 0, totals
+    # decode ticks too, and both models' prefill attention (head dim 128) runs
+    # flash attention's wgmma engine (the mma.sync engines take f32: phases 3
+    # and 10 (a); flash attention's also head dims 64 and 80: phase 9)
+    assert all(v > 0 for k, v in totals.items() if k not in ("fused_moe", "flash_attention")), (
+        totals)
+    assert totals["fused_moe"] == totals["flash_attention"] == 0, totals
     assert bool(finite), "non-finite logits on the serving path"
     return totals
 
@@ -1573,7 +1643,6 @@ def cuda_ms(torch, fn, inputs, iters):
 def kernel_times(torch, dev, peaks):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.fused_moe.kernel import fused_moe_cuda
     from repro_torch.kernels.fused_moe.ref import fused_moe_ref
@@ -1638,7 +1707,33 @@ def kernel_times(torch, dev, peaks):
         log(f"  silu_mul ({n_rows}, {F_}) bf16: " + ", ".join(times)
             + f"; bound {1e3 * 3 * n_rows * F_ * 2 / bw:.4f} ms")
         del small
-    # flash attention: causal prefill B=4, S=2048, 16/8 heads of 128, bf16
+    # flash attention's forward, bf16: the wgmma engine's row and the
+    # mma.sync engine's on the same inputs, the two in turns (wgmma,
+    # mma.sync, mma.sync, wgmma; kernel times drift as the card heats), each
+    # row's ms the mean of its two turns
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    def fa_engines(label, kw, inputs, plain, library, bnd):
+        names = {"wgmma": "flash_attention_wgmma" + label, "mma_sync": "flash_attention" + label}
+        turns = {}
+        for engine in ("wgmma", "mma_sync", "mma_sync", "wgmma"):
+            fn = getattr(fa_k, f"flash_attention_{engine}_cuda")
+            call = lambda a, b, c, fn=fn: fn(a, b, c, **kw)
+            if names[engine] not in rows:
+                row(names[engine], call, plain, library, inputs, 20, *bnd)
+                turns[engine] = [rows[names[engine]]["ms"]]
+            else:
+                turns[engine].append(cuda_ms(torch, call, inputs, 20)[0])
+        for engine, name in names.items():
+            rows[name]["ms"] = float(np.mean(turns[engine]))
+        w, m = rows[names["wgmma"]], rows[names["mma_sync"]]
+        lib = "n/a" if w["library_ms"] is None else f"{w['library_ms']:.4f}"
+        log(f"  flash_attention{label} in turns (ms): wgmma {turns['wgmma']}, mma.sync "
+            f"{turns['mma_sync']}; wgmma {w['bound_ms'] / w['ms']:.4f} of the bound, "
+            f"{m['ms'] / w['ms']:.2f}x faster than mma.sync, library {lib}")
+        return w
+
+    # the serving path's causal prefill B=4, S=2048, 16/8 heads of 128
     B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
     q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
     pairs = B * Hq * S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
@@ -1646,38 +1741,43 @@ def kernel_times(torch, dev, peaks):
     nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True, enable_gqa=True)
-    row("flash_attention", lambda a, b, c: flash_attention_cuda(a, b, c, causal=True),
-        lambda a, b, c: attention_ref(a, b, c, causal=True), (sdpa, [(qt, kt, vt)]),
-        [(q, k, v)], 20, *bound(peaks, nbytes, flops, "bfloat16"))
-    log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+    w = fa_engines("", dict(causal=True), [(q, k, v)],
+                   lambda a, b, c: attention_ref(a, b, c, causal=True), (sdpa, [(qt, kt, vt)]),
+                   bound(peaks, nbytes, flops, "bfloat16"))
+    log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; wgmma "
+        f"{flops / w['ms'] / 1e9:.1f} TFLOP/s")
     del q, k, v, qt, kt, vt
     # gemma2-2b's prefill: B=1, S=4608, 8/4 heads of 256, causal, window
-    # 4096, softcap 50, bf16. A row past the window sees 4096 keys. SDPA
-    # takes no softcap, so there is no library call for this function.
+    # 4096, softcap 50. A row past the window sees 4096 keys. SDPA takes no
+    # softcap, so the rows have no library call; the causal-only row beside
+    # them (window and softcap off) has SDPA as its yardstick
     B, S, Hq, Hkv, D, W = 1, 4608, 8, 4, 256, 4096
     q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
     pairs = B * Hq * sum(min(i + 1, W) for i in range(S))
     flops = 4 * D * pairs
     nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     kw = dict(causal=True, window=W, softcap=50.0)
-    row("flash_attention gemma2 prefill", lambda a, b, c: flash_attention_cuda(a, b, c, **kw),
-        lambda a, b, c: attention_ref(a, b, c, **kw), None, [(q, k, v)], 20,
-        *bound(peaks, nbytes, flops, "bfloat16"))
-    r = rows["flash_attention gemma2 prefill"]
+    w = fa_engines(" gemma2 prefill", kw, [(q, k, v)], lambda a, b, c: attention_ref(a, b, c, **kw),
+                   None, bound(peaks, nbytes, flops, "bfloat16"))
     log(f"  flash_attention gemma2 prefill work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
-        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s achieved, {r['bound_ms'] / r['ms']:.3f} of the bound")
-    # the same call at other (block_q, block_k): at D = 256 a register tile
-    # holds 64 keys, so the default 128-key step takes two passes
-    from repro_torch.kernels.flash_attention.kernel import launch_plan
-
+        f"wgmma {flops / w['ms'] / 1e9:.1f} TFLOP/s, {w['bound_ms'] / w['ms']:.3f} of the bound")
+    causal_flops = 4 * D * B * Hq * S * (S + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row("flash_attention_wgmma (gemma2-2b prefill shape, causal only)",
+        lambda a, b, c: fa_k.flash_attention_wgmma_cuda(a, b, c, causal=True),
+        lambda a, b, c: attention_ref(a, b, c, causal=True), (sdpa, [(qt, kt, vt)]), [(q, k, v)],
+        20, *bound(peaks, nbytes, causal_flops, "bfloat16"))
+    del qt, kt, vt
+    # the wgmma engine at other (block_q, block_k): a CTA's q rows and the
+    # keys of a step (cut into tiles of 64 keys at D 256)
     corners = []
-    for bq, bk in ((128, 64), (64, 64), (64, 128), (256, 64)):
-        t, _ = cuda_ms(torch, lambda a, b, c: flash_attention_cuda(
+    for bq, bk in ((128, 64), (64, 64), (256, 128), (128, 256)):
+        t, _ = cuda_ms(torch, lambda a, b, c: fa_k.flash_attention_wgmma_cuda(
             a, b, c, block_q=bq, block_k=bk, **kw), [(q, k, v)], 20)
-        plan = launch_plan(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
-        corners.append(f"({bq}, {bk}) {t:.4f} ms [kt {plan.kt}, {plan.warps} warps, "
-                       f"grid {plan.grid}]")
-    log("  flash_attention gemma2 prefill at other blocks: " + "; ".join(corners))
+        plan = fa_k.fwd_wgmma_plan(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
+        corners.append(f"({bq}, {bk}) {t:.4f} ms [grid {plan.grid}, {plan.tiles_per_step} "
+                       f"tile(s) a step]")
+    log("  flash_attention_wgmma gemma2 prefill at other blocks: " + "; ".join(corners))
     del q, k, v
 
     # fused MoE at dbrx-132b width, default blocks. The serving shapes, bf16
@@ -2517,6 +2617,7 @@ def kernel_counts(zero=False):
     counters["fused_moe_wgmma"] = (moe_k, "wgmma_launches")
     counters["fused_moe_bwd_wgmma"] = (moe_k, "bwd_wgmma_launches")
     counters["flash_attention_bwd_wgmma"] = (fa_k, "bwd_wgmma_launches")
+    counters["flash_attention_wgmma"] = (fa_k, "wgmma_launches")
     if zero:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -2531,8 +2632,8 @@ def training_launches(cfg):
     a dense residual FFN), whose forward runs on the engine ``fwd_engine``
     picks for the compute type and widths (``moe_fwd_wgmma``) and whose
     backward on the engine ``bwd_engine`` picks; flash attention's
-    backward runs on the engine its ``bwd_engine`` picks for the compute
-    type and head dim."""
+    forward and backward run on the engines its ``fwd_engine`` and
+    ``bwd_engine`` pick for the compute type and head dim."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa_k
@@ -2550,9 +2651,12 @@ def training_launches(cfg):
     fwd = moe_fwd_wgmma(cfg)
     fa_wgmma = fa_k.bwd_engine(getattr(torch, cfg.compute_dtype),
                                cfg.resolved_head_dim) == "wgmma"
+    fa_fwd = fa_fwd_wgmma(cfg)
     return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
             "silu_mul": twice * dense, "silu_mul_bwd": dense,
-            "flash_attention": twice * n, "flash_attention_bwd": n * (not fa_wgmma),
+            "flash_attention": twice * n * (not fa_fwd),
+            "flash_attention_wgmma": twice * n * fa_fwd,
+            "flash_attention_bwd": n * (not fa_wgmma),
             "flash_attention_bwd_wgmma": n * fa_wgmma,
             "fused_moe": twice * n * moe * (not fwd), "fused_moe_wgmma": twice * n * fwd,
             "fused_moe_bwd": n * moe * (not wgmma), "fused_moe_bwd_wgmma": n * moe * wgmma}
@@ -2767,7 +2871,7 @@ def training(torch, dev):
     for depth in depths[:3]:
         try:
             run = train_steps(torch, dev, dataclasses.replace(g_cfg, n_layers=depth), 1, 4096, 5,
-                              named=("fa_bwd_", "fa_bf16_kernel"))
+                              named=("fa_bwd_", "fa_bf16_kernel", "fa_fwd_wgmma"))
             break
         except torch.cuda.OutOfMemoryError as e:
             log(f"  (d) gemma2-2b at {depth} layers does not fit: {str(e).splitlines()[0]}")
@@ -2788,7 +2892,10 @@ def training(torch, dev):
     log(f"  (d) gemma2-2b: flash attention's backward kernels {fa_bwd:.3f} ms "
         f"({100 * fa_bwd / prof['busy_ms']:.1f}% of device busy; on the "
         f"{'wgmma' if run['moved']['flash_attention_bwd_wgmma'] else 'mma.sync'} engine), its "
-        f"forward kernels {prof['named_ms']['fa_bf16_kernel']:.3f} ms")
+        f"forward kernels {prof['named_ms']['fa_fwd_wgmma']:.3f} ms on the wgmma engine and "
+        f"{prof['named_ms']['fa_bf16_kernel']:.3f} ms on the mma.sync one")
+    assert run["moved"]["flash_attention_wgmma"] > 0 == run["moved"]["flash_attention"], (
+        f"(d) flash attention's forward did not run on the wgmma engine: {run['moved']}")
     assert run["moved"]["flash_attention_bwd_wgmma"] == 5 * depth, (
         f"(d) flash attention's backward did not run on the wgmma engine: {run['moved']}")
     for name, k, ms in prof["top"]:

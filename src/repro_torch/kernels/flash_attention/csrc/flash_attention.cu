@@ -55,11 +55,11 @@
 // stores. What holds it at several times its bound (PERF.md) is the
 // shared-memory reads: with 16 rows a warp, each K or V fragment feeds
 // two products, so at 128 keys a step the fragment loads take about as
-// long as the products. Two m-tiles a warp would halve them but need
-// more registers than a 128-key step leaves (the spills cost more than
-// they saved). So this design falls short of the 0.30 ms aimed at for it
-// at the main shape (it takes about 0.33 ms on an H100 SXM, PERF.md):
-// wgmma with TMA, which reads B from shared memory itself, is still owed.
+// long as the products (about 0.33 ms at the main shape on an H100 SXM).
+// So bf16 at head dims 128 and 256 runs on flash_attention_wgmma.cu
+// (wgmma fed by TMA, which reads B from shared memory itself); this file
+// keeps f32, head dims 8-80 and bf16 bases that are not 16-byte multiples
+// (kernel.fwd_engine chooses).
 //
 // Log-sum-exp for the backward (flash_attention_bwd.cu): where `lse` is not
 // null, each row's natural-log log-sum-exp of its scores, lse = m + log l,

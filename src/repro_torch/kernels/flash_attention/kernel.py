@@ -1,14 +1,31 @@
-"""Binding of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Binding of the Hopper flash-attention kernels.
 
-Replaces ``_fa_kernel`` / ``flash_attention_pallas`` of
-``repro/kernels/flash_attention/kernel.py``; the source file's head says
-what bounds the kernel and how it is laid out. The library is compiled with
+They replace ``_fa_kernel`` / ``flash_attention_pallas`` of
+``repro/kernels/flash_attention/kernel.py``; each source file's head says
+what bounds it and how it is laid out. Each library is compiled with
 ``nvcc`` for ``sm_90a`` at first use (``kernels._build``) and called through
-ctypes on PyTorch's current stream. A failed build or launch raises.
+ctypes on PyTorch's current stream. A failed build, tensor-map encode or
+launch raises; nothing falls back to another engine.
+
+The forward has two engines, each its own library, and ``fwd_engine``
+chooses between them from the type, the head dim and the bases alone:
+
+- ``csrc/flash_attention_wgmma.cu`` (bf16 at head dims 128 and 256 whose
+  bases are 16-byte multiples: qwen3-0.6b's, dbrx-132b's and
+  llama-3.2-vision's prefill and training at 128, gemma2-2b's at 256):
+  ``wgmma`` fed by TMA, one producer and two consumer warpgroups that take
+  turns issuing their products; ``fwd_wgmma_plan`` gives its geometry and
+  ``fwd_wgmma_tiles`` the key tiles each sub-block of rows walks;
+- ``csrc/flash_attention.cu`` (f32, the other head dims 8-80, and bf16
+  bases TMA cannot address): ``mma.sync`` fed by ``cp.async`` for bf16, the
+  FMA units for f32.
+
+Each counts its own calls (``wgmma_launches``, ``launches``).
 
 ``launch_plan`` computes the launch geometry in Python, so the CPU tests
 reach it: ``block_q`` sets the q rows a CTA owns and ``block_k`` the keys of
-one online-softmax step, after the reference's ``min(block, dim)`` clamp.
+one online-softmax step, after the reference's ``min(block, dim)`` clamp;
+both engines launch its grid.
 
 With ``return_lse=True`` the forward also writes each row's log-sum-exp,
 ``(B, Hq, S)`` f32, which ``flash_attention_bwd_cuda`` takes: the backward
@@ -46,8 +63,10 @@ import torch
 
 from repro_torch.kernels._build import load_cuda_library
 
-#: kernel launches since the count was last set to 0
+#: forward calls on the ``mma.sync`` engine since the count was last set to 0
 launches = 0
+#: forward calls on the ``wgmma`` engine (``csrc/flash_attention_wgmma.cu``)
+wgmma_launches = 0
 #: backward calls on the ``mma.sync`` engine since the count was last set
 #: to 0 (each launches the kernels of ``bwd_launch_plan``)
 bwd_launches = 0
@@ -61,6 +80,7 @@ last_grid: tuple | None = None
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd_wgmma.cu"]
+FWD_WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_wgmma.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 #: head dims of the backward kernels
 BWD_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
@@ -226,8 +246,91 @@ def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int = WGMMA_D
     )
 
 
+#: the forward wgmma engine (``csrc/flash_attention_wgmma.cu``): its head
+#: dims, the keys of a tile at each, the q rows of a sub-block (64 a
+#: consumer warpgroup) and the stages of its K/V ring
+FWD_WGMMA_HEAD_DIMS = (128, 256)
+FWD_WGMMA_TILE_KEYS = {128: 128, 256: 64}
+FWD_WGMMA_SUB_ROWS = 64 * WGMMA_WARPGROUPS
+FWD_WGMMA_STAGES = 2
+
+
+def fwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
+    """Which engine runs the forward: ``"wgmma"`` for bf16 at head dim 128
+    or 256 whose bases (``aligned``) are 16-byte multiples, as TMA addresses
+    them; ``"mma_sync"`` otherwise (f32, head dims 8-80: whisper's, hymba's,
+    stablelm's)."""
+    return ("wgmma" if dtype == torch.bfloat16 and D in FWD_WGMMA_HEAD_DIMS and aligned
+            else "mma_sync")
+
+
+class FwdWgmmaPlan(NamedTuple):
+    grid: tuple  # the CUDA grid (B*Hq, q blocks)
+    order: tuple  # the q block blockIdx.y = 0, 1, ... takes: the heaviest causal one first
+    block_q: int  # q rows a CTA owns (clamped to S), walked SUB_ROWS at a time
+    block_k: int  # keys of a step (clamped to Skv), cut into tiles of tile_keys
+    sub_rows: int  # q rows of a sub-block: 64 a consumer warpgroup
+    tile_keys: int  # keys of one tile: the N of S = Q K^T
+    tiles_per_step: int
+    stages: int  # stages of the K/V ring
+    warpgroups: int  # consumer warpgroups a CTA, each 128 threads; one more loads
+    smem: int  # dynamic shared bytes a CTA
+
+
+def fwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, *,
+                   block_q: int = 128, block_k: int = 128) -> FwdWgmmaPlan:
+    """The forward wgmma engine's launch, as ``csrc/flash_attention_wgmma.cu``
+    makes it, after the reference's ``min(block, dim)`` clamp: a CTA owns
+    ``block_q`` q rows of one head and walks them 128 at a time; each step
+    of ``block_k`` keys is cut into tiles of 128 keys (D 128) or 64 (D 256).
+    Shared bytes: 1 KB of alignment slack, each consumer's Q tile (64 rows),
+    the ring's K and V tiles, 8 bytes a barrier. Raises on a shape the
+    engine does not take."""
+    plan = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
+    if D not in FWD_WGMMA_HEAD_DIMS or min(B, S, Skv) <= 0:
+        raise ValueError(f"flash_attention wgmma forward: B={B} S={S} Skv={Skv} D={D}; "
+                         f"it takes head dims {FWD_WGMMA_HEAD_DIMS}")
+    bn = FWD_WGMMA_TILE_KEYS[D]
+    nq = plan.grid[1]
+    q_tile, kv_tile = 64 * D * 2, bn * D * 2
+    smem = (1024 + WGMMA_WARPGROUPS * q_tile + FWD_WGMMA_STAGES * 2 * kv_tile
+            + 8 * (2 + 4 * FWD_WGMMA_STAGES))
+    return FwdWgmmaPlan((B * Hq, nq), _heavy_first(nq, plan.block_q, S), plan.block_q,
+                        plan.block_k, FWD_WGMMA_SUB_ROWS, bn, -(-plan.block_k // bn),
+                        FWD_WGMMA_STAGES, WGMMA_WARPGROUPS, smem)
+
+
+def fwd_wgmma_tiles(plan: FwdWgmmaPlan, S: int, Skv: int, *, causal: bool = True,
+                    window: int | None = None, q_offset: int = 0):
+    """The key tiles each sub-block of the plan walks, in the order its CTA
+    walks them (the source's ``Walk``): ``(first row, rows, [(first key,
+    keys), ...])`` for every sub-block of every q block in launch order.
+    A tile holds the keys of its step from its first key to its step's end
+    or ``tile_keys`` on; the tiles the masks remove for every row of the
+    sub-block are not walked; a sub-block holding a row that sees no key
+    walks them all."""
+    bq, bk, bn, w = plan.block_q, plan.block_k, plan.tile_keys, window or 0
+    out = []
+    for blk in plan.order:
+        r_end = min(blk * bq + bq, S)
+        for r0 in range(blk * bq, r_end, plan.sub_rows):
+            p0, p1 = r0 + q_offset, min(r0 + plan.sub_rows, r_end) - 1 + q_offset
+            k_hi = min(Skv, p1 + 1) if causal else Skv
+            k_lo = max(0, p0 - w + 1) if w > 0 else 0
+            if w > 0 and p1 >= Skv + w - 1:
+                k_lo = 0
+            tiles = []
+            for j in range(k_lo // bk, -(-k_hi // bk)):
+                e = min((j + 1) * bk, Skv)
+                for k0 in range(j * bk, min(e, k_hi), bn):
+                    if min(k0 + bn, e) > k_lo:
+                        tiles.append((k0, min(k0 + bn, e) - k0))
+            out.append((r0, min(r0 + plan.sub_rows, r_end) - r0, tiles))
+    return out
+
+
 def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel's library."""
+    """Build (once per source hash) and load the mma.sync engine's library."""
     lib = load_cuda_library("flash_attention", SOURCES)
     fn = lib.fa_forward
     fn.argtypes = (
@@ -245,6 +348,19 @@ def bwd_library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return lib
+
+
+def fwd_wgmma_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the forward's
+    wgmma engine."""
+    lib = load_cuda_library("flash_attention_wgmma", FWD_WGMMA_SOURCES)
+    lib.fa_forward_wgmma.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.fa_forward_wgmma.restype = ctypes.c_int
+    lib.fa_fwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fa_fwd_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -275,32 +391,89 @@ def flash_attention_cuda(
     q_offset: int = 0,
 ):
     """The attention output, and with ``return_lse`` also each row's
-    log-sum-exp ``(B, Hq, S)`` f32 (``-inf`` for a row that sees no key).
-    Row i is masked at position ``q_offset + i``."""
-    global launches, last_grid
+    log-sum-exp ``(B, Hq, S)`` f32 (``-inf`` for a row that sees no key),
+    on the engine ``fwd_engine`` picks. Row i is masked at position
+    ``q_offset + i``."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, block_q=block_q,
+              block_k=block_k, return_lse=return_lse, q_offset=q_offset)
+    _fwd_check("flash_attention_cuda", q, k, v, window, softcap, q_offset)
+    if fwd_engine(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in (q, k, v))) == "wgmma":
+        return flash_attention_wgmma_cuda(q, k, v, **kw)
+    return flash_attention_mma_sync_cuda(q, k, v, **kw)
+
+
+def _fwd_check(name: str, q, k, v, window, softcap, q_offset) -> tuple:
+    """``(B, S, Skv, Hq, Hkv, D)`` after the checks every forward makes."""
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
-        raise ValueError("flash_attention_cuda: q, k, v must be CUDA tensors on one device")
+        raise ValueError(f"{name}: q, k, v must be CUDA tensors on one device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention_cuda: types {q.dtype}, {k.dtype}, {v.dtype}; "
-            "expected one of float32, bfloat16"
+            f"{name}: types {q.dtype}, {k.dtype}, {v.dtype}; expected one of float32, bfloat16"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention_cuda: shapes {q.shape}, {k.shape}, {v.shape}")
+        raise ValueError(f"{name}: shapes {q.shape}, {k.shape}, {v.shape}")
     B, S, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
-        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
+        raise ValueError(f"{name}: q, k, v must be contiguous")
     if window is not None and window <= 0:
-        raise ValueError(f"flash_attention_cuda: window must be positive, got {window}")
+        raise ValueError(f"{name}: window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
-        raise ValueError(f"flash_attention_cuda: softcap must be positive, got {softcap}")
+        raise ValueError(f"{name}: softcap must be positive, got {softcap}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if q_offset < 0:
-        raise ValueError(f"flash_attention_cuda: q_offset must be >= 0, got {q_offset}")
+        raise ValueError(f"{name}: q_offset must be >= 0, got {q_offset}")
+    return B, S, Skv, Hq, Hkv, D
+
+
+def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+                               block_q=128, block_k=128, return_lse=False, q_offset=0):
+    """The forward on the wgmma engine (``csrc/flash_attention_wgmma.cu``):
+    bf16 at head dim 128 or 256 whose bases are 16-byte multiples; raises
+    otherwise, and where a launch or a tensor map fails."""
+    global wgmma_launches, last_grid
+    name = "flash_attention_wgmma_cuda"
+    B, S, Skv, Hq, Hkv, D = _fwd_check(name, q, k, v, window, softcap, q_offset)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
+    if fwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))) != "wgmma":
+        raise ValueError(f"{name}: {q.dtype} at head dim {D}, or a base that is not a 16-byte "
+                         f"multiple; it takes bf16 at head dims {FWD_WGMMA_HEAD_DIMS}")
+    if q.numel() == 0 or Skv == 0:
+        return (out, lse) if return_lse else out
+    plan = fwd_wgmma_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
+    lib = fwd_wgmma_library()
+    smem = lib.fa_fwd_wgmma_smem_bytes(D)
+    if smem != plan.smem or smem > SMEM_LIMIT:
+        raise RuntimeError(f"{name}: the library takes {smem} shared bytes, the plan "
+                           f"{plan.smem}, the limit {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.fa_forward_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, B, S, Skv, Hq, Hkv, D, int(causal),
+            window or 0, float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
+            plan.block_q, plan.block_k, q_offset, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"{name}: a tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+    wgmma_launches += 1
+    last_grid = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k).grid
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_mma_sync_cuda(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+                                  block_q=128, block_k=128, return_lse=False, q_offset=0):
+    """The forward on the mma.sync engine (``csrc/flash_attention.cu``): f32
+    or bf16, every head dim of ``HEAD_DIMS``."""
+    global launches, last_grid
+    B, S, Skv, Hq, Hkv, D = _fwd_check("flash_attention_mma_sync_cuda", q, k, v, window,
+                                       softcap, q_offset)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0 or Skv == 0:
@@ -319,7 +492,7 @@ def flash_attention_cuda(
             plan.block_q, plan.block_k, plan.kt, plan.warps, q_offset, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention_cuda: launch failed with cudaError {err}")
+        raise RuntimeError(f"flash_attention_mma_sync_cuda: launch failed with cudaError {err}")
     launches += 1
     last_grid = plan.grid
     return (out, lse) if return_lse else out

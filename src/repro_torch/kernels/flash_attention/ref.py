@@ -65,6 +65,22 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
     return of.reshape(B, Hkv, G, S, D).permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
 
 
+def lse_ref(q, k, v, *, causal=True, window=None, softcap=None, q_offset: int = 0
+            ) -> torch.Tensor:
+    """Each row's natural-log log-sum-exp of its masked scores, ``(B, Hq,
+    S)`` f32, as the kernels' ``return_lse`` gives it: masked keys score
+    -1e30, and a row that sees no key gets ``-inf``."""
+    B, S, Hq, D = q.shape
+    Skv, G = k.shape[1], Hq // k.shape[2]
+    x = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=2)) / math.sqrt(D)
+    if softcap is not None:
+        x = softcap * torch.tanh(x / softcap)
+    mask = visible_mask(S, Skv, causal, window, q_offset, q.device)
+    lse = torch.logsumexp(x.masked_fill(~mask, -1.0e30), dim=-1)
+    return lse.masked_fill(~mask.any(dim=-1), float("-inf"))
+
+
 def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None,
                       q_offset: int = 0):
     """The backward of :func:`attention_ref` as an explicit formula, dense

@@ -1,9 +1,10 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: without a CUDA device each test skips with its reason. On a
-machine with one (no JAX needed):
+machine with one (no JAX needed; where one is installed, ``JAX_PLATFORMS=cpu``
+keeps ``tests/conftest.py``'s import-time probe off the card):
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    JAX_PLATFORMS=cpu PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are the reference's kernel tolerances: f32 2e-5, bf16 2e-2
 (``tests/test_kernels.py::_tol``).
@@ -82,45 +83,182 @@ FA_CASES = [
 @pytest.mark.parametrize("case", FA_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, case, dtype):
+    """The call runs on the engine ``fwd_engine`` picks, and only that
+    engine's count moves. f32 is held to the kernels' function in float64
+    (``_attention_f64``) at the reference's 2e-5: the plain version's own
+    f32 products on the card host's CPU have landed 4.27e-5 from it on case
+    0, so at f32's tolerance it is no yardstick (``test_torch_kernels.py::
+    test_flash_attention_plain_version_stays_near_float64`` holds it near
+    float64 on its own tolerance). bf16 is held to the plain version at
+    2e-2."""
     B, S, Skv, Hq, Hkv, D, causal, window, softcap = case
     rng = np.random.default_rng(0)
     q = _randn(rng, (B, S, Hq, D), dtype, dev)
     k = _randn(rng, (B, Skv, Hkv, D), dtype, dev)
     v = _randn(rng, (B, Skv, Hkv, D), dtype, dev)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    n0 = fa_kernel.launches
+    wgmma = fa_kernel.fwd_engine(dtype, D) == "wgmma"
+    n0, w0 = fa_kernel.launches, fa_kernel.wgmma_launches
     out = fa_ops.attention(q, k, v, **kw)
-    assert fa_kernel.launches == n0 + 1
-    ref = fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    assert (fa_kernel.launches, fa_kernel.wgmma_launches) == (n0 + (not wgmma), w0 + wgmma)
     torch.cuda.synchronize()
+    if dtype == torch.float32:
+        exact = _attention_f64(q, k, v, **kw)  # float64 on the card: no TF32 there
+        assert out.shape == exact.shape and out.dtype == dtype
+        err = float((out.double() - exact).abs().max())
+        assert torch.allclose(out.double(), exact, rtol=TOL[dtype], atol=TOL[dtype]), (
+            f"kernel {err:.3g} from the float64 function")
+        return
+    ref = fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw)
     out = out.cpu()
     assert out.shape == ref.shape and out.dtype == ref.dtype
-    if not torch.allclose(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype]):
-        # say which side is off: both against the same function in float64
-        exact = _attention_f64(q.cpu(), k.cpu(), v.cpu(), **kw)
-        gaps = {name: float((t.double() - exact).abs().max()) for name, t in
-                (("kernel", out), ("plain", ref),
-                 ("kernel again", fa_ops.attention(q, k, v, **kw).cpu()))}
-        pytest.fail(f"kernel and plain version disagree; max abs err against float64: {gaps}")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def _attention_f64(q, k, v, *, causal, window, softcap):
-    """The kernels' function in float64 on the CPU (the model layout)."""
+    """The kernels' function in float64 on q's device (the model layout)."""
     q, k, v = (t.double() for t in (q, k, v))
     G = q.shape[2] // k.shape[2]
     k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(q.shape[1])[:, None]
-    kpos = torch.arange(k.shape[1])[None, :]
-    mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool)
+    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
     p = torch.softmax(s.masked_fill(~mask, -1.0e30), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+#: (B, S, Skv, Hq, Hkv, D, causal, window, softcap, q_offset) for the
+#: forward's wgmma engine: FA_CASES at head dims 128 and 256, then GQA with
+#: ragged lengths, a window whose last rows see no key (S != Skv), a
+#: softcap with more keys than rows, query offsets (a rank's block of rows)
+#: and the serving path's main shape
+FWD_WGMMA_CASES = [(*c, 0) for c in FA_CASES if c[5] in (128, 256)] + [
+    (2, 300, 300, 8, 2, 128, True, None, None, 0),
+    (2, 300, 300, 8, 2, 256, True, None, None, 0),
+    (1, 200, 50, 2, 1, 128, False, 10, None, 0),
+    (1, 200, 50, 2, 1, 256, True, 10, None, 0),
+    (1, 77, 200, 4, 1, 128, False, 50, 20.0, 0),
+    (1, 77, 200, 4, 1, 256, False, 50, 20.0, 0),
+    (1, 64, 192, 4, 2, 128, True, None, None, 64),
+    (1, 64, 96, 2, 1, 256, True, 32, 50.0, 100),
+    (1, 130, 200, 2, 1, 256, False, 64, None, 40),
+    (1, 1024, 4096, 8, 4, 256, True, 4096, 50.0, 3072),
+    (4, 2048, 2048, 16, 8, 128, True, None, None, 0),
+]
+
+
+def _lse_close(got, want):
+    """Where the plain lse is finite, within bf16's 2e-2; -inf (rows that
+    see no key) at the same rows."""
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)) and not bool(torch.isnan(got).any())
+    assert float((got[fin] - want[fin]).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("case", FWD_WGMMA_CASES)
+def test_flash_attention_fwd_wgmma_matches_plain_and_mma_sync(dev, case):
+    """The forward's wgmma engine (``csrc/flash_attention_wgmma.cu``): its
+    output within bf16 2e-2 of the plain version's max|ref| and of the
+    mma.sync engine's on the same inputs, its lse within 2e-2 of
+    ``lse_ref``'s; bit-equal on a rerun; ``flash_attention_cuda`` picks it
+    and only its count moves; the library's shared bytes are the plan's."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
+
+    B, S, Skv, Hq, Hkv, D, causal, window, softcap, off = case
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (B, S, Hq, D), bf16, dev)
+    k, v = (_randn(rng, (B, Skv, Hkv, D), bf16, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    assert fa_kernel.fwd_engine(bf16, D) == "wgmma"
+    n0, w0 = fa_kernel.launches, fa_kernel.wgmma_launches
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    again, lse2 = fa_kernel.flash_attention_wgmma_cuda(q, k, v, return_lse=True, **kw)
+    assert (fa_kernel.launches, fa_kernel.wgmma_launches) == (n0, w0 + 2)
+    assert fa_kernel.last_grid == fa_kernel.launch_plan(B, S, Skv, Hq, Hkv, D).grid
+    old = fa_kernel.flash_attention_mma_sync_cuda(q, k, v, **kw)
+    assert out.dtype == bf16 and bool(torch.isfinite(out).all())
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    _rel_close(out, attention_ref(q, k, v, **kw), bf16, "out")
+    _rel_close(out, old, bf16, "out against the mma.sync engine")
+    _lse_close(lse, lse_ref(q, k, v, **kw))
+    plan = fa_kernel.fwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)
+    assert fa_kernel.fwd_wgmma_library().fa_fwd_wgmma_smem_bytes(D) == plan.smem
+
+
+@pytest.mark.parametrize("blocks", [(64, 32, 512), (512, 512, 512), (256, 96, 768),
+                                    (128, 64, 512)], ids=lambda b: f"q{b[0]}-k{b[1]}-S{b[2]}")
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_attention_fwd_wgmma_blocks_reach_the_launch(dev, blocks, D):
+    """block_q and block_k reach the wgmma engine's launch (the grid the
+    reference names, at lengths the blocks divide; steps cut into tiles, a
+    tile cut at its step's end) and leave its function unchanged."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    bq, bk, S = blocks
+    B, Hq, Hkv = 2, 4, 2
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (B, S, Hq, D), torch.bfloat16, dev)
+    k, v = (_randn(rng, (B, S, Hkv, D), torch.bfloat16, dev) for _ in range(2))
+    for kw in (dict(causal=True), dict(causal=True, window=100, softcap=30.0),
+               dict(causal=False)):
+        out = fa_kernel.flash_attention_wgmma_cuda(q, k, v, block_q=bq, block_k=bk, **kw)
+        assert fa_kernel.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq,
+                                                         block_k=bk)
+        _rel_close(out, attention_ref(q, k, v, **kw), torch.bfloat16, f"out {kw}")
+
+
+def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
+    """f32, head dims other than 128 and 256, and a base that is not a
+    16-byte multiple are not the wgmma engine's: it raises, and
+    ``flash_attention_cuda`` takes the mma.sync engine for them."""
+    rng = np.random.default_rng(8)
+    for dtype, D, shift in ((torch.float32, 128, 0), (torch.bfloat16, 80, 0),
+                            (torch.bfloat16, 128, 1), (torch.bfloat16, 256, 4)):
+        q = _randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
+        k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
+        assert fa_kernel.fwd_engine(dtype, D, q.data_ptr() % 16 == 0) == "mma_sync"
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_kernel.flash_attention_wgmma_cuda(q, k, v)
+        n0, w0 = fa_kernel.launches, fa_kernel.wgmma_launches
+        out = fa_kernel.flash_attention_cuda(q, k, v)
+        assert (fa_kernel.launches, fa_kernel.wgmma_launches) == (n0 + 1, w0)
+        _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu()), dtype)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_attention_trains_through_the_wgmma_forward(dev, D):
+    """``ops.attention`` under grad in bf16 at head dims 128 and 256: the
+    forward on the wgmma engine feeds its output and lse to the backward
+    engine ``bwd_engine`` picks (D 128: mma.sync; D 256: wgmma), whose
+    gradients equal ``attention_bwd_ref``'s within bf16 2e-2 of each
+    gradient's max|ref|, with gemma2's masks at 256 and GQA at both."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(9)
+    shapes = [(2, 300, 8, D), (2, 300, 2, D), (2, 300, 2, D)]
+    card = [_randn(rng, sh, bf16, dev).requires_grad_() for sh in shapes]
+    g = _randn(rng, shapes[0], bf16, dev)
+    kw = dict(causal=True, window=64, softcap=50.0) if D == 256 else dict(causal=True)
+    count = "bwd_wgmma_launches" if fa_kernel.bwd_engine(bf16, D) == "wgmma" else "bwd_launches"
+    w0, b0 = fa_kernel.wgmma_launches, getattr(fa_kernel, count)
+    out = fa_ops.attention(*card, **kw)
+    got = torch.autograd.grad(out, card, g)
+    assert (fa_kernel.wgmma_launches, getattr(fa_kernel, count)) == (w0 + 1, b0 + 1)
+    plain = [t.detach() for t in card]
+    _rel_close(out, attention_ref(*plain, **kw), bf16, "out")
+    for name, a, r in zip(("dq", "dk", "dv"), got, attention_bwd_ref(*plain, g, **kw)):
+        assert a.dtype == bf16
+        _rel_close(a, r, bf16, name)
 
 
 FA_BF16_HEAD_DIMS = [64, 80, 128, 256]

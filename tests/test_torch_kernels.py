@@ -29,6 +29,8 @@ from repro_torch.kernels.scaled_mm import ops as smm_ops
 from repro_torch.kernels.scaled_mm.ref import quantize_rowwise, scaled_mm_acc_ref
 from repro_torch.kernels.silu_mul import kernel as silu_kernel
 from repro_torch.kernels.silu_mul import ops as silu_ops
+from test_torch_cuda import FA_CASES as CARD_FA_CASES
+from test_torch_cuda import _attention_f64
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -69,9 +71,10 @@ def test_attention_matches_reference_kernel(case, name):
     v, vt = _both(rng.standard_normal((B, Skv, Hkv, D)).astype(np.float32), name)
     kw = dict(causal=causal, window=window, softcap=softcap)
     ref = ref_fa.attention(q, k, v, block_q=32, block_k=32, interpret=True, use_pallas=True, **kw)
-    n0 = fa_kernel.launches
+    n0 = (fa_kernel.launches, fa_kernel.wgmma_launches)
     out = fa_ops.attention(qt, kt, vt, block_q=32, block_k=32, **kw)
-    assert fa_kernel.launches == n0  # a CPU tensor takes the plain version
+    # a CPU tensor takes the plain version: neither engine launches
+    assert (fa_kernel.launches, fa_kernel.wgmma_launches) == n0
     _check(ref, out, name)
 
 
@@ -345,6 +348,129 @@ def test_flash_attention_plan_masks_ragged_lengths():
     assert small.grid == (2, 1, 1) and (small.block_q, small.kt, small.warps) == (40, 64, 3)
     with pytest.raises(ValueError):
         fa_kernel.launch_plan(1, 64, 64, 2, 2, 24)
+
+
+#: the card tests' f32 cases the CPU takes in well under a second (the
+#: 4608- and 2048-token ones are left to the card)
+PLAIN_F64_CASES = [c for c in CARD_FA_CASES if c[0] * c[3] * c[1] * c[2] <= 2e7]
+
+
+@pytest.mark.parametrize("case", PLAIN_F64_CASES)
+def test_flash_attention_plain_version_stays_near_float64(case):
+    """The plain version in f32 on the CPU (the card tests' yardstick for
+    bf16) against the same function in float64 (``_attention_f64``), within
+    1e-5: f32 rounding over at most 1601 keys and 256 columns, which lands
+    under 1.3e-6 here. On the card host's torch 2.11 it has landed 4.27e-5
+    from float64 on case 0 (ROADMAP.md queue C)."""
+    B, S, Skv, Hq, Hkv, D, causal, window, softcap = case
+    rng = np.random.default_rng(0)  # the card test's draws
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((B, S, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    plain = fa_ops.attention(q, k, v, **kw)
+    exact = _attention_f64(q, k, v, **kw)
+    assert plain.dtype == torch.float32
+    assert float((plain.double() - exact).abs().max()) <= 1e-5
+
+
+def test_flash_attention_fwd_engine_follows_type_head_dim_and_alignment():
+    """bf16 at head dims 128 and 256 whose bases are 16-byte multiples
+    takes the wgmma engine; f32, head dims 8-80 and other bases take the
+    mma.sync engine."""
+    engine = fa_kernel.fwd_engine
+    bf16 = torch.bfloat16
+    assert engine(bf16, 128) == engine(bf16, 256) == "wgmma"
+    for D in (8, 16, 32, 64, 80):
+        assert engine(bf16, D) == "mma_sync"
+    for D in fa_kernel.HEAD_DIMS:
+        assert engine(torch.float32, D) == "mma_sync"
+    assert engine(bf16, 128, False) == engine(bf16, 256, False) == "mma_sync"
+    assert engine(torch.float16, 128) == "mma_sync"
+
+
+@pytest.mark.parametrize("D", fa_kernel.FWD_WGMMA_HEAD_DIMS)
+def test_flash_attention_fwd_wgmma_plan_fits_and_launches_heaviest_first(D):
+    """The forward wgmma engine's shared bytes (alignment slack, two Q
+    tiles of 64 rows, a two-stage ring of K and V tiles, ten barriers) fit
+    a Hopper block at both head dims; the last q block, whose rows see the
+    most causal keys, launches first, a ragged one last; the grid is the
+    reference's first two grid dims; a step of block_k keys takes whole
+    tiles of 128 keys at D 128 and 64 at D 256."""
+    bn = {128: 128, 256: 64}[D]
+    plan = fa_kernel.fwd_wgmma_plan(4, 2048, 2048, 16, 8, D)
+    assert plan.smem == 1024 + 2 * 64 * D * 2 + 2 * 2 * bn * D * 2 + 8 * 10
+    assert plan.smem <= fa_kernel.SMEM_LIMIT
+    assert (plan.sub_rows, plan.tile_keys, plan.stages, plan.warpgroups) == (128, bn, 2, 2)
+    assert plan.grid == (64, 16) and plan.order == tuple(range(15, -1, -1))
+    assert plan.tiles_per_step == 128 // bn
+    ragged = fa_kernel.fwd_wgmma_plan(1, 4600, 4600, 8, 4, D)
+    assert ragged.order == (*range(34, -1, -1), 35)
+    other = fa_kernel.fwd_wgmma_plan(1, 512, 512, 2, 1, D, block_q=64, block_k=96)
+    assert other.grid == (2, 8) and other.tiles_per_step == -(-96 // bn)
+    with pytest.raises(ValueError):
+        fa_kernel.fwd_wgmma_plan(1, 64, 64, 2, 1, 80)
+
+
+FA_LATTICE_CASES = [c for c in LATTICE_CASES if c[0] == "flash_attention"]
+
+
+@pytest.mark.parametrize("kernel, name, kw", FA_LATTICE_CASES, ids=[n for _, n, _ in FA_LATTICE_CASES])
+@pytest.mark.parametrize("D", fa_kernel.FWD_WGMMA_HEAD_DIMS)
+def test_flash_attention_fwd_wgmma_grid_is_the_reference_grid(kernel, name, kw, D):
+    """Over every config the tuner's prefilter passes, at both of the
+    wgmma engine's head dims, its CUDA grid is the reference's
+    ``grid_shape`` less the KV axis (which its CTAs walk) and its blocks
+    are the knobs after the ``min(block, dim)`` clamp."""
+    from repro_torch.tune import enumerate_candidates, prefilter
+
+    survivors, _ = prefilter(kernel, kw, enumerate_candidates(kernel))
+    assert survivors
+    shape = {**kw, "D": D}
+    for c in survivors:
+        plan = fa_kernel.fwd_wgmma_plan(**shape, **c.blocks)
+        grid = ref_fa.grid_shape(**shape, **c.blocks)
+        assert plan.grid == grid[:2], (shape, c.blocks)
+        assert (plan.block_q, plan.block_k) == (min(c.blocks["block_q"], kw["S"]),
+                                                min(c.blocks["block_k"], kw["Skv"]))
+
+
+#: (S, Skv, causal, window, q_offset, block_q, block_k): square and not,
+#: each mask, rows that see no key, an offset, ragged lengths, knobs that
+#: cut a step into several tiles or a tile at a step's end
+FWD_WALKS = [(300, 300, True, None, 0, 128, 128), (300, 300, True, 64, 0, 128, 128),
+             (200, 50, False, 10, 0, 128, 128), (200, 50, True, 10, 0, 64, 32),
+             (77, 200, False, 50, 0, 256, 96), (64, 96, True, 32, 100, 128, 128),
+             (130, 200, False, 64, 40, 512, 512), (4608, 4608, True, 4096, 0, 128, 128),
+             (1, 300, True, None, 299, 128, 128)]
+
+
+@pytest.mark.parametrize("case", FWD_WALKS)
+@pytest.mark.parametrize("D", fa_kernel.FWD_WGMMA_HEAD_DIMS)
+def test_flash_attention_fwd_wgmma_tiles_cover_every_visible_pair_once(case, D):
+    """``fwd_wgmma_tiles`` (the source's ``Walk``): every row lies in one
+    sub-block; a sub-block's tiles are disjoint, each inside one step and
+    at most ``tile_keys`` wide; every key a row sees lies in one of them,
+    and every key where a row sees none; every tile holds a key that a row
+    of its sub-block sees (or the sub-block holds a row that sees none)."""
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    S, Skv, causal, window, off, bq, bk = case
+    plan = fa_kernel.fwd_wgmma_plan(1, S, Skv, 2, 1, D, block_q=bq, block_k=bk)
+    mask = visible_mask(S, Skv, causal, window, off, "cpu").numpy()
+    rows = np.zeros(S, dtype=np.int64)
+    for r0, n, tiles in fa_kernel.fwd_wgmma_tiles(plan, S, Skv, causal=causal, window=window,
+                                                  q_offset=off):
+        rows[r0:r0 + n] += 1
+        sub = mask[r0:r0 + n]
+        need = sub.any(axis=0) | (~sub.any(axis=1)).any()
+        seen = np.zeros(Skv, dtype=np.int64)
+        for k0, nk in tiles:
+            assert 0 < nk <= plan.tile_keys
+            assert k0 // plan.block_k == (k0 + nk - 1) // plan.block_k
+            assert need[k0:k0 + nk].any()
+            seen[k0:k0 + nk] += 1
+        assert (seen <= 1).all() and (seen[need] == 1).all()
+    assert (rows == 1).all()
 
 
 def test_fused_moe_plan_fills_the_card_at_dbrx_width():

@@ -79,6 +79,7 @@ def test_port_files_exist():
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu",
                "kernels/flash_attention/csrc/flash_attention_bwd.cu",
                "kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu",
+               "kernels/flash_attention/csrc/flash_attention_wgmma.cu",
                "kernels/fused_moe/csrc/fused_moe_bwd.cu",
                "kernels/fused_moe/csrc/fused_moe_bwd_wgmma.cu",
                "kernels/fused_moe/csrc/fused_moe_wgmma.cu", "kernels/_hopper/hopper.cuh"):
