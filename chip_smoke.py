@@ -11,9 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
-   fused MoE's mma.sync and wgmma engines) and of the two forward wgmma
-   engines (flash attention's with no wgmma that ptxas serialized), the
-   launch plans, and each wgmma engine's SASS
+   fused MoE's mma.sync and wgmma engines; flash attention's wgmma backward
+   at head dim 128 with no spill) and of the two forward wgmma engines
+   (flash attention's forward and backward wgmma engines with no wgmma that
+   ptxas serialized), the launch plans, and each wgmma engine's SASS
    instruction counts (HGMMA, TMA loads and stores, mbarrier waits, all
    asserted present; the forward engines store no tile by TMA) are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
@@ -47,10 +48,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    formulas, at qwen3-0.6b's training shapes (B4 S2048; rmsnorm also at
    its q and k norms' rows), stablelm-3b's (B1 S2048, 32/32 heads of 80,
    bf16 and f32), gemma2-2b's (head dim 256 with causal, window and
-   softcap 50 masks, small and at B1 S4096 8/4 heads; bf16 there runs
-   flash attention's wgmma engine, also small, ragged (S 130) with each
-   mask alone, with rows that see no key and unmasked at B1 S4096, each
-   also held to the mma.sync engine's gradients), query offsets (a rank's
+   softcap 50 masks, small and at B1 S4096 8/4 heads); bf16 at head dims
+   128 and 256 runs flash attention's wgmma engine, also small, ragged (S
+   130) with each mask alone, with rows that see no key, a group of 6,
+   dbrx-132b's training shape (B1 S2048 48/8 heads of 128) and gemma2-2b's
+   unmasked at B1 S4096, each also held to the mma.sync engine's
+   gradients; the mma.sync engine's main path is f32), query offsets (a rank's
    block of rows: forward and backward on both engines, f32 and bf16), the
    reference's kernel test shapes (causal and not, a window, a softcap,
    GQA, rows that see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
@@ -95,16 +98,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    3xTF32: the mma.sync engine's JSON row; and bf16) and at phase 10 (e)'s
    640 rows, each bf16 shape also on the mma.sync engine in turns on the
    same inputs, with each wgmma launch under the profiler beside its own
-   bound; silu_mul also at phase 4's prompt lengths, scaled_mm also
-   at the tuner's default workload beside ``torch._int_mm``; the three
-   backward kernels at qwen3-0.6b's training shapes, beside their plain
-   backward formulas and the backward of ``F.rms_norm`` and of SDPA (rows
-   logged beside them: rmsnorm's at the q and k norms' (131072, 128) and
-   (65536, 128), flash attention's at stablelm-3b's head dim 80); flash
-   attention's backward at gemma2-2b's training shape on the wgmma engine
-   (no library: SDPA takes no softcap), in turns with the mma.sync engine
-   on the same inputs, each wgmma launch under the profiler beside the
-   bound of its products, and causal only beside SDPA's backward; fused
+   bound; the mma.sync forward at a shape it runs, stablelm-3b's bf16
+   prefill (B1 S2048 32/32 heads of 80) beside SDPA (its in-turns time at
+   the main shape is logged); silu_mul also at phase 4's prompt lengths,
+   scaled_mm also at the tuner's default workload beside
+   ``torch._int_mm``; the three backward kernels at qwen3-0.6b's training
+   shapes, beside their plain backward formulas and the backward of
+   ``F.rms_norm`` and of SDPA (rows logged beside them: rmsnorm's at the q
+   and k norms' (131072, 128) and (65536, 128), flash attention's at
+   stablelm-3b's head dim 80); flash attention's backward there (B4 S2048
+   16/8 heads of 128) on the wgmma engine and on the mma.sync engine on
+   the same inputs, in turns, and at dbrx-132b's (B1 S2048 48/8, logged),
+   each wgmma launch under the profiler beside the bound of its products;
+   at gemma2-2b's training shape on the wgmma engine (logged; no library:
+   SDPA takes no softcap), in turns with the mma.sync engine, each launch
+   under the profiler, and causal only beside SDPA's backward; fused
    MoE's backward at dbrx-132b's training shape (E16, 640 rows, bf16) on
    the wgmma engine, each of its four launches under the profiler beside
    its bound, and on the mma.sync engine on the same inputs, and at the
@@ -576,11 +584,12 @@ def ptxas_report(fa_k, moe_k=None):
     """Phase 1's record of the backward kernels and of the forward wgmma
     engines: ptxas's registers and spills for each instance built
     (``-Xptxas -v``) of flash attention's backward and forward wgmma engine
-    and of fused MoE's, each held to at most 1 KB of spill stores; where
-    ptxas serialized a library's wgmma (its C7515 note), the count of such
-    notes, which flash attention's forward wgmma engine must not have; and
-    the geometry ``bwd_launch_plan`` gives at qwen3-0.6b's training
-    shape."""
+    and of fused MoE's, each held to at most 1 KB of spill stores (the
+    backward wgmma engine's head-dim-128 kernels to none); where ptxas
+    serialized a library's wgmma (its C7515 note), the count of such notes,
+    which flash attention's forward and backward wgmma engines must not
+    have; and the geometry ``bwd_launch_plan`` and ``bwd_wgmma_plan`` give
+    at qwen3-0.6b's and gemma2-2b's training shapes."""
     import re
 
     import torch
@@ -599,7 +608,8 @@ def ptxas_report(fa_k, moe_k=None):
         serialized = build_log(lib, sources).count("C7515")
         if serialized:
             log(f"  ptxas {lib}: {serialized} note(s) that wgmma instructions are serialized")
-        assert not (serialized and lib == "flash_attention_wgmma"), f"{lib}: wgmma serialized"
+        assert not (serialized and lib in ("flash_attention_wgmma", "flash_attention_bwd_wgmma")), (
+            f"{lib}: wgmma serialized")
         for line in build_log(lib, sources).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -619,14 +629,18 @@ def ptxas_report(fa_k, moe_k=None):
                 log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 assert spill is None or int(spill.group(1)) <= 1024, f"{kernel} spills: {line}"
+                assert spill is None or not re.match(r"fa_bwd_\w+_wgmma<128\b", kernel) or (
+                    int(spill.group(1)) == 0), f"{kernel} spills: {line}"
     for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
         log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
             f"{kern.rows} rows a CTA, steps of {kern.step}, {kern.stages} stages, "
             f"{kern.warps} warps, {kern.smem} shared bytes")
-    for kern in fa_k.bwd_wgmma_plan(1, 4096, 4096, 8, 4):
-        log(f"  backward plan (wgmma), B1 S4096 8/4x256 bf16: {kern.name} grid {kern.grid}, "
-            f"{kern.rows} rows a CTA, steps of {kern.step}, ring slots {kern.stages}, "
-            f"{kern.warpgroups} consumer warpgroups, {kern.smem} shared bytes")
+    for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4096, 4096, 8, 4))):
+        for kern in fa_k.bwd_wgmma_plan(*shape, D):
+            log(f"  backward plan (wgmma), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} bf16: "
+                f"{kern.name} grid {kern.grid}, {kern.rows} rows a CTA, steps of {kern.step}, "
+                f"ring slots {kern.stages}, {kern.warpgroups} consumer warpgroups, "
+                f"{kern.smem} shared bytes")
     wgmma_sass("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)
     for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4608, 4608, 8, 4))):
         p = fa_k.fwd_wgmma_plan(*shape, D)
@@ -1094,15 +1108,16 @@ def backward_parity(torch, dev):
                   lambda: silu_mul_bwd_cuda(dh, g, u, act=a),
                   silu_mul_bwd_ref(dh, g, u, act=a), main and a == "silu")
     # flash attention's backward on the engine bwd_engine picks: bf16 at head
-    # dim 256 runs the wgmma engine, and is also checked against the
+    # dims 128 and 256 runs the wgmma engine, and is also checked against the
     # mma.sync engine's gradients on the same inputs; the last cases take a
     # query offset (a rank's block of rows under ops.row_split), whose
     # forward is checked against the plain version too. The main paths:
-    # qwen3's training (mma.sync) and gemma2's (wgmma)
+    # qwen3's and gemma2's bf16 training (wgmma), the f32 gradient runs of
+    # phase 10 (a) (mma.sync)
     fa_grads = ("dq", "dk", "dv")
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in [(*c, 0) for c in [
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
-        (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
+        (4, 2048, 2048, 16, 8, 128, True, None, None, f32, True),
         (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),  # stablelm-3b training
         (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
         (2, 96, 96, 4, 2, 80, True, 64, None, f32, False),  # queue C's head dim 80 case
@@ -1130,6 +1145,17 @@ def backward_parity(torch, dev):
         (1, 130, 130, 2, 1, 256, False, None, 50.0, bf16, False),
         (1, 200, 50, 2, 1, 256, True, 10, None, bf16, False),
         (1, 4096, 4096, 8, 4, 256, True, None, None, bf16, False),
+        # head dim 128 on the wgmma engine: small, ragged (S 130) without and
+        # with each mask, rows that see no key, a group of 6, dbrx-132b's
+        # training shape (48/8)
+        (1, 64, 64, 2, 2, 128, True, None, None, bf16, False),
+        (2, 130, 130, 4, 2, 128, False, None, None, bf16, False),
+        (2, 130, 130, 4, 2, 128, True, None, None, bf16, False),
+        (1, 130, 130, 2, 1, 128, True, 64, None, bf16, False),
+        (1, 130, 130, 2, 1, 128, False, None, 50.0, bf16, False),
+        (1, 200, 50, 2, 1, 128, True, 10, None, bf16, False),
+        (2, 300, 300, 12, 2, 128, True, None, None, bf16, False),
+        (1, 2048, 2048, 48, 8, 128, True, None, None, bf16, True),
     ]] + [
         # query offsets (a rank's rows), rows past Skv + window - 1 among them
         (1, 64, 192, 4, 2, 128, True, None, None, bf16, False, 64),
@@ -1138,6 +1164,7 @@ def backward_parity(torch, dev):
         (1, 64, 96, 2, 1, 256, True, 32, 50.0, f32, False, 100),
         (1, 1024, 4096, 8, 4, 256, True, 4096, 50.0, bf16, False, 3072),
         (1, 130, 200, 2, 1, 256, False, 64, None, bf16, False, 40),
+        (1, 130, 200, 6, 1, 128, False, 64, None, bf16, False, 40),
     ]:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         dout = randn((B, S, Hq, D), dt)
@@ -1747,6 +1774,25 @@ def kernel_times(torch, dev, peaks):
     log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; wgmma "
         f"{flops / w['ms'] / 1e9:.1f} TFLOP/s")
     del q, k, v, qt, kt, vt
+    # the mma.sync engine's row at a shape it runs: stablelm-3b's bf16
+    # prefill, B=1, S=2048, 32/32 heads of 80, causal (its in-turns time at
+    # the main shape above stays as a logged row)
+    rows["flash_attention (main shape, D128, in turns)"] = rows.pop("flash_attention")
+    B, S, Hq, Hkv, D = 1, 2048, 32, 32, 80
+    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    pairs = B * Hq * S * (S + 1) // 2
+    flops = 4 * D * pairs
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row("flash_attention", lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, causal=True),
+        lambda a, b, c: attention_ref(a, b, c, causal=True),
+        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True),
+         [(qt, kt, vt)]), [(q, k, v)], 20, *bound(peaks, nbytes, flops, "bfloat16"))
+    r = rows["flash_attention"]
+    log(f"  flash_attention (mma.sync) at stablelm-3b's prefill, B1 S2048 32/32x80 causal bf16: "
+        f"{r['ms']:.4f} ms, {flops / 1e9:.2f} GFLOP, {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{r['bound_ms'] / r['ms']:.4f} of the bound, SDPA {r['library_ms']:.4f}")
+    del q, k, v, qt, kt, vt
     # gemma2-2b's prefill: B=1, S=4608, 8/4 heads of 256, causal, window
     # 4096, softcap 50. A row past the window sees 4096 keys. SDPA takes no
     # softcap, so the rows have no library call; the causal-only row beside
@@ -2056,26 +2102,50 @@ def backward_times(torch, dev, peaks):
     row("silu_mul_bwd", silu_mul_bwd_cuda, silu_mul_bwd_ref, None, gus, 100,
         1e3 * (5 * R * F_ * 2) / bw, "bytes")
     del gus
-    B, S, Hq, Hkv, D = 4, 2048, 16, 8, 128
-    q, k, v, dout = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D), randn(B, S, Hq, D)
-    out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
-    pairs = B * Hq * S * (S + 1) // 2
-    flops = 10 * D * pairs
-    nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    dout_t = dout.transpose(1, 2).contiguous()
-    row("flash_attention_bwd",
-        lambda *a: flash_attention_bwd_cuda(*a, causal=True),
-        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
-        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True, enable_gqa=True),
-         [(qt, kt, vt, dout_t)]),
-        [(q, k, v, out, lse, dout)], 5, *bound(peaks, nbytes, flops, "bfloat16"))
-    r = rows["flash_attention_bwd"]
-    log(f"  flash_attention_bwd causal work: {flops / 1e9:.2f} GFLOP in its 5 products "
-        f"(the kernel computes 7: S and dP in both passes), {nbytes / 1e6:.1f} MB; "
-        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s of the 5, {r['bound_ms'] / r['ms']:.4f} of the bound")
-    del q, k, v, dout, out, lse, qt, kt, vt, dout_t
-    torch.cuda.empty_cache()
+    # qwen3-0.6b's training shape, B4 S2048 16/8 heads of 128, causal: the
+    # wgmma engine's row beside SDPA's backward, then the mma.sync engine on
+    # the same inputs, the two in turns (wgmma, mma.sync, mma.sync, wgmma;
+    # kernel times drift as the card heats), each row's ms the mean of its
+    # turns, and each wgmma launch under the profiler beside the bound of its
+    # products; then dbrx-132b's training shape, B1 S2048 48/8 heads of 128
+    # (a logged row, with its launches)
+    sdpa = (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                                           enable_gqa=True))
+    for label, (B, S, Hq, Hkv, D) in (("qwen3-0.6b", (4, 2048, 16, 8, 128)),
+                                      ("dbrx-132b", (1, 2048, 48, 8, 128))):
+        q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        dout = randn(B, S, Hq, D)
+        out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        pairs = B * Hq * S * (S + 1) // 2
+        flops = 10 * D * pairs
+        nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+        f_in = [(q, k, v, out, lse, dout)]
+        main = label == "qwen3-0.6b"  # the JSON rows of both engines
+        name = "flash_attention_bwd_wgmma" + ("" if main else f" ({label})")
+        row(name, lambda *a: fa_k.flash_attention_bwd_wgmma_cuda(*a, causal=True),
+            lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
+            (sdpa, [(qt, kt, vt, dout.transpose(1, 2).contiguous())]), f_in, 5,
+            *bound(peaks, nbytes, flops, "bfloat16"), into=rows if main else logged)
+        r = (rows | logged)[name]
+        turns = {"wgmma": [r["ms"]], "mma_sync": []}
+        for engine in ("mma_sync", "mma_sync", "wgmma"):
+            fn = getattr(fa_k, f"flash_attention_bwd_{engine}_cuda")
+            turns[engine].append(cuda_ms(torch, lambda *a, fn=fn: fn(*a, causal=True), f_in, 5)[0])
+        r["ms"] = float(np.mean(turns["wgmma"]))
+        old = dict(r, ms=float(np.mean(turns["mma_sync"])))
+        if main:
+            rows["flash_attention_bwd"] = old
+        else:
+            logged[f"flash_attention_bwd ({label}, mma.sync)"] = old
+        log(f"  flash_attention_bwd at {label}'s training shape, in turns (ms): wgmma "
+            f"{turns['wgmma']}, mma.sync {turns['mma_sync']}; the wgmma engine "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s of the 5 products (it computes 7: S and dP "
+            f"in both launches), {r['bound_ms'] / r['ms']:.4f} of the bound, "
+            f"{old['ms'] / r['ms']:.2f}x faster than mma.sync, library {r['library_ms']:.4f}")
+        fa_launch_times(torch, fa_k, peaks, f_in[0], dict(causal=True), pairs)
+        del q, k, v, dout, out, lse, qt, kt, vt, f_in
+        torch.cuda.empty_cache()
     # stablelm-3b's training shape, B1 S2048 32/32 heads of 80 (a logged row)
     B, Hq, D = 1, 32, 80
     q, k, v, dout = (randn(B, S, Hq, D) for _ in range(4))
@@ -2109,16 +2179,17 @@ def backward_times(torch, dev, peaks):
     g_bytes = 2 * (4 * B * S4 * Hq * D + 4 * B * S4 * Hkv * D) + 4 * B * Hq * S4
     g_bound = bound(peaks, g_bytes, 10 * D * pairs, "bfloat16")
     g_in = [(q, k, v, out, lse, dout)]
-    row("flash_attention_bwd_wgmma", lambda *a: fa_k.flash_attention_bwd_wgmma_cuda(*a, **gkw),
+    g_name = "flash_attention_bwd_wgmma (gemma2-2b, D256)"
+    row(g_name, lambda *a: fa_k.flash_attention_bwd_wgmma_cuda(*a, **gkw),
         lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, **gkw), None,
-        g_in, 5, *g_bound)
-    turns = {"wgmma": [rows["flash_attention_bwd_wgmma"]["ms"]], "mma_sync": []}
+        g_in, 5, *g_bound, into=logged)
+    turns = {"wgmma": [logged[g_name]["ms"]], "mma_sync": []}
     for engine in ("mma_sync", "mma_sync", "wgmma"):
         fn = getattr(fa_k, f"flash_attention_bwd_{engine}_cuda")
         turns[engine].append(cuda_ms(torch, lambda *a, fn=fn: fn(*a, **gkw), g_in, 5)[0])
     logged["flash_attention_bwd (gemma2-2b, D256, mma.sync)"] = dict(
-        rows["flash_attention_bwd_wgmma"], ms=float(np.mean(turns["mma_sync"])))
-    r = rows["flash_attention_bwd_wgmma"]
+        logged[g_name], ms=float(np.mean(turns["mma_sync"])))
+    r = logged[g_name]
     log(f"  flash_attention_bwd at gemma2-2b's training shape, in turns (ms): wgmma "
         f"{turns['wgmma']}, mma.sync {turns['mma_sync']}; the wgmma engine "
         f"{10 * D * pairs / r['ms'] / 1e9:.1f} TFLOP/s of the 5 products, "
@@ -2803,10 +2874,11 @@ def training(torch, dev):
                 nonlocal state
                 state, _ = tr.train_step(state, batch)
 
-            r = profiled(torch, one_step, 1)
+            r = profiled(torch, one_step, 1, named=("fa_bwd_",))
             log(f"  (b) one training step under torch.profiler: profiled wall {r['wall_ms']:.3f} "
                 f"ms, device busy {r['busy_ms']:.3f} ms (idle {100 * r['idle_share']:.1f}%), "
-                f"{r['launches']:.0f} launches")
+                f"{r['launches']:.0f} launches; flash attention's backward kernels "
+                f"{r['named_ms']['fa_bwd_']:.3f} ms of it")
             for name, k, ms in r["top"]:
                 log(f"    {ms:9.4f} ms  x{k:<6g} {name}")
             measured = {"B": B, "S": S, "wall_ms": step_ms, "busy_ms": r["busy_ms"],

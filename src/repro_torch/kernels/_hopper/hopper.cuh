@@ -80,6 +80,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return encode;
 }
 
+// Make the current device's primary context current on the calling thread.
+// Encoding a tensor map is a driver call and needs one; a thread that has
+// made no runtime call yet (autograd's backward thread, whose device PyTorch
+// sets only where it differs) has none, and the encode returns
+// CUDA_ERROR_INVALID_CONTEXT. Host only.
+inline CUresult bind_primary_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return CUDA_ERROR_INVALID_CONTEXT;
+  return CUDA_SUCCESS;
+}
+
 // Encode a bf16 tensor map over a row-major (E, rows, cols) array: one map
 // serves every expert (the third coordinate). `box_cols` x `box_rows` is the
 // tile one load or store moves; with 128-byte swizzle box_cols * 2 must be at
@@ -90,6 +102,7 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t cols, uin
                           uint64_t E, uint32_t box_cols, uint32_t box_rows) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  if (const CUresult bound = bind_primary_context(); bound != CUDA_SUCCESS) return bound;
   const cuuint64_t dims[3] = {cols, rows, E};
   const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
@@ -108,6 +121,7 @@ inline int encode_bf16_4d(CUtensorMap* map, const void* base, const uint64_t (&d
                           const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  if (const CUresult bound = bind_primary_context(); bound != CUDA_SUCCESS) return bound;
   const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
   const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
   const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};

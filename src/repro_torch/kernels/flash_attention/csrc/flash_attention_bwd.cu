@@ -32,8 +32,11 @@
 // against 202 MB moved, so operations bound it, and only the tensor cores
 // come near that bound.
 //
-// bf16 path (training's): mma.sync m16n8k16 with f32 accumulation, operands
-// brought in by ldmatrix, two launches (dQ first):
+// bf16 path: mma.sync m16n8k16 with f32 accumulation, operands brought in
+// by ldmatrix, two launches (dQ first). Since flash_attention_bwd_wgmma.cu
+// takes bf16 at head dims 128 and 256 with bases TMA can address (kernel.
+// bwd_engine), this path runs head dims 8-80 and unaligned bases; at head
+// dim 128 it stays the yardstick the wgmma engine is timed against:
 //   dQ: a CTA of W warps owns 16 W q rows, 16 a warp, and keeps their dQ rows
 //     in registers. Per step of TK keys: S = Q K^T and dP = dO V^T (the two
 //     products interleaved), dS in registers, rounded to bf16 A fragments,

@@ -40,12 +40,13 @@ The backward has two engines, each its own library so that the builds run
 side by side, and ``bwd_engine`` chooses between them from the type, the
 head dim and the bases alone:
 
-- ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at head dim 256 whose bases
-  are 16-byte multiples: gemma2-2b's training): ``wgmma`` fed by TMA
-  through mbarrier rings, two consumer warpgroups a CTA;
-  ``bwd_wgmma_plan`` gives its geometry;
-- ``csrc/flash_attention_bwd.cu`` (every other head dim, f32, and bf16
-  bases TMA cannot address): ``mma.sync`` fed by ``cp.async``.
+- ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at head dims 128 and 256
+  whose bases are 16-byte multiples: qwen3-0.6b's, dbrx-132b's and
+  llama-3.2-vision's training at 128, gemma2-2b's at 256): ``wgmma`` fed by
+  TMA through mbarrier rings, two consumer warpgroups a CTA;
+  ``bwd_wgmma_plan`` gives its geometry at each head dim;
+- ``csrc/flash_attention_bwd.cu`` (f32, head dims 8-80, and bf16 bases TMA
+  cannot address): ``mma.sync`` fed by ``cp.async``.
 
 Each engine counts its own calls (``bwd_wgmma_launches``,
 ``bwd_launches``), so a run shows which one ran. ``q_offset``, on every
@@ -183,14 +184,15 @@ def bwd_launch_plan(
     )
 
 
-#: the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``): its head dim;
-#: for dQ the q rows of a CTA (64 a consumer warpgroup), the keys of a step
-#: and the slots of its K and V rings; for dK/dV the keys of a CTA, the q
-#: rows of a step and the stages of its q/dO ring; consumer warpgroups a CTA
-#: (one more loads)
-WGMMA_D = 256
-WGMMA_DQ = (128, 64, (2, 1))
-WGMMA_DKDV = (64, 64, (2,))
+#: the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``): its head dims;
+#: at each, for dQ the q rows of a CTA (64 a consumer warpgroup), the keys of
+#: a step and the slots of its K and V rings; for dK/dV the keys of a CTA
+#: (D 256: 64, each consumer warpgroup 128 of the columns; D 128: 128, 64 a
+#: consumer warpgroup), the q rows of a step and the stages of its q/dO ring;
+#: consumer warpgroups a CTA (one more loads)
+WGMMA_HEAD_DIMS = (128, 256)
+WGMMA_DQ = {128: (128, 64, (3, 2)), 256: (128, 64, (2, 1))}
+WGMMA_DKDV = {128: (128, 64, (3,)), 256: (64, 64, (2,))}
 WGMMA_WARPGROUPS = 2
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 #: the wgmma library returns this plus a CUresult where a tensor map could
@@ -199,10 +201,12 @@ _ENCODE_ERROR = 100000
 
 
 def bwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
-    """Which engine runs the backward: ``"wgmma"`` for bf16 at head dim 256
-    whose bases (``aligned``) are 16-byte multiples, as TMA addresses them
-    (a row of 256 bf16 is 512 bytes); ``"mma_sync"`` otherwise."""
-    return "wgmma" if dtype == torch.bfloat16 and D == WGMMA_D and aligned else "mma_sync"
+    """Which engine runs the backward: ``"wgmma"`` for bf16 at head dim 128
+    or 256 whose bases (``aligned``) are 16-byte multiples, as TMA addresses
+    them; ``"mma_sync"`` otherwise (f32, head dims 8-80: whisper's, hymba's,
+    stablelm's)."""
+    return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and aligned
+            else "mma_sync")
 
 
 class WgmmaKernel(NamedTuple):
@@ -216,28 +220,32 @@ class WgmmaKernel(NamedTuple):
     smem: int  # dynamic shared bytes a CTA
 
 
-def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int = WGMMA_D
+def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int
                    ) -> tuple[WgmmaKernel, ...]:
     """The wgmma engine's two launches in order, as
-    ``csrc/flash_attention_bwd_wgmma.cu`` launches them. dQ: a CTA owns
-    128 q rows of one head, 64 a consumer warpgroup, with Q and dO resident
-    and K and V tiles streaming through rings of 2 and 1 slots; heaviest
-    causal block first (``_heavy_first``). dK/dV: a CTA owns 64 keys of one
-    KV head, K and V resident, walking its group's q heads and tiles with
-    the q and dO tiles in a two-stage ring; each consumer warpgroup owns 128
-    of the 256 columns of dK and dV. Shared bytes: 1 KB of alignment slack,
-    the bf16 tiles (a 64 x 256 tile is 32 KB), P^T and dS^T (8 KB each,
-    twice: even and odd steps, dK/dV) and 8 bytes a barrier. Raises on a
-    shape the engine does not take."""
-    if D != WGMMA_D or min(B, S, Skv, Hkv) <= 0 or Hq % Hkv:
+    ``csrc/flash_attention_bwd_wgmma.cu`` launches them at head dim ``D``.
+    dQ: a CTA owns 128 q rows of one head, 64 a consumer warpgroup, with Q
+    and dO resident and K and V tiles streaming through rings (D 256: 2 and
+    1 slots; D 128: 3 and 2); heaviest causal block first
+    (``_heavy_first``). dK/dV: a CTA owns keys of one KV head (D 256: 64,
+    each consumer warpgroup owning 128 of the 256 columns of dK and dV; D
+    128: 128, 64 a consumer warpgroup over all columns), K and V resident,
+    walking its group's q heads and tiles with the q and dO tiles in a ring
+    (D 256: two stages; D 128: three). Shared bytes: 1 KB of alignment
+    slack, the bf16 tiles (a 64-row tile is 64 D 2 bytes), at D 256 P^T and
+    dS^T (8 KB each, twice: even and odd steps), at D 128 each stage's lse
+    and Delta (64 f32 each), and 8 bytes a barrier. Raises on a shape the
+    engine does not take."""
+    if D not in WGMMA_HEAD_DIMS or min(B, S, Skv, Hkv) <= 0 or Hq % Hkv:
         raise ValueError(f"flash_attention wgmma backward: B={B} S={S} Skv={Skv} "
-                         f"Hq={Hq} Hkv={Hkv} D={D}; it takes head dim {WGMMA_D}")
+                         f"Hq={Hq} Hkv={Hkv} D={D}; it takes head dims {WGMMA_HEAD_DIMS}")
     tile = 64 * D * 2
-    (q_rows, tk, (k_slots, v_slots)), (kv_rows, tq, (st,)) = WGMMA_DQ, WGMMA_DKDV
+    (q_rows, tk, (k_slots, v_slots)), (kv_rows, tq, (st,)) = WGMMA_DQ[D], WGMMA_DKDV[D]
     nq, nk = -(-S // q_rows), -(-Skv // kv_rows)
     dq_smem = 1024 + 2 * (q_rows // 64) * tile + (k_slots + v_slots) * tile \
         + 8 * (1 + 2 * k_slots + 2 * v_slots)
-    dkdv_smem = 1024 + 2 * tile + st * 2 * tile + 2 * 2 * 64 * 64 * 2 + 8 * (1 + 2 * st)
+    staged = 2 * 2 * 64 * 64 * 2 if D == 256 else st * 2 * 64 * 4
+    dkdv_smem = 1024 + 2 * (kv_rows // 64) * tile + st * 2 * tile + staged + 8 * (1 + 2 * st)
     return (
         WgmmaKernel("dq", (B * Hq, nq), _heavy_first(nq, q_rows, S), q_rows, tk,
                     (k_slots, v_slots), WGMMA_WARPGROUPS, dq_smem),
@@ -368,10 +376,10 @@ def wgmma_library() -> ctypes.CDLL:
     """Build (once per source and header hash) and load the wgmma engine."""
     lib = load_cuda_library("flash_attention_bwd_wgmma", WGMMA_SOURCES)
     lib.fa_backward_wgmma.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
         + [ctypes.c_int] + [ctypes.c_void_p])
     lib.fa_backward_wgmma.restype = ctypes.c_int
-    lib.fa_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fa_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fa_bwd_wgmma_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -555,7 +563,7 @@ def flash_attention_bwd_cuda(
 def flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, *, causal=True, window=None,
                                    softcap=None, scale=None, q_offset=0):
     """The backward on the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``):
-    bf16 at head dim 256 whose bases are 16-byte multiples; raises
+    bf16 at head dim 128 or 256 whose bases are 16-byte multiples; raises
     otherwise, and where a launch or a tensor map fails."""
     global bwd_wgmma_launches
     name = "flash_attention_bwd_wgmma_cuda"
@@ -565,18 +573,18 @@ def flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, *, causal=True, wind
     ts = (q, k, v, out, dout, lse, delta, dq, dk, dv)
     if bwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in ts)) != "wgmma":
         raise ValueError(f"{name}: {q.dtype} at head dim {D}, or a base that is not a "
-                         f"16-byte multiple; it takes bf16 at head dim {WGMMA_D}")
+                         f"16-byte multiple; it takes bf16 at head dims {WGMMA_HEAD_DIMS}")
     if q.numel() == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     lib = wgmma_library()
     for i, kern in enumerate(bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)):
-        if lib.fa_bwd_wgmma_smem_bytes(i) != kern.smem or kern.smem > SMEM_LIMIT:
-            raise RuntimeError(f"{name}: {kern.name} takes {lib.fa_bwd_wgmma_smem_bytes(i)} "
+        if lib.fa_bwd_wgmma_smem_bytes(D, i) != kern.smem or kern.smem > SMEM_LIMIT:
+            raise RuntimeError(f"{name}: {kern.name} takes {lib.fa_bwd_wgmma_smem_bytes(D, i)} "
                                f"shared bytes, the plan {kern.smem}, the limit {SMEM_LIMIT}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.fa_backward_wgmma(
-            *(t.data_ptr() for t in ts), B, S, Skv, Hq, Hkv, int(causal), window or 0,
+            *(t.data_ptr() for t in ts), B, S, Skv, Hq, Hkv, D, int(causal), window or 0,
             float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
             q_offset, stream)
     if err >= _ENCODE_ERROR:

@@ -238,9 +238,9 @@ def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
 def test_flash_attention_trains_through_the_wgmma_forward(dev, D):
     """``ops.attention`` under grad in bf16 at head dims 128 and 256: the
     forward on the wgmma engine feeds its output and lse to the backward
-    engine ``bwd_engine`` picks (D 128: mma.sync; D 256: wgmma), whose
-    gradients equal ``attention_bwd_ref``'s within bf16 2e-2 of each
-    gradient's max|ref|, with gemma2's masks at 256 and GQA at both."""
+    engine ``bwd_engine`` picks (the wgmma engine at both), whose gradients
+    equal ``attention_bwd_ref``'s within bf16 2e-2 of each gradient's
+    max|ref|, with gemma2's masks at 256 and GQA at both."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
     bf16 = torch.bfloat16
@@ -707,9 +707,12 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
     dout = _randn(rng, (B, S, Hq, D), dtype, dev)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    n0 = fa_kernel.bwd_launches
+    # bf16 at head dim 128 runs on the wgmma engine (bwd_engine); only its count moves
+    count = "bwd_wgmma_launches" if fa_kernel.bwd_engine(dtype, D) == "wgmma" else "bwd_launches"
+    other = "bwd_launches" if count == "bwd_wgmma_launches" else "bwd_wgmma_launches"
+    n0, o0 = getattr(fa_kernel, count), getattr(fa_kernel, other)
     grads = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-    assert fa_kernel.bwd_launches == n0 + 1
+    assert (getattr(fa_kernel, count), getattr(fa_kernel, other)) == (n0 + 1, o0)
     for name, got, ref in zip(("dq", "dk", "dv"), grads, attention_bwd_ref(q, k, v, dout, **kw)):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         _rel_close(got, ref, dtype, name)
@@ -764,42 +767,51 @@ def test_flash_attention_trains_at_head_dim_256(dev, dtype):
         _rel_close(a, r, dtype, name)
 
 
-#: (B, S, Skv, Hq, Hkv, causal, window, softcap) at head dim 256: small,
-#: ragged, GQA, each mask alone and together, rows that see no key, and
-#: gemma2-2b's training shape (window 4096, softcap 50) with and without
-#: its masks
-FA_WGMMA_CASES = [
-    (1, 64, 64, 2, 2, True, None, None),
-    (2, 130, 130, 4, 2, True, None, None),
-    (2, 130, 130, 4, 2, False, None, None),
-    (1, 130, 130, 2, 1, True, 64, None),
-    (1, 130, 130, 2, 1, False, None, 50.0),
-    (1, 130, 130, 2, 1, True, 64, 50.0),
-    (1, 200, 50, 2, 1, True, 10, None),
-    (1, 77, 200, 4, 1, False, 50, 20.0),
-    (1, 4096, 4096, 8, 4, True, 4096, 50.0),
-    (1, 4096, 4096, 8, 4, True, None, None),
-    (1, 4096, 4096, 8, 4, False, None, None),
+#: (B, S, Skv, Hq, Hkv, causal, window, softcap, q_offset) at each head dim
+#: of the wgmma engine: small, ragged (S 130) without and with each mask
+#: alone and together, rows that see no key, S != Skv, a group of 6, query
+#: offsets (a rank's block of rows), then each head dim's training shapes:
+#: gemma2-2b's with and without its masks at 256; qwen3-0.6b's (16/8) and
+#: dbrx-132b's (48/8) at 128
+_FA_WGMMA_SMALL = [
+    (1, 64, 64, 2, 2, True, None, None, 0),
+    (2, 130, 130, 4, 2, True, None, None, 0),
+    (2, 130, 130, 4, 2, False, None, None, 0),
+    (1, 130, 130, 2, 1, True, 64, None, 0),
+    (1, 130, 130, 2, 1, False, None, 50.0, 0),
+    (1, 130, 130, 2, 1, True, 64, 50.0, 0),
+    (1, 200, 50, 2, 1, True, 10, None, 0),
+    (1, 77, 200, 4, 1, False, 50, 20.0, 0),
+    (2, 300, 300, 12, 2, True, None, None, 0),
+    (1, 64, 192, 4, 2, True, None, None, 64),
+    (1, 130, 200, 6, 1, False, 64, None, 40),
+]
+FA_WGMMA_CASES = [(*c, D) for D in (128, 256) for c in _FA_WGMMA_SMALL] + [
+    (1, 4096, 4096, 8, 4, True, 4096, 50.0, 0, 256),
+    (1, 4096, 4096, 8, 4, True, None, None, 0, 256),
+    (1, 4096, 4096, 8, 4, False, None, None, 0, 256),
+    (4, 2048, 2048, 16, 8, True, None, None, 0, 128),
+    (1, 2048, 2048, 48, 8, True, None, None, 0, 128),
 ]
 
 
 @pytest.mark.parametrize("case", FA_WGMMA_CASES)
 def test_flash_attention_bwd_wgmma_matches_plain_and_mma_sync(dev, case):
-    """The wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``): each
-    gradient within bf16 2e-2 of ``attention_bwd_ref``'s max|ref| and of the
-    mma.sync engine's on the same inputs, bit-equal on a rerun; its count
-    moves by one a call and the mma.sync engine's not at all; each launch's
-    shared bytes are the plan's."""
+    """The wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``) at head dims
+    128 and 256: each gradient within bf16 2e-2 of ``attention_bwd_ref``'s
+    max|ref| and of the mma.sync engine's on the same inputs, bit-equal on a
+    rerun; its count moves by one a call and the mma.sync engine's not at
+    all; each launch's shared bytes are the plan's."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
-    B, S, Skv, Hq, Hkv, causal, window, softcap = case
+    B, S, Skv, Hq, Hkv, causal, window, softcap, off, D = case
     bf16 = torch.bfloat16
     rng = np.random.default_rng(3)
-    q, dout = (_randn(rng, (B, S, Hq, 256), bf16, dev) for _ in range(2))
-    k, v = (_randn(rng, (B, Skv, Hkv, 256), bf16, dev) for _ in range(2))
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, dout = (_randn(rng, (B, S, Hq, D), bf16, dev) for _ in range(2))
+    k, v = (_randn(rng, (B, Skv, Hkv, D), bf16, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    assert fa_kernel.bwd_engine(bf16, 256) == "wgmma"
+    assert fa_kernel.bwd_engine(bf16, D) == "wgmma"
     b0, w0 = fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches
     got = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
     again = fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, **kw)
@@ -811,26 +823,77 @@ def test_flash_attention_bwd_wgmma_matches_plain_and_mma_sync(dev, case):
         _rel_close(a, r, bf16, name)
         _rel_close(a, o, bf16, name + " against the mma.sync engine")
     lib = fa_kernel.wgmma_library()
-    for i, kern in enumerate(fa_kernel.bwd_wgmma_plan(B, S, Skv, Hq, Hkv)):
-        assert lib.fa_bwd_wgmma_smem_bytes(i) == kern.smem <= fa_kernel.SMEM_LIMIT
+    for i, kern in enumerate(fa_kernel.bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)):
+        assert lib.fa_bwd_wgmma_smem_bytes(D, i) == kern.smem <= fa_kernel.SMEM_LIMIT
 
 
-def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev):
-    """f32, head dims other than 256 and a base that is not a 16-byte
-    multiple are not the wgmma engine's: it raises, and
-    ``flash_attention_bwd_cuda`` takes the mma.sync engine for them."""
+@pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
+def test_flash_attention_bwd_wgmma_runs_first_on_a_fresh_thread(dev, D):
+    """The wgmma engine as the first CUDA work of a new thread, as autograd's
+    backward thread runs it: its tensor maps are encoded there (a driver
+    call that needs the thread's context current), and its gradients equal
+    those of a call on this thread."""
+    import threading
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(6)
+    q, dout = (_randn(rng, (1, 130, 4, D), bf16, dev) for _ in range(2))
+    k, v = (_randn(rng, (1, 130, 2, D), bf16, dev) for _ in range(2))
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    here = fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    there = {}
+
+    def run():
+        try:
+            there["grads"] = fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout)
+            torch.cuda.synchronize()
+        except Exception as e:  # handed to the test's thread
+            there["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "error" not in there, there.get("error")
+    for name, a, b in zip(("dq", "dk", "dv"), there["grads"], here):
+        assert torch.equal(a, b), name
+
+
+def _attention_bwd_f64(q, k, v, dout, **kw):
+    """``(dq, dk, dv)`` of ``_attention_f64`` for ``dout``, by autograd in
+    float64 on q's device."""
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(_attention_f64(*leaves, **kw), leaves, dout.double())
+
+
+@pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
+def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev, D):
+    """f32, a base that is not a 16-byte multiple and (bf16) head dim 80
+    are not the wgmma engine's: it raises, and ``flash_attention_bwd_cuda``
+    takes the mma.sync engine for them, whose gradients are held to the
+    function's float64 backward (f32, 2e-5 of each gradient's max|ref|) or to
+    the plain backward (bf16, 2e-2)."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
     rng = np.random.default_rng(4)
-    for dtype, D, shift in ((torch.float32, 256, 0), (torch.bfloat16, 128, 0),
-                            (torch.bfloat16, 256, 1)):
-        q, dout = (_randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
+    for dtype, d, shift in ((torch.float32, D, 0), (torch.bfloat16, D, 1),
+                            (torch.bfloat16, 80, 0)):
+        q, dout = (_randn(rng, (1, 64 * 2 * d + shift), dtype, dev)[:, shift:].view(1, 64, 2, d)
                    for _ in range(2))
-        k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
+        k, v = (_randn(rng, (1, 64, 1, d), dtype, dev) for _ in range(2))
         out, lse = fa_kernel.flash_attention_cuda(q.contiguous(), k, v, return_lse=True)
-        with pytest.raises(ValueError, match="16-byte"):
+        with pytest.raises(ValueError, match="16-byte|head dim"):
             fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout)
-        b0 = fa_kernel.bwd_launches
-        fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
-        assert fa_kernel.bwd_launches == b0 + 1
+        b0, w0 = fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches
+        got = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        assert (fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches) == (b0 + 1, w0)
+        kw = dict(causal=True, window=None, softcap=None)
+        if dtype == torch.float32:
+            want = _attention_bwd_f64(q, k, v, dout, **kw)
+        else:
+            want = attention_bwd_ref(q, k, v, dout, causal=True)
+        for name, a, r in zip(("dq", "dk", "dv"), got, want):
+            _rel_close(a, r, dtype, f"{dtype} D{d} {name}")
 
 
 #: (B, rows, offset, Skv, Hq, Hkv, D, causal, window, softcap): a block of q

@@ -136,17 +136,22 @@ def test_row_split_factors_the_mesh_dim(mesh_shape, heads, S, want):
 
 
 WGMMA_SHAPES = [(1, 4096, 4096, 8, 4), (2, 130, 130, 4, 2), (1, 200, 50, 2, 1), (3, 64, 64, 2, 2),
-                (1, 1, 300, 2, 1)]
+                (1, 1, 300, 2, 1), (4, 2048, 2048, 16, 8), (1, 2048, 2048, 48, 8),
+                (2, 1000, 1000, 12, 2)]
 
 
+@pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
 @pytest.mark.parametrize("shape", WGMMA_SHAPES)
-def test_wgmma_plan_covers_every_block_once(shape):
+def test_wgmma_plan_covers_every_block_once(shape, D):
     """dQ (which writes Delta) launches first, then dK/dV; each grid takes
-    every q block (128 rows) or key block (64 keys) of every head exactly
-    once, dQ's heaviest causal block first, a ragged last block last."""
+    every q block (128 rows) or key block (64 keys at D 256, 128 at D 128)
+    of every head exactly once, dQ's heaviest causal block first, a ragged
+    last block last. Shapes: gemma2-2b's, qwen3-0.6b's and dbrx-132b's
+    training, ragged S, S != Skv, groups of 1 to 6."""
     B, S, Skv, Hq, Hkv = shape
-    dq, dkdv = fa_kernel.bwd_wgmma_plan(B, S, Skv, Hq, Hkv)
+    dq, dkdv = fa_kernel.bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)
     assert (dq.name, dkdv.name) == ("dq", "dkdv")
+    assert (dq.rows, dkdv.rows) == (128, 128 if D == 128 else 64)
     for kern, heads, length in ((dq, Hq, S), (dkdv, Hkv, Skv)):
         n = kern.grid[1]
         assert kern.grid[0] == B * heads and sorted(kern.order) == list(range(n))
@@ -159,32 +164,63 @@ def test_wgmma_plan_covers_every_block_once(shape):
     assert dkdv.order == tuple(range(dkdv.grid[1]))
 
 
-def test_wgmma_plan_tiles_rings_and_shared_bytes():
-    """Two consumer warpgroups a CTA, 64 rows each (dQ: 128 q rows, steps
-    of 64 keys, K and V rings of 2 and 1 slots; dK/dV: 64 keys, steps of 64
-    q rows through 2 stages, P^T and dS^T for even and odd steps), in the
-    232448 shared bytes a CTA may take: 1 KB alignment slack, 32 KB a 64 x
-    256 bf16 tile, 8 KB a 64 x 64 one, 8 bytes a barrier."""
-    dq, dkdv = fa_kernel.bwd_wgmma_plan(1, 4096, 4096, 8, 4)
-    tile = 64 * 256 * 2
-    assert (dq.rows, dq.step, dq.stages, dq.warpgroups) == (128, 64, (2, 1), 2)
-    assert (dkdv.rows, dkdv.step, dkdv.stages, dkdv.warpgroups) == (64, 64, (2,), 2)
-    assert dq.grid == (8, 32) and dkdv.grid == (4, 64)
-    assert dq.smem == 1024 + 4 * tile + 3 * tile + 8 * 7 == 230456
-    assert dkdv.smem == 1024 + 2 * tile + 4 * tile + 4 * 8192 + 8 * 5 == 230440
+#: per head dim, at (B1 S4096 8/4) and (B4 S2048 16/8): the dQ and dK/dV
+#: launches' (rows, step, ring slots), their grids, and their shared bytes
+#: as the source lays them out
+WGMMA_GEOMETRY = {
+    256: dict(dq=(128, 64, (2, 1)), dkdv=(64, 64, (2,)), grids=((8, 32), (4, 64)),
+              grids_qwen3=((64, 16), (32, 32)),
+              # Q, dO of two consumers (32 KB a 64 x 256 tile), K 2 slots, V 1,
+              # 1 + 2 x 2 + 2 x 1 barriers
+              dq_smem=1024 + 4 * 32768 + 3 * 32768 + 8 * 7,
+              # K, V, a 2-stage q/dO ring, P^T and dS^T twice (8 KB each), 5 barriers
+              dkdv_smem=1024 + 2 * 32768 + 4 * 32768 + 4 * 8192 + 8 * 5),
+    128: dict(dq=(128, 64, (3, 2)), dkdv=(128, 64, (3,)), grids=((8, 32), (4, 32)),
+              grids_qwen3=((64, 16), (32, 16)),
+              # Q, dO of two consumers (16 KB a 64 x 128 tile), K 3 slots, V 2,
+              # 1 + 2 x 3 + 2 x 2 barriers
+              dq_smem=1024 + 4 * 16384 + 5 * 16384 + 8 * 11,
+              # K and V of two consumers, a 3-stage q/dO ring, each stage's lse
+              # and Delta (64 f32 each), 7 barriers
+              dkdv_smem=1024 + 4 * 16384 + 6 * 16384 + 3 * 2 * 64 * 4 + 8 * 7),
+}
+
+
+@pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
+def test_wgmma_plan_tiles_rings_and_shared_bytes(D):
+    """Two consumer warpgroups a CTA, 64 rows each. dQ: 128 q rows, steps
+    of 64 keys through K and V rings (D 256: 2 and 1 slots; D 128: 3 and
+    2). dK/dV: steps of 64 q rows through a ring (D 256: 64 keys a CTA, 2
+    stages, P^T and dS^T for even and odd steps; D 128: 128 keys a CTA, 3
+    stages, each with its lse and Delta). All within the 232448 shared bytes
+    a CTA may take: 1 KB alignment slack, a 64-row tile of 64 D 2 bytes,
+    8 bytes a barrier. Any other head dim, a group that does not divide or
+    an empty batch raises."""
+    want = WGMMA_GEOMETRY[D]
+    dq, dkdv = fa_kernel.bwd_wgmma_plan(1, 4096, 4096, 8, 4, D)
+    assert (dq.rows, dq.step, dq.stages, dq.warpgroups) == (*want["dq"], 2)
+    assert (dkdv.rows, dkdv.step, dkdv.stages, dkdv.warpgroups) == (*want["dkdv"], 2)
+    assert (dq.grid, dkdv.grid) == want["grids"]
+    assert (dq.smem, dkdv.smem) == (want["dq_smem"], want["dkdv_smem"])
+    qwen3 = fa_kernel.bwd_wgmma_plan(4, 2048, 2048, 16, 8, D)
+    assert tuple(k.grid for k in qwen3) == want["grids_qwen3"]
+    assert tuple(k.smem for k in qwen3) == (dq.smem, dkdv.smem)
     assert max(dq.smem, dkdv.smem) <= fa_kernel.SMEM_LIMIT == 232448
-    for bad in ((1, 64, 64, 2, 2, 128), (1, 64, 64, 3, 2, 256), (0, 64, 64, 2, 2, 256)):
+    for bad in ((1, 64, 64, 2, 2, 80), (1, 64, 64, 2, 2, 64), (1, 64, 64, 3, 2, D),
+                (0, 64, 64, 2, 2, D)):
         with pytest.raises(ValueError):
             fa_kernel.bwd_wgmma_plan(*bad)
 
 
 def test_bwd_engine_follows_type_head_dim_and_bases():
-    """The wgmma engine takes bf16 at head dim 256 with 16-byte bases (TMA's
-    rule); f32, every other head dim and an unaligned base stay on the
-    mma.sync engine."""
+    """The wgmma engine takes bf16 at head dims 128 and 256 with 16-byte
+    bases (TMA's rule); f32, head dims 8-80 and an unaligned base stay on
+    the mma.sync engine."""
     engine = fa_kernel.bwd_engine
-    assert engine(torch.bfloat16, 256) == "wgmma"
-    assert engine(torch.bfloat16, 256, aligned=False) == "mma_sync"
-    assert engine(torch.float32, 256) == "mma_sync"
-    for D in set(fa_kernel.BWD_HEAD_DIMS) - {256}:
+    for D in (128, 256):
+        assert engine(torch.bfloat16, D) == "wgmma"
+        assert engine(torch.bfloat16, D, aligned=False) == "mma_sync"
+        assert engine(torch.float32, D) == "mma_sync"
+    for D in set(fa_kernel.BWD_HEAD_DIMS) - {128, 256}:
         assert engine(torch.bfloat16, D) == "mma_sync"
+        assert engine(torch.float32, D) == "mma_sync"
