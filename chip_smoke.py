@@ -6,15 +6,18 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the CUDA sources (flash attention's two forward and two
-   backward engines, fused MoE's two forward and two backward engines,
+   backward engines, fused MoE's two forward and three backward engines,
    scaled_mm) with nvcc, one
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
-   fused MoE's mma.sync and wgmma engines; flash attention's wgmma backward
-   at head dim 128 with no spill) and of the two forward wgmma engines
-   (flash attention's forward and backward wgmma engines with no wgmma that
-   ptxas serialized), the launch plans, and each wgmma engine's SASS
+   fused MoE's mma.sync, wgmma and 3xTF32 wgmma engines; flash attention's
+   wgmma backward at head dim 128 and fused MoE's 3xTF32 engine with no
+   spill) and of the two forward wgmma engines (flash attention's forward
+   and backward wgmma engines with no C7515 note that ptxas serialized
+   wgmma instructions, fused MoE's 3xTF32 engine with no C7515, C7519 or
+   C7520 note; each library's notes are logged), the launch plans,
+   and each wgmma engine's SASS
    instruction counts (HGMMA, TMA loads and stores, mbarrier waits, all
    asserted present; the forward engines store no tile by TMA) are logged;
 2. kernel parity: each kernel against its plain PyTorch version on the
@@ -61,7 +64,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradient within f32 2e-5 / bf16 2e-2 of its max|ref| (fused MoE's on
    the engine ``bwd_engine`` picks: the wgmma engine for bf16 with 16-byte
    rows, among them a ragged (3, 200, 520, 776) shape, dbrx's and
-   arctic's); every case, forward and backward, runs again after the
+   arctic's; the 3xTF32 wgmma engine for f32 with 16-byte rows, the same
+   shapes and (1, 1, 8, 8), held to the plain formula run in float64; the
+   mma.sync engine for the 36/44-wide bf16 and 37/45-wide f32 rows, and
+   called directly on dbrx's bf16 inputs, which no model path sends it); every
+   case, forward and backward, runs again after the
    caching allocator's free memory is filled with NaN
    (``poison_free_memory``) and must give the same bits;
 3. whole-model parity, random weights from one seed, f32 compute: prefill
@@ -116,8 +123,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    MoE's backward at dbrx-132b's training shape (E16, 640 rows, bf16) on
    the wgmma engine, each of its four launches under the profiler beside
    its bound, and on the mma.sync engine on the same inputs, and at the
-   tuner's E16 C256 (f32, mma.sync), beside ``autograd.grad`` of three
-   ``bmm`` and silu * u;
+   tuner's E16 C256 in f32 on the 3xTF32 wgmma engine, in turns with the
+   mma.sync engine on the same inputs, each 3xTF32 launch under the
+   profiler beside its bound, and at dbrx's 640 rows in f32 (logged),
+   beside ``autograd.grad`` of three ``bmm`` and silu * u;
 6. where a serving step's time goes: a ``ContinuousBatchingEngine`` with
    every slot filled runs decode ticks, and one more prompt is prefilled,
    under ``torch.profiler``, for qwen3-0.6b, for 2-layer dbrx-132b and for
@@ -240,10 +249,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line (thirteen entries: the five
+It prints one ``{"kernels": [...]}`` line (fourteen entries: the five
 kernels, flash attention's and fused MoE's forward wgmma engines, and the
-backwards of rmsnorm, silu_mul, flash attention's and fused MoE's two
-engines each),
+backwards of rmsnorm, silu_mul, flash attention's two engines and fused
+MoE's three; fused MoE's mma.sync backward, which no model path reaches,
+has 0 launches and its calls in phases 2 and 5 as ``parity_launches``),
 the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -405,12 +415,12 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(9) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(10) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.fwd_wgmma_library, fa_k.bwd_library,
                                            fa_k.wgmma_library, moe_k.library,
                                            moe_k.fwd_wgmma_library,
                                            moe_k.bwd_library, moe_k.wgmma_library,
-                                           smm_k.library)]
+                                           moe_k.tf32_library, smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
         rms_k.rmsnorm_bwd_cuda(x, x, torch.zeros(1024, device=dev))
@@ -424,10 +434,12 @@ def main():
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
+    compared = moe_k.bwd_launches  # the mma.sync backward's, which no model path reaches
     max_err = kernel_parity(torch, dev)
     max_err.update(tuner_kernel_parity(torch, dev))
     moe_serving_parity(torch, dev, max_err)
     max_err.update(backward_parity(torch, dev))
+    compared = moe_k.bwd_launches - compared
     log(f"[2 kernel parity] passed in {time.perf_counter() - t0:.1f}s; "
         f"max abs err at main-path shapes: {max_err}")
 
@@ -449,7 +461,9 @@ def main():
     torch.cuda.empty_cache()
     log(f"  held on the card before phase 5: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rows = kernel_times(torch, dev, peaks)
+    timed = moe_k.bwd_launches
     rows.update(backward_times(torch, dev, peaks))
+    compared += moe_k.bwd_launches - timed
     log(f"[5 kernel times] done in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 6
@@ -546,14 +560,27 @@ def main():
         "fused_moe_bwd_wgmma": (
             "cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd_wgmma.cu",
             "src/repro/kernels/fused_moe/kernel.py:27"),
+        "fused_moe_bwd_tf32": (
+            "cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd_tf32.cu",
+            "src/repro/kernels/fused_moe/kernel.py:27"),
     }
-    idle = [k for k in sources if not launches.get(k)]
+    # fused_moe's mma.sync backward serves only rows and bases that TMA
+    # cannot address (f32 D or F off a multiple of 4, bf16 off 8), which no
+    # model config has: since the 3xTF32 engine took phase 10 (a)'s f32
+    # gradients no model path reaches it. Its main-path launches are 0; the
+    # calls of phases 2 and 5, where it is held against its plain version
+    # and timed, go in a field of their own
+    off_path = ("fused_moe_bwd",)
+    assert not any(launches.get(k) for k in off_path), f"a model path reached {off_path}"
+    idle = [k for k in sources if not launches.get(k) and k not in off_path]
     assert not idle, f"kernels the main paths never launched: {idle}"
+    assert compared, "phases 2 and 5 never launched fused_moe_bwd"
     kernels = []
     for k, (route, source, replaces) in sources.items():
         kernels.append({
             "name": k, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": max_err[k], **rows[k],
+            "launches": launches.get(k, 0), "max_abs_err": max_err[k], **rows[k],
+            **({"parity_launches": compared} if k in off_path else {}),
         })
     log(f"[done] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -580,6 +607,24 @@ def wgmma_sass(lib, sources, held=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")):
     assert all(ops[k] for k in held), ops
 
 
+def serialization_notes(lib, sources):
+    """ptxas's notes on a library's wgmma, by code: C7515, all of them
+    serialized; C7519 and C7520, a ``warpgroup.arrive`` the compiler
+    injected. Each note's line, which names its instance, is logged."""
+    import re
+
+    from repro_torch.kernels._build import build_log
+
+    text = build_log(lib, sources)
+    notes = {n: text.count(n) for n in ("C7515", "C7519", "C7520")}
+    if any(notes.values()):
+        log(f"  ptxas {lib}: notes on its wgmma instructions {notes}")
+        for line in text.splitlines():
+            if re.search(r"C75(15|19|20)", line):
+                log(f"    {line.strip()[:400]}")
+    return notes
+
+
 def ptxas_report(fa_k, moe_k=None):
     """Phase 1's record of the backward kernels and of the forward wgmma
     engines: ptxas's registers and spills for each instance built
@@ -602,20 +647,23 @@ def ptxas_report(fa_k, moe_k=None):
     if moe_k is not None:
         logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
                  ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES),
+                 ("fused_moe_bwd_tf32", moe_k.TF32_SOURCES),
                  ("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES)]
     for lib, sources in logs:
         kernel = None
-        serialized = build_log(lib, sources).count("C7515")
-        if serialized:
-            log(f"  ptxas {lib}: {serialized} note(s) that wgmma instructions are serialized")
-        assert not (serialized and lib in ("flash_attention_wgmma", "flash_attention_bwd_wgmma")), (
+        notes = serialization_notes(lib, sources)
+        assert not (notes["C7515"] and lib in ("flash_attention_wgmma",
+                                               "flash_attention_bwd_wgmma")), (
+            f"{lib}: wgmma serialized")
+        assert not (any(notes.values()) and lib == "fused_moe_bwd_tf32"), (
             f"{lib}: wgmma serialized")
         for line in build_log(lib, sources).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 # the Itanium mangling keeps each name and template argument readable
                 name = re.search(r"((?:fa_bwd_\w+?_kernel)|fa_bwd_dq_wgmma|fa_bwd_dkdv_wgmma|"
-                                 r"fa_fwd_wgmma|moe_bwd_gemm|moe_bwd_wgmma|moe_fwd_wgmma)"
+                                 r"fa_fwd_wgmma|moe_bwd_gemm|moe_bwd_wgmma|moe_bwd_tf32|"
+                                 r"moe_fwd_wgmma)"
                                  r"(?:I(.*?)EEv)?",
                                  m.group(1))
                 if not name:
@@ -629,7 +677,8 @@ def ptxas_report(fa_k, moe_k=None):
                 log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 assert spill is None or int(spill.group(1)) <= 1024, f"{kernel} spills: {line}"
-                assert spill is None or not re.match(r"fa_bwd_\w+_wgmma<128\b", kernel) or (
+                assert spill is None or not re.match(
+                    r"fa_bwd_\w+_wgmma<128\b|moe_bwd_tf32", kernel) or (
                     int(spill.group(1)) == 0), f"{kernel} spills: {line}"
     for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
         log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
@@ -658,6 +707,11 @@ def ptxas_report(fa_k, moe_k=None):
                 f"{kern.layout} tiles an expert {kern.tiles}, {kern.ctas} persistent CTAs, "
                 f"{kern.stages} stages, staged output {kern.staged}, {kern.smem} shared bytes")
         wgmma_sass("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES)
+        for kern in moe_k.tf32_plan(16, 256, 6144, 10752):
+            log(f"  fused_moe backward plan (3xTF32 wgmma), E16 C256 D6144 F10752 f32: "
+                f"{kern.name} A {kern.layout}-major, tiles {kern.tile}, an expert {kern.tiles}, "
+                f"{kern.ctas} persistent CTAs, {kern.stages} stages, {kern.smem} shared bytes")
+        wgmma_sass("fused_moe_bwd_tf32", moe_k.TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
         for kern in moe_k.fwd_wgmma_plan(16, 512, 6144, 10752):
             log(f"  fused_moe forward plan (wgmma), E16 C512 D6144 F10752 bf16: {kern.name} "
                 f"tiles {kern.tile}, {kern.tiles_e} an expert, {kern.ctas} persistent CTAs, "
@@ -1067,7 +1121,7 @@ def backward_parity(torch, dev):
     f32, bf16 = torch.float32, torch.bfloat16
     max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0,
                "flash_attention_bwd_wgmma": 0.0, "fused_moe_bwd": 0.0,
-               "fused_moe_bwd_wgmma": 0.0}
+               "fused_moe_bwd_wgmma": 0.0, "fused_moe_bwd_tf32": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         a = (scale * rng.standard_normal(shape)).astype(np.float32)
@@ -1205,10 +1259,14 @@ def backward_parity(torch, dev):
     # (vectorised and element-by-element rows), ragged 16-byte rows (M, N
     # and K no tile multiples), dbrx-132b's width with 2 experts (640 rows:
     # its training dispatch of 2048 tokens) and arctic-480b's expert width
-    # (40 rows); bf16 with 16-byte rows runs the wgmma engine, f32 and the
-    # 36/44-wide rows the mma.sync engine. The main paths: dbrx's bf16
-    # training (wgmma) and its f32 gradients (phase 10 (a), mma.sync)
-    from repro_torch.kernels.fused_moe.kernel import bwd_engine
+    # (40 rows); bf16 with 16-byte rows runs the wgmma engine, f32 with
+    # 16-byte rows the 3xTF32 wgmma engine (its gradients held to the plain
+    # formula run in float64), the 36/44-wide bf16 and 37/45-wide f32 rows
+    # the mma.sync engine. The main paths: dbrx's bf16 training (wgmma) and
+    # its f32 gradients (phase 10 (a), 3xTF32 wgmma). No model path reaches
+    # the mma.sync engine; its recorded error is its own run on dbrx's bf16
+    # inputs, the shape phase 5 times it at
+    from repro_torch.kernels.fused_moe.kernel import bwd_engine, fused_moe_bwd_mma_sync_cuda
 
     grads = ("dx", "dw_gate", "dw_up", "dw_down")
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)  # drawn on the card: 400 M values
@@ -1216,20 +1274,25 @@ def backward_parity(torch, dev):
     def drawn(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
+    knames = {"wgmma": "fused_moe_bwd_wgmma", "wgmma_tf32": "fused_moe_bwd_tf32",
+              "mma_sync": "fused_moe_bwd"}
     for E, C, D, F, dt, main in [
         (2, 64, 48, 96, f32, False), (2, 64, 48, 96, bf16, False),
-        (3, 20, 36, 44, f32, False), (3, 20, 36, 44, bf16, False),
-        (3, 200, 520, 776, bf16, False),
+        (3, 20, 36, 44, f32, False), (3, 20, 36, 44, bf16, False), (3, 20, 37, 45, f32, False),
+        (3, 200, 520, 776, bf16, False), (3, 200, 520, 776, f32, False), (1, 1, 8, 8, f32, False),
         (2, 640, 6144, 10752, bf16, True), (2, 640, 6144, 10752, f32, True),
         (2, 40, 7168, 4864, bf16, False), (2, 40, 7168, 4864, f32, False),
     ]:
         x, dy = drawn((E, C, D), dt), drawn((E, C, D), dt)
         ws = [drawn(s, dt, 1.0 / np.sqrt(s[1])) for s in ((E, D, F), (E, D, F), (E, F, D))]
         engine = bwd_engine(dt, D, F)
-        kname = "fused_moe_bwd_wgmma" if engine == "wgmma" else "fused_moe_bwd"
-        check(f"fused_moe bwd E{E} C{C} D{D} F{F} {dt} ({engine})", (kname, grads),
-              lambda: fused_moe_bwd_cuda(x, *ws, dy), fused_moe_bwd_ref(x, *ws, dy), main)
-        del x, dy, ws
+        refs = fused_moe_bwd_ref(*(t.double() if dt == f32 else t for t in (x, *ws, dy)))
+        check(f"fused_moe bwd E{E} C{C} D{D} F{F} {dt} ({engine})", (knames[engine], grads),
+              lambda: fused_moe_bwd_cuda(x, *ws, dy), refs, main)
+        if main and engine == "wgmma":
+            check(f"fused_moe bwd E{E} C{C} D{D} F{F} {dt} (mma_sync)", ("fused_moe_bwd", grads),
+                  lambda: fused_moe_bwd_mma_sync_cuda(x, *ws, dy), refs, True)
+        del x, dy, ws, refs
     torch.cuda.empty_cache()
     log("  reruns over NaN-filled free memory, bit-equal, by kernel: "
         + ", ".join(f"{k} {n}" for k, n in sorted(poison_checks.items())))
@@ -2003,6 +2066,43 @@ def moe_launch_times(torch, moe_k, peaks, args):
     log(f"  fused_moe_bwd_wgmma: the four launches {total:.4f} ms under the profiler")
 
 
+def tf32_launch_times(torch, moe_k, peaks, args):
+    """Each launch of the 3xTF32 engine at these f32 inputs (dy's transposing
+    copy, then the four products, each its own kernel instance): its device
+    ms under ``torch.profiler`` (the mean of 3 calls) beside the bound of its
+    products run three times at the TF32 peak."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w_gate = args[0], args[1]
+    E, C, D = x.shape
+    F_ = w_gate.shape[2]
+    moe_k.fused_moe_bwd_tf32_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            moe_k.fused_moe_bwd_tf32_cuda(*args)
+        torch.cuda.synchronize()
+    times = {e.key: e.device_time_total / 1e3 / e.count for e in prof.key_averages()
+             if ("moe_bwd_tf32" in e.key or "transpose_pad" in e.key) and e.device_time_total > 0}
+    assert len(times) == 5, f"fused_moe_bwd_tf32: the profiler saw {sorted(times)}"
+    copy = sum(v for k, v in times.items() if "transpose_pad" in k)
+    total = copy
+    log(f"  fused_moe_bwd_tf32 dy's transposing copy: {copy:.4f} ms")
+    for i, launch in enumerate(moe_k.tf32_plan(E, C, D, F_), start=1):
+        # the instance's second template argument is the launch (1-4)
+        ms = sum(v for k, v in times.items()
+                 if re.search(rf"moe_bwd_tf32(?:<\w+, {i}, \d+>|I\w+?ELi{i}ELi\d+E)", k))
+        flops = 3 * sum(2 * E * M * N * K * seg for M, N, K, seg in launch.products)
+        b = 1e3 * flops / peaks["tf32"]
+        total += ms
+        log(f"  fused_moe_bwd_tf32 launch {launch.name} (A {launch.layout}-major, tile "
+            f"{launch.tile}): {ms:.4f} ms, bound {b:.4f} (operations, 3xTF32), {b / ms:.4f} "
+            f"of it; its own products at the TF32 peak {b / 3 / ms:.4f}")
+    log(f"  fused_moe_bwd_tf32: the five launches {total:.4f} ms under the profiler")
+
+
 def fa_launch_times(torch, fa_k, peaks, args, kw, pairs):
     """Each of flash attention's wgmma backward launches at these inputs:
     its device ms under ``torch.profiler`` (the mean of 5 calls) beside the
@@ -2028,6 +2128,34 @@ def fa_launch_times(torch, fa_k, peaks, args, kw, pairs):
         log(f"  flash_attention_bwd_wgmma launch {name}: {ms:.4f} ms, bound {b:.4f} "
             f"(operations), {b / ms:.4f} of it")
     log(f"  flash_attention_bwd_wgmma: the two launches {total:.4f} ms under the profiler")
+
+
+def library_bwd_ms(torch, fwd, inputs, iters, kname):
+    """The library's backward alone: ``autograd.grad`` of its forward,
+    both captured in one CUDA graph (autograd runs the backward on the
+    forward's stream, so the two are captured together), less the forward
+    alone: ``(ms, eager ms of the forward and backward)``. Each input tuple
+    ends with the output's gradient."""
+    def fwd_bwd(*a):
+        return torch.autograd.grad(fwd(*a[:-1]), a[:-1], a[-1])
+
+    def fwd_only(*a):
+        with torch.no_grad():
+            return fwd(*a[:-1])
+
+    both, both_eager = cuda_ms(torch, fwd_bwd, inputs, iters)
+    only, _ = cuda_ms(torch, fwd_only, inputs, iters)
+    log(f"  {kname} library: forward and backward {both:.4f} ms, forward {only:.4f} ms")
+    return both - only, both_eager
+
+
+def moe_library(x, w_gate, w_up, w_down):
+    """Fused MoE's forward as the library computes it: three ``bmm`` and
+    silu * u, which autograd differentiates."""
+    import torch
+    import torch.nn.functional as F
+
+    return torch.bmm(F.silu(torch.bmm(x, w_gate)) * torch.bmm(x, w_up), w_down)
 
 
 def backward_times(torch, dev, peaks):
@@ -2063,21 +2191,8 @@ def backward_times(torch, dev, peaks):
     rows, logged, eager = {}, {}, {}
 
     def library_ms(fwd, inputs, iters, kname):
-        """The library's backward alone: ``autograd.grad`` of its forward,
-        both captured in one CUDA graph (autograd runs the backward on the
-        forward's stream, so the two are captured together), less the
-        forward alone."""
-        def fwd_bwd(*a):
-            return torch.autograd.grad(fwd(*a[:-1]), a[:-1], a[-1])
-
-        def fwd_only(*a):
-            with torch.no_grad():
-                return fwd(*a[:-1])
-
-        both, eager[kname + " library fwd+bwd"] = cuda_ms(torch, fwd_bwd, inputs, iters)
-        only, _ = cuda_ms(torch, fwd_only, inputs, iters)
-        log(f"  {kname} library: forward and backward {both:.4f} ms, forward {only:.4f} ms")
-        return both - only
+        ms, eager[kname + " library fwd+bwd"] = library_bwd_ms(torch, fwd, inputs, iters, kname)
+        return ms
 
     def row(kname, kernel, plain, library, inputs, iters, bound_ms, bound_by, into=rows):
         """The kernel's row (``into=logged``: a row that is logged only)."""
@@ -2211,15 +2326,16 @@ def backward_times(torch, dev, peaks):
     # fused MoE's backward at dbrx-132b's training shape (E16, 640 rows an
     # expert from 2048 tokens, bf16): the wgmma engine's row, then the
     # mma.sync engine's on the same inputs (the two compared in one call;
-    # its plain and library times are the same call's), then the mma.sync
-    # engine at the tuner's E16 C256 in f32 (bounded as 3xTF32, the path it
-    # runs: a logged row); the library is three bmm and silu * u,
-    # differentiated by autograd
-    def moe_lib(x_, g_, u_, d_):
-        return torch.bmm(F.silu(torch.bmm(x_, g_)) * torch.bmm(x_, u_), d_)
-
+    # its plain and library times are the same call's); then at the tuner's
+    # f32 workload (E16 C256) the 3xTF32 wgmma engine's row, in turns with
+    # the mma.sync engine on the same inputs (tf32, mma.sync, mma.sync, tf32;
+    # each row's ms the mean of its turns; the mma.sync one a logged row),
+    # both bounded as 3xTF32, each 3xTF32 launch under the profiler; then
+    # the 3xTF32 engine at dbrx's training rows in f32 (E16 C640, a logged
+    # row); the library is three bmm and silu * u, differentiated by autograd
+    # (``moe_library``)
     D, F_ = 6144, 10752
-    for E, C, dt in ((16, 640, bf16), (16, 256, torch.float32)):
+    for E, C, dt in ((16, 640, bf16), (16, 256, torch.float32), (16, 640, torch.float32)):
         x, dy = randn(E, C, D, dtype=dt), randn(E, C, D, dtype=dt)
         ws = [randn(*s_, scale=s_[1] ** -0.5, dtype=dt) for s_ in ((E, D, F_), (E, D, F_),
                                                                   (E, F_, D))]
@@ -2229,20 +2345,44 @@ def backward_times(torch, dev, peaks):
         lib = [(*(t.detach().requires_grad_() for t in (x, *ws)), dy)]
         if dt == bf16:
             row("fused_moe_bwd_wgmma", moe_k.fused_moe_bwd_wgmma_cuda, fused_moe_bwd_ref,
-                (moe_lib, lib), [(x, *ws, dy)], 5, *bound(peaks, nbytes, flops, "bfloat16"))
+                (moe_library, lib), [(x, *ws, dy)], 5, *bound(peaks, nbytes, flops, "bfloat16"))
             ms, eager["fused_moe_bwd"] = cuda_ms(torch, moe_k.fused_moe_bwd_mma_sync_cuda,
                                                  [(x, *ws, dy)], 5)
             rows["fused_moe_bwd"] = dict(rows["fused_moe_bwd_wgmma"], ms=ms)
             moe_launch_times(torch, moe_k, peaks, (x, *ws, dy))
             names = ("fused_moe_bwd_wgmma", "fused_moe_bwd")
+        elif C == 256:
+            row("fused_moe_bwd_tf32", moe_k.fused_moe_bwd_tf32_cuda, fused_moe_bwd_ref,
+                (moe_library, lib), [(x, *ws, dy)], 3, *bound(peaks, nbytes, 3 * flops, "tf32"))
+            r = rows["fused_moe_bwd_tf32"]
+            turns = {"tf32": [r["ms"]], "mma_sync": []}
+            for engine in ("mma_sync", "mma_sync", "tf32"):
+                fn = getattr(moe_k, f"fused_moe_bwd_{engine}_cuda")
+                turns[engine].append(cuda_ms(torch, fn, [(x, *ws, dy)], 3)[0])
+            r["ms"] = float(np.mean(turns["tf32"]))
+            names = ("fused_moe_bwd_tf32", "fused_moe_bwd (tuner E16 C256, f32)")
+            logged[names[1]] = dict(r, ms=float(np.mean(turns["mma_sync"])))
+            log(f"  fused_moe_bwd at the tuner's f32 workload, in turns (ms): 3xTF32 wgmma "
+                f"{turns['tf32']}, mma.sync {turns['mma_sync']}; "
+                f"{logged[names[1]]['ms'] / r['ms']:.2f}x faster than mma.sync, library "
+                f"{r['library_ms']:.4f}")
+            tf32_launch_times(torch, moe_k, peaks, (x, *ws, dy))
         else:
-            names = ("fused_moe_bwd (tuner E16 C256, f32)",)
-            row(names[0], moe_k.fused_moe_bwd_mma_sync_cuda, fused_moe_bwd_ref, (moe_lib, lib),
+            names = ("fused_moe_bwd_tf32 (dbrx rows E16 C640, f32)",)
+            row(names[0], moe_k.fused_moe_bwd_tf32_cuda, fused_moe_bwd_ref, (moe_library, lib),
                 [(x, *ws, dy)], 3, *bound(peaks, nbytes, 3 * flops, "tf32"), into=logged)
         for kname in names:
             r = (rows | logged)[kname]
             log(f"  {kname}: {flops / 1e12:.3f} TFLOP in its products, {nbytes / 1e9:.2f} GB; "
                 f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound")
+            if dt != bf16:
+                # the 3xTF32 bound counts three products each, the price of f32
+                # accuracy on the tensor cores; the function's own count at
+                # the TF32 peak is the headroom left against plain TF32
+                own = 1e3 * flops / peaks["tf32"]
+                log(f"  {kname}: its own {flops / 1e12:.3f} TFLOP at the TF32 peak "
+                    f"{own:.4f} ms, {own / r['ms']:.4f} of it (3xTF32's bound "
+                    f"{r['bound_ms']:.4f} ms counts them three times)")
         del x, dy, ws, lib
         torch.cuda.empty_cache()
     for kname, r in (rows | logged).items():
@@ -2687,6 +2827,7 @@ def kernel_counts(zero=False):
         counters[name + "_bwd"] = (mod, "bwd_launches")
     counters["fused_moe_wgmma"] = (moe_k, "wgmma_launches")
     counters["fused_moe_bwd_wgmma"] = (moe_k, "bwd_wgmma_launches")
+    counters["fused_moe_bwd_tf32"] = (moe_k, "bwd_tf32_launches")
     counters["flash_attention_bwd_wgmma"] = (fa_k, "bwd_wgmma_launches")
     counters["flash_attention_wgmma"] = (fa_k, "wgmma_launches")
     if zero:
@@ -2717,8 +2858,7 @@ def training_launches(cfg):
         2 + 2 * cfg.qk_norm + 2 * cfg.post_norms, 1)
     moe = cfg.family == "moe"
     dense = n if not moe or cfg.dense_residual else 0
-    wgmma = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model,
-                               cfg.moe_hidden) == "wgmma"
+    engine = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model, cfg.moe_hidden)
     fwd = moe_fwd_wgmma(cfg)
     fa_wgmma = fa_k.bwd_engine(getattr(torch, cfg.compute_dtype),
                                cfg.resolved_head_dim) == "wgmma"
@@ -2730,7 +2870,9 @@ def training_launches(cfg):
             "flash_attention_bwd": n * (not fa_wgmma),
             "flash_attention_bwd_wgmma": n * fa_wgmma,
             "fused_moe": twice * n * moe * (not fwd), "fused_moe_wgmma": twice * n * fwd,
-            "fused_moe_bwd": n * moe * (not wgmma), "fused_moe_bwd_wgmma": n * moe * wgmma}
+            "fused_moe_bwd": n * moe * (engine == "mma_sync"),
+            "fused_moe_bwd_wgmma": n * moe * (engine == "wgmma"),
+            "fused_moe_bwd_tf32": n * moe * (engine == "wgmma_tf32")}
 
 
 def training(torch, dev):
@@ -2768,7 +2910,7 @@ def training(torch, dev):
     # (head dim 256, its windows and softcaps) and one full-width dbrx-132b
     # layer (fused_moe's backward; gradients only: the optimizer state would
     # not fit beside a full-width f32 layer); their launches join the ones
-    # returned (f32 training: fused_moe's backward on its mma.sync engine)
+    # returned (f32 training: fused_moe's backward on its 3xTF32 wgmma engine)
     grad_runs = {}
     for arch, depth, B_, S_ in (("qwen3-0.6b", 2, 2, 256), ("stablelm-3b", 2, 2, 256),
                                 ("gemma2-2b", 2, 1, 256), ("dbrx-132b", 1, 1, 128)):

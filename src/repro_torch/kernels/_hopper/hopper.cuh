@@ -112,6 +112,27 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t cols, uin
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// Encode an f32 tensor map over an (E, rows, cols) array whose rows lie `ld`
+// values apart (ld >= cols, a multiple of 4: a padded row; the pad is never
+// read, since the map's bounds are `cols`): one map serves every expert (the
+// third coordinate). `box_cols` x `box_rows` is the tile one load moves; with
+// 128-byte swizzle box_cols is at most 32 (a swizzle row of f32). Out-of-
+// bounds parts of a box load as zeros. Returns a CUresult
+// (CUDA_ERROR_NOT_FOUND where CUDA offers no encoder). Host only.
+inline int encode_f32_3d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                         uint64_t E, uint64_t ld, uint32_t box_cols, uint32_t box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  if (const CUresult bound = bind_primary_context(); bound != CUDA_SUCCESS) return bound;
+  const cuuint64_t dims[3] = {cols, rows, E};
+  const cuuint64_t strides[2] = {ld * 4, rows * ld * 4};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 // Encode a bf16 tensor map over a 4-D array (dims[0] innermost, contiguous;
 // strides[i]: the bytes from one index of dim i + 1 to the next, multiples of
 // 16) whose box is box[0..3] elements, with 128-byte swizzle (box[0] * 2 at
@@ -198,6 +219,12 @@ __device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+// 16 bytes into shared memory
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
 }
 // four 8 x 8 bf16 matrices into shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8; v[i] is this lane's pair (row lane / 4, columns
@@ -287,6 +314,11 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 // keep the compiler from moving accesses of an accumulator across a wait
 __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
+}
+// pin a register-A fragment where it is made, so that its packing does not
+// sink between the wgmmas that read it
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
 }
 
 // d (64 x 256, f32, the warpgroup's fragment: 128 values a thread) = A (64 x
@@ -441,6 +473,53 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x N, f32: N / 2 values a thread, the accumulator layout of the bf16
+// forms) = A (64 x 8, tf32, from registers: a[0..3] hold this thread's
+// values at rows + 0 / + 8 and columns + 0 / + 4 of its warp's 16 x 8
+// block, row lane / 4, column lane % 4) B (8 x N, tf32, through its
+// descriptor: K-major, the only major-ness tf32 takes) + (scale_d ? d : 0).
+// An f32 word given as tf32 is read as its top 19 bits. The registers of `a`
+// stay unchanged until the group is waited for. N is 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // ------------------------------------------------------------ host side

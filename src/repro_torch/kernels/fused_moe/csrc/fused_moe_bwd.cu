@@ -12,12 +12,11 @@
 // reference differentiates its plain products): the port trains through its
 // forward kernel (fused_moe.cu), so this is that kernel's backward.
 //
-// This engine takes the f32 calls and the bf16 calls whose rows are not
-// 16-byte multiples; bf16 with 16-byte rows (dbrx-132b's and arctic-480b's
-// training) runs on fused_moe_bwd_wgmma.cu, the same four launches on
-// wgmma fed by TMA (kernel.bwd_engine chooses). f32 stays here: tf32 wgmma
-// takes K-major operands only, so the NN and TN launches would need
-// transposed copies, and 3xTF32 would run each product three times.
+// This engine takes the calls whose rows or bases TMA cannot address (f32
+// D or F not a multiple of 4 values, bf16 not of 8, a base off 16 bytes),
+// which no model config's widths reach; bf16 and f32 with 16-byte rows run
+// on fused_moe_bwd_wgmma.cu and fused_moe_bwd_tf32.cu, the same four
+// launches on wgmma fed by TMA (kernel.bwd_engine chooses).
 //
 // What bounds it on an H100 SXM. At dbrx-132b's training shape (E=16, 640
 // rows an expert from 2048 tokens, D=6144, F=10752) the products are eight

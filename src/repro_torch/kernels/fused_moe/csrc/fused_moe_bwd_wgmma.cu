@@ -12,10 +12,10 @@
 // src/repro/kernels/fused_moe/kernel.py (which has none of its own: the
 // reference differentiates its plain products). It computes what
 // fused_moe_bwd.cu computes, in the same four launches with the same three
-// epilogues; that file keeps the f32 calls (3xTF32 on mma.sync: tf32 wgmma
-// takes K-major operands only, so two of the four launches would need
-// transposed copies, and each product would run three times) and the bf16
-// calls whose rows are not 16-byte multiples (TMA's stride rule).
+// epilogues; f32 runs on fused_moe_bwd_tf32.cu (3xTF32 on wgmma, every
+// product written so that its B lies K-major, as tf32 wgmma reads it), and
+// fused_moe_bwd.cu keeps the calls whose rows are not 16-byte multiples
+// (TMA's stride rule).
 //
 // What bounds it on an H100 SXM. At dbrx-132b's training shape (E=16, 640
 // rows an expert, D=6144, F=10752) the eight products are 10.8 TFLOP,

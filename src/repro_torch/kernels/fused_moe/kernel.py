@@ -21,7 +21,7 @@ persistent CTA an SM walking ``fwd_wgmma_plan``'s tiles
 
 ``fused_moe_bwd_cuda`` is the backward: four launches (g and u; dh with
 the silu-mul backward in its epilogue; the three weight gradients; dx) of
-one of two grouped-GEMM engines, each its own library so that the builds
+one of three grouped-GEMM engines, each its own library so that the builds
 run side by side:
 
 - ``csrc/fused_moe_bwd_wgmma.cu`` (bf16 whose rows and bases are 16-byte
@@ -29,13 +29,19 @@ run side by side:
   through a ring of mbarriers, one persistent CTA an SM walking the
   launch's live 128 x 256 tiles; ``wgmma_plan`` and ``wgmma_walk`` give
   its geometry and each CTA's tiles;
-- ``csrc/fused_moe_bwd.cu`` (f32 as 3xTF32, and bf16 rows that TMA cannot
-  address): ``mma.sync`` fed by ``cp.async``, a CTA a 128 x 128 tile;
+- ``csrc/fused_moe_bwd_tf32.cu`` (f32 whose rows and bases are 16-byte
+  multiples: f32 training of an MoE model, the tuner's f32 workload):
+  3xTF32 on ``wgmma`` with A from registers, fed by TMA, each product
+  written so that its B lies K-major (launches (1) and (2) compute g^T,
+  u^T and dh^T; dy^T is the one copy); ``tf32_plan`` and ``tf32_walk``
+  give its geometry and each CTA's tiles;
+- ``csrc/fused_moe_bwd.cu`` (f32 and bf16 rows that TMA cannot address):
+  ``mma.sync`` fed by ``cp.async``, a CTA a 128 x 128 tile;
   ``bwd_launch_plan`` gives its geometry.
 
-``bwd_engine`` chooses between them from the type and the strides alone;
+``bwd_engine`` chooses among them from the type and the strides alone;
 each engine counts its own calls (``bwd_wgmma_launches``,
-``bwd_launches``), so a run shows which one ran.
+``bwd_tf32_launches``, ``bwd_launches``), so a run shows which one ran.
 """
 from __future__ import annotations
 
@@ -59,6 +65,9 @@ bwd_launches = 0
 #: backward calls on the ``wgmma`` engine (each launches the four kernels
 #: of ``wgmma_plan``)
 bwd_wgmma_launches = 0
+#: backward calls on the 3xTF32 ``wgmma`` engine (each launches dy's
+#: transposing copy and the four kernels of ``tf32_plan``)
+bwd_tf32_launches = 0
 #: ``(E, C/block_m, F/block_f)`` of the last launch: the gate/up launch's
 #: grid; the down launch covers ``(E, C/block_m, ceil(D/128))`` output tiles
 #: and walks the ``F/block_f`` steps in order
@@ -67,6 +76,7 @@ last_grid: tuple | None = None
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd.cu"]
 WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd_wgmma.cu"]
+TF32_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd_tf32.cu"]
 FWD_WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_wgmma.cu"]
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 D_TILE = 128  # output columns of a down-launch CTA
@@ -156,11 +166,16 @@ _ENCODE_ERROR = 100000
 
 
 def bwd_engine(dtype: torch.dtype, D: int, F: int, aligned: bool = True) -> str:
-    """Which engine runs the backward: ``"wgmma"`` for bf16 whose rows (D
-    and F values) and bases (``aligned``) are 16-byte multiples, as TMA
-    addresses them; ``"mma_sync"`` otherwise (f32 takes 3xTF32 there)."""
-    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 and aligned \
-        else "mma_sync"
+    """Which engine runs the backward, from the type and the strides alone:
+    ``"wgmma"`` for bf16 whose rows (D and F values) and bases
+    (``aligned``) are 16-byte multiples, as TMA addresses them;
+    ``"wgmma_tf32"`` for f32 whose rows and bases are (D and F multiples of
+    4); ``"mma_sync"`` for the rest (f32 takes 3xTF32 there too)."""
+    if aligned and dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    if aligned and dtype == torch.float32 and D % 4 == 0 and F % 4 == 0:
+        return "wgmma_tf32"
+    return "mma_sync"
 
 
 class WgmmaLaunch(NamedTuple):
@@ -211,7 +226,13 @@ def wgmma_walk(launch: WgmmaLaunch, E: int, cta: int):
     ``(expert, product, first row, first column)``: tile t of the flat walk
     is expert ``t // tiles_e``, then product by product, column tiles
     outer and row tiles fastest (``tile_of`` in the source)."""
-    bm, bn = WGMMA_TILE
+    return _walk(launch, WGMMA_TILE, E, cta)
+
+
+def _walk(launch, tile: tuple, E: int, cta: int):
+    """``wgmma_walk`` and ``tf32_walk`` over ``launch``'s products' tiles of
+    ``tile`` = (rows, columns)."""
+    bm, bn = tile
     for t in range(cta, E * launch.tiles_e, launch.ctas):
         e, r = divmod(t, launch.tiles_e)
         p = 0
@@ -220,6 +241,72 @@ def wgmma_walk(launch: WgmmaLaunch, E: int, cta: int):
             p += 1
         mt = launch.tiles[p][0]
         yield e, p, (r % mt) * bm, (r // mt) * bn
+
+
+#: the 3xTF32 engine's tile rows and columns, k depth of a stage (one
+#: 128-byte swizzle row of f32) and stages of its ring
+#: (``csrc/fused_moe_bwd_tf32.cu``)
+TF32_M, TF32_N, TF32_K, TF32_STAGES = 128, 128, 32, 4
+
+
+def tf32_cols(C: int) -> int:
+    """The tile columns of the 3xTF32 engine's launches (1) and (2), whose
+    N is C: 64 for C <= 64, else ``TF32_N`` (launches (3) and (4) take
+    ``TF32_N``)."""
+    return 64 if C <= 64 else TF32_N
+
+
+def tf32_ld(C: int) -> int:
+    """The row length, in values, of the 3xTF32 engine's C-wide arrays (g^T,
+    u^T, dg^T, du^T, dy^T): C rounded up to 4, so that a row is a 16-byte
+    multiple, as TMA addresses it."""
+    return -(-C // 4) * 4
+
+
+class Tf32Launch(NamedTuple):
+    name: str  # "gate_up", "dh", "dw" or "dx"
+    products: tuple  # each product's (M, N, K, K segments), out = A B
+    layout: str  # A's major-ness: "K" (K contiguous) or "M" (MN-major); B is K-major
+    tile: tuple  # (rows, columns) of an output tile
+    tiles: tuple  # each product's (row tiles, column tiles) an expert
+    tiles_e: int  # tiles an expert: the walk covers E * tiles_e
+    ctas: int  # the grid: min(SMs, live tiles), each CTA persistent
+    stages: int  # shared-memory stages of the ring the K tiles stream through
+    smem: int  # dynamic shared bytes a CTA
+
+
+def tf32_plan(E: int, C: int, D: int, F: int, sms: int = 132) -> tuple[Tf32Launch, ...]:
+    """The 3xTF32 engine's four product launches in order, as
+    ``csrc/fused_moe_bwd_tf32.cu`` launches them (after dy's transposing
+    copy): the products of ``bwd_launch_plan``, each written so that its B
+    lies K-major: (1) g^T = Wg^T x^T, u^T = Wu^T x^T and (2) dh^T = Wd dy^T
+    (F x C, K = D); (3) dWd = h^T dy, dWg = x^T dg, dWu = x^T du (K = C);
+    (4) dx over two K segments of F. A is MN-major except Wd in (2). A CTA
+    walks the tiles ``t = cta, cta + ctas, ...`` of the flat walk
+    ``tf32_walk`` decodes."""
+    if min(E, C, D, F, sms) <= 0:
+        raise ValueError(f"fused_moe backward: shapes E={E} C={C} D={D} F={F}, {sms} SMs")
+    out = []
+    for name, products, layout, bn in (
+        ("gate_up", ((F, C, D, 1), (F, C, D, 1)), "M", tf32_cols(C)),
+        ("dh", ((F, C, D, 1),), "K", tf32_cols(C)),
+        ("dw", ((F, D, C, 1), (D, F, C, 1), (D, F, C, 1)), "M", TF32_N),
+        ("dx", ((C, D, F, 2),), "M", TF32_N),
+    ):
+        tiles = tuple((-(-m // TF32_M), -(-n // bn)) for m, n, *_ in products)
+        tiles_e = sum(mt * nt for mt, nt in tiles)
+        # alignment slack, the ring (A, B and B's lo a stage), its full, split and empty barriers
+        smem = 1024 + TF32_STAGES * (TF32_M + 2 * bn) * TF32_K * 4 + 3 * TF32_STAGES * 8
+        out.append(Tf32Launch(name, products, layout, (TF32_M, bn), tiles, tiles_e,
+                              min(sms, E * tiles_e), TF32_STAGES, smem))
+    return tuple(out)
+
+
+def tf32_walk(launch: Tf32Launch, E: int, cta: int):
+    """The tiles CTA ``cta`` of ``launch`` computes, in order, as
+    ``(expert, product, first row, first column)``: the flat walk of
+    ``wgmma_walk`` over this launch's tiles (``tile_of`` in the source)."""
+    return _walk(launch, launch.tile, E, cta)
 
 
 #: the forward wgmma engine's stages of the ring, its B columns a stage and
@@ -334,6 +421,17 @@ def wgmma_library() -> ctypes.CDLL:
     lib.fused_moe_backward_wgmma.restype = ctypes.c_int
     lib.fused_moe_bwd_wgmma_smem_bytes.argtypes = [ctypes.c_int]
     lib.fused_moe_bwd_wgmma_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def tf32_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the 3xTF32 engine."""
+    lib = load_cuda_library("fused_moe_bwd_tf32", TF32_SOURCES)
+    lib.fused_moe_backward_tf32.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.fused_moe_backward_tf32.restype = ctypes.c_int
+    lib.fused_moe_bwd_tf32_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fused_moe_bwd_tf32_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -477,18 +575,30 @@ def fused_moe_bwd_cuda(
     output gradient ``dy``, in x's type, on the engine ``bwd_engine`` picks."""
     ts = (x, w_gate, w_up, w_down, dy)
     E, C, D, F = _check("fused_moe_bwd_cuda", ts)
-    if bwd_engine(x.dtype, D, F, all(t.data_ptr() % 16 == 0 for t in ts)) == "wgmma":
+    engine = bwd_engine(x.dtype, D, F, all(t.data_ptr() % 16 == 0 for t in ts))
+    if engine == "wgmma":
         return fused_moe_bwd_wgmma_cuda(*ts)
+    if engine == "wgmma_tf32":
+        return fused_moe_bwd_tf32_cuda(*ts)
     return fused_moe_bwd_mma_sync_cuda(*ts)
 
 
-def _workspaces(name, ts):
-    """The shapes, the gradients and the f32 g, u and typed h, dg, du
-    workspaces of a backward call."""
+def _workspaces(name, ts, tf32=False):
+    """The shapes, the gradients and the workspaces of a backward call: f32
+    g, u and typed h, dg, du (E, C, F); for the 3xTF32 engine (``tf32``)
+    f32 g^T, u^T (E, F, Cp), h (E, C, F), dg^T, du^T (E, F, Cp) and dy^T
+    (E, D, Cp), Cp = ``tf32_ld(C)``."""
     x = ts[0]
     E, C, D, F = _check(name, ts)
     grads = tuple(torch.empty_like(t) for t in ts[:4])
     f32 = dict(dtype=torch.float32, device=x.device)
+    if tf32:
+        cp = tf32_ld(C)
+        work = (*(torch.empty((E, F, cp), **f32) for _ in range(2)),
+                torch.empty((E, C, F), **f32),
+                *(torch.empty((E, F, cp), **f32) for _ in range(2)),
+                torch.empty((E, D, cp), **f32))
+        return (E, C, D, F), grads, work
     work = (torch.empty((E, C, F), **f32), torch.empty((E, C, F), **f32),
             *(torch.empty((E, C, F), dtype=x.dtype, device=x.device) for _ in range(3)))
     return (E, C, D, F), grads, work
@@ -523,6 +633,38 @@ def fused_moe_bwd_wgmma_cuda(x, w_gate, w_up, w_down, dy):
     if err != 0:
         raise RuntimeError(f"fused_moe_bwd_wgmma_cuda: launch failed with cudaError {err}")
     bwd_wgmma_launches += 1
+    return grads
+
+
+def fused_moe_bwd_tf32_cuda(x, w_gate, w_up, w_down, dy):
+    """The backward on the 3xTF32 wgmma engine (``csrc/fused_moe_bwd_tf32.cu``):
+    f32 whose rows and bases are 16-byte multiples; raises otherwise."""
+    global bwd_tf32_launches
+    ts = (x, w_gate, w_up, w_down, dy)
+    (E, C, D, F), grads, work = _workspaces("fused_moe_bwd_tf32_cuda", ts, tf32=True)
+    if bwd_engine(x.dtype, D, F, all(t.data_ptr() % 16 == 0 for t in (*ts, *grads, *work))) \
+            != "wgmma_tf32":
+        raise ValueError(f"fused_moe_bwd_tf32_cuda: {x.dtype} with D={D}, F={F} or a base "
+                         f"that is not a 16-byte multiple")
+    if x.numel() == 0 or F == 0:
+        return tuple(g.zero_() for g in grads)
+    lib = tf32_library()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for i, launch in enumerate(tf32_plan(E, C, D, F, sms)):
+        if lib.fused_moe_bwd_tf32_smem_bytes(i, C) != launch.smem or launch.smem > SMEM_LIMIT:
+            raise RuntimeError(f"fused_moe_bwd_tf32_cuda: {launch.name} takes "
+                               f"{lib.fused_moe_bwd_tf32_smem_bytes(i, C)} shared bytes, the "
+                               f"plan {launch.smem}, the limit {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_moe_backward_tf32(*(t.data_ptr() for t in (*ts, *work, *grads)),
+                                          E, C, D, F, sms, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"fused_moe_bwd_tf32_cuda: a tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"fused_moe_bwd_tf32_cuda: launch failed with cudaError {err}")
+    bwd_tf32_launches += 1
     return grads
 
 

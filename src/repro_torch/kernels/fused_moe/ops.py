@@ -9,8 +9,9 @@ the same call on each rank's experts (and rows) through ``kernels.on_shards``.
 On CUDA tensors that autograd records, the call is a
 ``torch.autograd.Function`` whose backward is the CUDA backward kernel
 (``kernel.fused_moe_bwd_cuda``: the wgmma engine for bf16 with 16-byte rows,
-the mma.sync engine otherwise), which recomputes g and u; on CPU tensors
-autograd differentiates the plain version."""
+the 3xTF32 wgmma engine for f32 with 16-byte rows, the mma.sync engine
+otherwise), which recomputes g and u; on CPU tensors autograd
+differentiates the plain version."""
 from __future__ import annotations
 
 from functools import partial

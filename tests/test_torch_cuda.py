@@ -955,34 +955,101 @@ def test_flash_attention_trains_at_head_dim_80(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_moe_trains_on_the_card(dev, dtype):
     """``fused_moe`` under grad runs the backward engine ``bwd_engine``
-    picks (bf16 with 16-byte rows: the wgmma engine; f32, and the ragged
-    36/44-wide bf16 rows: the mma.sync engine): the gradients of x and the
-    three weights equal ``fused_moe_bwd_ref``'s, on a ragged shape too, and
+    picks (bf16 with 16-byte rows: the wgmma engine; f32 with 16-byte rows,
+    36/44 wide too: the 3xTF32 wgmma engine; the 37/45-wide rows, and the
+    36/44-wide bf16 ones: the mma.sync engine): the gradients of x and the
+    three weights equal ``fused_moe_bwd_ref``'s, on ragged shapes too, and
     a rerun gives the same bits."""
     from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
 
     rng = np.random.default_rng(0)
-    for E, C, D, F in ((2, 64, 48, 96), (3, 20, 36, 44)):
+    for E, C, D, F in ((2, 64, 48, 96), (3, 20, 36, 44), (3, 20, 37, 45)):
         x = _randn(rng, (E, C, D), dtype, dev).requires_grad_()
         ws = [_randn(rng, s, dtype, dev, 0.2).requires_grad_()
               for s in ((E, D, F), (E, D, F), (E, F, D))]
         dy = _randn(rng, (E, C, D), dtype, dev)
-        wgmma = moe_kernel.bwd_engine(dtype, D, F) == "wgmma"
-        assert wgmma == (dtype == torch.bfloat16 and D == 48)
-        # the forward runs on the engine fwd_engine picks: the same rule here
+        engine = moe_kernel.bwd_engine(dtype, D, F)
+        assert engine == ("mma_sync" if D % 4 or (dtype == torch.bfloat16 and D != 48)
+                          else "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32")
+        # the forward runs on the engine fwd_engine picks: the wgmma one for bf16 here
         fwd = moe_kernel.fwd_engine(dtype, C, D, F) == "wgmma"
-        assert fwd == wgmma
+        assert fwd == (engine == "wgmma")
         counts = lambda: (moe_kernel.launches, moe_kernel.wgmma_launches,  # noqa: E731
-                          moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches)
-        n0, f0, b0, w0 = counts()
+                          moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches,
+                          moe_kernel.bwd_tf32_launches)
+        n0, f0, b0, w0, t0 = counts()
         got = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
         again = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
-        assert counts() == (n0 + 2 * (not fwd), f0 + 2 * fwd, b0 + 2 * (not wgmma),
-                            w0 + 2 * wgmma)
+        assert counts() == (n0 + 2 * (not fwd), f0 + 2 * fwd, b0 + 2 * (engine == "mma_sync"),
+                            w0 + 2 * (engine == "wgmma"), t0 + 2 * (engine == "wgmma_tf32"))
         want = fused_moe_bwd_ref(x.detach(), *(w.detach() for w in ws), dy)
         for name, a, b, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, want):
             assert a.dtype == dtype and torch.equal(a, b)
             _rel_close(a, r, dtype, name)
+
+
+#: f32 shapes whose rows are 16-byte multiples: ragged M, N and K (none a
+#: tile multiple), C 20 and 1 (rows padded to 4 values), one expert, and
+#: arctic-480b's expert width (40 rows)
+TF32_SHAPES = [(2, 64, 48, 96), (3, 20, 36, 44), (3, 200, 520, 776), (1, 1, 8, 8),
+               (2, 40, 7168, 4864)]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+def test_fused_moe_bwd_tf32_matches_plain_and_mma_sync(dev, shape):
+    """The 3xTF32 wgmma engine (``csrc/fused_moe_bwd_tf32.cu``): each
+    gradient within f32 2e-5 of max|ref| of ``fused_moe_bwd_ref`` run in
+    float64 (plain TF32 would be about 1e-3 off) and of the mma.sync
+    engine's on the same inputs, bit-equal on a rerun; ``fused_moe_bwd_cuda``
+    picks it, its count moves by one a call and the other engines' not at
+    all; each launch's shared bytes are the library's."""
+    from repro_torch.kernels.fused_moe.ref import fused_moe_bwd_ref
+
+    E, C, D, F = shape
+    f32 = torch.float32
+    rng = np.random.default_rng(6)
+    x, dy = _randn(rng, (E, C, D), f32, dev), _randn(rng, (E, C, D), f32, dev)
+    ws = [_randn(rng, s, f32, dev, s[1] ** -0.5) for s in ((E, D, F), (E, D, F), (E, F, D))]
+    assert moe_kernel.bwd_engine(f32, D, F) == "wgmma_tf32"
+    counts = lambda: (moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches,  # noqa: E731
+                      moe_kernel.bwd_tf32_launches)
+    b0, w0, t0 = counts()
+    got = moe_kernel.fused_moe_bwd_cuda(x, *ws, dy)
+    again = moe_kernel.fused_moe_bwd_tf32_cuda(x, *ws, dy)
+    assert counts() == (b0, w0, t0 + 2)
+    old = moe_kernel.fused_moe_bwd_mma_sync_cuda(x, *ws, dy)
+    want = fused_moe_bwd_ref(*(t.double() for t in (x, *ws, dy)))
+    for name, a, b, o, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, old, want):
+        assert a.dtype == f32 and torch.equal(a, b), name
+        _rel_close(a, r, f32, name)
+        _rel_close(a, o, f32, name + " against the mma.sync engine")
+    lib = moe_kernel.tf32_library()
+    for i, launch in enumerate(moe_kernel.tf32_plan(E, C, D, F)):
+        assert lib.fused_moe_bwd_tf32_smem_bytes(i, C) == launch.smem <= moe_kernel.SMEM_LIMIT
+
+
+def test_fused_moe_bwd_tf32_refuses_what_tma_cannot_address(dev):
+    """f32 rows that are not 16-byte multiples (D 37, F 45) and a base off
+    16 bytes are not the 3xTF32 engine's: it raises, and
+    ``fused_moe_bwd_cuda`` takes the mma.sync engine for them."""
+    rng = np.random.default_rng(7)
+    f32 = torch.float32
+
+    def offset(t):  # the same values at a base 4 bytes past a 16-byte boundary
+        out = torch.empty(t.numel() + 1, dtype=f32, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    for D, F, shift in ((37, 45, False), (48, 96, True)):
+        x, dy = _randn(rng, (2, 8, D), f32, dev), _randn(rng, (2, 8, D), f32, dev)
+        ws = [_randn(rng, s, f32, dev, 0.2) for s in ((2, D, F), (2, D, F), (2, F, D))]
+        if shift:
+            x = offset(x)
+            assert x.is_contiguous() and x.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            moe_kernel.fused_moe_bwd_tf32_cuda(x, *ws, dy)
+        b0, t0 = moe_kernel.bwd_launches, moe_kernel.bwd_tf32_launches
+        moe_kernel.fused_moe_bwd_cuda(x, *ws, dy)
+        assert (moe_kernel.bwd_launches, moe_kernel.bwd_tf32_launches) == (b0 + 1, t0)
 
 
 #: bf16 shapes whose rows are 16-byte multiples: ragged M, N and K (none a
@@ -1109,17 +1176,19 @@ def test_fused_moe_fwd_wgmma_refuses_what_it_does_not_take(dev):
 
 def test_fused_moe_bwd_wgmma_refuses_what_tma_cannot_address(dev):
     """f32, and bf16 rows that are not 16-byte multiples, are not the wgmma
-    engine's: it raises, and ``fused_moe_bwd_cuda`` takes the mma.sync
-    engine for them."""
+    engine's: it raises, and ``fused_moe_bwd_cuda`` takes the engine
+    ``bwd_engine`` picks for them (f32 with 16-byte rows: the 3xTF32 wgmma
+    engine; the bf16 rows: the mma.sync engine)."""
     rng = np.random.default_rng(2)
-    for dtype, D, F in ((torch.float32, 48, 96), (torch.bfloat16, 36, 44)):
+    for dtype, D, F, count in ((torch.float32, 48, 96, "bwd_tf32_launches"),
+                               (torch.bfloat16, 36, 44, "bwd_launches")):
         x, dy = _randn(rng, (2, 8, D), dtype, dev), _randn(rng, (2, 8, D), dtype, dev)
         ws = [_randn(rng, s, dtype, dev, 0.2) for s in ((2, D, F), (2, D, F), (2, F, D))]
         with pytest.raises(ValueError, match="16-byte"):
             moe_kernel.fused_moe_bwd_wgmma_cuda(x, *ws, dy)
-        b0 = moe_kernel.bwd_launches
+        b0 = getattr(moe_kernel, count)
         moe_kernel.fused_moe_bwd_cuda(x, *ws, dy)
-        assert moe_kernel.bwd_launches == b0 + 1
+        assert getattr(moe_kernel, count) == b0 + 1
 
 
 def test_scaled_mm_raises_under_grad(dev):

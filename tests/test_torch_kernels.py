@@ -701,17 +701,94 @@ def test_fused_moe_wgmma_walk_covers_every_tile_once(shape, sms):
 
 def test_fused_moe_bwd_engine_follows_type_and_strides():
     """bf16 whose rows (D and F values) and bases are 16-byte multiples
-    takes the wgmma engine; f32, other rows and other bases take the
-    mma.sync engine."""
+    takes the wgmma engine; f32 whose rows and bases are takes the 3xTF32
+    wgmma engine (D and F multiples of 4: 36 and 44 too); other rows and
+    other bases take the mma.sync engine."""
     engine = moe_kernel.bwd_engine
     assert engine(torch.bfloat16, 6144, 10752) == "wgmma"
     assert engine(torch.bfloat16, 7168, 4864) == "wgmma"
     assert engine(torch.bfloat16, 8, 8) == "wgmma"
-    assert engine(torch.float32, 6144, 10752) == "mma_sync"
+    assert engine(torch.float32, 6144, 10752) == "wgmma_tf32"
+    assert engine(torch.float32, 7168, 4864) == "wgmma_tf32"
+    assert engine(torch.float32, 36, 44) == "wgmma_tf32"
+    assert engine(torch.float32, 8, 8) == "wgmma_tf32"
+    assert engine(torch.float32, 37, 45) == "mma_sync"
+    assert engine(torch.float32, 36, 45) == "mma_sync"
+    assert engine(torch.float32, 6144, 10752, aligned=False) == "mma_sync"
+    assert engine(torch.float32, 36, 44, aligned=False) == "mma_sync"
     assert engine(torch.bfloat16, 36, 44) == "mma_sync"
     assert engine(torch.bfloat16, 6144, 10756) == "mma_sync"
     assert engine(torch.bfloat16, 6144, 10752, aligned=False) == "mma_sync"
     assert engine(torch.float16, 6144, 10752) == "mma_sync"
+
+
+#: the 3xTF32 engine's shapes: the backward cases' (ragged M, N and K, C 1
+#: and 20), the tuner's f32 workload, dbrx-132b's and arctic-480b's widths
+#: (640 and 40 rows an expert), and C on each side of the column steps
+TF32_PLAN_SHAPES = [(16, 256, 6144, 10752), (16, 640, 6144, 10752), (2, 40, 7168, 4864),
+                    (2, 64, 48, 96), (3, 20, 36, 44), (3, 200, 520, 776), (1, 1, 8, 8),
+                    (8, 129, 136, 264), (2, 65, 40, 48), (2, 128, 40, 48)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("shape", TF32_PLAN_SHAPES)
+def test_fused_moe_tf32_walk_covers_every_tile_once(shape, sms):
+    """The 3xTF32 engine's four launches: the mma.sync engine's products,
+    with gate_up's and dh's written transposed (F x C: each B then lies
+    K-major), A MN-major but for Wd in dh; across the persistent CTAs of a
+    launch (as many as SMs, never more than live tiles) the walk visits
+    every 128-row output tile of every product of every expert exactly once,
+    and the tiles cover each product's M x N output; the products come to
+    16 E C D F operations."""
+    E, C, D, F = shape
+    plan = moe_kernel.tf32_plan(E, C, D, F, sms)
+    assert [k.name for k in plan] == ["gate_up", "dh", "dw", "dx"]
+    mma = moe_kernel.bwd_launch_plan(E, C, D, F, torch.float32)
+    flip = {"gate_up", "dh"}
+    assert [k.products for k in plan] == [
+        tuple((n, m, kk, s) for m, n, kk, s in k.products) if k.name in flip else k.products
+        for k in mma]
+    assert [k.layout for k in plan] == ["M", "K", "M", "M"]
+    ops = 0
+    for k in plan:
+        bm, bn = k.tile
+        assert bm == moe_kernel.TF32_M and bn == (moe_kernel.tf32_cols(C) if k.name in flip
+                                                  else moe_kernel.TF32_N)
+        tiles = {(e, p, mt, nt) for e in range(E) for p, (M, N, *_) in enumerate(k.products)
+                 for mt in range(-(-M // bm)) for nt in range(-(-N // bn))}
+        assert k.tiles_e * E == len(tiles) and k.ctas == min(sms, len(tiles))
+        walked = [(e, p, m0 // bm, n0 // bn) for cta in range(k.ctas)
+                  for e, p, m0, n0 in moe_kernel.tf32_walk(k, E, cta)]
+        assert len(walked) == len(tiles) and set(walked) == tiles
+        for e, p, mt, nt in walked:
+            M, N = k.products[p][:2]
+            assert mt * bm < M and nt * bn < N
+        ops += sum(2 * E * M * N * K * seg for M, N, K, seg in k.products)
+    assert ops == 16 * E * C * D * F
+
+
+@pytest.mark.parametrize("C", [1, 20, 40, 64, 65, 128, 129, 256, 640])
+def test_fused_moe_tf32_shared_bytes_fit(C):
+    """Each launch's shared bytes (the library's ``Cfg<BN>::BYTES``): 1 KB
+    of alignment slack, a ring of four stages each holding A (128 rows x
+    32 k), B and B's lo (columns x 32 k) in f32, and three barriers a
+    stage; 64 columns for gate_up and dh at C <= 64, else 128; within
+    ``SMEM_LIMIT``."""
+    for k in moe_kernel.tf32_plan(2, C, 6144, 10752):
+        bn = k.tile[1]
+        assert bn == (64 if C <= 64 and k.name in ("gate_up", "dh") else 128)
+        assert k.stages == 4
+        assert k.smem == 1024 + k.stages * (128 + 2 * bn) * 32 * 4 + 24 * k.stages
+        assert k.smem <= moe_kernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("C", [*range(1, 41), 64, 127, 256, 257, 640, 641])
+def test_fused_moe_tf32_transposed_rows_are_16_byte_multiples(C):
+    """The 3xTF32 engine's C-wide arrays (g^T, u^T, dg^T, du^T and the copy
+    dy^T) keep rows of ``tf32_ld(C)`` f32 values: a 16-byte multiple, as TMA
+    addresses it, for every C, padded by fewer than 4 values."""
+    ld = moe_kernel.tf32_ld(C)
+    assert ld * 4 % 16 == 0 and C <= ld < C + 4
 
 
 #: the forward wgmma engine's shapes and knobs: dbrx-132b's decode tick,
