@@ -6,17 +6,19 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the CUDA sources (flash attention's two forward and two
-   backward engines, fused MoE's two forward and three backward engines,
+   backward engines, fused MoE's three forward and three backward engines,
    scaled_mm) with nvcc, one
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
    fused MoE's mma.sync, wgmma and 3xTF32 wgmma engines; flash attention's
-   wgmma backward at head dim 128 and fused MoE's 3xTF32 engine with no
-   spill) and of the two forward wgmma engines (flash attention's forward
-   and backward wgmma engines with no C7515 note that ptxas serialized
-   wgmma instructions, fused MoE's 3xTF32 engine with no C7515, C7519 or
-   C7520 note; each library's notes are logged), the launch plans,
+   wgmma backward at head dim 128 and fused MoE's 3xTF32 engines with no
+   spill) and of the forward wgmma engines (flash attention's at head dims
+   80, 128 and 256 with no spill); flash attention's forward and backward
+   wgmma engines and fused MoE's two 3xTF32 engines with no C7515 note
+   (ptxas serialized wgmma instructions) and no C7519 or C7520 note (it
+   injected a ``warpgroup.arrive``); each library's notes are logged; the
+   launch plans,
    and each wgmma engine's SASS
    instruction counts (HGMMA, TMA loads and stores, mbarrier waits, all
    asserted present; the forward engines store no tile by TMA) are logged;
@@ -26,13 +28,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference's kernel tolerances; full-width f32 MoE sums relative to
    max|ref|; bf16 attention at the main shapes also row by row, within
    2e-2 of each row's max|ref| plus one ulp); flash attention on the
-   engine ``fwd_engine`` picks (bf16 at head dims 128 and 256: the wgmma
-   engine, its lse against ``lse_ref`` too, then the mma.sync engine on
-   the same inputs), at the lattice's block corners (bf16, the main
+   engine ``fwd_engine`` picks (bf16 at head dims 80, 128 and 256: the
+   wgmma engine, its lse against ``lse_ref`` too, then the mma.sync engine
+   on the same inputs), at the lattice's block corners (bf16, the main
    shape) with its launched grid, and rows that see no key; fused MoE and
    scaled_mm at every
    config the tuner's prefilter passes on its default workloads (fused MoE
-   also in bf16), flash attention and silu_mul at every config it passes
+   also in bf16; f32 with 16-byte rows on the 3xTF32 wgmma engine, held
+   also to the plain version run in float64, within 1e-5 of max|ref|, and
+   to the mma.sync engine; the reference's 150-wide F blocks on the
+   mma.sync engine), flash attention and silu_mul at every config it passes
    on their qwen3-0.6b workloads, and fused MoE and scaled_mm at dbrx-132b
    width (scaled_mm also with 32-deep steps, and at shapes it stages byte
    by byte); fused MoE in bf16 at dbrx-132b's serving shapes, through the
@@ -56,7 +61,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    130) with each mask alone, with rows that see no key, a group of 6,
    dbrx-132b's training shape (B1 S2048 48/8 heads of 128) and gemma2-2b's
    unmasked at B1 S4096, each also held to the mma.sync engine's
-   gradients; the mma.sync engine's main path is f32), query offsets (a rank's
+   gradients; the mma.sync engine's main path is f32; bf16 at head dim 80
+   reads the lse of the wgmma forward's head-dim-80 instance), query
+   offsets (a rank's
    block of rows: forward and backward on both engines, f32 and bf16), the
    reference's kernel test shapes (causal and not, a window, a softcap,
    GQA, rows that see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
@@ -96,18 +103,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    call's time where one exists (timed here only; the port never calls it)
    and the least time the card could take (its bound); flash attention's
    forward (bf16) on its wgmma engine and on its mma.sync engine on the
-   same inputs, in turns, at the main shape beside SDPA and at gemma2-2b's
+   same inputs, in turns, at the main shape beside SDPA, at gemma2-2b's
    prefill shape (no library call: SDPA takes no softcap; the wgmma
    engine causal only beside SDPA as a logged yardstick, and at other
-   blocks); fused MoE in bf16 at
+   blocks) and at stablelm-3b's bf16 prefill (B1 S2048 32/32 heads of 80)
+   beside SDPA; fused MoE in bf16 at
    dbrx-132b's 1024-token prefill (the wgmma engine's JSON row) and decode
    serving shapes, at the tuner's dbrx-132b workload (f32, bounded as
-   3xTF32: the mma.sync engine's JSON row; and bf16) and at phase 10 (e)'s
-   640 rows, each bf16 shape also on the mma.sync engine in turns on the
-   same inputs, with each wgmma launch under the profiler beside its own
-   bound; the mma.sync forward at a shape it runs, stablelm-3b's bf16
-   prefill (B1 S2048 32/32 heads of 80) beside SDPA (its in-turns time at
-   the main shape is logged); silu_mul also at phase 4's prompt lengths,
+   3xTF32: the 3xTF32 engine's JSON row, and the mma.sync engine's from
+   its turns on the same inputs; and bf16) and at phase 10 (e)'s 640 rows
+   (bf16, and f32 logged), each shape also on the mma.sync engine in turns
+   on the same inputs, with each wgmma and 3xTF32 launch under the
+   profiler beside its own bound; the mma.sync forward at a shape it runs,
+   whisper-base's bf16 encoder (B1 S1500 8/8 heads of 64) beside SDPA (its
+   in-turns times at the main shape and stablelm's are logged); silu_mul
+   also at phase 4's prompt lengths,
    scaled_mm also at the tuner's default workload beside
    ``torch._int_mm``; the three backward kernels at qwen3-0.6b's training
    shapes, beside their plain backward formulas and the backward of
@@ -138,11 +148,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16 parameter cast takes, which the engines do once, not every step;
 7. the tuner, the second main path: ``repro_torch.tune.tune`` ranks
    configs with the roofline predictor for a registry TPU and times the
-   top 4 and the default on the card: fused MoE and scaled_mm at the
-   tuner's default workloads and at dbrx-132b width, flash attention and
-   silu_mul at their qwen3-0.6b workloads; every measured config's
-   launched grid must equal its ``grid_shape`` and the launch counts must
-   move by exactly (1 + repeats) per measured config;
+   top 4 and the default on the card: fused MoE (f32: its 3xTF32 wgmma
+   engine, never the mma.sync one) and scaled_mm at the tuner's default
+   workloads and at dbrx-132b width, flash attention and silu_mul at their
+   qwen3-0.6b workloads; every measured config's launched grid must equal
+   its ``grid_shape`` and the launch counts must move by exactly (1 +
+   repeats) per measured config;
 8. the trained predictor (the paper's §IV-D estimator): the six kernel
    families' datasets from ``hwsim`` (220 workloads each, fixed seeds), the
    PipeWeave MLPs trained on the card (rows, epochs, steps, wall-clock and
@@ -172,8 +183,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. training, the third main path: (a) qwen3-0.6b, stablelm-3b (head
    dim 80) and gemma2-2b (head dim 256) at full width cut to 2 layers (B2
    S256, gemma2 B1 S256) and dbrx-132b cut to 1 layer (B1 S128, gradients
-   only), f32, one loss and every gradient
-   leaf on the card (kernels and backward kernels) against the CPU (plain
+   only; fused MoE's f32 forward on its 3xTF32 engine), f32, one loss and
+   every gradient leaf on the card (kernels and backward kernels) against
+   the CPU (plain
    versions, autograd) on the same weights: the loss within 1e-5 relative,
    each leaf within 1e-4 of its max|g|, every leaf's gradient present and
    non-zero; (b) full-depth
@@ -249,11 +261,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line (fourteen entries: the five
-kernels, flash attention's and fused MoE's forward wgmma engines, and the
-backwards of rmsnorm, silu_mul, flash attention's two engines and fused
-MoE's three; fused MoE's mma.sync backward, which no model path reaches,
-has 0 launches and its calls in phases 2 and 5 as ``parity_launches``),
+It prints one ``{"kernels": [...]}`` line (fifteen entries: the five
+kernels, flash attention's and fused MoE's forward wgmma engines, fused
+MoE's 3xTF32 forward, and the backwards of rmsnorm, silu_mul, flash
+attention's two engines and fused MoE's three; fused MoE's mma.sync
+forward and backward, which no model path reaches, have 0 launches and
+their calls in phases 2 and 5 as ``parity_launches``),
 the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -279,6 +292,9 @@ MODEL_TOL = 1e-4
 # another order on the card than in cuBLAS; the gap measured on an H100 is
 # about 5e-6 of max|ref|
 MOE_F32_TOL = 1e-4
+# of max|float64 ref|: fused MoE's 3xTF32 forward, whose split products are
+# exact to f32's rounding and whose stages add into an IEEE f32 total
+TF32_F64_TOL = 1e-5
 SMM_TOL = 1e-2
 
 
@@ -339,15 +355,22 @@ class EngineCount:
         setattr(self.mod, self.attr, value)
 
 
-def moe_fwd_wgmma(cfg):
-    """Whether ``cfg``'s fused MoE forward runs on the wgmma engine: what
-    ``fwd_engine`` gives its compute type and expert widths (at any rows)."""
+#: the count (a key of ``main``'s ``kinds``) of each fused MoE forward engine
+MOE_FWD_COUNT = {"wgmma": "fused_moe_wgmma", "wgmma_tf32": "fused_moe_tf32",
+                 "mma_sync": "fused_moe"}
+
+
+def moe_fwd_engine(cfg):
+    """The engine ``cfg``'s fused MoE forward runs on: what ``fwd_engine``
+    gives its compute type and expert widths (at any rows) at the default
+    block_f; None for a model without one."""
     import torch
 
     from repro_torch.kernels.fused_moe.kernel import fwd_engine
 
-    return cfg.family == "moe" and fwd_engine(getattr(torch, cfg.compute_dtype), 1, cfg.d_model,
-                                              cfg.moe_hidden) == "wgmma"
+    if cfg.family != "moe":
+        return None
+    return fwd_engine(getattr(torch, cfg.compute_dtype), 1, cfg.d_model, cfg.moe_hidden)
 
 
 def fa_fwd_wgmma(cfg):
@@ -364,12 +387,16 @@ def fa_fwd_wgmma(cfg):
 def on_engines(cfg, counts):
     """``counts``, whose fused MoE and flash attention forward calls stand
     under ``fused_moe`` and ``flash_attention``, with those calls under the
-    engine that runs them for ``cfg`` (``moe_fwd_wgmma``, ``fa_fwd_wgmma``):
-    the mma.sync engine's name or the wgmma engine's (``..._wgmma``)."""
+    engine that runs them for ``cfg`` (``moe_fwd_engine``, ``fa_fwd_wgmma``):
+    the mma.sync engine's name, the wgmma engine's (``..._wgmma``) or fused
+    MoE's 3xTF32 engine's (``fused_moe_tf32``)."""
     out = dict(counts)
-    for name, wgmma in (("fused_moe", moe_fwd_wgmma(cfg)), ("flash_attention", fa_fwd_wgmma(cfg))):
-        n = counts.get(name, 0)
-        out[name], out[name + "_wgmma"] = n * (not wgmma), n * wgmma
+    n = counts.get("fused_moe", 0)
+    engine = moe_fwd_engine(cfg) or "mma_sync"
+    for name in MOE_FWD_COUNT.values():
+        out[name] = n * (name == MOE_FWD_COUNT[engine])
+    n, wgmma = counts.get("flash_attention", 0), fa_fwd_wgmma(cfg)
+    out["flash_attention"], out["flash_attention_wgmma"] = n * (not wgmma), n * wgmma
     return out
 
 
@@ -411,14 +438,15 @@ def main():
     peaks = card_peaks(name)
     kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k, "fused_moe": moe_k,
              "fused_moe_wgmma": EngineCount(moe_k, "wgmma_launches"),
+             "fused_moe_tf32": EngineCount(moe_k, "tf32_launches"),
              "flash_attention_wgmma": EngineCount(fa_k, "wgmma_launches")}
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(10) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(11) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.fwd_wgmma_library, fa_k.bwd_library,
                                            fa_k.wgmma_library, moe_k.library,
-                                           moe_k.fwd_wgmma_library,
+                                           moe_k.fwd_wgmma_library, moe_k.fwd_tf32_library,
                                            moe_k.bwd_library, moe_k.wgmma_library,
                                            moe_k.tf32_library, smm_k.library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
@@ -434,12 +462,16 @@ def main():
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    compared = moe_k.bwd_launches  # the mma.sync backward's, which no model path reaches
+    # the mma.sync engines of fused MoE's forward and backward, which no
+    # model path reaches: their calls in phases 2 and 5
+    off_counts = {"fused_moe": EngineCount(moe_k, "launches"),
+                  "fused_moe_bwd": EngineCount(moe_k, "bwd_launches")}
+    compared = {k: -c.launches for k, c in off_counts.items()}
     max_err = kernel_parity(torch, dev)
     max_err.update(tuner_kernel_parity(torch, dev))
     moe_serving_parity(torch, dev, max_err)
     max_err.update(backward_parity(torch, dev))
-    compared = moe_k.bwd_launches - compared
+    compared = {k: v + off_counts[k].launches for k, v in compared.items()}
     log(f"[2 kernel parity] passed in {time.perf_counter() - t0:.1f}s; "
         f"max abs err at main-path shapes: {max_err}")
 
@@ -460,10 +492,10 @@ def main():
     gc.collect()  # phase 4's engines, in reference cycles: fused MoE's plain backward needs 28 GB
     torch.cuda.empty_cache()
     log(f"  held on the card before phase 5: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    timed = {k: c.launches for k, c in off_counts.items()}  # phase 4 set fused_moe's to 0
     rows = kernel_times(torch, dev, peaks)
-    timed = moe_k.bwd_launches
     rows.update(backward_times(torch, dev, peaks))
-    compared += moe_k.bwd_launches - timed
+    compared = {k: v + off_counts[k].launches - timed[k] for k, v in compared.items()}
     log(f"[5 kernel times] done in {time.perf_counter() - t0:.1f}s")
 
     # ---------------------------------------------------------------- 6
@@ -481,6 +513,7 @@ def main():
     t0 = time.perf_counter()
     tuned = tuner(torch, dev)
     launches["scaled_mm"] = tuned["scaled_mm"]  # the tuner is scaled_mm's main path
+    launches["fused_moe_tf32"] += tuned["fused_moe_tf32"]  # and f32 fused MoE's
     log(f"[7 tuner] passed in {time.perf_counter() - t0:.1f}s; launches {tuned}")
 
     # ---------------------------------------------------------------- 8
@@ -540,6 +573,8 @@ def main():
                       "src/repro/kernels/fused_moe/kernel.py:27"),
         "fused_moe_wgmma": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_wgmma.cu",
                             "src/repro/kernels/fused_moe/kernel.py:27"),
+        "fused_moe_tf32": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_tf32.cu",
+                           "src/repro/kernels/fused_moe/kernel.py:27"),
         "scaled_mm": ("cuda", "src/repro_torch/kernels/scaled_mm/csrc/scaled_mm.cu",
                       "src/repro/kernels/scaled_mm/kernel.py:20"),
         # the backwards of the kernels training runs through; the TPU kernels
@@ -564,23 +599,23 @@ def main():
             "cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd_tf32.cu",
             "src/repro/kernels/fused_moe/kernel.py:27"),
     }
-    # fused_moe's mma.sync backward serves only rows and bases that TMA
+    # fused_moe's mma.sync engines serve only rows and bases that TMA
     # cannot address (f32 D or F off a multiple of 4, bf16 off 8), which no
-    # model config has: since the 3xTF32 engine took phase 10 (a)'s f32
-    # gradients no model path reaches it. Its main-path launches are 0; the
-    # calls of phases 2 and 5, where it is held against its plain version
-    # and timed, go in a field of their own
-    off_path = ("fused_moe_bwd",)
+    # model config has: since the 3xTF32 engines took f32 (the backward in
+    # PR 30, the forward since) no model path reaches them. Their main-path
+    # launches are 0; the calls of phases 2 and 5, where they are held
+    # against their plain versions and timed, go in a field of their own
+    off_path = tuple(off_counts)
     assert not any(launches.get(k) for k in off_path), f"a model path reached {off_path}"
     idle = [k for k in sources if not launches.get(k) and k not in off_path]
     assert not idle, f"kernels the main paths never launched: {idle}"
-    assert compared, "phases 2 and 5 never launched fused_moe_bwd"
+    assert all(compared.values()), f"phases 2 and 5 never launched one of {compared}"
     kernels = []
     for k, (route, source, replaces) in sources.items():
         kernels.append({
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches.get(k, 0), "max_abs_err": max_err[k], **rows[k],
-            **({"parity_launches": compared} if k in off_path else {}),
+            **({"parity_launches": compared[k]} if k in off_path else {}),
         })
     log(f"[done] phases 1-13 in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -631,10 +666,13 @@ def ptxas_report(fa_k, moe_k=None):
     (``-Xptxas -v``) of flash attention's backward and forward wgmma engine
     and of fused MoE's, each held to at most 1 KB of spill stores (the
     backward wgmma engine's head-dim-128 kernels to none); where ptxas
-    serialized a library's wgmma (its C7515 note), the count of such notes,
-    which flash attention's forward and backward wgmma engines must not
-    have; and the geometry ``bwd_launch_plan`` and ``bwd_wgmma_plan`` give
-    at qwen3-0.6b's and gemma2-2b's training shapes."""
+    serialized a library's wgmma or injected a ``warpgroup.arrive`` (its
+    C7515, C7519 and C7520 notes), the count of such notes, which flash
+    attention's forward and backward wgmma engines and fused MoE's two
+    3xTF32 engines must not have; and the geometry ``bwd_launch_plan`` and
+    ``bwd_wgmma_plan`` give at qwen3-0.6b's and gemma2-2b's training
+    shapes, ``fwd_wgmma_plan`` at the forward's main shapes (stablelm-3b's
+    head dim 80 too) and ``tf32_fwd_plan`` at the tuner's f32 workload."""
     import re
 
     import torch
@@ -648,22 +686,21 @@ def ptxas_report(fa_k, moe_k=None):
         logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
                  ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES),
                  ("fused_moe_bwd_tf32", moe_k.TF32_SOURCES),
-                 ("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES)]
+                 ("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES),
+                 ("fused_moe_tf32", moe_k.FWD_TF32_SOURCES)]
     for lib, sources in logs:
         kernel = None
         notes = serialization_notes(lib, sources)
-        assert not (notes["C7515"] and lib in ("flash_attention_wgmma",
-                                               "flash_attention_bwd_wgmma")), (
-            f"{lib}: wgmma serialized")
-        assert not (any(notes.values()) and lib == "fused_moe_bwd_tf32"), (
-            f"{lib}: wgmma serialized")
+        assert not (any(notes.values()) and lib in (
+            "flash_attention_wgmma", "flash_attention_bwd_wgmma", "fused_moe_bwd_tf32",
+            "fused_moe_tf32")), f"{lib}: ptxas serialized its wgmma or injected arrives: {notes}"
         for line in build_log(lib, sources).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 # the Itanium mangling keeps each name and template argument readable
                 name = re.search(r"((?:fa_bwd_\w+?_kernel)|fa_bwd_dq_wgmma|fa_bwd_dkdv_wgmma|"
                                  r"fa_fwd_wgmma|moe_bwd_gemm|moe_bwd_wgmma|moe_bwd_tf32|"
-                                 r"moe_fwd_wgmma)"
+                                 r"moe_fwd_wgmma|moe_fwd_tf32)"
                                  r"(?:I(.*?)EEv)?",
                                  m.group(1))
                 if not name:
@@ -678,7 +715,7 @@ def ptxas_report(fa_k, moe_k=None):
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 assert spill is None or int(spill.group(1)) <= 1024, f"{kernel} spills: {line}"
                 assert spill is None or not re.match(
-                    r"fa_bwd_\w+_wgmma<128\b|moe_bwd_tf32", kernel) or (
+                    r"fa_bwd_\w+_wgmma<128\b|moe_bwd_tf32|moe_fwd_tf32|fa_fwd_wgmma", kernel) or (
                     int(spill.group(1)) == 0), f"{kernel} spills: {line}"
     for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
         log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
@@ -691,7 +728,8 @@ def ptxas_report(fa_k, moe_k=None):
                 f"ring slots {kern.stages}, {kern.warpgroups} consumer warpgroups, "
                 f"{kern.smem} shared bytes")
     wgmma_sass("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)
-    for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4608, 4608, 8, 4))):
+    for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4608, 4608, 8, 4)),
+                     (80, (1, 2048, 2048, 32, 32))):
         p = fa_k.fwd_wgmma_plan(*shape, D)
         log(f"  forward plan (wgmma), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} bf16: grid "
             f"{p.grid}, {p.block_q} q rows a CTA in sub-blocks of {p.sub_rows}, steps of "
@@ -717,6 +755,11 @@ def ptxas_report(fa_k, moe_k=None):
                 f"tiles {kern.tile}, {kern.tiles_e} an expert, {kern.ctas} persistent CTAs, "
                 f"K {kern.k}, {kern.stages} stages, {kern.smem} shared bytes")
         wgmma_sass("fused_moe_wgmma", moe_k.FWD_WGMMA_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
+        for kern in moe_k.tf32_fwd_plan(16, 256, 6144, 10752):
+            log(f"  fused_moe forward plan (3xTF32 wgmma), E16 C256 D6144 F10752 f32: {kern.name} "
+                f"(M, N, K) {kern.products}, tiles {kern.tile}, {kern.tiles_e} an expert, "
+                f"{kern.ctas} persistent CTAs, {kern.stages} stages, {kern.smem} shared bytes")
+        wgmma_sass("fused_moe_tf32", moe_k.FWD_TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
 
 
 # ======================================================================
@@ -877,23 +920,29 @@ def tuner_kernel_parity(torch, dev):
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err = {"fused_moe": 0.0, "fused_moe_wgmma": 0.0, "scaled_mm": 0.0}
+    max_err = {"fused_moe": 0.0, "fused_moe_wgmma": 0.0, "fused_moe_tf32": 0.0, "scaled_mm": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
     def moe(label, kw, blocks, args, rel_tol=None, main=False):
         """One launch against the plain version: within the reference's
-        tolerances, or within ``rel_tol`` of max|ref| where given; on the
-        wgmma engine (``fwd_engine``) also within bf16 2e-2 of max|ref| of
-        the mma.sync engine's output on the same inputs."""
+        tolerances, or within ``rel_tol`` of max|ref| where given; on a
+        wgmma engine (``fwd_engine``) also against the mma.sync engine's
+        output on the same inputs (bf16 2e-2, f32 2e-5 of max|ref|), and on
+        the 3xTF32 one against the plain version run in float64 (1e-5 of
+        max|ref|). The mma.sync engine's error at the main shapes is its
+        own, from that run."""
         E, C, D, F = (kw[k] for k in "ECDF")
-        wgmma = moe_k.fwd_engine(args[0].dtype, C, D, F,
-                                 block_f=blocks.get("block_f", 256)) == "wgmma"
-        kname = "fused_moe_wgmma" if wgmma else "fused_moe"
-        w0 = moe_k.wgmma_launches
+        engine = moe_k.fwd_engine(args[0].dtype, C, D, F, block_f=blocks.get("block_f", 256))
+        kname = MOE_FWD_COUNT[engine]
+        counts = {e: getattr(moe_k, a) for e, a in (("wgmma", "wgmma_launches"),
+                                                    ("wgmma_tf32", "tf32_launches"),
+                                                    ("mma_sync", "launches"))}
         out = moe_k.fused_moe_cuda(*args, **blocks)
-        assert moe_k.wgmma_launches == w0 + wgmma, label
+        assert all(getattr(moe_k, a) == counts[e] + (e == engine)
+                   for e, a in (("wgmma", "wgmma_launches"), ("wgmma_tf32", "tf32_launches"),
+                                ("mma_sync", "launches"))), (label, engine)
         assert moe_k.last_grid == moe_ops.grid_shape(**kw, **blocks), (label, moe_k.last_grid)
         same_after_poison(torch, kname, label,
                           lambda: moe_k.fused_moe_cuda(*args, **blocks), out)
@@ -902,12 +951,23 @@ def tuner_kernel_parity(torch, dev):
         assert out.dtype == args[0].dtype and bool(torch.isfinite(out).all()), label
         err = float((out.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
-        if wgmma:
-            gap = float((out.float() - moe_k.fused_moe_mma_sync_cuda(*args, **blocks).float())
-                        .abs().max())
-            log(f"  {label}: wgmma engine, {gap / scale:.3g} of max|ref| from the mma.sync "
-                f"engine's output (tol {BF16_TOL})")
-            assert gap <= BF16_TOL * scale, f"{label}: wgmma and mma.sync engines disagree"
+        if engine != "mma_sync":
+            old = moe_k.fused_moe_mma_sync_cuda(*args, **blocks)
+            gap = float((out.float() - old.float()).abs().max())
+            tol = F32_TOL if engine == "wgmma_tf32" else BF16_TOL
+            log(f"  {label}: {engine} engine, {gap / scale:.3g} of max|ref| from the mma.sync "
+                f"engine's output (tol {tol})")
+            assert gap <= tol * scale, f"{label}: {engine} and mma.sync engines disagree"
+            if main and engine == "wgmma_tf32":
+                max_err["fused_moe"] = max(max_err["fused_moe"],
+                                           float((old - ref).abs().max()))
+            del old
+        if engine == "wgmma_tf32":
+            exact = fused_moe_ref(*(a.double() for a in args))
+            e64 = float((out.double() - exact).abs().max()) / float(exact.abs().max())
+            log(f"  {label}: {e64:.3g} of max|float64 ref| (tol {TF32_F64_TOL})")
+            assert e64 <= TF32_F64_TOL, f"{label}: the 3xTF32 engine is off float64"
+            del exact
         if rel_tol is None:
             tol = F32_TOL if out.dtype == f32 else BF16_TOL
             torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol,
@@ -1172,7 +1232,11 @@ def backward_parity(torch, dev):
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in [(*c, 0) for c in [
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, True),
-        (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),  # stablelm-3b training
+        # stablelm-3b's training shape: bf16 reads the lse of the wgmma
+        # forward's head-dim-80 instance (the mma.sync backward at 80), also
+        # ragged and with a window and a softcap
+        (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),
+        (2, 130, 130, 4, 2, 80, True, 64, 50.0, bf16, False),
         (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
         (2, 96, 96, 4, 2, 80, True, 64, None, f32, False),  # queue C's head dim 80 case
         (1, 64, 64, 2, 2, 16, True, None, None, f32, False),  # the reference's cases
@@ -1548,11 +1612,12 @@ def serve(torch, dev, params, kinds):
     torch.cuda.empty_cache()
     # dbrx's bf16 serving runs fused MoE's forward on the wgmma engine, its
     # decode ticks too, and both models' prefill attention (head dim 128) runs
-    # flash attention's wgmma engine (the mma.sync engines take f32: phases 3
-    # and 10 (a); flash attention's also head dims 64 and 80: phase 9)
-    assert all(v > 0 for k, v in totals.items() if k not in ("fused_moe", "flash_attention")), (
-        totals)
-    assert totals["fused_moe"] == totals["flash_attention"] == 0, totals
+    # flash attention's wgmma engine (f32 goes to fused MoE's 3xTF32 engine
+    # and flash attention's mma.sync one: phases 3 and 10 (a); flash
+    # attention's head dim 64 to mma.sync too: phase 9)
+    idle = ("fused_moe", "fused_moe_tf32", "flash_attention")
+    assert all(v > 0 for k, v in totals.items() if k not in idle), totals
+    assert not any(totals[k] for k in idle), totals
     assert bool(finite), "non-finite logits on the serving path"
     return totals
 
@@ -1837,9 +1902,10 @@ def kernel_times(torch, dev, peaks):
     log(f"  flash_attention causal work: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; wgmma "
         f"{flops / w['ms'] / 1e9:.1f} TFLOP/s")
     del q, k, v, qt, kt, vt
-    # the mma.sync engine's row at a shape it runs: stablelm-3b's bf16
-    # prefill, B=1, S=2048, 32/32 heads of 80, causal (its in-turns time at
-    # the main shape above stays as a logged row)
+    # stablelm-3b's bf16 prefill, B=1, S=2048, 32/32 heads of 80, causal:
+    # the wgmma engine's head-dim-80 instance in turns with the mma.sync
+    # engine, beside SDPA (the main shape's in-turns mma.sync time stays as
+    # a logged row)
     rows["flash_attention (main shape, D128, in turns)"] = rows.pop("flash_attention")
     B, S, Hq, Hkv, D = 1, 2048, 32, 32, 80
     q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
@@ -1847,12 +1913,29 @@ def kernel_times(torch, dev, peaks):
     flops = 4 * D * pairs
     nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    row("flash_attention", lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, causal=True),
-        lambda a, b, c: attention_ref(a, b, c, causal=True),
-        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True),
-         [(qt, kt, vt)]), [(q, k, v)], 20, *bound(peaks, nbytes, flops, "bfloat16"))
+    w = fa_engines(" (stablelm-3b prefill, D80)", dict(causal=True), [(q, k, v)],
+                   lambda a, b, c: attention_ref(a, b, c, causal=True), (sdpa, [(qt, kt, vt)]),
+                   bound(peaks, nbytes, flops, "bfloat16"))
+    log(f"  flash_attention at stablelm-3b's prefill, B1 S2048 32/32x80 causal bf16: "
+        f"{flops / 1e9:.2f} GFLOP; wgmma {w['ms']:.4f} ms, {flops / w['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{w['bound_ms'] / w['ms']:.4f} of the bound, {w['ms'] / w['library_ms']:.2f}x SDPA's "
+        f"{w['library_ms']:.4f}")
+    del q, k, v, qt, kt, vt
+    # the mma.sync engine's row at a shape it runs: whisper-base's encoder,
+    # bf16, B=1, 1500 frames, 8/8 heads of 64, no mask (phase 9 serves it)
+    B, S, Hq, Hkv, D = 1, 1500, 8, 8, 64
+    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    flops = 4 * D * B * Hq * S * S
+    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    assert fa_k.fwd_engine(bf16, D) == "mma_sync"
+    row("flash_attention",
+        lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, causal=False),
+        lambda a, b, c: attention_ref(a, b, c, causal=False),
+        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c), [(qt, kt, vt)]), [(q, k, v)],
+        40, *bound(peaks, nbytes, flops, "bfloat16"))
     r = rows["flash_attention"]
-    log(f"  flash_attention (mma.sync) at stablelm-3b's prefill, B1 S2048 32/32x80 causal bf16: "
+    log(f"  flash_attention (mma.sync) at whisper-base's encoder, B1 S1500 8/8x64 bf16: "
         f"{r['ms']:.4f} ms, {flops / 1e9:.2f} GFLOP, {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
         f"{r['bound_ms'] / r['ms']:.4f} of the bound, SDPA {r['library_ms']:.4f}")
     del q, k, v, qt, kt, vt
@@ -1893,12 +1976,12 @@ def kernel_times(torch, dev, peaks):
     # as served: a 1024-token prefill (groups of 512, 256 rows a group: 512
     # rows an expert: the wgmma engine's JSON row) and a decode tick of 4
     # slots (4 rows an expert), rows from the model's dispatch_geometry; the
-    # tuner's dbrx workload (C256), f32 (its inputs: the mma.sync engine's
-    # JSON row) and bf16; and the training layer of phase 10 (e) (2048
-    # tokens: 640 rows an expert). Library yardstick: three bmm's with silu
-    # * mul.
-    # Where the wgmma engine serves a shape, the mma.sync engine is timed on
-    # the same inputs in turns (wgmma, mma.sync, mma.sync, wgmma).
+    # tuner's dbrx workload (C256), f32 (its inputs: the 3xTF32 engine's
+    # JSON row, and the mma.sync engine's from its turns on the same inputs)
+    # and bf16; and the training layer of phase 10 (e) (2048 tokens: 640
+    # rows an expert), bf16 and f32. Library yardstick: three bmm's with
+    # silu * mul. On every shape the mma.sync engine is timed on the same
+    # inputs in turns (wgmma or 3xTF32, mma.sync, mma.sync, wgmma or 3xTF32).
     from repro_torch.kernels.fused_moe import kernel as moe_k
 
     dbrx = get_arch("dbrx-132b")
@@ -1918,15 +2001,17 @@ def kernel_times(torch, dev, peaks):
     C_tune = arch_workload("fused_moe", "dbrx-132b")["C"]
     for kname, C, dt, iters in (("fused_moe_wgmma", rows_of(1024), bf16, 4),
                                 ("fused_moe decode tick", rows_of(4), bf16, 8),
-                                ("fused_moe", C_tune, f32, 2),
+                                ("fused_moe_tf32", C_tune, f32, 2),
                                 ("fused_moe bf16 tuner", C_tune, bf16, 2),
-                                ("fused_moe training layer", rows_of(2048, train=True), bf16, 2)):
+                                ("fused_moe training layer", rows_of(2048, train=True), bf16, 2),
+                                ("fused_moe_tf32 training rows", rows_of(2048, train=True), f32,
+                                 2)):
         args = (randn(E, C, D, dtype=dt), randn(E, D, Fm, scale=D ** -0.5, dtype=dt),
                 randn(E, D, Fm, scale=D ** -0.5, dtype=dt), randn(E, Fm, D, scale=Fm ** -0.5, dtype=dt))
         nbytes = args[0].element_size() * (2 * E * C * D + 3 * E * D * Fm)
         flops = 6 * E * C * D * Fm
         engine = moe_k.fwd_engine(dt, C, D, Fm)
-        assert engine == ("mma_sync" if dt == f32 else "wgmma"), (kname, C, engine)
+        assert engine == ("wgmma_tf32" if dt == f32 else "wgmma"), (kname, C, engine)
         row(kname, fused_moe_cuda, fused_moe_ref, (bmm_moe, [args]), [args], iters,
             *(bound(peaks, nbytes, 3 * flops, "tf32") if dt == f32
               else bound(peaks, nbytes, flops, "bfloat16")))
@@ -1936,26 +2021,25 @@ def kernel_times(torch, dev, peaks):
             fma_ms, fma_by = bound(peaks, nbytes, flops, "float32")
             log(f"  {kname}: bound {rows[kname]['bound_ms']:.4f} ms as 3xTF32 (the row's), "
                 f"{fma_ms:.4f} ms by {fma_by} on the f32 FMA units")
+        turns = [rows[kname]["ms"]]
+        mma = [cuda_ms(torch, moe_k.fused_moe_mma_sync_cuda, [args], iters) for _ in range(2)]
+        turns += [t for t, _ in mma]
+        turns.append(cuda_ms(torch, fused_moe_cuda, [args], iters)[0])
+        r = rows[kname]
+        if dt == f32:  # each engine's ms the mean of its two turns
+            r["ms"] = (turns[0] + turns[3]) / 2
+            if kname == "fused_moe_tf32":  # the mma.sync engine's row: the same inputs
+                rows["fused_moe"] = dict(r, ms=(turns[1] + turns[2]) / 2)
+                eager["fused_moe"] = mma[0][1]
+        log(f"  {kname} in turns: {engine} {turns[0]:.4f}, mma.sync {turns[1]:.4f}, mma.sync "
+            f"{turns[2]:.4f}, {engine} {turns[3]:.4f} ms (mma.sync "
+            f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f}x); "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound, "
+            f"{r['ms'] / r['library_ms']:.2f}x the library's {r['library_ms']:.4f} ms")
         if engine == "wgmma":
-            turns = [rows[kname]["ms"]]
-            turns += [cuda_ms(torch, moe_k.fused_moe_mma_sync_cuda, [args], iters)[0]
-                      for _ in range(2)]
-            turns.append(cuda_ms(torch, fused_moe_cuda, [args], iters)[0])
-            r = rows[kname]
-            log(f"  {kname} in turns: wgmma {turns[0]:.4f}, mma.sync {turns[1]:.4f}, mma.sync "
-                f"{turns[2]:.4f}, wgmma {turns[3]:.4f} ms (mma.sync "
-                f"{(turns[1] + turns[2]) / (turns[0] + turns[3]):.2f}x); "
-                f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the bound, "
-                f"{r['ms'] / r['library_ms']:.2f}x the library's {r['library_ms']:.4f} ms")
             fwd_launch_times(torch, peaks, args)
         else:
-            # the split between its two launches, from the profiler's kernel
-            # times (a launch a call each: a count below 1 means the
-            # profiler lost events, and the split is not to be read)
-            split = profiled(torch, lambda: fused_moe_cuda(*args), 2)["top"]
-            log(f"  {kname} launches, ms a call: " + "; ".join(
-                f"{name.replace('void (anonymous namespace)::', '')[:40]} x{n:g} {ms:.3f} ms"
-                for name, n, ms in split))
+            tf32_fwd_launch_times(torch, moe_k, peaks, args)
         del args
         torch.cuda.empty_cache()
 
@@ -2101,6 +2185,42 @@ def tf32_launch_times(torch, moe_k, peaks, args):
             f"{launch.tile}): {ms:.4f} ms, bound {b:.4f} (operations, 3xTF32), {b / ms:.4f} "
             f"of it; its own products at the TF32 peak {b / 3 / ms:.4f}")
     log(f"  fused_moe_bwd_tf32: the five launches {total:.4f} ms under the profiler")
+
+
+def tf32_fwd_launch_times(torch, moe_k, peaks, args, block_m=128, block_f=256):
+    """Each launch of fused MoE's 3xTF32 forward at these f32 inputs (gate,
+    up, down, each its own kernel instance): its device ms under
+    ``torch.profiler`` (the mean of 3 calls) beside the bound of its product
+    run three times at the TF32 peak."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w_gate = args[0], args[1]
+    E, C, D = x.shape
+    F_ = w_gate.shape[2]
+    kw = dict(block_m=block_m, block_f=block_f)
+    moe_k.fused_moe_tf32_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            moe_k.fused_moe_tf32_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    times = {e.key: e.device_time_total / 1e3 / e.count for e in prof.key_averages()
+             if "moe_fwd_tf32" in e.key and e.device_time_total > 0}
+    assert len(times) == 3, f"fused_moe_tf32: the profiler saw {sorted(times)}"
+    total = 0.0
+    for i, launch in enumerate(moe_k.tf32_fwd_plan(E, C, D, F_, block_m, block_f)):
+        # the instance's first template argument is the launch (0-2)
+        ms = sum(v for k, v in times.items()
+                 if re.search(rf"moe_fwd_tf32(?:<{i}, \d+>|ILi{i}ELi\d+E)", k))
+        M, N, K = launch.products
+        b = 1e3 * 3 * 2 * E * M * N * K / peaks["tf32"]
+        total += ms
+        log(f"  fused_moe_tf32 launch {launch.name} (tile {launch.tile}, {launch.ctas} CTAs): "
+            f"{ms:.4f} ms, bound {b:.4f} (operations, 3xTF32), {b / ms:.4f} of it; its own "
+            f"product at the TF32 peak {b / 3 / ms:.4f}")
+    log(f"  fused_moe_tf32: the three launches {total:.4f} ms under the profiler")
 
 
 def fa_launch_times(torch, fa_k, peaks, args, kw, pairs):
@@ -2584,18 +2704,25 @@ def tuner(torch, dev):
 
     hw = REGISTRY["tpu-v4"]
     predictor = get_predictor("roofline", hw)
-    kernels = {"fused_moe": (moe_k, moe_ops), "scaled_mm": (smm_k, smm_ops),
-               "flash_attention": (fa_k, fa_ops), "silu_mul": (silu_k, silu_ops)}
+    # each kernel's module, ops and the count of the engine its f32 inputs
+    # take (fused MoE's: the 3xTF32 engine, asserted below)
+    kernels = {"fused_moe": (moe_k, moe_ops, "tf32_launches"),
+               "scaled_mm": (smm_k, smm_ops, "launches"),
+               "flash_attention": (fa_k, fa_ops, "launches"),
+               "silu_mul": (silu_k, silu_ops, "launches")}
     runs = [(k, kw) for k in ("fused_moe", "scaled_mm")
             for kw in (DEFAULT_WORKLOADS[k], arch_workload(k, "dbrx-132b"))]
     runs += [(k, arch_workload(k, "qwen3-0.6b")) for k in ("flash_attention", "silu_mul")]
     repeats = 3
     inputs = [make_inputs(k, kw, device="cuda") for k, kw in runs]  # the tuner's inputs
     torch.cuda.synchronize()
-    for mod, _ in kernels.values():
-        mod.launches = 0
+    for mod, _, count in kernels.values():
+        setattr(mod, count, 0)
+    moe_k.launches = 0  # fused MoE's mma.sync engine, which the tuner must not reach
     for (kernel, kw), args in zip(runs, inputs):
-        mod, ops = kernels[kernel]
+        mod, ops, count = kernels[kernel]
+        if kernel == "fused_moe":
+            assert moe_k.fwd_engine(args[0].dtype, kw["C"], kw["D"], kw["F"]) == "wgmma_tf32"
         grids = []
 
         def timed(kernel, kw, blocks, *, args=None, repeats, device, _args=args, _mod=mod):
@@ -2603,7 +2730,7 @@ def tuner(torch, dev):
             grids.append((dict(blocks), _mod.last_grid))
             return s
 
-        before = mod.launches
+        before = getattr(mod, count)
         t0 = time.perf_counter()
         report = tune(kernel, hw, workload=kw, predictor=predictor, predictor_name="roofline",
                       top_k=4, repeats=repeats, device="cuda", measure_fn=timed)
@@ -2612,7 +2739,7 @@ def tuner(torch, dev):
             log("  " + line)
         distinct = {tuple(sorted(c.blocks.items())) for c in report.measured}
         distinct.add(tuple(sorted(report.default_blocks.items())))
-        moved = mod.launches - before
+        moved = getattr(mod, count) - before
         assert moved == (1 + repeats) * len(distinct) == (1 + repeats) * len(grids), (
             f"{kernel} {kw}: {moved} launches for {len(distinct)} configs")
         for blocks, grid in grids:
@@ -2626,11 +2753,12 @@ def tuner(torch, dev):
             f"picked {report.best.blocks} {report.best.measured_s * 1e3:.4f} ms")
     del inputs
     torch.cuda.empty_cache()
-    launches = {k: mod.launches for k, (mod, _) in kernels.items()}
+    launches = {k: getattr(mod, count) for k, (mod, _, count) in kernels.items()}
     assert all(v > 0 for v in launches.values()), launches
-    log(f"    launches in the tuner's runs: {launches}")
+    assert moe_k.launches == 0, "the tuner's f32 fused MoE reached the mma.sync engine"
+    log(f"    launches in the tuner's runs: {launches} (fused_moe's on its 3xTF32 engine)")
     # the JSON line's counts: the tuner is the main path of these two
-    return {k: launches[k] for k in ("fused_moe", "scaled_mm")}
+    return {"fused_moe_tf32": launches["fused_moe"], "scaled_mm": launches["scaled_mm"]}
 
 
 # ======================================================================
@@ -2826,6 +2954,7 @@ def kernel_counts(zero=False):
         counters[name] = (mod, "launches")
         counters[name + "_bwd"] = (mod, "bwd_launches")
     counters["fused_moe_wgmma"] = (moe_k, "wgmma_launches")
+    counters["fused_moe_tf32"] = (moe_k, "tf32_launches")
     counters["fused_moe_bwd_wgmma"] = (moe_k, "bwd_wgmma_launches")
     counters["fused_moe_bwd_tf32"] = (moe_k, "bwd_tf32_launches")
     counters["flash_attention_bwd_wgmma"] = (fa_k, "bwd_wgmma_launches")
@@ -2842,7 +2971,7 @@ def training_launches(cfg):
     and again in the backward pass), the final norm once; each backward
     once. An MoE layer's FFN is one fused_moe call (and a silu_mul one for
     a dense residual FFN), whose forward runs on the engine ``fwd_engine``
-    picks for the compute type and widths (``moe_fwd_wgmma``) and whose
+    picks for the compute type and widths (``moe_fwd_engine``) and whose
     backward on the engine ``bwd_engine`` picks; flash attention's
     forward and backward run on the engines its ``fwd_engine`` and
     ``bwd_engine`` pick for the compute type and head dim."""
@@ -2859,7 +2988,7 @@ def training_launches(cfg):
     moe = cfg.family == "moe"
     dense = n if not moe or cfg.dense_residual else 0
     engine = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model, cfg.moe_hidden)
-    fwd = moe_fwd_wgmma(cfg)
+    fwd = moe_fwd_engine(cfg)
     fa_wgmma = fa_k.bwd_engine(getattr(torch, cfg.compute_dtype),
                                cfg.resolved_head_dim) == "wgmma"
     fa_fwd = fa_fwd_wgmma(cfg)
@@ -2869,7 +2998,7 @@ def training_launches(cfg):
             "flash_attention_wgmma": twice * n * fa_fwd,
             "flash_attention_bwd": n * (not fa_wgmma),
             "flash_attention_bwd_wgmma": n * fa_wgmma,
-            "fused_moe": twice * n * moe * (not fwd), "fused_moe_wgmma": twice * n * fwd,
+            **{name: twice * n * (fwd == e) for e, name in MOE_FWD_COUNT.items()},
             "fused_moe_bwd": n * moe * (engine == "mma_sync"),
             "fused_moe_bwd_wgmma": n * moe * (engine == "wgmma"),
             "fused_moe_bwd_tf32": n * moe * (engine == "wgmma_tf32")}
@@ -3442,8 +3571,9 @@ def mesh_path(torch, dev, kinds, smi):
                         m.launches = 0
                     loss1 = float(api.loss(placed, batch)[0].full_tensor())
                 moved1 = {k: m.launches for k, m in kinds.items()}
-            assert moved1 == moved0 and (moved1["fused_moe"], moved1["fused_moe_wgmma"]) == (
-                (0, 1) if moe_fwd_wgmma(cfg) else (1, 0)), (moved1, moved0)
+            assert moved1 == moved0 and all(
+                moved1[name] == (e == moe_fwd_engine(cfg)) for e, name in MOE_FWD_COUNT.items()), (
+                moved1, moved0)
             for k, v in moved1.items():
                 totals[k] += v
             rel = abs(loss1 - loss0) / abs(loss0)

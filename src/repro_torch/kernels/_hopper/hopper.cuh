@@ -436,6 +436,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// as wgmma_m64n256k16_rs, N = 80 (40 values a thread): flash attention's
+// P V at head dim 80, its N crossing from one 64-column box of B into the next
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // d (64 x 256, f32: 128 values a thread) = A (64 x 16, bf16, from registers:
 // a[0..3] hold this thread's pairs in the layout of a 64 x 16 f32
 // accumulator fragment, rows + 0 / + 8 and columns + 0 / + 8) B (16 x 256,
@@ -520,6 +540,72 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ------------------------------------------------------------ 3xTF32
+
+// 3xTF32 on wgmma (fused MoE's f32 engines): a b = a_hi b_hi + a_lo b_hi +
+// a_hi b_lo, with hi the top 19 bits of the f32 word (its tf32 truncation,
+// which is how the tensor cores read an f32 word given as tf32) and lo = x -
+// hi exactly. A stage is 32 k deep: one 128-byte swizzle row of f32.
+constexpr uint32_t kTf32Hi = 0xffffe000u;  // tf32's 19 bits of an f32 word
+constexpr int kTf32BoxMN = 32 * 32 * 4;    // an MN-major A box: 32 k-rows of 32 values
+
+__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+// four 8 x 4 f32 matrices (8 x 8 of b16): lane l gives the address of row l
+// % 8 of matrix l / 8; r[i] is this lane's word (row lane / 4, column lane %
+// 4) of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+// 16 bytes of f32 words' lo parts: x - hi, exact
+__device__ __forceinline__ uint4 tf32_lo(uint4 v) {
+  uint4 l;
+  l.x = __float_as_uint(__uint_as_float(v.x) - __uint_as_float(v.x & kTf32Hi));
+  l.y = __float_as_uint(__uint_as_float(v.y) - __uint_as_float(v.y & kTf32Hi));
+  l.z = __float_as_uint(__uint_as_float(v.z) - __uint_as_float(v.z & kTf32Hi));
+  l.w = __float_as_uint(__uint_as_float(v.w) - __uint_as_float(v.w & kTf32Hi));
+  return l;
+}
+
+// This thread's A fragments of a 32-deep stage, split: for the k8 step kk,
+// a[kk][i] holds row r0 + lane / 4 + 8 (i % 2), k 8 kk + lane % 4 + 4 (i /
+// 2) of the landed tile at sa (r0: the warp's first row of the tile).
+// K-major A is 128 rows of 128 bytes; MN-major A four boxes of 32 columns
+// (rows of A) by 32 k; both 128-byte swizzled (16-byte chunk c of row r at
+// c ^ (r % 8)). Each fragment is pinned where it is made.
+template <bool A_MN>
+__device__ __forceinline__ void load_a_tf32(uint32_t sa, int r0, int lane, uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (A_MN) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = r0 + lane / 4 + 8 * (i % 2), k = 8 * kk + lane % 4 + 4 * (i / 2);
+        hi[kk][i] = ld_shared_b32(sa + (m / 32) * kTf32BoxMN + k * 128 +
+                                  ((((m % 32) / 4) ^ (k % 8)) * 16) + (m % 4) * 4);
+      }
+    } else {
+      const int q = lane / 8, m = r0 + 8 * (q % 2) + lane % 8, chunk = 2 * kk + q / 2;
+      ldmatrix_x4(hi[kk], sa + m * 128 + ((chunk ^ (m % 8)) * 16));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t x = hi[kk][i];
+      hi[kk][i] = x & kTf32Hi;
+      lo[kk][i] = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi[kk][i]));
+      fence_operand(hi[kk][i]);
+      fence_operand(lo[kk][i]);
+    }
+  }
 }
 
 // ------------------------------------------------------------ host side

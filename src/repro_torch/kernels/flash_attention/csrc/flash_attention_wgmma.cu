@@ -1,5 +1,5 @@
-// Flash attention forward at head dims 128 and 256 on Hopper, bf16, on wgmma
-// fed by TMA. It computes what flash_attention.cu computes (the reference's
+// Flash attention forward at head dims 80, 128 and 256 on Hopper, bf16, on
+// wgmma fed by TMA. It computes what flash_attention.cu computes (the reference's
 // `_fa_kernel` of src/repro/kernels/flash_attention/kernel.py): FA2
 // online-softmax attention with GQA (q head h reads kv head h / (Hq / Hkv)),
 // the causal, sliding-window and tanh-softcap masks, f32 running max, sum and
@@ -16,7 +16,10 @@
 // What bounds it on an H100 SXM: operations. At the serving path's main
 // shape (B4 S2048, 16 q / 8 kv heads of 128, causal) the mask keeps 134.3 M
 // pairs, 68.7 GFLOP of QK^T and PV: 0.0695 ms at the 989 TFLOP/s bf16 peak
-// against 0.010 ms for its 33.6 MB. At gemma2-2b's prefill (B1 S4608, 8 / 4
+// against 0.010 ms for its 33.6 MB. At stablelm-3b's prefill (B1 S2048, 32
+// heads of 80, causal) the mask keeps 67.1 M pairs, 21.5 GFLOP: 0.0217 ms;
+// there the exponent comes close to the products, one ex2 a pair at 16 a
+// clock an SM, about 0.017 ms at 1.83 GHz. At gemma2-2b's prefill (B1 S4608, 8 / 4
 // heads of 256, causal, window 4096, softcap 50) 86 GFLOP: 0.087 ms; there
 // the softcap's tanh adds two special-function results a pair to the
 // exponent's one, about 0.065 ms of the SFU's 16 results a clock an SM,
@@ -33,9 +36,15 @@
 // rounded to bf16 once) and V MN-major through the descriptor's transpose
 // bit. D 128: tiles of BN = 128 keys, m64n128k16 for both products, O and S
 // 64 f32 registers a thread each. D 256: tiles of BN = 64 keys (O is already
-// 128 registers a thread), m64n64k16 for S and m64n256k16 for PV. K and V
-// tiles stream through a two-stage ring with their own full and empty
-// mbarriers (160 KB of shared memory at D 128, 193 KB at D 256).
+// 128 registers a thread), m64n64k16 for S and m64n256k16 for PV. D 80: a
+// row of 160 bytes takes two boxes, the second's columns 80-127 filled with
+// zeros by TMA (the map's bounds are 80 columns) and never read by a
+// product: S walks 5 k steps of 16 (the fifth in the second box), PV is one
+// m64n80k16 whose N crosses from the first box into the second's first 16
+// columns. Tiles of BN = 128 keys as at D 128; O is 40 registers a thread.
+// K and V tiles stream through a two-stage ring with their own full and
+// empty mbarriers (160 KB of shared memory at D 80 and 128, 193 KB at D
+// 256).
 //
 // Knobs and walk. The CUDA grid is (B Hq, ceil(S / bq)): a CTA owns bq =
 // min(block_q, S) q rows and walks them in sub-blocks of 128 (rows of a
@@ -53,7 +62,17 @@
 // behind it, O += P_{j-1} V_{j-1}, then does tile j's softmax while the PV
 // product runs; O takes tile j's correction once that product is done. The
 // two consumers take turns issuing (named barriers 1 and 2, ping-pong), so
-// one warpgroup's softmax runs under the other's products.
+// one warpgroup's softmax runs under the other's products. At D 80 the two
+// are nearly equal: a tile's two products are 2.6 MFLOP a warpgroup, 0.35 us
+// of an SM's share of the bf16 peak, and its 8192 exponents take 0.28 us of
+// the SM's special-function unit, so while one consumer's products run the
+// other's exponents do; neither waits long for the other's turn.
+//
+// ptxas injects a warpgroup.arrive (its C7519 note) where a product is
+// issued on one path only, or where the compiler sinks the packing of a
+// register-A fragment past the fence of the product that reads it: the
+// first tile of a sub-block, which has no P V behind its S, takes an
+// instance of its own, and P is pinned where it is packed (fence_all).
 //
 // Scores, in log2 units: x = s scale log2 e, or under a softcap c, c log2 e
 // tanh(s scale / c) with tanh(y) = 1 - 2 / (e^2y + 1) on the special-function
@@ -67,6 +86,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -91,11 +112,12 @@ constexpr float LN2 = 0.6931471805599453f;
 // stage)
 template <int D>
 struct Geo {
-  static constexpr int BN = D == 128 ? 128 : 64;
+  static constexpr int BN = D == 256 ? 64 : 128;
+  static constexpr int NB = (D + 63) / 64;           // boxes of 64 columns a row
   static constexpr int QBOX = 64 * 128;              // 64 q rows x 64 columns
   static constexpr int KBOX = BN * 128;              // BN keys x 64 columns
-  static constexpr int Q_BYTES = (D / 64) * QBOX;    // one consumer's 64 rows
-  static constexpr int KV_BYTES = (D / 64) * KBOX;   // one K or V tile
+  static constexpr int Q_BYTES = NB * QBOX;          // one consumer's 64 rows
+  static constexpr int KV_BYTES = NB * KBOX;         // one K or V tile
   static constexpr int Q = 0, K = Q + kConsumers * Q_BYTES, V = K + STAGES * KV_BYTES;
   static constexpr int BAR = V + STAGES * KV_BYTES;
   static constexpr int BYTES = 1024 + BAR + 8 * (2 + 4 * STAGES);
@@ -186,6 +208,12 @@ __device__ __forceinline__ void fence_all(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) fence_operand(r[i]);
 }
+// pin P's A fragments where they are packed (the head says why)
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < 4 * N; ++i) fence_operand(a[i / 4][i % 4]);
+}
 
 // s = Q K^T: this consumer's 64 rows x BN keys
 template <int D>
@@ -193,7 +221,7 @@ __device__ __forceinline__ void qk(float (&s)[Geo<D>::BN / 2], uint32_t q, uint3
   using G = Geo<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    if constexpr (D == 128)
+    if constexpr (G::BN == 128)
       wgmma_m64n128k16<0, 0>(s, kmajor(q, kk, G::QBOX), kmajor(k, kk, G::KBOX), kk > 0);
     else
       wgmma_m64n64k16<0, 0>(s, kmajor(q, kk, G::QBOX), kmajor(k, kk, G::KBOX), kk > 0);
@@ -207,7 +235,9 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[Geo<D>
   using G = Geo<D>;
 #pragma unroll
   for (int kq = 0; kq < G::BN / 16; ++kq) {
-    if constexpr (D == 128)
+    if constexpr (D == 80)
+      wgmma_m64n80k16_rs<1>(o, p[kq], mnmajor(v, kq, G::KBOX), 1);
+    else if constexpr (D == 128)
       wgmma_m64n128k16_rs<1>(o, p[kq], mnmajor(v, kq, G::KBOX), 1);
     else
       wgmma_m64n256k16_rs<1>(o, p[kq], mnmajor(v, kq, G::KBOX), 1);
@@ -245,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
 
   if (wg == kConsumers) {
     // ------------------------------------------------ producer
-    setmaxnreg_dec<40>();
+    setmaxnreg_dec<24>();
     if (threadIdx.x % 128 == 0) {
       int stage = 0, sub = 0;
       uint32_t ph = 0;
@@ -254,19 +284,19 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
         if (sub > 0) mbar_wait(qempty, (sub - 1) & 1);
         mbar_arrive_expect_tx(qfull, kConsumers * G::Q_BYTES);
         for (int w = 0; w < kConsumers; ++w)
-          for (int c = 0; c < D / 64; ++c)
+          for (int c = 0; c < G::NB; ++c)
             tma_load_4d(sQ + w * G::Q_BYTES + c * G::QBOX, &P.q, qfull, 64 * c, h, r0 + 64 * w, b);
         for (Walk<BN> walk(r0 + P.qoff, r1 + P.qoff, P.Skv, P.causal, P.window, P.bk);
              !walk.done(); walk.next()) {
           const int k0 = walk.key0();
           mbar_wait(kempty + 8 * stage, ph ^ 1);
           mbar_arrive_expect_tx(kfull + 8 * stage, G::KV_BYTES);
-          for (int c = 0; c < D / 64; ++c)
+          for (int c = 0; c < G::NB; ++c)
             tma_load_4d(sK + stage * G::KV_BYTES + c * G::KBOX, &P.k, kfull + 8 * stage, 64 * c,
                         hk, k0, b);
           mbar_wait(vempty + 8 * stage, ph ^ 1);
           mbar_arrive_expect_tx(vfull + 8 * stage, G::KV_BYTES);
-          for (int c = 0; c < D / 64; ++c)
+          for (int c = 0; c < G::NB; ++c)
             tma_load_4d(sV + stage * G::KV_BYTES + c * G::KBOX, &P.v, vfull + 8 * stage, 64 * c,
                         hk, k0, b);
           if (++stage == STAGES) stage = 0, ph ^= 1;
@@ -277,7 +307,10 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
   }
 
   // -------------------------------------------------- consumers
-  setmaxnreg_inc<232>();
+  // 240 registers a consumer thread and 24 a producer one (the launch's 168
+  // x 384, redistributed): with 232 and 40, D 128 spilled 84 bytes once the
+  // first tile took its own instance of the step
+  setmaxnreg_inc<240>();
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const bool leader = lane == 0;  // arrives at the empty barriers for its warp
   const uint32_t myQ = sQ + wg * G::Q_BYTES;
@@ -303,27 +336,31 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
     // part of the row sum, the last tile's correction
     float m[2] = {MASKED * LOG2E, MASKED * LOG2E}, l[2] = {0.f, 0.f}, corr[2];
     uint32_t p[KQ][4];  // the last tile's P, bf16 A fragments of 16 keys each
-    bool owed = false;  // P V of the last tile is still to be issued
-    int vstage = 0;
+    int vstage = 0;     // the last tile's V slot
     uint32_t vph = 0;
     mbar_wait(qfull, sub & 1);
-    for (Walk<BN> walk(r0 + P.qoff, r1 + P.qoff, P.Skv, P.causal, P.window, P.bk); !walk.done();
-         walk.next()) {
-      const int k0 = walk.key0(), e = walk.step_end();
+    Walk<BN> walk(r0 + P.qoff, r1 + P.qoff, P.Skv, P.causal, P.window, P.bk);
+    // Tile j: S_j = Q K_j^T and, behind it where PV, O += P_{j-1} V_{j-1};
+    // then tile j's softmax into p. A sub-block walks at least one tile: its
+    // first takes the instance without P V, the rest the one with it, so
+    // that each instance issues its products on every path (a product on
+    // one path only makes ptxas inject warpgroup.arrives, its C7519 note)
+    auto step = [&](auto pv_tag, const int k0, const int e) {
+      constexpr bool PV = decltype(pv_tag)::value;
       float s[NS];
       mbar_wait(kfull + 8 * stage, ph);
-      if (owed) mbar_wait(vfull + 8 * vstage, vph);
+      if constexpr (PV) mbar_wait(vfull + 8 * vstage, vph);
       named_barrier_sync(TURN + wg, 256);
       wgmma_fence();
       qk<D>(s, myQ, sK + stage * G::KV_BYTES);
       wgmma_commit();
-      if (owed) {
+      if constexpr (PV) {
         wgmma_fence();
         pv<D>(o, p, sV + vstage * G::KV_BYTES);
       }
-      // an empty group where no P V is owed: the waits below stay
-      // unconditional, which ptxas needs to see that no product is in
-      // flight where O is touched (else it serializes every wgmma)
+      // an empty group where no P V is issued: the waits below stay the
+      // same, which ptxas needs to see that no product is in flight where O
+      // is touched (else it serializes every wgmma)
       wgmma_commit();
       named_barrier_arrive(TURN + (wg ^ 1), 256);
       wgmma_wait<1>();
@@ -376,13 +413,15 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
         l[(x / 2) % 2] += s[x];
       }
       wgmma_wait<0>();  // the last tile's P V is done: its V slot and p are free
-      fence_all(o);
-      if (owed && leader) mbar_arrive(vempty + 8 * vstage);
-      // O to this tile's max, outside any open product, and pinned there by
-      // the fence
+      if constexpr (PV) {
+        fence_all(o);
+        if (leader) mbar_arrive(vempty + 8 * vstage);
+        // O to this tile's max, outside any open product, and pinned there
+        // by the fence (before the first P V it is 0)
 #pragma unroll
-      for (int i = 0; i < NO; ++i) o[i] *= corr[(i / 2) % 2];
-      fence_all(o);
+        for (int i = 0; i < NO; ++i) o[i] *= corr[(i / 2) % 2];
+        fence_all(o);
+      }
 #pragma unroll
       for (int kq = 0; kq < KQ; ++kq) {
         p[kq][0] = pack2(s[8 * kq + 0], s[8 * kq + 1]);
@@ -390,22 +429,24 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
         p[kq][2] = pack2(s[8 * kq + 4], s[8 * kq + 5]);
         p[kq][3] = pack2(s[8 * kq + 6], s[8 * kq + 7]);
       }
-      owed = true;
+      fence_all(p);
       vstage = stage;
       vph = ph;
       if (++stage == STAGES) stage = 0, ph ^= 1;
-    }
-    if (owed) {  // the last tile's P V
-      mbar_wait(vfull + 8 * vstage, vph);
-      named_barrier_sync(TURN + wg, 256);
-      wgmma_fence();
-      pv<D>(o, p, sV + vstage * G::KV_BYTES);
-      wgmma_commit();
-      named_barrier_arrive(TURN + (wg ^ 1), 256);
-      wgmma_wait<0>();
-      fence_all(o);
-      if (leader) mbar_arrive(vempty + 8 * vstage);
-    }
+    };
+    step(std::false_type{}, walk.key0(), walk.step_end());
+    for (walk.next(); !walk.done(); walk.next())
+      step(std::true_type{}, walk.key0(), walk.step_end());
+    // the last tile's P V
+    mbar_wait(vfull + 8 * vstage, vph);
+    named_barrier_sync(TURN + wg, 256);
+    wgmma_fence();
+    pv<D>(o, p, sV + vstage * G::KV_BYTES);
+    wgmma_commit();
+    named_barrier_arrive(TURN + (wg ^ 1), 256);
+    wgmma_wait<0>();
+    fence_all(o);
+    if (leader) mbar_arrive(vempty + 8 * vstage);
 
     // out = acc / max(l, 1e-30) and the lse, this thread's two rows
     float inv[2];
@@ -485,11 +526,14 @@ extern "C" {
 // Shared bytes a CTA takes at head dim D (kernel.fwd_wgmma_plan computes
 // the same); -1 for a head dim the engine does not take.
 long long fa_fwd_wgmma_smem_bytes(int D) {
-  return D == 128 ? Geo<128>::BYTES : D == 256 ? Geo<256>::BYTES : -1;
+  return D == 80    ? Geo<80>::BYTES
+         : D == 128 ? Geo<128>::BYTES
+         : D == 256 ? Geo<256>::BYTES
+                    : -1;
 }
 
 // q, o (B, S, Hq, D) and k, v (B, Skv, Hkv, D) bf16, contiguous, every base
-// a 16-byte multiple, D 128 or 256; lse: null, or (B, Hq, S) f32. window <=
+// a 16-byte multiple, D 80, 128 or 256; lse: null, or (B, Hq, S) f32. window <=
 // 0: none; softcap <= 0: none; bq, bk: q rows a CTA owns and keys a step
 // takes (already clamped to S and Skv); q_offset >= 0: the position of q's
 // first row. One launch on `stream`. Returns a cudaError_t, or 100000 + a
@@ -506,6 +550,7 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o, void*
   P.S = S, P.Skv = Skv, P.Hq = Hq, P.Hkv = Hkv, P.bq = bq, P.bk = bk;
   P.causal = causal, P.window = window, P.qoff = qoff, P.softcap = softcap, P.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 80) return launch<80>(P, q, k, v, B, st);
   if (D == 128) return launch<128>(P, q, k, v, B, st);
   if (D == 256) return launch<256>(P, q, k, v, B, st);
   return (int)cudaErrorInvalidValue;

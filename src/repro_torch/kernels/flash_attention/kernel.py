@@ -10,13 +10,14 @@ launch raises; nothing falls back to another engine.
 The forward has two engines, each its own library, and ``fwd_engine``
 chooses between them from the type, the head dim and the bases alone:
 
-- ``csrc/flash_attention_wgmma.cu`` (bf16 at head dims 128 and 256 whose
-  bases are 16-byte multiples: qwen3-0.6b's, dbrx-132b's and
-  llama-3.2-vision's prefill and training at 128, gemma2-2b's at 256):
+- ``csrc/flash_attention_wgmma.cu`` (bf16 at head dims 80, 128 and 256
+  whose bases are 16-byte multiples: stablelm-3b's prefill at 80,
+  qwen3-0.6b's, dbrx-132b's and llama-3.2-vision's prefill and training at
+  128, gemma2-2b's at 256):
   ``wgmma`` fed by TMA, one producer and two consumer warpgroups that take
   turns issuing their products; ``fwd_wgmma_plan`` gives its geometry and
   ``fwd_wgmma_tiles`` the key tiles each sub-block of rows walks;
-- ``csrc/flash_attention.cu`` (f32, the other head dims 8-80, and bf16
+- ``csrc/flash_attention.cu`` (f32, the other head dims 8-64, and bf16
   bases TMA cannot address): ``mma.sync`` fed by ``cp.async`` for bf16, the
   FMA units for f32.
 
@@ -256,18 +257,20 @@ def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int
 
 #: the forward wgmma engine (``csrc/flash_attention_wgmma.cu``): its head
 #: dims, the keys of a tile at each, the q rows of a sub-block (64 a
-#: consumer warpgroup) and the stages of its K/V ring
-FWD_WGMMA_HEAD_DIMS = (128, 256)
-FWD_WGMMA_TILE_KEYS = {128: 128, 256: 64}
+#: consumer warpgroup) and the stages of its K/V ring. A row of D values is
+#: loaded in boxes of 64 columns: at D 80 two, the second's last 48 columns
+#: zeros (``fwd_wgmma_plan`` counts the padded boxes' bytes)
+FWD_WGMMA_HEAD_DIMS = (80, 128, 256)
+FWD_WGMMA_TILE_KEYS = {80: 128, 128: 128, 256: 64}
 FWD_WGMMA_SUB_ROWS = 64 * WGMMA_WARPGROUPS
 FWD_WGMMA_STAGES = 2
 
 
 def fwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
-    """Which engine runs the forward: ``"wgmma"`` for bf16 at head dim 128
-    or 256 whose bases (``aligned``) are 16-byte multiples, as TMA addresses
-    them; ``"mma_sync"`` otherwise (f32, head dims 8-80: whisper's, hymba's,
-    stablelm's)."""
+    """Which engine runs the forward: ``"wgmma"`` for bf16 at head dim 80,
+    128 or 256 whose bases (``aligned``) are 16-byte multiples, as TMA
+    addresses them; ``"mma_sync"`` otherwise (f32, head dims 8-64:
+    whisper's, hymba's)."""
     return ("wgmma" if dtype == torch.bfloat16 and D in FWD_WGMMA_HEAD_DIMS and aligned
             else "mma_sync")
 
@@ -290,9 +293,10 @@ def fwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, *,
     """The forward wgmma engine's launch, as ``csrc/flash_attention_wgmma.cu``
     makes it, after the reference's ``min(block, dim)`` clamp: a CTA owns
     ``block_q`` q rows of one head and walks them 128 at a time; each step
-    of ``block_k`` keys is cut into tiles of 128 keys (D 128) or 64 (D 256).
-    Shared bytes: 1 KB of alignment slack, each consumer's Q tile (64 rows),
-    the ring's K and V tiles, 8 bytes a barrier. Raises on a shape the
+    of ``block_k`` keys is cut into tiles of 128 keys (D 80, 128) or 64 (D
+    256). Shared bytes: 1 KB of alignment slack, each consumer's Q tile (64
+    rows), the ring's K and V tiles (rows in boxes of 64 columns: D 80 takes
+    128), 8 bytes a barrier. Raises on a shape the
     engine does not take."""
     plan = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
     if D not in FWD_WGMMA_HEAD_DIMS or min(B, S, Skv) <= 0:
@@ -300,7 +304,8 @@ def fwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, *,
                          f"it takes head dims {FWD_WGMMA_HEAD_DIMS}")
     bn = FWD_WGMMA_TILE_KEYS[D]
     nq = plan.grid[1]
-    q_tile, kv_tile = 64 * D * 2, bn * D * 2
+    padded = -(-D // 64) * 64
+    q_tile, kv_tile = 64 * padded * 2, bn * padded * 2
     smem = (1024 + WGMMA_WARPGROUPS * q_tile + FWD_WGMMA_STAGES * 2 * kv_tile
             + 8 * (2 + 4 * FWD_WGMMA_STAGES))
     return FwdWgmmaPlan((B * Hq, nq), _heavy_first(nq, plan.block_q, S), plan.block_q,
@@ -440,8 +445,8 @@ def _fwd_check(name: str, q, k, v, window, softcap, q_offset) -> tuple:
 def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
                                block_q=128, block_k=128, return_lse=False, q_offset=0):
     """The forward on the wgmma engine (``csrc/flash_attention_wgmma.cu``):
-    bf16 at head dim 128 or 256 whose bases are 16-byte multiples; raises
-    otherwise, and where a launch or a tensor map fails."""
+    bf16 at head dim 80, 128 or 256 whose bases are 16-byte multiples;
+    raises otherwise, and where a launch or a tensor map fails."""
     global wgmma_launches, last_grid
     name = "flash_attention_wgmma_cuda"
     B, S, Skv, Hq, Hkv, D = _fwd_check(name, q, k, v, window, softcap, q_offset)

@@ -96,8 +96,7 @@ constexpr int kConsumers = 2;                     // warpgroups of 64 rows
 constexpr int kThreads = 128 * (kConsumers + 1);  // the last warpgroup loads and splits
 constexpr int kSplitters = 96;                    // its warps 1-3 make B's lo
 constexpr int A_BYTES = BM * BK * 4;              // 16 KB
-constexpr int MN_BOX = 32 * BK * 4;               // an MN-major A box: 32 k-rows of 32 values
-constexpr uint32_t kHi = 0xffffe000u;             // tf32's 19 bits of an f32 word
+constexpr int MN_BOX = kTf32BoxMN;                // an MN-major A box: 32 k-rows of 32 values
 constexpr int STAGES = 4;
 
 // BN: the tile's columns; a stage holds A, B and B's lo
@@ -152,53 +151,6 @@ __device__ __forceinline__ void tile_of(const Launch& L, int t, int& e, int& p, 
   }
   n0 = (r / L.g[p].mt) * BN;
   m0 = (r % L.g[p].mt) * BM;
-}
-
-__device__ __forceinline__ uint32_t ld_shared_b32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
-  return v;
-}
-// four 8 x 4 f32 matrices (8 x 8 of b16): lane l gives the address of row l
-// % 8 of matrix l / 8; r[i] is this lane's word (row lane / 4, column lane %
-// 4) of matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// This thread's A fragments of a stage, split: for the k8 step kk, a[kk][i]
-// holds row r0 + lane / 4 + 8 (i % 2), k 8 kk + lane % 4 + 4 (i / 2) of the
-// landed tile at sa (r0: the warp's first row of the tile). K-major A is
-// 128 rows of 128 bytes; MN-major A four boxes of 32 columns (rows of A) by
-// 32 k; both 128-byte swizzled (16-byte chunk c of row r at c ^ (r % 8)).
-template <bool A_MN>
-__device__ __forceinline__ void load_a(uint32_t sa, int r0, int lane, uint32_t (&hi)[4][4],
-                                       uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 8; ++kk) {
-    if constexpr (A_MN) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = r0 + lane / 4 + 8 * (i % 2), k = 8 * kk + lane % 4 + 4 * (i / 2);
-        hi[kk][i] = ld_shared_b32(sa + (m / 32) * MN_BOX + k * 128 +
-                                  ((((m % 32) / 4) ^ (k % 8)) * 16) + (m % 4) * 4);
-      }
-    } else {
-      const int q = lane / 8, m = r0 + 8 * (q % 2) + lane % 8, chunk = 2 * kk + q / 2;
-      ldmatrix_x4(hi[kk], sa + m * 128 + ((chunk ^ (m % 8)) * 16));
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t x = hi[kk][i];
-      hi[kk][i] = x & kHi;
-      lo[kk][i] = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi[kk][i]));
-      fence_operand(hi[kk][i]);
-      fence_operand(lo[kk][i]);
-    }
-  }
 }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
@@ -334,13 +286,7 @@ __global__ void __launch_bounds__(kThreads, 1) moe_bwd_tf32(const __grid_constan
           const uint32_t sb = ring + stage * G::STAGE_BYTES + A_BYTES, sl = sb + G::B_BYTES;
           mbar_wait(full + 8 * stage, phase);
           for (int c = tid; c < G::B_BYTES / 16; c += kSplitters) {
-            const uint4 v = ld_shared_v4(sb + 16 * c);
-            uint4 l;
-            l.x = __float_as_uint(__uint_as_float(v.x) - __uint_as_float(v.x & kHi));
-            l.y = __float_as_uint(__uint_as_float(v.y) - __uint_as_float(v.y & kHi));
-            l.z = __float_as_uint(__uint_as_float(v.z) - __uint_as_float(v.z & kHi));
-            l.w = __float_as_uint(__uint_as_float(v.w) - __uint_as_float(v.w & kHi));
-            st_shared_v4(sl + 16 * c, l);
+            st_shared_v4(sl + 16 * c, tf32_lo(ld_shared_v4(sb + 16 * c)));
           }
           fence_proxy_async();  // the lo tile, visible to the wgmmas that read it
           mbar_arrive(split + 8 * stage);
@@ -372,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 1) moe_bwd_tf32(const __grid_constan
         const uint32_t sa = ring + stage * G::STAGE_BYTES, sb = sa + A_BYTES,
                        sl = sb + G::B_BYTES;
         uint32_t hi[BK / 8][4], lo[BK / 8][4];
-        load_a<A_MN>(sa, r0, lane, hi, lo);
+        load_a_tf32<A_MN>(sa, r0, lane, hi, lo);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 8; ++kk) {

@@ -10,13 +10,22 @@ ctypes on PyTorch's current stream. A failed build or launch raises.
 ``launch_plan`` computes both launches' geometry in Python, so the CPU
 tests reach it.
 
-The forward runs on one of two engines, each its own library, chosen by
-``fwd_engine`` from the type, the widths and the bases:
-``csrc/fused_moe_wgmma.cu`` (bf16 whose rows and bases are 16-byte
-multiples: dbrx-132b's serving and training) on ``wgmma`` fed by TMA, one
-persistent CTA an SM walking ``fwd_wgmma_plan``'s tiles
-(``fwd_wgmma_walk``); and ``csrc/fused_moe.cu`` (f32, unaligned rows) on
-``mma.sync``. Each counts its own calls (``wgmma_launches``,
+The forward runs on one of three engines, each its own library, chosen by
+``fwd_engine`` from the type, the widths, the bases and block_f:
+
+- ``csrc/fused_moe_wgmma.cu`` (bf16 whose rows and bases are 16-byte
+  multiples: dbrx-132b's serving and training) on ``wgmma`` fed by TMA, one
+  persistent CTA an SM walking ``fwd_wgmma_plan``'s tiles
+  (``fwd_wgmma_walk``);
+- ``csrc/fused_moe_tf32.cu`` (f32 whose rows and bases are 16-byte
+  multiples: the tuner's f32 workloads, f32 training of an MoE model):
+  3xTF32 on ``wgmma`` with A from registers, fed by TMA, the method of the
+  3xTF32 backward; three launches (g^T, then u^T with h = silu(g) u in its
+  epilogue, then y^T), each a persistent CTA an SM walking
+  ``tf32_fwd_plan``'s tiles (``tf32_fwd_walk``);
+- ``csrc/fused_moe.cu`` (rows TMA cannot address) on ``mma.sync``.
+
+Each counts its own calls (``wgmma_launches``, ``tf32_launches``,
 ``launches``).
 
 ``fused_moe_bwd_cuda`` is the backward: four launches (g and u; dh with
@@ -59,6 +68,9 @@ launches = 0
 #: forward calls on the ``wgmma`` engine (each launches its gate/up and its
 #: down kernel)
 wgmma_launches = 0
+#: forward calls on the 3xTF32 ``wgmma`` engine (each launches the three
+#: kernels of ``tf32_fwd_plan``)
+tf32_launches = 0
 #: backward calls on the ``mma.sync`` engine since the count was last set
 #: to 0 (each launches the four kernels of ``bwd_launch_plan``)
 bwd_launches = 0
@@ -78,6 +90,7 @@ BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd.cu"]
 WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd_wgmma.cu"]
 TF32_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_bwd_tf32.cu"]
 FWD_WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_wgmma.cu"]
+FWD_TF32_SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_moe_tf32.cu"]
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 D_TILE = 128  # output columns of a down-launch CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -319,12 +332,22 @@ def fwd_engine(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool = True,
     """Which engine runs the forward: ``"wgmma"`` for bf16 with rows to
     compute (C > 0) whose rows (D and F values) and bases (``aligned``) are
     16-byte multiples, as TMA addresses them, and whose F blocks are whole
-    16-byte chunks; ``"mma_sync"`` otherwise (f32 takes 3xTF32 there). The
-    rows an expert set no threshold: at dbrx-132b's width the wgmma engine
-    was the faster from a decode tick's 4 rows an expert to 640 (PERF.md,
-    both engines timed in turns by ``tools/fused_moe_fwd_engines.py``)."""
-    return "wgmma" if (dtype == torch.bfloat16 and C > 0 and D % 8 == 0 and F % 8 == 0
-                       and aligned and min(block_f, F) % 8 == 0) else "mma_sync"
+    16-byte chunks; ``"wgmma_tf32"`` for f32 with rows to compute whose
+    rows and bases are 16-byte multiples (D and F multiples of 4) and whose
+    F blocks are whole 32-deep stages or all of F (its sum over F walks
+    block_f steps in stages of 32 that never straddle one); ``"mma_sync"``
+    otherwise (f32 takes 3xTF32 there too). The rows an expert set no
+    threshold: at dbrx-132b's width the wgmma engine was the faster from a
+    decode tick's 4 rows an expert to 640 (PERF.md, both engines timed in
+    turns by ``tools/fused_moe_fwd_engines.py``)."""
+    bf = min(block_f, F)
+    if dtype == torch.bfloat16 and C > 0 and D % 8 == 0 and F % 8 == 0 and aligned \
+            and bf % 8 == 0:
+        return "wgmma"
+    if dtype == torch.float32 and min(C, D, F) > 0 and D % 4 == 0 and F % 4 == 0 and aligned \
+            and (bf % TF32_K == 0 or bf == F):
+        return "wgmma_tf32"
+    return "mma_sync"
 
 
 class FwdWgmmaLaunch(NamedTuple):
@@ -392,6 +415,73 @@ def fwd_wgmma_walk(launch: FwdWgmmaLaunch, E: int, C: int, n: int, block_m: int,
                min(cols_t, launch.col_block - cs * cols_t, n - n0))
 
 
+class Tf32FwdLaunch(NamedTuple):
+    name: str  # "gate", "up" or "down"
+    products: tuple  # (M, N, K): out^T (M x N) = A^T B over K; A the weights, MN-major
+    tile: tuple  # (rows, columns) of a tile: 128 weight columns x 64 or 128 tokens
+    row_block: int  # rows a row block: block_f (gate, up) or D (down)
+    row_subs: int  # row tiles a row block
+    row_tiles: int  # row tiles an expert
+    col_block: int  # columns (tokens) a column block: block_m
+    col_subs: int  # column tiles a column block
+    col_tiles: int  # column tiles an expert
+    tiles_e: int  # tiles an expert: the walk covers E * tiles_e
+    ctas: int  # the grid: min(SMs, live tiles), each CTA persistent
+    stages: int  # shared-memory stages of the ring the K tiles stream through
+    smem: int  # dynamic shared bytes a CTA
+
+
+def tf32_fwd_plan(E: int, C: int, D: int, F: int, block_m: int = 128, block_f: int = 256,
+                  sms: int = 132) -> tuple[Tf32FwdLaunch, ...]:
+    """The 3xTF32 forward engine's three launches in order, as
+    ``csrc/fused_moe_tf32.cu`` launches them, after the reference's
+    ``min(block, dim)`` clamp: (a) gate, g^T = Wg^T x^T, and (b) up, u^T =
+    Wu^T x^T whose epilogue writes h = silu(g) u (F x C, K = D; rows in
+    block_f blocks); (c) down, y^T = Wd^T h^T (D x C, K = F walked in order,
+    block_f steps of 32-deep stages). The knobs: block_m blocks of tokens,
+    each in column tiles of 64 (block_m <= 64) or 128; block_f blocks of F,
+    each in row tiles of 128; a tile's rows and columns past its block are
+    computed and not stored. A CTA walks the tiles ``t = cta, cta + ctas,
+    ...`` of the flat walk ``tf32_fwd_walk`` decodes. Raises where the
+    engine does not take block_f (a multiple of 32 or all of F)."""
+    plan = launch_plan(E, C, D, F, block_m=block_m, block_f=block_f)
+    bm, bf = plan.block_m, plan.block_f
+    if min(E, sms) <= 0 or D % 4 or F % 4 or (bf % TF32_K and bf != F):
+        raise ValueError(f"fused_moe 3xTF32 forward: E={E} D={D} F={F} block_f={bf}, {sms} SMs")
+    bn = 64 if bm <= 64 else TF32_N
+    col_subs = -(-bm // bn)
+    # alignment slack, the ring (A, B and B's lo a stage), its full, split and empty barriers
+    smem = 1024 + TF32_STAGES * (TF32_M + 2 * bn) * TF32_K * 4 + 3 * TF32_STAGES * 8
+    out = []
+    for name, (m, n, k), rb in (("gate", (F, C, D), bf), ("up", (F, C, D), bf),
+                                ("down", (D, C, F), D)):
+        row_subs = -(-rb // TF32_M)
+        row_tiles, col_tiles = m // rb * row_subs, C // bm * col_subs
+        out.append(Tf32FwdLaunch(name, (m, n, k), (TF32_M, bn), rb, row_subs, row_tiles, bm,
+                                 col_subs, col_tiles, row_tiles * col_tiles,
+                                 min(sms, E * row_tiles * col_tiles), TF32_STAGES, smem))
+    return tuple(out)
+
+
+def tf32_fwd_walk(launch: Tf32FwdLaunch, E: int, cta: int):
+    """The tiles CTA ``cta`` of ``launch`` computes, in order, as ``(expert,
+    first row, rows stored, first column, columns stored)``: tile t of the
+    flat walk is expert ``t // tiles_e``, then row tile outer and column
+    tile fastest (``tile_of`` in the source), so that the CTAs that read one
+    weight panel run together. Rows and columns past a tile's blocks or
+    past M and N are not stored (the source's gate launch also stores g^T's
+    pad columns up to ``tf32_ld(C)``, which nothing reads)."""
+    (bm_t, bn_t), (m, n, _) = launch.tile, launch.products
+    for t in range(cta, E * launch.tiles_e, launch.ctas):
+        e, r = divmod(t, launch.tiles_e)
+        mi, ci = divmod(r, launch.col_tiles)
+        mb, ms = divmod(mi, launch.row_subs)
+        nb, cs = divmod(ci, launch.col_subs)
+        m0, n0 = mb * launch.row_block + ms * bm_t, nb * launch.col_block + cs * bn_t
+        yield (e, m0, min(bm_t, min((mb + 1) * launch.row_block, m) - m0), n0,
+               min(bn_t, min((nb + 1) * launch.col_block, n) - n0))
+
+
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel's library."""
     lib = load_cuda_library("fused_moe", SOURCES)
@@ -446,6 +536,18 @@ def fwd_wgmma_library() -> ctypes.CDLL:
     return lib
 
 
+def fwd_tf32_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the forward's 3xTF32
+    engine."""
+    lib = load_cuda_library("fused_moe_tf32", FWD_TF32_SOURCES)
+    lib.fused_moe_forward_tf32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.fused_moe_forward_tf32.restype = ctypes.c_int
+    lib.fused_moe_tf32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_moe_tf32_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def _check(name: str, ts) -> tuple:
     """``(E, C, D, F)`` of ``x, w_gate, w_up, w_down`` (then any tensors
     shaped as x), after the checks both directions make."""
@@ -485,9 +587,12 @@ def fused_moe_cuda(
     ``fwd_engine`` picks."""
     ts = (x, w_gate, w_up, w_down)
     E, C, D, F = _check("fused_moe_cuda", ts)
-    if fwd_engine(x.dtype, C, D, F, all(t.data_ptr() % 16 == 0 for t in ts),
-                  block_f=block_f) == "wgmma":
+    engine = fwd_engine(x.dtype, C, D, F, all(t.data_ptr() % 16 == 0 for t in ts),
+                        block_f=block_f)
+    if engine == "wgmma":
         return fused_moe_wgmma_cuda(*ts, block_m=block_m, block_f=block_f)
+    if engine == "wgmma_tf32":
+        return fused_moe_tf32_cuda(*ts, block_m=block_m, block_f=block_f)
     return fused_moe_mma_sync_cuda(*ts, block_m=block_m, block_f=block_f)
 
 
@@ -522,6 +627,43 @@ def fused_moe_wgmma_cuda(x, w_gate, w_up, w_down, *, block_m: int = 128,
     if err != 0:
         raise RuntimeError(f"fused_moe_wgmma_cuda: launch failed with cudaError {err}")
     wgmma_launches += 1
+    last_grid = plan.grid
+    return out
+
+
+def fused_moe_tf32_cuda(x, w_gate, w_up, w_down, *, block_m: int = 128,
+                        block_f: int = 256) -> torch.Tensor:
+    """The forward on the 3xTF32 wgmma engine (``csrc/fused_moe_tf32.cu``):
+    f32 that ``fwd_engine`` gives to it; raises otherwise."""
+    global tf32_launches, last_grid
+    ts = (x, w_gate, w_up, w_down)
+    E, C, D, F = _check("fused_moe_tf32_cuda", ts)
+    plan = launch_plan(E, C, D, F, block_m=block_m, block_f=block_f)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    gt = torch.empty((E, F, tf32_ld(C)), **f32)  # g^T, rows padded to 16 bytes
+    h = torch.empty((E, C, F), **f32)  # silu(x Wg) * (x Wu)
+    if fwd_engine(x.dtype, C, D, F, all(t.data_ptr() % 16 == 0 for t in (*ts, gt, h, out)),
+                  block_f=block_f) != "wgmma_tf32":
+        raise ValueError(f"fused_moe_tf32_cuda: {x.dtype} with C={C}, D={D}, F={F}, "
+                         f"block_f={block_f} or a base that is not a 16-byte multiple")
+    lib = fwd_tf32_library()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    launch = tf32_fwd_plan(E, C, D, F, plan.block_m, plan.block_f, sms)[0]
+    smem = lib.fused_moe_tf32_smem_bytes(launch.tile[1])
+    if smem != launch.smem or smem > SMEM_LIMIT:
+        raise RuntimeError(f"fused_moe_tf32_cuda: the library takes {smem} shared bytes, the "
+                           f"plan {launch.smem}, the limit {SMEM_LIMIT}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.fused_moe_forward_tf32(*(t.data_ptr() for t in (*ts, gt, h, out)), E, C, D, F,
+                                         plan.block_m, plan.block_f, sms, stream)
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f"fused_moe_tf32_cuda: a tensor map could not be encoded "
+                           f"(CUresult {err - _ENCODE_ERROR})")
+    if err != 0:
+        raise RuntimeError(f"fused_moe_tf32_cuda: launch failed with cudaError {err}")
+    tf32_launches += 1
     last_grid = plan.grid
     return out
 

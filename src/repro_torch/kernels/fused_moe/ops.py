@@ -1,6 +1,7 @@
 """Fused-MoE expert FFN entry point: the Hopper kernels for CUDA tensors
 (``kernel.fused_moe_cuda``: the wgmma engine for bf16 with 16-byte rows,
-the mma.sync engine for f32 and the rest, ``kernel.fwd_engine``), the plain
+the 3xTF32 wgmma engine for f32 with 16-byte rows, the mma.sync engine for
+the rest, ``kernel.fwd_engine``), the plain
 version for CPU tensors. Same signature as
 ``repro.kernels.fused_moe.ops.fused_moe``; ``block_m``/``block_f`` reach the
 kernel's launch (``kernel.last_grid == grid_shape(...)``). DTensors run

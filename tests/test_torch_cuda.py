@@ -137,8 +137,9 @@ def _attention_f64(q, k, v, *, causal, window, softcap):
 #: (B, S, Skv, Hq, Hkv, D, causal, window, softcap, q_offset) for the
 #: forward's wgmma engine: FA_CASES at head dims 128 and 256, then GQA with
 #: ragged lengths, a window whose last rows see no key (S != Skv), a
-#: softcap with more keys than rows, query offsets (a rank's block of rows)
-#: and the serving path's main shape
+#: softcap with more keys than rows, query offsets (a rank's block of rows),
+#: the serving path's main shape, and the same at head dim 80 with
+#: stablelm-3b's prefill
 FWD_WGMMA_CASES = [(*c, 0) for c in FA_CASES if c[5] in (128, 256)] + [
     (2, 300, 300, 8, 2, 128, True, None, None, 0),
     (2, 300, 300, 8, 2, 256, True, None, None, 0),
@@ -151,6 +152,13 @@ FWD_WGMMA_CASES = [(*c, 0) for c in FA_CASES if c[5] in (128, 256)] + [
     (1, 130, 200, 2, 1, 256, False, 64, None, 40),
     (1, 1024, 4096, 8, 4, 256, True, 4096, 50.0, 3072),
     (4, 2048, 2048, 16, 8, 128, True, None, None, 0),
+    (1, 64, 64, 2, 2, 80, True, None, None, 0),
+    (2, 300, 300, 8, 2, 80, True, None, None, 0),
+    (1, 200, 50, 2, 1, 80, True, 10, None, 0),
+    (1, 77, 200, 4, 1, 80, False, 50, 20.0, 0),
+    (1, 64, 192, 4, 2, 80, True, None, None, 64),
+    (1, 130, 200, 2, 1, 80, False, 64, None, 40),
+    (1, 2048, 2048, 32, 32, 80, True, None, None, 0),
 ]
 
 
@@ -196,7 +204,7 @@ def test_flash_attention_fwd_wgmma_matches_plain_and_mma_sync(dev, case):
 
 @pytest.mark.parametrize("blocks", [(64, 32, 512), (512, 512, 512), (256, 96, 768),
                                     (128, 64, 512)], ids=lambda b: f"q{b[0]}-k{b[1]}-S{b[2]}")
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [80, 128, 256])
 def test_flash_attention_fwd_wgmma_blocks_reach_the_launch(dev, blocks, D):
     """block_q and block_k reach the wgmma engine's launch (the grid the
     reference names, at lengths the blocks divide; steps cut into tiles, a
@@ -217,11 +225,11 @@ def test_flash_attention_fwd_wgmma_blocks_reach_the_launch(dev, blocks, D):
 
 
 def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
-    """f32, head dims other than 128 and 256, and a base that is not a
+    """f32, head dims other than 80, 128 and 256, and a base that is not a
     16-byte multiple are not the wgmma engine's: it raises, and
     ``flash_attention_cuda`` takes the mma.sync engine for them."""
     rng = np.random.default_rng(8)
-    for dtype, D, shift in ((torch.float32, 128, 0), (torch.bfloat16, 80, 0),
+    for dtype, D, shift in ((torch.float32, 128, 0), (torch.bfloat16, 64, 0),
                             (torch.bfloat16, 128, 1), (torch.bfloat16, 256, 4)):
         q = _randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
         k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
@@ -234,13 +242,14 @@ def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
         _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu()), dtype)
 
 
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [80, 128, 256])
 def test_flash_attention_trains_through_the_wgmma_forward(dev, D):
-    """``ops.attention`` under grad in bf16 at head dims 128 and 256: the
-    forward on the wgmma engine feeds its output and lse to the backward
-    engine ``bwd_engine`` picks (the wgmma engine at both), whose gradients
-    equal ``attention_bwd_ref``'s within bf16 2e-2 of each gradient's
-    max|ref|, with gemma2's masks at 256 and GQA at both."""
+    """``ops.attention`` under grad in bf16 at head dims 80, 128 and 256:
+    the forward on the wgmma engine feeds its output and lse to the
+    backward engine ``bwd_engine`` picks (the wgmma engine at 128 and 256,
+    the mma.sync engine at 80), whose gradients equal
+    ``attention_bwd_ref``'s within bf16 2e-2 of each gradient's max|ref|,
+    with gemma2's masks at 256 and GQA at each."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
     bf16 = torch.bfloat16
@@ -364,13 +373,19 @@ def test_fused_moe_kernel_matches_plain(dev, case, dtype):
     x = _randn(rng, (E, C, D), dtype, dev, 0.5)
     wg, wu = _randn(rng, (E, D, F), dtype, dev, 0.1), _randn(rng, (E, D, F), dtype, dev, 0.1)
     wd = _randn(rng, (E, F, D), dtype, dev, 0.1)
-    wgmma = moe_kernel.fwd_engine(dtype, C, D, F, block_f=bf) == "wgmma"
-    n0, w0 = moe_kernel.launches, moe_kernel.wgmma_launches
+    engine = moe_kernel.fwd_engine(dtype, C, D, F, block_f=bf)
+    before = _moe_fwd_counts()
     out = moe_ops.fused_moe(x, wg, wu, wd, block_m=bm, block_f=bf)
-    assert (moe_kernel.launches, moe_kernel.wgmma_launches) == (n0 + (not wgmma), w0 + wgmma)
+    assert _moe_fwd_counts() == {e: n + (e == engine) for e, n in before.items()}
     assert moe_kernel.last_grid == moe_ops.grid_shape(E, C, D, F, block_m=bm, block_f=bf)
     ref = moe_ops.fused_moe(*(t.cpu() for t in (x, wg, wu, wd)))
     _close(out.cpu(), ref, dtype)
+
+
+def _moe_fwd_counts():
+    """Each fused MoE forward engine's count, by ``fwd_engine``'s name."""
+    return {"wgmma": moe_kernel.wgmma_launches, "wgmma_tf32": moe_kernel.tf32_launches,
+            "mma_sync": moe_kernel.launches}
 
 
 SMM_CASES = [
@@ -443,12 +458,14 @@ def test_tuner_times_the_kernels_on_the_card(dev):
     from repro_torch.tune import measure, tune
 
     hw = REGISTRY["tpu-v4"]
-    for kernel, mod, ops, kw in [
-        ("fused_moe", moe_kernel, moe_ops, {"E": 2, "C": 64, "D": 64, "F": 128}),
-        ("scaled_mm", smm_kernel, smm_ops, {"M": 128, "K": 256, "N": 128}),
-        ("flash_attention", fa_kernel, fa_ops,
+    # each kernel's count of the engine the tuner's f32 inputs take (fused
+    # MoE's: its 3xTF32 engine)
+    for kernel, mod, count, ops, kw in [
+        ("fused_moe", moe_kernel, "tf32_launches", moe_ops, {"E": 2, "C": 64, "D": 64, "F": 128}),
+        ("scaled_mm", smm_kernel, "launches", smm_ops, {"M": 128, "K": 256, "N": 128}),
+        ("flash_attention", fa_kernel, "launches", fa_ops,
          {"B": 1, "S": 256, "Skv": 256, "Hq": 4, "Hkv": 2, "D": 64}),
-        ("silu_mul", silu_kernel, silu_ops, {"R": 512, "d": 256}),
+        ("silu_mul", silu_kernel, "launches", silu_ops, {"R": 512, "d": 256}),
     ]:
         grids = []
 
@@ -457,12 +474,12 @@ def test_tuner_times_the_kernels_on_the_card(dev):
             grids.append((mod.last_grid, ops.grid_shape(**kw, **blocks)))
             return s
 
-        n0 = mod.launches
+        n0 = getattr(mod, count)
         report = tune(kernel, hw, workload=kw, predictor=get_predictor("roofline", hw),
                       top_k=3, repeats=2, measure_fn=timed)
         distinct = {tuple(sorted(c.blocks.items())) for c in report.measured}
         distinct.add(tuple(sorted(report.default_blocks.items())))
-        assert mod.launches - n0 == 3 * len(distinct) == 3 * len(grids)
+        assert getattr(mod, count) - n0 == 3 * len(distinct) == 3 * len(grids)
         assert all(a == b for a, b in grids)
         assert not report.interpret and report.t_default > 0
 
@@ -515,13 +532,14 @@ def test_moe_layer_on_the_card_matches_the_cpu(dev, tokens):
     from repro_torch.models import moe as M
 
     cfg, p, x, p_dev, x_dev = _moe_layer_pair(dev, torch.float32, tokens, seed=5)
-    n0 = moe_kernel.launches
+    G, _, C = M.dispatch_geometry(cfg, tokens, train=False)
+    rows = G * C
+    before = _moe_fwd_counts()
     with torch.no_grad():
         out, aux = M.moe_layer(p_dev, x_dev, cfg, train=False)
         ref, ref_aux = M.moe_layer(p, x, cfg, train=False)
-    assert moe_kernel.launches == n0 + 1
-    G, _, C = M.dispatch_geometry(cfg, tokens, train=False)
-    rows = G * C
+    engine = moe_kernel.fwd_engine(torch.float32, rows, cfg.d_model, cfg.moe_hidden)
+    assert _moe_fwd_counts() == {e: n + (e == engine) for e, n in before.items()}
     bm = min(M.EXPERT_BLOCK_M, rows)
     padded = -(-rows // bm) * bm
     assert moe_kernel.last_grid == moe_ops.grid_shape(cfg.n_experts, padded, cfg.d_model,
@@ -971,17 +989,18 @@ def test_fused_moe_trains_on_the_card(dev, dtype):
         engine = moe_kernel.bwd_engine(dtype, D, F)
         assert engine == ("mma_sync" if D % 4 or (dtype == torch.bfloat16 and D != 48)
                           else "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32")
-        # the forward runs on the engine fwd_engine picks: the wgmma one for bf16 here
-        fwd = moe_kernel.fwd_engine(dtype, C, D, F) == "wgmma"
-        assert fwd == (engine == "wgmma")
-        counts = lambda: (moe_kernel.launches, moe_kernel.wgmma_launches,  # noqa: E731
-                          moe_kernel.bwd_launches, moe_kernel.bwd_wgmma_launches,
-                          moe_kernel.bwd_tf32_launches)
-        n0, f0, b0, w0, t0 = counts()
+        # the forward runs on the engine fwd_engine picks: for these widths
+        # the backward's counterpart (the 3xTF32 one for f32 with 16-byte rows)
+        fwd = moe_kernel.fwd_engine(dtype, C, D, F)
+        assert fwd == engine
+        counts = lambda: (_moe_fwd_counts(), moe_kernel.bwd_launches,  # noqa: E731
+                          moe_kernel.bwd_wgmma_launches, moe_kernel.bwd_tf32_launches)
+        f0, b0, w0, t0 = counts()
         got = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
         again = torch.autograd.grad(moe_ops.fused_moe(x, *ws, block_m=C), [x, *ws], dy)
-        assert counts() == (n0 + 2 * (not fwd), f0 + 2 * fwd, b0 + 2 * (engine == "mma_sync"),
-                            w0 + 2 * (engine == "wgmma"), t0 + 2 * (engine == "wgmma_tf32"))
+        assert counts() == ({e: n + 2 * (e == fwd) for e, n in f0.items()},
+                            b0 + 2 * (engine == "mma_sync"), w0 + 2 * (engine == "wgmma"),
+                            t0 + 2 * (engine == "wgmma_tf32"))
         want = fused_moe_bwd_ref(x.detach(), *(w.detach() for w in ws), dy)
         for name, a, b, r in zip(("dx", "dw_gate", "dw_up", "dw_down"), got, again, want):
             assert a.dtype == dtype and torch.equal(a, b)
@@ -1050,6 +1069,86 @@ def test_fused_moe_bwd_tf32_refuses_what_tma_cannot_address(dev):
         b0, t0 = moe_kernel.bwd_launches, moe_kernel.bwd_tf32_launches
         moe_kernel.fused_moe_bwd_cuda(x, *ws, dy)
         assert (moe_kernel.bwd_launches, moe_kernel.bwd_tf32_launches) == (b0 + 1, t0)
+
+
+#: (E, C, D, F, block_m, block_f) for the 3xTF32 forward: ragged C, D and
+#: F (C 1, 20 and 65: g^T's rows padded to 4 values), blocks of one tile,
+#: several and under one, the tuner's default workload at two knob pairs,
+#: and dbrx-132b's widths (two of its experts) at the tuner's 256 rows an
+#: expert under three knob pairs and at training's 640
+TF32_FWD_SHAPES = [(2, 64, 48, 96, 64, 96), (3, 20, 36, 44, 20, 44), (1, 1, 8, 8, 128, 256),
+                   (3, 200, 520, 776, 100, 776), (2, 65, 40, 48, 65, 48),
+                   (4, 256, 264, 512, 32, 64), (2, 384, 100, 96, 192, 32),
+                   (8, 512, 256, 512, 128, 256), (8, 512, 256, 512, 512, 32),
+                   (2, 256, 6144, 10752, 128, 256), (2, 256, 6144, 10752, 32, 512),
+                   (2, 256, 6144, 10752, 256, 64), (2, 640, 6144, 10752, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", TF32_FWD_SHAPES)
+def test_fused_moe_tf32_fwd_matches_float64_and_mma_sync(dev, shape):
+    """The 3xTF32 forward (``csrc/fused_moe_tf32.cu``): within 1e-5 of
+    max|ref| of ``fused_moe_ref`` run in float64 (plain TF32 would be about
+    1e-3 off) and within f32 2e-5 of the mma.sync engine's output on the
+    same inputs, bit-equal on a rerun; ``fused_moe_cuda`` picks it at every
+    knob pair, its count moves by one a call and the other engines' not at
+    all; the launched grid is the reference's; the library's shared bytes
+    are the plan's."""
+    from repro_torch.kernels.fused_moe.ref import fused_moe_ref
+
+    E, C, D, F, bm, bf = shape
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(5)  # dbrx's weights drawn on the card
+
+    def randn(shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    x = randn((E, C, D))
+    ws = [randn(s, n ** -0.5) for s, n in (((E, D, F), D), ((E, D, F), D), ((E, F, D), F))]
+    assert moe_kernel.fwd_engine(f32, C, D, F, block_f=bf) == "wgmma_tf32"
+    before = _moe_fwd_counts()
+    got = moe_kernel.fused_moe_cuda(x, *ws, block_m=bm, block_f=bf)
+    again = moe_kernel.fused_moe_tf32_cuda(x, *ws, block_m=bm, block_f=bf)
+    assert _moe_fwd_counts() == {e: n + 2 * (e == "wgmma_tf32") for e, n in before.items()}
+    assert moe_kernel.last_grid == moe_ops.grid_shape(E, C, D, F, block_m=bm, block_f=bf)
+    old = moe_kernel.fused_moe_mma_sync_cuda(x, *ws, block_m=bm, block_f=bf)
+    exact = fused_moe_ref(*(t.double() for t in (x, *ws)))
+    torch.cuda.synchronize()
+    assert got.dtype == f32 and torch.equal(got, again)
+    err = float((got.double() - exact).abs().max()) / float(exact.abs().max())
+    assert err <= 1e-5, f"{err:.3g} of max|float64 ref|"
+    _rel_close(got, old, f32, "y against the mma.sync engine")
+    lib = moe_kernel.fwd_tf32_library()
+    launch = moe_kernel.tf32_fwd_plan(E, C, D, F, bm, bf)[0]
+    assert lib.fused_moe_tf32_smem_bytes(launch.tile[1]) == launch.smem <= moe_kernel.SMEM_LIMIT
+
+
+def test_fused_moe_tf32_fwd_refuses_what_it_does_not_take(dev):
+    """bf16, f32 rows that are not 16-byte multiples (D 37), a base off 16
+    bytes and F blocks that are neither whole 32-deep stages nor all of F
+    (48 of 96) are not the 3xTF32 forward's: it raises, and
+    ``fused_moe_cuda`` takes another engine for them."""
+    rng = np.random.default_rng(8)
+
+    def offset(t):  # the same values at a base 4 bytes past a 16-byte boundary
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    for dtype, D, F, bf, shift in ((torch.bfloat16, 48, 96, 96, False),
+                                   (torch.float32, 37, 96, 96, False),
+                                   (torch.float32, 48, 96, 96, True),
+                                   (torch.float32, 48, 96, 48, False)):
+        x = _randn(rng, (2, 32, D), dtype, dev)
+        ws = [_randn(rng, s, dtype, dev, 0.2) for s in ((2, D, F), (2, D, F), (2, F, D))]
+        if shift:
+            x = offset(x)
+            assert x.is_contiguous() and x.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            moe_kernel.fused_moe_tf32_cuda(x, *ws, block_f=bf)
+        before = _moe_fwd_counts()
+        out = moe_kernel.fused_moe_cuda(x, *ws, block_f=bf)
+        engine = "wgmma" if dtype == torch.bfloat16 else "mma_sync"
+        assert _moe_fwd_counts() == {e: n + (e == engine) for e, n in before.items()}
+        _close(out.cpu(), moe_ops.fused_moe(*(t.cpu() for t in (x, *ws))), dtype)
 
 
 #: bf16 shapes whose rows are 16-byte multiples: ragged M, N and K (none a
@@ -1161,7 +1260,8 @@ def test_fused_moe_fwd_wgmma_trains_through_ops(dev):
 def test_fused_moe_fwd_wgmma_refuses_what_it_does_not_take(dev):
     """f32, bf16 F blocks that are not whole 16-byte chunks and bf16 rows
     that are not 16-byte multiples are not the forward wgmma engine's: it
-    raises, and ``fused_moe_cuda`` takes the mma.sync engine for them."""
+    raises, and ``fused_moe_cuda`` takes the engine ``fwd_engine`` names
+    for them (the 3xTF32 one for f32 with 16-byte rows, else mma.sync)."""
     rng = np.random.default_rng(3)
     for dtype, D, F, bf in ((torch.float32, 48, 96, 256), (torch.bfloat16, 48, 96, 12),
                             (torch.bfloat16, 36, 44, 256)):
@@ -1169,9 +1269,11 @@ def test_fused_moe_fwd_wgmma_refuses_what_it_does_not_take(dev):
         ws = [_randn(rng, s, dtype, dev, 0.2) for s in ((2, D, F), (2, D, F), (2, F, D))]
         with pytest.raises(ValueError, match="16-byte"):
             moe_kernel.fused_moe_wgmma_cuda(x, *ws, block_m=64, block_f=bf)
-        n0 = moe_kernel.launches
+        engine = moe_kernel.fwd_engine(dtype, 64, D, F, block_f=bf)
+        assert engine == ("wgmma_tf32" if dtype == torch.float32 else "mma_sync")
+        before = _moe_fwd_counts()
         moe_kernel.fused_moe_cuda(x, *ws, block_m=64, block_f=bf)
-        assert moe_kernel.launches == n0 + 1
+        assert _moe_fwd_counts() == {e: n + (e == engine) for e, n in before.items()}
 
 
 def test_fused_moe_bwd_wgmma_refuses_what_tma_cannot_address(dev):

@@ -374,31 +374,35 @@ def test_flash_attention_plain_version_stays_near_float64(case):
 
 
 def test_flash_attention_fwd_engine_follows_type_head_dim_and_alignment():
-    """bf16 at head dims 128 and 256 whose bases are 16-byte multiples
-    takes the wgmma engine; f32, head dims 8-80 and other bases take the
+    """bf16 at head dims 80, 128 and 256 whose bases are 16-byte multiples
+    takes the wgmma engine; f32, head dims 8-64 and other bases take the
     mma.sync engine."""
     engine = fa_kernel.fwd_engine
     bf16 = torch.bfloat16
-    assert engine(bf16, 128) == engine(bf16, 256) == "wgmma"
-    for D in (8, 16, 32, 64, 80):
+    assert engine(bf16, 80) == engine(bf16, 128) == engine(bf16, 256) == "wgmma"
+    for D in (8, 16, 32, 64):
         assert engine(bf16, D) == "mma_sync"
     for D in fa_kernel.HEAD_DIMS:
         assert engine(torch.float32, D) == "mma_sync"
-    assert engine(bf16, 128, False) == engine(bf16, 256, False) == "mma_sync"
+    assert engine(bf16, 80, False) == engine(bf16, 128, False) == "mma_sync"
+    assert engine(bf16, 256, False) == "mma_sync"
     assert engine(torch.float16, 128) == "mma_sync"
 
 
 @pytest.mark.parametrize("D", fa_kernel.FWD_WGMMA_HEAD_DIMS)
 def test_flash_attention_fwd_wgmma_plan_fits_and_launches_heaviest_first(D):
     """The forward wgmma engine's shared bytes (alignment slack, two Q
-    tiles of 64 rows, a two-stage ring of K and V tiles, ten barriers) fit
-    a Hopper block at both head dims; the last q block, whose rows see the
-    most causal keys, launches first, a ragged one last; the grid is the
-    reference's first two grid dims; a step of block_k keys takes whole
-    tiles of 128 keys at D 128 and 64 at D 256."""
-    bn = {128: 128, 256: 64}[D]
+    tiles of 64 rows, a two-stage ring of K and V tiles, ten barriers; a
+    row in boxes of 64 columns, so D 80 takes 128) fit a Hopper block at
+    each head dim; the last q block, whose rows see the most causal keys,
+    launches first, a ragged one last; the grid is the reference's first
+    two grid dims; a step of block_k keys takes whole tiles of 128 keys at
+    D 80 and 128 and 64 at D 256."""
+    bn = {80: 128, 128: 128, 256: 64}[D]
+    assert fa_kernel.FWD_WGMMA_TILE_KEYS[D] == bn
+    padded = {80: 128, 128: 128, 256: 256}[D]
     plan = fa_kernel.fwd_wgmma_plan(4, 2048, 2048, 16, 8, D)
-    assert plan.smem == 1024 + 2 * 64 * D * 2 + 2 * 2 * bn * D * 2 + 8 * 10
+    assert plan.smem == 1024 + 2 * 64 * padded * 2 + 2 * 2 * bn * padded * 2 + 8 * 10
     assert plan.smem <= fa_kernel.SMEM_LIMIT
     assert (plan.sub_rows, plan.tile_keys, plan.stages, plan.warpgroups) == (128, bn, 2, 2)
     assert plan.grid == (64, 16) and plan.order == tuple(range(15, -1, -1))
@@ -408,7 +412,7 @@ def test_flash_attention_fwd_wgmma_plan_fits_and_launches_heaviest_first(D):
     other = fa_kernel.fwd_wgmma_plan(1, 512, 512, 2, 1, D, block_q=64, block_k=96)
     assert other.grid == (2, 8) and other.tiles_per_step == -(-96 // bn)
     with pytest.raises(ValueError):
-        fa_kernel.fwd_wgmma_plan(1, 64, 64, 2, 1, 80)
+        fa_kernel.fwd_wgmma_plan(1, 64, 64, 2, 1, 64)
 
 
 FA_LATTICE_CASES = [c for c in LATTICE_CASES if c[0] == "flash_attention"]
@@ -883,8 +887,8 @@ def test_fused_moe_fwd_engine_follows_type_widths_rows_and_alignment():
     """bf16 with rows to compute whose rows (D and F values) and bases are
     16-byte multiples, and whose F blocks are whole 16-byte chunks, takes
     the wgmma engine at every row count (a decode tick's 4 rows an expert
-    too); f32, no rows, other rows, other bases and other F blocks take the
-    mma.sync engine."""
+    too); f32 with such rows takes the 3xTF32 wgmma engine; no rows, other
+    rows, other bases and other F blocks take the mma.sync engine."""
     engine = moe_kernel.fwd_engine
     bf16 = torch.bfloat16
     assert engine(bf16, 512, 6144, 10752) == "wgmma"  # dbrx's 1024-token prefill
@@ -893,7 +897,7 @@ def test_fused_moe_fwd_engine_follows_type_widths_rows_and_alignment():
     assert engine(bf16, 4, 6144, 10752) == "wgmma"  # its decode tick
     assert engine(bf16, 63, 6144, 10752) == "wgmma"
     assert engine(bf16, 0, 6144, 10752) == "mma_sync"
-    assert engine(torch.float32, 512, 6144, 10752) == "mma_sync"
+    assert engine(torch.float32, 512, 6144, 10752) == "wgmma_tf32"
     assert engine(torch.float16, 512, 6144, 10752) == "mma_sync"
     assert engine(bf16, 512, 6148, 10752) == "mma_sync"
     assert engine(bf16, 512, 6144, 10756) == "mma_sync"
@@ -902,6 +906,137 @@ def test_fused_moe_fwd_engine_follows_type_widths_rows_and_alignment():
     assert engine(bf16, 100, 200, 300, block_f=150) == "mma_sync"
     assert engine(bf16, 512, 256, 520, block_f=260) == "mma_sync"
     assert engine(bf16, 512, 256, 520, block_f=520) == "wgmma"
+
+
+def test_fused_moe_fwd_engine_gives_aligned_f32_to_the_tf32_engine():
+    """f32 with rows to compute whose rows (D and F multiples of 4 values)
+    and bases are 16-byte multiples takes the 3xTF32 wgmma engine, at every
+    block_f of the tuner's lattice and wherever block_f is all of F (its
+    sum over F walks block_f steps in 32-deep stages that never straddle
+    one); other rows, other bases, no rows and other F blocks take the
+    mma.sync engine."""
+    from repro_torch.tune.space import BLOCK_VALUES
+
+    engine = moe_kernel.fwd_engine
+    f32 = torch.float32
+    assert engine(f32, 256, 6144, 10752) == "wgmma_tf32"  # the tuner's f32 workload
+    assert engine(f32, 640, 6144, 10752) == "wgmma_tf32"  # dbrx's training rows
+    assert engine(f32, 40, 7168, 4864) == "wgmma_tf32"  # arctic-480b's widths
+    assert engine(f32, 20, 36, 44) == engine(f32, 1, 8, 8) == "wgmma_tf32"
+    for bf in BLOCK_VALUES:
+        assert engine(f32, 512, 256, 512, block_f=bf) == "wgmma_tf32"
+    assert engine(f32, 100, 200, 96, block_f=96) == "wgmma_tf32"  # one step of all of F
+    assert engine(f32, 100, 200, 96, block_f=48) == "mma_sync"  # steps of 48: not whole stages
+    assert engine(f32, 20, 37, 44) == engine(f32, 20, 36, 45) == "mma_sync"
+    assert engine(f32, 256, 6144, 10752, False) == "mma_sync"
+    assert engine(f32, 0, 6144, 10752) == "mma_sync"
+
+
+#: the 3xTF32 forward's shapes and knobs: the tuner's f32 workload and
+#: dbrx-132b's training rows (256 and 640 rows an expert), the tuner's
+#: default workload, and ragged C, D and F with blocks of one tile, of
+#: several, and under a tile (a tile's rows or columns past its block
+#: computed and not stored)
+TF32_FWD_CASES = [(16, 256, 6144, 10752, 128, 256), (16, 640, 6144, 10752, 128, 256),
+                  (8, 512, 256, 512, 128, 256), (3, 20, 36, 44, 128, 256),
+                  (3, 200, 520, 776, 100, 776), (3, 200, 520, 776, 200, 776),
+                  (1, 1, 8, 8, 128, 256), (2, 130, 136, 264, 130, 264),
+                  (2, 65, 40, 48, 65, 48), (4, 256, 264, 512, 32, 64),
+                  (2, 512, 136, 1024, 256, 512), (2, 384, 100, 96, 192, 32)]
+
+
+def _tf32_fwd_covered(plan, E):
+    """Each launch's count of stores to each element of its output
+    (out^T, M x N an expert), checking that a tile lies inside its blocks
+    and that the walk visits ``E * tiles_e`` tiles."""
+    counts = []
+    for launch in plan:
+        M, N, _ = launch.products
+        seen = np.zeros((E, M, N), dtype=np.int8)
+        tiles = 0
+        for cta in range(launch.ctas):
+            for e, m0, rows, n0, cols in moe_kernel.tf32_fwd_walk(launch, E, cta):
+                tiles += 1
+                assert 0 < rows <= launch.tile[0] and 0 < cols <= launch.tile[1]
+                assert m0 // launch.row_block == (m0 + rows - 1) // launch.row_block
+                assert n0 // launch.col_block == (n0 + cols - 1) // launch.col_block
+                seen[e, m0:m0 + rows, n0:n0 + cols] += 1
+        assert tiles == E * launch.tiles_e
+        counts.append(seen)
+    return counts
+
+
+@pytest.mark.parametrize("case, sms", [(c, n) for c in TF32_FWD_CASES for n in (132, 114, 1)
+                                       if n == 132 or c[0] * c[1] * (c[2] + c[3]) < 4e6])
+def test_fused_moe_tf32_fwd_walk_covers_every_tile_once(case, sms):
+    """The 3xTF32 forward's three launches: gate (g^T) and up (u^T, whose
+    epilogue writes h) over F x C with K = D, down (y^T) over D x C with K =
+    F; A is the weights, MN-major, B the tokens, K-major. Across the
+    persistent CTAs of a launch (as many as SMs, never more than its tiles)
+    the walk stores every element of each output exactly once; a tile is
+    128 rows by 64 (block_m <= 64) or 128 columns; each CTA's shared bytes
+    (alignment slack, four stages of A, B and B's lo, three barriers a
+    stage) fit an SM; the products come to 6 E C D F operations. The
+    full-width shapes are walked at 132 SMs only."""
+    E, C, D, F, bm, bf = case
+    plan = moe_kernel.tf32_fwd_plan(E, C, D, F, bm, bf, sms)
+    assert [k.name for k in plan] == ["gate", "up", "down"]
+    assert [k.products for k in plan] == [(F, C, D), (F, C, D), (D, C, F)]
+    bn = 64 if min(bm, C) <= 64 else 128
+    ops = 0
+    for launch in plan:
+        assert launch.tile == (128, bn) and launch.stages == 4
+        assert launch.ctas == min(sms, E * launch.tiles_e)
+        assert launch.smem == 1024 + 4 * (128 + 2 * bn) * 32 * 4 + 3 * 4 * 8
+        assert launch.smem <= moe_kernel.SMEM_LIMIT
+        M, N, K = launch.products
+        ops += 2 * E * M * N * K
+    assert ops == 6 * E * C * D * F
+    assert all((seen == 1).all() for seen in _tf32_fwd_covered(plan, E))
+
+
+@pytest.mark.parametrize("kw", [{"E": 8, "C": 512, "D": 256, "F": 512},
+                                {"E": 2, "C": 256, "D": 6144, "F": 10752}],
+                         ids=["default", "dbrx-132b"])
+def test_fused_moe_tf32_fwd_runs_every_tuner_knob(kw):
+    """Every (block_m, block_f) the tuner's prefilter passes on its default
+    workload and at dbrx-132b's widths (two of its 16 experts) goes to the
+    3xTF32 engine and shapes its launch: block_m the column blocks (tokens)
+    of all three launches, block_f the row blocks (F) of gate and up; each
+    knob pair's plan stores every output element once, and the launched
+    grid stays the reference's ``grid_shape``; knob pairs that differ
+    after the ``min(block, dim)`` clamp give different plans."""
+    from repro_torch.tune import enumerate_candidates, prefilter
+
+    survivors, _ = prefilter("fused_moe", kw, enumerate_candidates("fused_moe"))
+    assert len(survivors) == 25
+    E, C, D, F = kw["E"], kw["C"], kw["D"], kw["F"]
+    plans, clamped = set(), set()
+    for c in survivors:
+        bm, bf = c.blocks["block_m"], c.blocks["block_f"]
+        clamped.add((min(bm, C), min(bf, F)))
+        assert moe_kernel.fwd_engine(torch.float32, C, D, F, block_f=bf) == "wgmma_tf32"
+        plan = moe_kernel.tf32_fwd_plan(E, C, D, F, bm, bf)
+        assert all(k.col_block == min(bm, C) for k in plan)
+        assert plan[0].row_block == plan[1].row_block == min(bf, F) and plan[2].row_block == D
+        assert moe_kernel.launch_plan(E, C, D, F, block_m=bm, block_f=bf).grid == \
+            ref_moe.grid_shape(E, C, D, F, block_m=bm, block_f=bf)
+        plans.add(plan)
+        if D <= 256:
+            assert all((seen == 1).all() for seen in _tf32_fwd_covered(plan, E))
+    assert len(plans) == len(clamped)  # knobs the clamp makes equal give one plan
+
+
+def test_fused_moe_tf32_fwd_plan_raises_where_the_engine_does_not_go():
+    """The plan refuses what ``fwd_engine`` keeps from the engine (F blocks
+    that are neither whole stages nor all of F, rows off 4 values) and what
+    the reference refuses (a block that does not divide its dimension)."""
+    with pytest.raises(ValueError):
+        moe_kernel.tf32_fwd_plan(2, 100, 200, 96, 100, 48)
+    with pytest.raises(ValueError):
+        moe_kernel.tf32_fwd_plan(2, 100, 202, 96, 100, 96)
+    with pytest.raises(ValueError):
+        moe_kernel.tf32_fwd_plan(2, 100, 200, 96, 64, 96)
 
 
 @pytest.mark.parametrize("R, d", [(8192, 1024), (131072, 128), (65536, 128), (8192, 3072),

@@ -83,7 +83,8 @@ def test_port_files_exist():
                "kernels/fused_moe/csrc/fused_moe_bwd.cu",
                "kernels/fused_moe/csrc/fused_moe_bwd_wgmma.cu",
                "kernels/fused_moe/csrc/fused_moe_bwd_tf32.cu",
-               "kernels/fused_moe/csrc/fused_moe_wgmma.cu", "kernels/_hopper/hopper.cuh"):
+               "kernels/fused_moe/csrc/fused_moe_wgmma.cu",
+               "kernels/fused_moe/csrc/fused_moe_tf32.cu", "kernels/_hopper/hopper.cuh"):
         assert (ROOT / "src" / "repro_torch" / cu).is_file()
 
 

@@ -7,16 +7,20 @@ Builds the port's forward libraries from the sources under DIR (default:
 this checkout's ``src``), logs ptxas's registers, spills and warnings of the
 wgmma engine (``csrc/flash_attention_wgmma.cu``) and its SASS instruction
 counts, then checks it against the plain version (``ref.attention_ref`` and
-``ref.lse_ref``) and the mma.sync engine at head dims 128 and 256: small,
-ragged, GQA, each mask, rows that see no key, query offsets, S != Skv and
-other blocks; bf16 within 2e-2 of max|ref|, the lse within 2e-2, bit-equal
-reruns. Without ``--quick`` it then times both engines in turns (wgmma,
-mma.sync, mma.sync, wgmma; CUDA events around ``--iters`` calls each) at
-the serving path's main shape (B4 S2048, 16/8 heads of 128, causal) and
-at gemma2-2b's prefill (B1 S4608, 8/4 heads of 256, causal, window 4096,
-softcap 50), each against its bound and SDPA (causal only at D 256: SDPA
-takes no softcap). Prints the card's name and power limit first. Exits
-non-zero on any mismatch. Needs a card.
+``ref.lse_ref``) and the mma.sync engine at head dims 80, 128 and 256:
+small, ragged, GQA, each mask, rows that see no key, query offsets, S !=
+Skv and other blocks; bf16 within 2e-2 of max|ref|, the lse within 2e-2,
+bit-equal reruns. A head dim the wgmma engine of DIR does not take is
+skipped (an older tree's). Without ``--quick`` it then times both engines
+in turns (wgmma, mma.sync, mma.sync, wgmma; CUDA events around ``--iters``
+calls each) at the serving path's main shape (B4 S2048, 16/8 heads of
+128, causal), at gemma2-2b's prefill (B1 S4608, 8/4 heads of 256, causal,
+window 4096, softcap 50) and at stablelm-3b's (B1 S2048, 32/32 heads of
+80, causal), each against its bound and SDPA (causal only at D 256: SDPA
+takes no softcap). To time two trees against each other, run the tool on
+each in turns in one session (parent, change, change, parent). Prints the
+card's name and power limit first. Exits non-zero on any mismatch. Needs a
+card.
 """
 import argparse
 import collections
@@ -48,6 +52,15 @@ CASES = [
     (2, 512, 0, 512, 4, 2, 256, True, None, 30.0, 256, 96),
     (1, 4608, 0, 4608, 8, 4, 256, True, 4096, 50.0, 128, 128),
     (4, 2048, 0, 2048, 16, 8, 128, True, None, None, 128, 128),
+    (1, 64, 0, 64, 2, 2, 80, True, None, None, 128, 128),
+    (2, 300, 0, 300, 8, 2, 80, True, None, None, 128, 128),
+    (1, 130, 0, 130, 2, 1, 80, True, 64, 50.0, 128, 128),
+    (1, 200, 0, 50, 2, 1, 80, False, 10, None, 128, 128),
+    (1, 77, 0, 200, 4, 1, 80, False, 50, 20.0, 128, 128),
+    (1, 64, 64, 192, 4, 2, 80, True, None, None, 128, 128),
+    (2, 512, 0, 512, 4, 2, 80, True, 100, None, 64, 32),
+    (2, 512, 0, 512, 4, 2, 80, True, None, None, 512, 512),
+    (1, 2048, 0, 2048, 32, 32, 80, True, None, None, 128, 128),
 ]
 
 
@@ -77,7 +90,8 @@ def main() -> int:
             f.result()
     print(f"built in {time.perf_counter() - t0:.1f}s", flush=True)
     for line in build_log("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES).splitlines():
-        if any(w in line for w in ("Compiling entry", "spill", "Used", "arning", "serializ")):
+        if any(w in line for w in ("Compiling entry", "spill", "Used", "arning", "serializ",
+                                   "C75")):
             print("  ptxas", line.strip()[:200], flush=True)
     so = library_path("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES)
     sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "--dump-sass", str(so)],
@@ -102,6 +116,8 @@ def main() -> int:
 
     ok = True
     for B, S, off, Skv, Hq, Hkv, D, causal, window, softcap, bq, bk in CASES:
+        if D not in fa_k.FWD_WGMMA_HEAD_DIMS:
+            continue
         q, k, v = randn(B, S, Hq, D), randn(B, Skv, Hkv, D), randn(B, Skv, Hkv, D)
         mask = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
         kw = dict(mask, block_q=bq, block_k=bk)
@@ -141,14 +157,19 @@ def main() -> int:
 
     shapes = [("main shape B4 S2048 16/8x128 causal", (4, 2048, 16, 8, 128), dict(causal=True)),
               ("gemma2-2b prefill B1 S4608 8/4x256 causal w4096 cap50", (1, 4608, 8, 4, 256),
-               dict(causal=True, window=4096, softcap=50.0))]
+               dict(causal=True, window=4096, softcap=50.0)),
+              ("stablelm-3b prefill B1 S2048 32/32x80 causal", (1, 2048, 32, 32, 80),
+               dict(causal=True))]
     for label, (B, S, Hq, Hkv, D), kw in shapes:
         q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         W = kw.get("window") or S
         flops = 4 * D * B * Hq * sum(min(i + 1, W) for i in range(S))
         bound = 1e3 * flops / 989e12
         turns = collections.defaultdict(list)
-        for engine in ("wgmma", "mma_sync", "mma_sync", "wgmma"):
+        engines = ("wgmma", "mma_sync", "mma_sync", "wgmma")
+        if D not in fa_k.FWD_WGMMA_HEAD_DIMS:
+            engines = ("mma_sync", "mma_sync")
+        for engine in engines:
             fn = getattr(fa_k, f"flash_attention_{engine}_cuda")
             turns[engine].append(ms_of(lambda a, b, c: fn(a, b, c, **kw), (q, k, v)))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""fused_moe's two forward engines side by side on one NVIDIA card.
+"""fused_moe's forward engines side by side on one NVIDIA card.
 
-    python3 tools/fused_moe_fwd_engines.py [--src DIR] [--quick] [--iters N]
+    python3 tools/fused_moe_fwd_engines.py [--src DIR] [--quick] [--iters N] [--f32]
 
 Builds the port's forward libraries from the sources under DIR (default:
 this checkout's ``src``), logs ptxas's registers and spills of the wgmma
@@ -20,6 +20,17 @@ in turns at 512 rows an expert with blocks of 128, 64, 32 and 8 rows
 computes the rest for nothing). Prints the card's
 name and power limit first. Exits non-zero on any mismatch. Needs a card;
 the port's tests and ``chip_smoke.py`` are the full check.
+
+With ``--f32`` it does the same for the f32 engines instead, with
+``chip_smoke.py``'s own helpers: the 3xTF32 wgmma engine
+(``csrc/fused_moe_tf32.cu``: ptxas's notes, SASS) against the plain version
+run in float64 (within 1e-5 of max|ref|) and the mma.sync engine (within
+f32 2e-5) on small, ragged and full-width shapes over several knob pairs,
+bit-equal on a rerun, its count moving by one a call; then (without
+``--quick``) both engines in turns at the tuner's f32 workload (E16 C256
+D6144 F10752) and at dbrx-132b's training rows (E16 C640), CUDA-graph
+replay (``cuda_ms``), beside the library's three ``bmm`` and silu-mul and
+the 3xTF32 bound, and each 3xTF32 launch under the profiler.
 """
 import argparse
 import collections
@@ -39,7 +50,10 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent.parent / "src"))
     ap.add_argument("--quick", action="store_true", help="build and check; no timing")
     ap.add_argument("--iters", type=int, default=6)
+    ap.add_argument("--f32", action="store_true", help="the f32 engines (3xTF32 wgmma, mma.sync)")
     args = ap.parse_args()
+    if args.f32:
+        return f32_engines(args)
     import numpy as np
     import torch
 
@@ -172,6 +186,104 @@ def main() -> int:
         fmt = {k: "/".join(f"{v:.4f}" for v in vs) for k, vs in runs.items()}
         print(f"  dbrx E16 C512 bf16 block_m {bm}: wgmma {fmt['wgmma']} ms, "
               f"mma.sync {fmt['mma_sync']} ms", flush=True)
+    print("ok", flush=True)
+    return 0
+
+
+def f32_engines(args) -> int:
+    """``--f32``: the 3xTF32 wgmma engine against float64 and mma.sync, then
+    both in turns beside the library (the module's head says how)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fused_moe_fwd_engines: needs a CUDA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, args.src)
+    sys.path.insert(1, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    from repro_torch.kernels._build import build_log
+    from repro_torch.kernels.fused_moe import kernel as moe_k
+    from repro_torch.kernels.fused_moe.ref import fused_moe_ref
+    from repro_torch.roofline.analysis import card_peaks
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(g) for g in (moe_k.library, moe_k.fwd_tf32_library)]:
+            f.result()
+    print(f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    ok = not any(cs.serialization_notes("fused_moe_tf32", moe_k.FWD_TF32_SOURCES).values())
+    for line in build_log("fused_moe_tf32", moe_k.FWD_TF32_SOURCES).splitlines():
+        if any(w in line for w in ("Compiling entry", "spill", "Used")):
+            print("  ptxas", line.strip()[:160], flush=True)
+    cs.wgmma_sass("fused_moe_tf32", moe_k.FWD_TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
+    dev, f32 = torch.device("cuda"), torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(E, C, D, F):
+        return tuple(s * torch.randn(shape, generator=gen, device=dev, dtype=f32) for shape, s in
+                     (((E, C, D), 1.0), ((E, D, F), D ** -0.5), ((E, D, F), D ** -0.5),
+                      ((E, F, D), F ** -0.5)))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()) / float(b.double().abs().max())
+
+    # (E, C, D, F, block_m, block_f): ragged C, D and F (C 1, 20, 65: rows
+    # padded to 4), blocks of one tile, several and under one, one expert,
+    # the tuner's default workload, dbrx-132b's widths at 256 and 640 rows
+    cases = [(2, 64, 48, 96, 64, 96), (3, 20, 36, 44, 20, 44), (3, 200, 520, 776, 200, 776),
+             (3, 200, 520, 776, 100, 776), (1, 1, 8, 8, 128, 256), (2, 65, 40, 48, 65, 48),
+             (4, 256, 264, 512, 32, 64), (2, 384, 100, 96, 192, 32),
+             (8, 512, 256, 512, 128, 256), (8, 512, 256, 512, 512, 32),
+             (16, 256, 6144, 10752, 128, 256), (16, 256, 6144, 10752, 32, 512),
+             (16, 640, 6144, 10752, 128, 256)]
+    for E, C, D, F, bm, bf in cases:
+        a = inputs(E, C, D, F)
+        assert moe_k.fwd_engine(f32, C, D, F, block_f=bf) == "wgmma_tf32", (C, D, F, bf)
+        t0, n0 = moe_k.tf32_launches, moe_k.launches
+        got = moe_k.fused_moe_cuda(*a, block_m=bm, block_f=bf)
+        again = moe_k.fused_moe_tf32_cuda(*a, block_m=bm, block_f=bf)
+        counted = (moe_k.tf32_launches - t0, moe_k.launches - n0) == (2, 0)
+        old = moe_k.fused_moe_mma_sync_cuda(*a, block_m=bm, block_f=bf)
+        want = fused_moe_ref(*(t.double() for t in a))
+        torch.cuda.synchronize()
+        e64, eold = rel(got, want), rel(got, old)
+        same = torch.equal(got, again)
+        good = e64 <= 1e-5 and eold <= cs.F32_TOL and same and counted
+        ok &= good
+        print(f"  E{E} C{C} D{D} F{F} bm{bm} bf{bf}: of max|float64 ref| {e64:.2e}, against "
+              f"mma.sync {eold:.2e}, mma.sync against float64 {rel(old, want):.2e}; rerun "
+              f"bit-equal {same}; counts {counted}{'' if good else '  MISMATCH'}", flush=True)
+        del a, got, again, old, want
+        torch.cuda.empty_cache()
+    if args.quick or not ok:
+        print("ok" if ok else "FAILED", flush=True)
+        return 0 if ok else 1
+
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    D, F = 6144, 10752
+    for E, C in ((16, 256), (16, 640)):
+        a = inputs(E, C, D, F)
+        flops = 6 * E * C * D * F
+        bound_ms, bound_by = cs.bound(peaks, 4 * (2 * E * C * D + 3 * E * D * F), 3 * flops,
+                                      "tf32")
+        runs = {"tf32": [], "mma_sync": []}
+        for eng in ("tf32", "mma_sync", "mma_sync", "tf32"):
+            fn = getattr(moe_k, f"fused_moe_{eng}_cuda")
+            runs[eng].append(cs.cuda_ms(torch, fn, [a], args.iters)[0])
+        lib = cs.cuda_ms(torch, cs.moe_library, [a], args.iters)[0]
+        fmt = {k: "/".join(f"{v:.4f}" for v in vs) for k, vs in runs.items()}
+        mean = float(np.mean(runs["tf32"]))
+        print(f"  E{E} C{C} D{D} F{F} f32: tf32 {fmt['tf32']} ms, mma.sync {fmt['mma_sync']} "
+              f"ms ({float(np.mean(runs['mma_sync'])) / mean:.2f}x), library {lib:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, 3xTF32), {bound_ms / mean:.4f} of it",
+              flush=True)
+        cs.tf32_fwd_launch_times(torch, moe_k, peaks, a)
+        del a
+        torch.cuda.empty_cache()
     print("ok", flush=True)
     return 0
 
