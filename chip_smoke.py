@@ -12,10 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
    fused MoE's mma.sync, wgmma and 3xTF32 wgmma engines; flash attention's
-   wgmma backward at head dim 128 and fused MoE's 3xTF32 engines with no
-   spill) and of the forward wgmma engines (flash attention's at head dims
-   80, 128 and 256 with no spill); flash attention's forward and backward
-   wgmma engines and fused MoE's two 3xTF32 engines with no C7515 note
+   wgmma backward at head dims 64, 80 and 128 and fused MoE's 3xTF32
+   engines with no spill) and of the forward wgmma engines (flash
+   attention's at head dims 64, 80, 128 and 256 with no spill); flash
+   attention's forward and backward wgmma engines and fused MoE's two
+   3xTF32 engines with no C7515 note
    (ptxas serialized wgmma instructions) and no C7519 or C7520 note (it
    injected a ``warpgroup.arrive``); each library's notes are logged; the
    launch plans,
@@ -28,9 +29,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference's kernel tolerances; full-width f32 MoE sums relative to
    max|ref|; bf16 attention at the main shapes also row by row, within
    2e-2 of each row's max|ref| plus one ulp); flash attention on the
-   engine ``fwd_engine`` picks (bf16 at head dims 80, 128 and 256: the
+   engine ``fwd_engine`` picks (bf16 at head dims 64, 80, 128 and 256: the
    wgmma engine, its lse against ``lse_ref`` too, then the mma.sync engine
-   on the same inputs), at the lattice's block corners (bf16, the main
+   on the same inputs; f32 on the mma.sync engine, its main path), with
+   query offsets at head dim 64, at the lattice's block corners (bf16, the main
    shape) with its launched grid, and rows that see no key; fused MoE and
    scaled_mm at every
    config the tuner's prefilter passes on its default workloads (fused MoE
@@ -50,20 +52,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the remaining families' shapes: flash attention at gemma2-2b's prefill
    (4608 tokens, window 4096, softcap 50, head dim 256), whisper-base's
    encoder and cross attention (1500 frames), llama-3.2-vision's cross
-   attention (1601 patches) and stablelm-3b's head dim 80; silu_mul geglu
+   attention (1601 patches), stablelm-3b's head dim 80 and hymba-1.5b's
+   global layer (B1 S1528 25/5 heads of 64); silu_mul geglu
    at gemma2-2b's (4608, 9216); and the four backward kernels (rmsnorm,
    silu_mul, flash attention, fused MoE) against their plain backward
    formulas, at qwen3-0.6b's training shapes (B4 S2048; rmsnorm also at
    its q and k norms' rows), stablelm-3b's (B1 S2048, 32/32 heads of 80,
    bf16 and f32), gemma2-2b's (head dim 256 with causal, window and
    softcap 50 masks, small and at B1 S4096 8/4 heads); bf16 at head dims
-   128 and 256 runs flash attention's wgmma engine, also small, ragged (S
-   130) with each mask alone, with rows that see no key, a group of 6,
-   dbrx-132b's training shape (B1 S2048 48/8 heads of 128) and gemma2-2b's
-   unmasked at B1 S4096, each also held to the mma.sync engine's
-   gradients; the mma.sync engine's main path is f32; bf16 at head dim 80
-   reads the lse of the wgmma forward's head-dim-80 instance), query
-   offsets (a rank's
+   64, 80, 128 and 256 runs flash attention's wgmma engine, also small,
+   ragged (S 130) with each mask alone, with rows that see no key, a group
+   of 6, dbrx-132b's training shape (B1 S2048 48/8 heads of 128),
+   gemma2-2b's unmasked at B1 S4096, hymba-1.5b's global layer (B1 S1528
+   25/5 heads of 64) and whisper-base's encoder (B1 S1500 8/8 heads of 64,
+   no mask), each also held to the mma.sync engine's gradients; the
+   mma.sync engine's main path is f32), query offsets (a rank's
    block of rows: forward and backward on both engines, f32 and bf16), the
    reference's kernel test shapes (causal and not, a window, a softcap,
    GQA, rows that see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
@@ -106,7 +109,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    same inputs, in turns, at the main shape beside SDPA, at gemma2-2b's
    prefill shape (no library call: SDPA takes no softcap; the wgmma
    engine causal only beside SDPA as a logged yardstick, and at other
-   blocks) and at stablelm-3b's bf16 prefill (B1 S2048 32/32 heads of 80)
+   blocks), at stablelm-3b's bf16 prefill (B1 S2048 32/32 heads of 80),
+   whisper-base's encoder (B1 S1500 8/8 heads of 64, no mask) and
+   hymba-1.5b's global layer (B1 S1528 25/5 heads of 64, causal), each
    beside SDPA; fused MoE in bf16 at
    dbrx-132b's 1024-token prefill (the wgmma engine's JSON row) and decode
    serving shapes, at the tuner's dbrx-132b workload (f32, bounded as
@@ -114,19 +119,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    its turns on the same inputs; and bf16) and at phase 10 (e)'s 640 rows
    (bf16, and f32 logged), each shape also on the mma.sync engine in turns
    on the same inputs, with each wgmma and 3xTF32 launch under the
-   profiler beside its own bound; the mma.sync forward at a shape it runs,
-   whisper-base's bf16 encoder (B1 S1500 8/8 heads of 64) beside SDPA (its
-   in-turns times at the main shape and stablelm's are logged); silu_mul
+   profiler beside its own bound; the mma.sync forward at a shape its main
+   path runs, f32 at qwen3-0.6b's phase 10 (a) (B2 S256 16/8 heads of 128,
+   causal; its bound at the f32 peak) beside SDPA in f32 (its in-turns
+   times at the bf16 shapes above are logged); silu_mul
    also at phase 4's prompt lengths,
    scaled_mm also at the tuner's default workload beside
    ``torch._int_mm``; the three backward kernels at qwen3-0.6b's training
    shapes, beside their plain backward formulas and the backward of
    ``F.rms_norm`` and of SDPA (rows logged beside them: rmsnorm's at the q
-   and k norms' (131072, 128) and (65536, 128), flash attention's at
-   stablelm-3b's head dim 80); flash attention's backward there (B4 S2048
-   16/8 heads of 128) on the wgmma engine and on the mma.sync engine on
-   the same inputs, in turns, and at dbrx-132b's (B1 S2048 48/8, logged),
+   and k norms' (131072, 128) and (65536, 128)); flash attention's
+   backward there (B4 S2048 16/8 heads of 128) on the wgmma engine and on
+   the mma.sync engine on the same inputs, in turns, and so at
+   dbrx-132b's (B1 S2048 48/8), stablelm-3b's (B1 S2048 32/32 heads of 80)
+   and hymba-1.5b's global layer (B1 S1528 25/5 heads of 64) (logged),
    each wgmma launch under the profiler beside the bound of its products;
+   the mma.sync backward at a shape its main path runs, f32 at
+   qwen3-0.6b's phase 10 (a), beside SDPA's backward in f32;
    at gemma2-2b's training shape on the wgmma engine (logged; no library:
    SDPA takes no softcap), in turns with the mma.sync engine, each launch
    under the profiler, and causal only beside SDPA's backward; fused
@@ -179,7 +188,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``ServeEngine`` and ``ContinuousBatchingEngine`` (4 slots, 8192 tokens)
    with prompts of 512-6000 tokens, then each other family through
    ``ServeEngine`` at its depth of (b), every step recorded and re-lowered
-   and every kernel's launch count exact (``family_launches``);
+   and every kernel's launch count exact (``family_launches``; flash
+   attention's prefill calls under the forward engine ``fwd_engine`` picks,
+   whisper-base's and hymba-1.5b's at head dim 64 on the wgmma engine),
+   and whisper-base's and hymba-1.5b's requests served again with their
+   forward on the mma.sync engine (``fwd_on_mma_sync``), the tokens that
+   agree counted, and both forwards' prefill logits within 5e-2 of
+   max|logit| (``both_forwards``);
 10. training, the third main path: (a) qwen3-0.6b, stablelm-3b (head
    dim 80) and gemma2-2b (head dim 256) at full width cut to 2 layers (B2
    S256, gemma2 B1 S256) and dbrx-132b cut to 1 layer (B1 S128, gradients
@@ -272,6 +287,7 @@ and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
 result.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -288,6 +304,9 @@ F32_TOL, BF16_TOL = 2e-5, 2e-2
 # of max|logit|: f32 sums in another order on the card and on the CPU; the gap
 # measured on an H100 is about 1.6e-6 of max|logit|
 MODEL_TOL = 1e-4
+# of max|logit|: a bf16 model's logits on two engines (tests/test_torch_families.py's
+# bf16 tolerance)
+FAMILY_BF16_TOL = 5e-2
 # of max|ref|: the full-width f32 MoE sums run over D=6144 and F=10752 in
 # another order on the card than in cuBLAS; the gap measured on an H100 is
 # about 5e-6 of max|ref|
@@ -382,6 +401,21 @@ def fa_fwd_wgmma(cfg):
     from repro_torch.kernels.flash_attention.kernel import fwd_engine
 
     return fwd_engine(getattr(torch, cfg.compute_dtype), cfg.resolved_head_dim) == "wgmma"
+
+
+@contextlib.contextmanager
+def fwd_on_mma_sync(D):
+    """Inside the block the forward at head dim ``D`` runs on the mma.sync
+    engine: ``fwd_engine`` reads ``FWD_WGMMA_HEAD_DIMS`` at each call, and
+    ``D`` is taken out of it."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+
+    saved = fa_k.FWD_WGMMA_HEAD_DIMS
+    fa_k.FWD_WGMMA_HEAD_DIMS = tuple(d for d in saved if d != D)
+    try:
+        yield
+    finally:
+        fa_k.FWD_WGMMA_HEAD_DIMS = saved
 
 
 def on_engines(cfg, counts):
@@ -665,14 +699,17 @@ def ptxas_report(fa_k, moe_k=None):
     engines: ptxas's registers and spills for each instance built
     (``-Xptxas -v``) of flash attention's backward and forward wgmma engine
     and of fused MoE's, each held to at most 1 KB of spill stores (the
-    backward wgmma engine's head-dim-128 kernels to none); where ptxas
+    backward wgmma engine's kernels at head dims 64, 80 and 128 to none);
+    where ptxas
     serialized a library's wgmma or injected a ``warpgroup.arrive`` (its
     C7515, C7519 and C7520 notes), the count of such notes, which flash
     attention's forward and backward wgmma engines and fused MoE's two
     3xTF32 engines must not have; and the geometry ``bwd_launch_plan`` and
-    ``bwd_wgmma_plan`` give at qwen3-0.6b's and gemma2-2b's training
-    shapes, ``fwd_wgmma_plan`` at the forward's main shapes (stablelm-3b's
-    head dim 80 too) and ``tf32_fwd_plan`` at the tuner's f32 workload."""
+    ``bwd_wgmma_plan`` give at qwen3-0.6b's, gemma2-2b's, stablelm-3b's,
+    hymba-1.5b's and whisper-base's training shapes, ``fwd_wgmma_plan`` at
+    the forward's main shapes (stablelm-3b's at head dim 80, whisper-base's
+    encoder and hymba-1.5b's global layer at 64) and ``tf32_fwd_plan`` at
+    the tuner's f32 workload."""
     import re
 
     import torch
@@ -715,13 +752,16 @@ def ptxas_report(fa_k, moe_k=None):
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 assert spill is None or int(spill.group(1)) <= 1024, f"{kernel} spills: {line}"
                 assert spill is None or not re.match(
-                    r"fa_bwd_\w+_wgmma<128\b|moe_bwd_tf32|moe_fwd_tf32|fa_fwd_wgmma", kernel) or (
+                    r"fa_bwd_\w+_wgmma<(64|80|128)\b|moe_bwd_tf32|moe_fwd_tf32|fa_fwd_wgmma",
+                    kernel) or (
                     int(spill.group(1)) == 0), f"{kernel} spills: {line}"
     for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
         log(f"  backward plan, B4 S2048 16/8x128 bf16: {kern.name} grid {kern.grid}, "
             f"{kern.rows} rows a CTA, steps of {kern.step}, {kern.stages} stages, "
             f"{kern.warps} warps, {kern.smem} shared bytes")
-    for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4096, 4096, 8, 4))):
+    for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4096, 4096, 8, 4)),
+                     (80, (1, 2048, 2048, 32, 32)), (64, (1, 1528, 1528, 25, 5)),
+                     (64, (1, 1500, 1500, 8, 8))):
         for kern in fa_k.bwd_wgmma_plan(*shape, D):
             log(f"  backward plan (wgmma), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} bf16: "
                 f"{kern.name} grid {kern.grid}, {kern.rows} rows a CTA, steps of {kern.step}, "
@@ -729,7 +769,8 @@ def ptxas_report(fa_k, moe_k=None):
                 f"{kern.smem} shared bytes")
     wgmma_sass("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES)
     for D, shape in ((128, (4, 2048, 2048, 16, 8)), (256, (1, 4608, 4608, 8, 4)),
-                     (80, (1, 2048, 2048, 32, 32))):
+                     (80, (1, 2048, 2048, 32, 32)), (64, (1, 1500, 1500, 8, 8)),
+                     (64, (1, 1528, 1528, 25, 5))):
         p = fa_k.fwd_wgmma_plan(*shape, D)
         log(f"  forward plan (wgmma), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} bf16: grid "
             f"{p.grid}, {p.block_q} q rows a CTA in sub-blocks of {p.sub_rows}, steps of "
@@ -829,9 +870,12 @@ def kernel_parity(torch, dev):
             check(f"silu_mul {shape} {act} {dt}", "silu_mul",
                   lambda: silu_mul_cuda(g, u, act=act),
                   silu_mul_ref(g, u, act=act), dt, main and (act == "silu" or shape[1] == 9216))
-    fa_cases = [
-        # (B, S, Skv, Hq, Hkv, D, causal, window, softcap, dtype, main path)
+    fa_cases = [(*c, 0) for c in [
+        # (B, S, Skv, Hq, Hkv, D, causal, window, softcap, dtype, main path),
+        # then q_offset; an f32 case is the mma.sync engine's main path where
+        # phases 9 and 10 (a) run its shape
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),
+        (2, 256, 256, 16, 8, 128, True, None, None, f32, True),  # qwen3's phase 10 (a)
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
         (1, 1000, 1000, 16, 8, 128, True, None, None, bf16, True),
         (2, 512, 512, 16, 8, 128, True, 256, None, bf16, False),
@@ -848,26 +892,38 @@ def kernel_parity(torch, dev):
         # prompt that the 4096 window cuts, softcap 50, head dim 256;
         # whisper-base's encoder and its cross attention over 1500 frames;
         # llama-3.2-vision's cross attention over 1601 patches; stablelm-3b's
-        # head dim 80
+        # head dim 80; hymba-1.5b's global layer (1400 tokens and 128 meta
+        # tokens, 25/5 heads of 64)
         (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0, bf16, True),
         (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0, f32, False),
         (1, 1500, 1500, 8, 8, 64, False, None, None, bf16, True),
-        (1, 1500, 1500, 8, 8, 64, False, None, None, f32, False),
+        (1, 1500, 1500, 8, 8, 64, False, None, None, f32, True),
         (1, 64, 1500, 8, 8, 64, False, None, None, bf16, True),
         (1, 512, 1601, 32, 8, 128, False, None, None, bf16, True),
         (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, True),
         (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
+        (1, 1528, 1528, 25, 5, 64, True, None, None, bf16, True),
+        # head dim 64 on the wgmma engine: ragged GQA, a window with a
+        # softcap, more keys than rows with both
+        (2, 300, 300, 8, 2, 64, True, None, None, bf16, False),
+        (1, 130, 130, 2, 1, 64, True, 64, 50.0, bf16, False),
+        (1, 77, 200, 4, 1, 64, False, 50, 20.0, bf16, False),
+    ]] + [
+        # query offsets (a rank's block of rows) at head dim 64
+        (1, 64, 192, 4, 2, 64, True, None, None, bf16, False, 64),
+        (1, 130, 200, 2, 1, 64, False, 64, None, bf16, False, 40),
     ]
     # each case on the engine fwd_engine picks (the wgmma engine for bf16 at
-    # head dims 128 and 256: its lse too; then the mma.sync engine on the
-    # same inputs), the other engine's count not moving
-    for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main in fa_cases:
+    # head dims 64, 80, 128 and 256: its lse too; then the mma.sync engine on
+    # the same inputs, whose main path is f32), the other engine's count not
+    # moving
+    for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in fa_cases:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
-        kw = dict(causal=causal, window=window, softcap=softcap)
+        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
         ref = attention_ref(q, k, v, **kw)
         wgmma = fa_k.fwd_engine(dt, D) == "wgmma"
         label = (f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
-                 f"window={window} softcap={softcap} {dt}")
+                 f"window={window} softcap={softcap} q_offset={off} {dt}")
         n0, w0 = fa_k.launches, fa_k.wgmma_launches
         check(f"{label} ({'wgmma' if wgmma else 'mma_sync'})",
               "flash_attention_wgmma" if wgmma else "flash_attention",
@@ -882,7 +938,7 @@ def kernel_parity(torch, dev):
             assert lerr <= BF16_TOL, f"{label}: lse off by {lerr:.3g}"
             log(f"  {label} (wgmma) lse: max abs err {lerr:.3g} (tol {BF16_TOL})")
             check(f"{label} (mma_sync)", "flash_attention",
-                  lambda: fa_k.flash_attention_mma_sync_cuda(q, k, v, **kw), ref, dt, main,
+                  lambda: fa_k.flash_attention_mma_sync_cuda(q, k, v, **kw), ref, dt, False,
                   per_row=main)
         del q, k, v, ref
     # the block knobs' corners at the main shape: each launches the grid it
@@ -1222,21 +1278,29 @@ def backward_parity(torch, dev):
                   lambda: silu_mul_bwd_cuda(dh, g, u, act=a),
                   silu_mul_bwd_ref(dh, g, u, act=a), main and a == "silu")
     # flash attention's backward on the engine bwd_engine picks: bf16 at head
-    # dims 128 and 256 runs the wgmma engine, and is also checked against the
-    # mma.sync engine's gradients on the same inputs; the last cases take a
-    # query offset (a rank's block of rows under ops.row_split), whose
-    # forward is checked against the plain version too. The main paths:
-    # qwen3's and gemma2's bf16 training (wgmma), the f32 gradient runs of
-    # phase 10 (a) (mma.sync)
+    # dims 64, 80, 128 and 256 runs the wgmma engine, and is also checked
+    # against the mma.sync engine's gradients on the same inputs; the last
+    # cases take a query offset (a rank's block of rows under ops.row_split),
+    # whose forward is checked against the plain version too. The main
+    # paths: qwen3's and gemma2's bf16 training (wgmma), the f32 gradient
+    # runs of phase 10 (a) (mma.sync)
     fa_grads = ("dq", "dk", "dv")
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in [(*c, 0) for c in [
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, True),
-        # stablelm-3b's training shape: bf16 reads the lse of the wgmma
-        # forward's head-dim-80 instance (the mma.sync backward at 80), also
-        # ragged and with a window and a softcap
+        (2, 256, 256, 16, 8, 128, True, None, None, f32, True),  # its phase 10 (a)
+        # stablelm-3b's training shape on the wgmma engine's head-dim-80
+        # instances, also ragged with a window and a softcap, and with more
+        # keys than rows; hymba-1.5b's global layer (25/5, causal) and
+        # whisper-base's encoder (8/8, no mask) on its head-dim-64 ones,
+        # with a window and a softcap, and ragged
         (1, 2048, 2048, 32, 32, 80, True, None, None, bf16, False),
         (2, 130, 130, 4, 2, 80, True, 64, 50.0, bf16, False),
+        (1, 77, 200, 4, 1, 80, False, 50, 20.0, bf16, False),
+        (1, 1528, 1528, 25, 5, 64, True, None, None, bf16, False),
+        (1, 1500, 1500, 8, 8, 64, False, None, None, bf16, False),
+        (1, 130, 130, 2, 1, 64, True, 64, 50.0, bf16, False),
+        (2, 300, 300, 12, 2, 64, True, None, None, bf16, False),
         (1, 2048, 2048, 32, 32, 80, True, None, None, f32, False),
         (2, 96, 96, 4, 2, 80, True, 64, None, f32, False),  # queue C's head dim 80 case
         (1, 64, 64, 2, 2, 16, True, None, None, f32, False),  # the reference's cases
@@ -1283,6 +1347,9 @@ def backward_parity(torch, dev):
         (1, 1024, 4096, 8, 4, 256, True, 4096, 50.0, bf16, False, 3072),
         (1, 130, 200, 2, 1, 256, False, 64, None, bf16, False, 40),
         (1, 130, 200, 6, 1, 128, False, 64, None, bf16, False, 40),
+        (1, 64, 192, 4, 2, 80, True, None, None, bf16, False, 64),
+        (1, 130, 200, 2, 1, 64, False, 64, None, bf16, False, 40),
+        (1, 100, 200, 4, 2, 64, True, 48, 30.0, bf16, False, 60),
     ]:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         dout = randn((B, S, Hq, D), dt)
@@ -1666,8 +1733,10 @@ def remaining_families(torch, dev, kinds):
     """Phase 9: (b) each family at full width on the card against the CPU,
     f32; (c) gemma2-2b at full width and depth served in bf16 through both
     engines with prompts longer than its window, then each other family
-    through ``ServeEngine`` at its parity depth, launch counts exact.
-    Returns the serving runs' launches."""
+    through ``ServeEngine`` at its parity depth, launch counts exact; the
+    bf16 families at head dim 64 (hymba-1.5b, whisper-base) also with their
+    forward on the mma.sync engine (``both_forwards``). Returns the serving
+    runs' launches (the mma.sync runs' left out)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.hardware import get_hw
     from repro_torch.models.registry import build_model
@@ -1688,7 +1757,7 @@ def remaining_families(torch, dev, kinds):
     roofline = get_predictor("roofline", get_hw("tpu-v5e"))
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
-    def run(label, eng, prompts, max_new):
+    def run(label, eng, prompts, max_new, results_out=None, add=True):
         nonlocal finite
         inner = eng._runner.sample
 
@@ -1699,9 +1768,10 @@ def remaining_families(torch, dev, kinds):
 
         eng._runner.sample = sample
         per_forward, per_prefill = family_launches(eng.cfg)
-        for k, v in serve_run(torch, kinds, label, eng, prompts, max_new, per_forward,
-                              per_prefill, predictor=roofline).items():
-            totals[k] += v
+        moved = serve_run(torch, kinds, label, eng, prompts, max_new, per_forward, per_prefill,
+                          predictor=roofline, results_out=results_out)
+        for k, v in moved.items():
+            totals[k] += v * add
 
     # gemma2-2b at full width and depth, bf16 compute
     t0 = time.perf_counter()
@@ -1736,14 +1806,68 @@ def remaining_families(torch, dev, kinds):
             cfg = dataclasses.replace(cfg, n_layers=depth)
         params = build_model(cfg, "cuda").init(SEED)
         lens = (prompt_len, prompt_len // 2 + 1, 200)
+        prompts = [rng.integers(1, cfg.vocab_size, L) for L in lens]
+        label = f"{arch} ({cfg.n_layers} layers) ServeEngine(max_batch=2)"
+        served = []
         eng = ServeEngine(cfg, params=params, max_batch=2, recorder=TraceRecorder(), device="cuda")
-        run(f"{arch} ({cfg.n_layers} layers) ServeEngine(max_batch=2)", eng,
-            [rng.integers(1, cfg.vocab_size, L) for L in lens], 8)
-        del eng, params
+        run(label, eng, prompts, 8, served)
+        del eng
+        if cfg.resolved_head_dim == 64 and fa_fwd_wgmma(cfg):
+            both_forwards(torch, cfg, params, prompts, served, label, run)
+        del params
         torch.cuda.empty_cache()
         log(f"  (c) {arch} served in {time.perf_counter() - t0:.1f}s")
     assert bool(finite), "non-finite logits on the families' serving paths"
     return totals
+
+
+def both_forwards(torch, cfg, params, prompts, served, label, run):
+    """Phase 9 (c) for a bf16 family at head dim 64, whose forward the
+    wgmma engine took from the mma.sync engine: the same requests served
+    again with the forward on the mma.sync engine (``run`` leaves their
+    launches out of the main path's counts), and both forwards' prefill
+    logits at every position of one batch of the family's parity length, within
+    ``FAMILY_BF16_TOL`` of max|logit|. Greedy tokens of random weights
+    flip where two logits nearly tie, so the served tokens are counted, not
+    required equal."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import materialize_batch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.trace import TraceRecorder
+
+    before = []
+    with fwd_on_mma_sync(64):
+        eng = ServeEngine(cfg, params=params, max_batch=2, recorder=TraceRecorder(),
+                          device="cuda")
+        run(label + ", forward on mma.sync", eng, prompts, 8, before, add=False)
+    del eng
+    want = {r.rid: r.tokens for r in before}
+    pairs = [(a, b) for r in served for a, b in zip(r.tokens, want[r.rid])]
+    first = {r.rid: next((i for i, (a, b) in enumerate(zip(r.tokens, want[r.rid])) if a != b),
+                         None) for r in served}
+    length = dict((a, L) for a, _, L in FAMILY_RUNS)[cfg.name]
+    compute = T.cast_for_compute(params, cfg)
+    batch = materialize_batch(cfg, 2, length, seed=SEED, device="cuda")
+
+    def logits():  # every position's, as a prefill computes them
+        with torch.no_grad():
+            hidden = T.forward(compute, cfg, batch, "prefill")[0]
+            return T.full_logits(compute, cfg, hidden).float()
+
+    wg = logits()
+    with fwd_on_mma_sync(64):
+        ms = logits()
+    torch.cuda.synchronize()
+    scale = float(ms.abs().max())
+    err = float((wg - ms).abs().max())
+    top = wg.reshape(-1, wg.shape[-1]).argmax(-1) == ms.reshape(-1, ms.shape[-1]).argmax(-1)
+    assert bool(torch.isfinite(wg).all()) and err <= FAMILY_BF16_TOL * scale, (
+        f"{cfg.name}: prefill logits on the two forwards {err:.3g} apart, max|logit| {scale:.3g}")
+    log(f"  (c) {cfg.name}: served tokens equal on both forward engines "
+        f"{sum(a == b for a, b in pairs)} of {len(pairs)} (first difference a request: "
+        f"{first}); prefill logits (B2 S{length}) {err:.3g} apart, of max|logit| {scale:.3g} "
+        f"(tol {FAMILY_BF16_TOL}), argmax equal at {int(top.sum())} of {top.numel()} rows")
+    del compute, batch, wg, ms
 
 
 # ======================================================================
@@ -1921,24 +2045,48 @@ def kernel_times(torch, dev, peaks):
         f"{w['bound_ms'] / w['ms']:.4f} of the bound, {w['ms'] / w['library_ms']:.2f}x SDPA's "
         f"{w['library_ms']:.4f}")
     del q, k, v, qt, kt, vt
-    # the mma.sync engine's row at a shape it runs: whisper-base's encoder,
-    # bf16, B=1, 1500 frames, 8/8 heads of 64, no mask (phase 9 serves it)
-    B, S, Hq, Hkv, D = 1, 1500, 8, 8, 64
-    q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-    flops = 4 * D * B * Hq * S * S
-    nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    assert fa_k.fwd_engine(bf16, D) == "mma_sync"
+    # whisper-base's encoder (phase 9), B=1, 1500 frames, 8/8 heads of 64,
+    # no mask, and hymba-1.5b's global layer, B=1, 1528 tokens (1400 and
+    # 128 meta tokens), 25/5 heads of 64, causal: the wgmma engine's
+    # head-dim-64 instance in turns with the mma.sync engine (which no
+    # longer runs these shapes), beside SDPA
+    for label, (B, S, Hq, Hkv, D), causal in (
+            (" (whisper-base encoder, D64)", (1, 1500, 8, 8, 64), False),
+            (" (hymba-1.5b global layer, D64)", (1, 1528, 25, 5, 64), True)):
+        q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        flops = 4 * D * B * Hq * (S * (S + 1) // 2 if causal else S * S)
+        nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        w = fa_engines(label, dict(causal=causal), [(q, k, v)],
+                       lambda a, b, c, causal=causal: attention_ref(a, b, c, causal=causal),
+                       (lambda a, b, c, causal=causal: F.scaled_dot_product_attention(
+                           a, b, c, is_causal=causal, enable_gqa=True), [(qt, kt, vt)]),
+                       bound(peaks, nbytes, flops, "bfloat16"))
+        log(f"  flash_attention_wgmma{label}, B{B} S{S} {Hq}/{Hkv}x{D} causal={causal} bf16: "
+            f"{flops / 1e9:.2f} GFLOP; {w['ms']:.4f} ms, {flops / w['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{w['bound_ms'] / w['ms']:.4f} of the bound, {w['ms'] / w['library_ms']:.2f}x "
+            f"SDPA's {w['library_ms']:.4f}")
+        del q, k, v, qt, kt, vt
+    # the mma.sync engine's row at a shape its main path runs: f32 (on the
+    # FMA units: its bound at the f32 peak) at qwen3-0.6b's gradient run of
+    # phase 10 (a), B=2, S=256, 16/8 heads of 128, causal, beside SDPA in
+    # f32; 16 input sets, 64 MB, so that every call reads from device memory
+    B, S, Hq, Hkv, D = 2, 256, 16, 8, 128
+    sets = [(randn(B, S, Hq, D, dtype=f32), randn(B, S, Hkv, D, dtype=f32),
+             randn(B, S, Hkv, D, dtype=f32)) for _ in range(16)]
+    flops = 4 * D * B * Hq * S * (S + 1) // 2
+    nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
     row("flash_attention",
-        lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, causal=False),
-        lambda a, b, c: attention_ref(a, b, c, causal=False),
-        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c), [(qt, kt, vt)]), [(q, k, v)],
-        40, *bound(peaks, nbytes, flops, "bfloat16"))
+        lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, causal=True),
+        lambda a, b, c: attention_ref(a, b, c, causal=True),
+        (sdpa, [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]), sets,
+        40, *bound(peaks, nbytes, flops, "float32"))
     r = rows["flash_attention"]
-    log(f"  flash_attention (mma.sync) at whisper-base's encoder, B1 S1500 8/8x64 bf16: "
-        f"{r['ms']:.4f} ms, {flops / 1e9:.2f} GFLOP, {flops / r['ms'] / 1e9:.1f} TFLOP/s, "
-        f"{r['bound_ms'] / r['ms']:.4f} of the bound, SDPA {r['library_ms']:.4f}")
-    del q, k, v, qt, kt, vt
+    log(f"  flash_attention (mma.sync) at qwen3-0.6b's phase 10 (a) shape, B2 S256 16/8x128 "
+        f"causal f32: {r['ms']:.4f} ms, {flops / 1e9:.3f} GFLOP, "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the f32 bound, "
+        f"SDPA {r['library_ms']:.4f}")
+    del sets
     # gemma2-2b's prefill: B=1, S=4608, 8/4 heads of 256, causal, window
     # 4096, softcap 50. A row past the window sees 4096 keys. SDPA takes no
     # softcap, so the rows have no library call; the causal-only row beside
@@ -2342,12 +2490,16 @@ def backward_times(torch, dev, peaks):
     # the same inputs, the two in turns (wgmma, mma.sync, mma.sync, wgmma;
     # kernel times drift as the card heats), each row's ms the mean of its
     # turns, and each wgmma launch under the profiler beside the bound of its
-    # products; then dbrx-132b's training shape, B1 S2048 48/8 heads of 128
-    # (a logged row, with its launches)
+    # products; then, as logged rows with their launches, dbrx-132b's
+    # training shape (B1 S2048 48/8 heads of 128), stablelm-3b's (B1 S2048
+    # 32/32 heads of 80) and hymba-1.5b's global layer (B1 S1528 25/5 heads
+    # of 64), the mma.sync engine in turns at shapes it no longer runs
     sdpa = (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True,
                                                            enable_gqa=True))
     for label, (B, S, Hq, Hkv, D) in (("qwen3-0.6b", (4, 2048, 16, 8, 128)),
-                                      ("dbrx-132b", (1, 2048, 48, 8, 128))):
+                                      ("dbrx-132b", (1, 2048, 48, 8, 128)),
+                                      ("stablelm-3b", (1, 2048, 32, 32, 80)),
+                                      ("hymba-1.5b", (1, 1528, 25, 5, 64))):
         q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         dout = randn(B, S, Hq, D)
         out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
@@ -2356,7 +2508,7 @@ def backward_times(torch, dev, peaks):
         nbytes = 2 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         f_in = [(q, k, v, out, lse, dout)]
-        main = label == "qwen3-0.6b"  # the JSON rows of both engines
+        main = label == "qwen3-0.6b"  # the wgmma engine's JSON row
         name = "flash_attention_bwd_wgmma" + ("" if main else f" ({label})")
         row(name, lambda *a: fa_k.flash_attention_bwd_wgmma_cuda(*a, causal=True),
             lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
@@ -2369,10 +2521,7 @@ def backward_times(torch, dev, peaks):
             turns[engine].append(cuda_ms(torch, lambda *a, fn=fn: fn(*a, causal=True), f_in, 5)[0])
         r["ms"] = float(np.mean(turns["wgmma"]))
         old = dict(r, ms=float(np.mean(turns["mma_sync"])))
-        if main:
-            rows["flash_attention_bwd"] = old
-        else:
-            logged[f"flash_attention_bwd ({label}, mma.sync)"] = old
+        logged[f"flash_attention_bwd ({label}, mma.sync in turns)"] = old
         log(f"  flash_attention_bwd at {label}'s training shape, in turns (ms): wgmma "
             f"{turns['wgmma']}, mma.sync {turns['mma_sync']}; the wgmma engine "
             f"{flops / r['ms'] / 1e9:.1f} TFLOP/s of the 5 products (it computes 7: S and dP "
@@ -2381,21 +2530,30 @@ def backward_times(torch, dev, peaks):
         fa_launch_times(torch, fa_k, peaks, f_in[0], dict(causal=True), pairs)
         del q, k, v, dout, out, lse, qt, kt, vt, f_in
         torch.cuda.empty_cache()
-    # stablelm-3b's training shape, B1 S2048 32/32 heads of 80 (a logged row)
-    B, Hq, D = 1, 32, 80
-    q, k, v, dout = (randn(B, S, Hq, D) for _ in range(4))
-    out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    # the mma.sync engine's row at a shape its main path runs: f32 at
+    # qwen3-0.6b's gradient run of phase 10 (a), B2 S256 16/8 heads of 128,
+    # causal, its bound at the f32 peak, beside SDPA's backward in f32; 16
+    # input sets, 80 MB, so that every call reads from device memory
+    B, S, Hq, Hkv, D = 2, 256, 16, 8, 128
+    sets = []
+    for _ in range(16):
+        q, k, v = (randn(B, S, h, D, dtype=torch.float32) for h in (Hq, Hkv, Hkv))
+        dout = randn(B, S, Hq, D, dtype=torch.float32)
+        sets.append((q, k, v, *fa_k.flash_attention_mma_sync_cuda(q, k, v, causal=True,
+                                                                  return_lse=True), dout))
     pairs = B * Hq * S * (S + 1) // 2
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    row("flash_attention_bwd (stablelm-3b, D80)",
-        lambda *a: flash_attention_bwd_cuda(*a, causal=True),
+    nbytes = 4 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
+    row("flash_attention_bwd", lambda *a: fa_k.flash_attention_bwd_mma_sync_cuda(*a, causal=True),
         lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
-        (lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True),
-         [(qt, kt, vt, dout.transpose(1, 2).contiguous())]),
-        [(q, k, v, out, lse, dout)], 5,
-        *bound(peaks, 2 * 8 * B * S * Hq * D + 4 * B * Hq * S, 10 * D * pairs, "bfloat16"),
-        into=logged)
-    del q, k, v, dout, out, lse, qt, kt, vt
+        (sdpa, [(*(t.transpose(1, 2).contiguous().requires_grad_() for t in x[:3]),
+                 x[5].transpose(1, 2).contiguous()) for x in sets]), sets, 20,
+        *bound(peaks, nbytes, 10 * D * pairs, "float32"))
+    r = rows["flash_attention_bwd"]
+    log(f"  flash_attention_bwd (mma.sync) at qwen3-0.6b's phase 10 (a) shape, B2 S256 "
+        f"16/8x128 causal f32: {r['ms']:.4f} ms, {10 * D * pairs / r['ms'] / 1e9:.1f} TFLOP/s "
+        f"of the 5 products, {r['bound_ms'] / r['ms']:.4f} of the f32 bound, SDPA's backward "
+        f"{r['library_ms']:.4f}")
+    del sets
     torch.cuda.empty_cache()
     # gemma2-2b's training shape, B1 S4096 8/4 heads of 256, window 4096,
     # softcap 50: the wgmma engine's row (no library call: SDPA takes no

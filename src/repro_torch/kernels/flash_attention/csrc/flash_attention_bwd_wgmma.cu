@@ -1,5 +1,5 @@
-// Flash attention backward at head dims 128 and 256 on Hopper, bf16, on
-// wgmma fed by TMA. It computes what flash_attention_bwd.cu computes (the
+// Flash attention backward at head dims 64, 80, 128 and 256 on Hopper, bf16,
+// on wgmma fed by TMA. It computes what flash_attention_bwd.cu computes (the
 // FA2 backward of flash_attention.cu: P = exp(S - lse) recomputed tile by
 // tile, dV = P^T dO, dP = dO V^T, dS = P (dP - Delta) times 1 - tanh^2(s /
 // c) under a softcap c, dK = dS^T Q scale, dQ = dS K scale), with every
@@ -15,7 +15,13 @@
 // (query, key) pairs; the five products a backward needs are 172 GFLOP,
 // 0.174 ms at the bf16 tensor-core peak, against 202 MB moved. At gemma2-2b's
 // (B1 S4096, 8 / 4 heads of 256, causal, window 4096, softcap 50) 67.1 M
-// pairs, 172 GFLOP again, against 92 MB. The mma.sync engine of
+// pairs, 172 GFLOP again, against 92 MB. At stablelm-3b's (B1 S2048, 32
+// heads of 80, causal) 67.1 M pairs, 53.7 GFLOP, 0.0543 ms; at hymba-1.5b's
+// global layer (B1 S1528, 25 / 5 heads of 64, causal) 29.2 M pairs, 18.7
+// GFLOP, 0.0189 ms; there the exponents come close to the products (both
+// launches recompute P: two ex2 a pair, 0.52 ps of the card's special-
+// function units against 0.65 ps of its five products at the bf16 peak).
+// The mma.sync engine of
 // flash_attention_bwd.cu reaches 0.165 of the bound at D 128 (each warp holds
 // 16 rows over the whole head dim: 255 registers and a spill) and 0.037 at
 // D 256 (each of two CTAs a block recomputes S and dP over all 256 columns).
@@ -24,13 +30,18 @@
 // O), which dK/dV reads) then dK/dV; each CTA one producer warpgroup (one
 // thread starts the TMA loads; the warpgroup gives its registers away with
 // setmaxnreg) and two consumer warpgroups on wgmma. Every tile is 64 rows x
-// D bf16 columns, loaded as D / 64 TMA boxes of 64 rows x 64 columns with
-// 128-byte swizzle through a 4-D tensor map over (D, heads, rows, B) whose
-// box takes one head: the same boxes serve as K-major operands (q rows or
+// D bf16 columns, loaded as ceil(D / 64) TMA boxes of 64 rows x 64 columns
+// with 128-byte swizzle through a 4-D tensor map over (D, heads, rows, B)
+// whose box takes one head: the same boxes serve as K-major operands (q rows or
 // keys as M or N, the head dim as K) and MN-major ones (the head dim as N)
 // by the descriptor's transpose bit, so nothing is transposed. Rows past S
 // or Skv load as zeros and are masked; the outputs go out by TMA stores
-// that clip them.
+// that clip them. At D 80 a row takes two boxes, the tensor maps' bounds of
+// 80 columns filling columns 80-127 of the second with zeros on a load and
+// clipping them from a store: S and dP walk 5 k steps of 16 (the fifth in
+// the second box), and each register-A product over the head dim (dQ += dS
+// K, dV += P^T dO, dK += dS^T Q) is one m64n80k16 whose MN-major B crosses
+// from the first box into the second's first 16 columns.
 //
 //   dQ: a CTA owns 128 q rows of one head, 64 a consumer warpgroup, with Q
 //   and dO resident. Per visible 64-key step: S = Q K^T, then dP = dO V^T
@@ -38,24 +49,26 @@
 //   group, so P's exponent runs under dP's products), dS in registers, then
 //   dQ += dS K with dS as the A operand from registers (m64nDk16; the
 //   accumulator's fragment is the A fragment) and K MN-major. K and V
-//   stream through rings (D 256: 2 and 1 slots, 224 KB; D 128: 3 and 2,
-//   145 KB); the next V loads once this step's dP is done. At D 128 a step's
-//   dS K product is issued behind the next step's S and dP and runs under
-//   its elementwise work (its K slot released then); the first step issues
+//   stream through rings (D 256: 2 and 1 slots, 224 KB; D 64, 80 and 128: 3
+//   and 2, 73 KB at D 64 and 145 KB at 80 and 128); the next V loads once
+//   this step's dP is done. Below D 256 a step's dS K product is issued
+//   behind the next step's S and dP and runs under its elementwise work
+//   (its K slot released then); the first step issues
 //   it with zero fragments against the resident Q tile, so that every step
 //   issues the same products on one path. The heaviest causal block
 //   launches first.
 //
-//   dK/dV, D 128: a CTA owns 128 keys of one KV head, 64 a consumer
-//   warpgroup, K and V resident, and walks its group's q heads and the q
-//   tiles that see its keys, the q and dO tiles streaming through a
-//   three-stage ring. Each warpgroup keeps its 64 keys x 128 columns of dK
-//   and dV in registers (128 a thread; the consumers take 240 registers,
-//   the producer keeps 24): per step it computes S^T = K Q^T, then dP^T =
-//   V dO^T (m64n64k16; without a softcap P^T's exponent runs under dP^T),
+//   dK/dV, D 64, 80 and 128: a CTA owns 128 keys of one KV head, 64 a
+//   consumer warpgroup, K and V resident, and walks its group's q heads and
+//   the q tiles that see its keys, the q and dO tiles streaming through a
+//   three-stage ring. Each warpgroup keeps its 64 keys x D columns of dK
+//   and dV in registers (D a thread: 128, 80 or 64; the consumers take 240
+//   registers, the producer keeps 24): per step it computes S^T = K Q^T,
+//   then dP^T = V dO^T (m64n64k16; without a softcap P^T's exponent runs
+//   under dP^T),
 //   forms P^T and dS^T in registers, packs them 16 q rows at a time and
 //   takes them as the A operands of dV += P^T dO and dK += dS^T Q
-//   (m64n128k16, B MN-major). No shared-memory round trip and no barrier
+//   (m64nDk16, B MN-major). No shared-memory round trip and no barrier
 //   between the warpgroups. The lse (in log2 units) and Delta of a stage's
 //   64 q rows ride in the ring beside its tiles, written by two more
 //   producer warps and read from shared memory as each pair needs them.
@@ -107,8 +120,10 @@ constexpr int kConsumers = 2;                     // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // the last warpgroup loads
 constexpr float LOG2E = 1.4426950408889634f;
 
-// bytes of a tile of 64 rows x D columns: D / 64 boxes
-__host__ __device__ constexpr int tile_bytes(int D) { return (D / 64) * BOX; }
+// boxes of 64 columns a row of D columns (at D 80 the second's last 48
+// columns are TMA's zeros), and the bytes of a tile of 64 rows
+__host__ __device__ constexpr int boxes(int D) { return (D + 63) / 64; }
+__host__ __device__ constexpr int tile_bytes(int D) { return boxes(D) * BOX; }
 
 // dQ: q rows a CTA, slots of the K and V rings; its shared memory from the
 // 1024-aligned base: Q and dO of each consumer, the K and V slots, barriers
@@ -127,8 +142,17 @@ struct DqSmem {
 // dK/dV: keys a CTA, stages of the q/dO ring, shared memory: K, V, the ring
 // (q tile then dO tile a stage), then barriers (K and V; full and empty a
 // stage)
+// D 64, 80 and 128: 128 keys, 64 a consumer warpgroup; a stage's lse (log2
+// units) and Delta, 64 f32 each, before the barriers
 template <int D>
-struct DkdvSmem;
+struct DkdvSmem {
+  static constexpr int ROWS = TILE * kConsumers, ST = 3, T = tile_bytes(D);
+  static constexpr int K = 0, V = kConsumers * T, RING = 2 * kConsumers * T;
+  static constexpr int LD = RING + ST * 2 * T;
+  static constexpr int BAR = LD + ST * 2 * TILE * 4;
+  static constexpr int FULL_ARRIVALS = 1 + 64;  // the TMA thread and the lse/Delta warps
+  static constexpr int BYTES = 1024 + BAR + 8 * (1 + 2 * ST);
+};
 // D 256: 64 keys; P^T and dS^T (64 keys x 64 q bf16, one box each) for even
 // and for odd steps before the barriers
 template <>
@@ -138,17 +162,6 @@ struct DkdvSmem<256> {
   static constexpr int P = RING + ST * 2 * T, DS = P + 2 * BOX;
   static constexpr int BAR = DS + 2 * BOX;
   static constexpr int FULL_ARRIVALS = 1;  // the TMA thread
-  static constexpr int BYTES = 1024 + BAR + 8 * (1 + 2 * ST);
-};
-// D 128: 128 keys, 64 a consumer warpgroup; a stage's lse (log2 units) and
-// Delta, 64 f32 each, before the barriers
-template <>
-struct DkdvSmem<128> {
-  static constexpr int ROWS = TILE * kConsumers, ST = 3, T = tile_bytes(128);
-  static constexpr int K = 0, V = kConsumers * T, RING = 2 * kConsumers * T;
-  static constexpr int LD = RING + ST * 2 * T;
-  static constexpr int BAR = LD + ST * 2 * TILE * 4;
-  static constexpr int FULL_ARRIVALS = 1 + 64;  // the TMA thread and the lse/Delta warps
   static constexpr int BYTES = 1024 + BAR + 8 * (1 + 2 * ST);
 };
 
@@ -284,6 +297,21 @@ __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const float (&acc)[
   for (int x = 0; x < 4; ++x) a[x] = pack2(acc[8 * kq + 2 * x], acc[8 * kq + 2 * x + 1]);
 }
 
+// acc (64 rows x D, f32) += A B over the whole head dim as N: A a bf16
+// fragment from registers (a_fragment's layout), B MN-major through its
+// descriptor (at D 80 N crosses from the first box into the second)
+template <int D>
+__device__ __forceinline__ void head_rs(float (&acc)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_m64n64k16_rs<1>(acc, a, db, 1);
+  else if constexpr (D == 80)
+    wgmma_m64n80k16_rs<1>(acc, a, db, 1);
+  else if constexpr (D == 128)
+    wgmma_m64n128k16_rs<1>(acc, a, db, 1);
+  else
+    wgmma_m64n256k16_rs<1>(acc, a, db, 1);
+}
+
 // Write this warpgroup's fragment of a 64-row f32 accumulator (columns
 // `col0` onwards of the tile, acc[4j + 2i + c]: row 16 warp + lane / 4 +
 // 8 i, column 8 j + 2 (lane % 4) + c), scaled by `mul`, as bf16 into the
@@ -325,10 +353,10 @@ template <int D, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_constant__ Params P) {
   using G = DqSmem<D>;
   constexpr int T = G::T, KS = G::K_SLOTS, VS = G::V_SLOTS;
-  // D 128: a step's dS K product is issued behind the next step's S and dP
-  // and runs under its elementwise work, its K slot released then; D 256
-  // has no K slot to spare
-  constexpr bool kDefer = D == 128;
+  // D 64, 80, 128: a step's dS K product is issued behind the next step's S
+  // and dP and runs under its elementwise work, its K slot released then; D
+  // 256 has no K slot to spare
+  constexpr bool kDefer = D != 256;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base + G::Q, sO = base + G::DO;
@@ -353,7 +381,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_cons
     if (threadIdx.x % 128 == 0) {
       mbar_arrive_expect_tx(qfull, 2 * kConsumers * T);
       for (int w = 0; w < kConsumers; ++w)
-        for (int j = 0; j < D / 64; ++j) {
+        for (int j = 0; j < boxes(D); ++j) {
           tma_load_4d(sQ + w * T + j * BOX, &P.q, qfull, 64 * j, h, q0 + TILE * w, b);
           tma_load_4d(sO + w * T + j * BOX, &P.dout, qfull, 64 * j, h, q0 + TILE * w, b);
         }
@@ -364,12 +392,12 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_cons
       for (; !walk.done(P); walk.next(P)) {
         mbar_wait(kempty + 8 * ks, kph ^ 1);
         mbar_arrive_expect_tx(kfull + 8 * ks, T);
-        for (int j = 0; j < D / 64; ++j)
+        for (int j = 0; j < boxes(D); ++j)
           tma_load_4d(sK + ks * T + j * BOX, &P.k, kfull + 8 * ks, 64 * j, hk, walk.t * TILE, b);
         if (++ks == KS) ks = 0, kph ^= 1;
         mbar_wait(vempty + 8 * vs, vph ^ 1);
         mbar_arrive_expect_tx(vfull + 8 * vs, T);
-        for (int j = 0; j < D / 64; ++j)
+        for (int j = 0; j < boxes(D); ++j)
           tma_load_4d(sV + vs * T + j * BOX, &P.v, vfull + 8 * vs, 64 * j, hk, walk.t * TILE, b);
         if (++vs == VS) vs = 0, vph ^= 1;
       }
@@ -457,15 +485,19 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_cons
       // only makes ptxas fence it there and serialize every wgmma
       const uint32_t kb = owed ? sK + kprev * T : myQ;
 #pragma unroll
-      for (int kq = 0; kq < 4; ++kq) wgmma_m64n128k16_rs<1>(dq, a[kq], mnmajor(kb, kq), 1);
+      for (int kq = 0; kq < 4; ++kq) head_rs<D>(dq, a[kq], mnmajor(kb, kq));
       wgmma_commit();
     }
     wgmma_wait<kDefer ? 2 : 1>();  // S
     fence_all(s);
 
     // P, times 1 - tanh^2 under a softcap, in s (0 where masked); a warp
-    // whose 16 rows see all 64 keys skips the position tests
-    const bool inside = w0 + 15 < P.S && kt0 + TILE <= P.Skv &&
+    // whose 16 rows see all 64 keys skips the position tests. Its rows past
+    // S need none: their Q and dO rows load as zeros and their lse and Delta
+    // are 0, so P is 1 and dS 0, and the store clips their dQ (through the
+    // position tests a ragged block's last warp took each step about twice
+    // as long, and its CTA set the launch's time)
+    const bool inside = kt0 + TILE <= P.Skv &&
                         tile_inside(wp0, wp0 + 15, kt0, kt0 + TILE - 1, P.causal, P.window);
     if (inside) {
 #pragma unroll
@@ -505,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_cons
       fence_all(dq);
       wgmma_fence();
 #pragma unroll
-      for (int kq = 0; kq < 4; ++kq) wgmma_m64n256k16_rs<1>(dq, a[kq], mnmajor(kt, kq), 1);
+      for (int kq = 0; kq < 4; ++kq) head_rs<D>(dq, a[kq], mnmajor(kt, kq));
       wgmma_commit();
       wgmma_wait<0>();
       fence_all(dq);
@@ -518,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_cons
     fence_all(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kq = 0; kq < 4; ++kq) wgmma_m64n128k16_rs<1>(dq, a[kq], mnmajor(kb, kq), 1);
+    for (int kq = 0; kq < 4; ++kq) head_rs<D>(dq, a[kq], mnmajor(kb, kq));
     wgmma_commit();
     wgmma_wait<0>();
     fence_all(dq);
@@ -529,13 +561,22 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dq_wgmma(const __grid_cons
   fence_proxy_async();
   named_barrier_sync(1 + wg, 128);
   if (elected) {
-    for (int j = 0; j < D / 64; ++j) tma_store_4d(&P.dq, myQ + j * BOX, 64 * j, h, q0 + TILE * wg, b);
+    for (int j = 0; j < boxes(D); ++j)
+      tma_store_4d(&P.dq, myQ + j * BOX, 64 * j, h, q0 + TILE * wg, b);
     bulk_commit();
     bulk_wait<0>();
   }
 }
 
 // ---------------------------------------------------------------- dK, dV
+
+// dkdv_edges: a dK/dV warp tile tests no edge past S or Skv. A q row past S
+// loads as zeros with lse and Delta 0, so its P^T column is 1 and its dS^T
+// column 0, and it adds P^T dO = 0 to dV and dS^T Q = 0 to dK. A key past
+// Skv loads as zeros, and its P^T and dS^T row lands only in its own row of
+// dK and dV, which the store clips. So only the masks over positions (and
+// rows that see no key) take the selects: a ragged block's warps took every
+// step of theirs twice as long through them.
 
 // The q tiles a dK/dV block walks, in order: for each q head g of its
 // group, the tiles of 64 rows that see one of keys [k0, k1] or hold rows
@@ -586,19 +627,19 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
   QWalk walk{0, 0, k0, k1};
   walk.settle(P);
 
-  // D 128: each consumer holds dK, dV, S^T and dP^T (192 registers), so the
-  // consumers take 240 and the producer keeps 24 (the 168 a thread of the
-  // launch, redistributed)
-  constexpr int kProducerRegs = D == 128 ? 24 : 40, kConsumerRegs = D == 128 ? 240 : 232;
+  // D 64, 80, 128: each consumer holds dK, dV, S^T and dP^T (192 registers
+  // at 128), so the consumers take 240 and the producer keeps 24 (the 168 a
+  // thread of the launch, redistributed)
+  constexpr int kProducerRegs = D != 256 ? 24 : 40, kConsumerRegs = D != 256 ? 240 : 232;
   if (wg == kConsumers) {
     // ------------------------------------------------ producer
     setmaxnreg_dec<kProducerRegs>();
     const int t = threadIdx.x % 128;
     if (t == 0) {
-      // K and V: one 64-key tile at D 256, one a consumer at D 128
+      // K and V: one 64-key tile at D 256, one a consumer below
       mbar_arrive_expect_tx(kvfull, 2 * (G::ROWS / TILE) * T);
       for (int w = 0; w < G::ROWS / TILE; ++w)
-        for (int j = 0; j < D / 64; ++j) {
+        for (int j = 0; j < boxes(D); ++j) {
           tma_load_4d(sK + w * T + j * BOX, &P.k, kvfull, 64 * j, hk, k0 + TILE * w, b);
           tma_load_4d(sV + w * T + j * BOX, &P.v, kvfull, 64 * j, hk, k0 + TILE * w, b);
         }
@@ -609,13 +650,13 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
         const uint32_t sq = ring + stage * 2 * T;
         mbar_wait(empty + 8 * stage, phase ^ 1);
         mbar_arrive_expect_tx(full + 8 * stage, 2 * T);
-        for (int j = 0; j < D / 64; ++j) {
+        for (int j = 0; j < boxes(D); ++j) {
           tma_load_4d(sq + j * BOX, &P.q, full + 8 * stage, 64 * j, h, walk.i * TILE, b);
           tma_load_4d(sq + T + j * BOX, &P.dout, full + 8 * stage, 64 * j, h, walk.i * TILE, b);
         }
         if (++stage == ST) stage = 0, phase ^= 1;
       }
-    } else if constexpr (D == 128) {
+    } else if constexpr (D != 256) {
       if (t / 32 == 1 || t / 32 == 2) {
         // lse (log2 units) and Delta of each stage's 64 q rows: warps 1 and
         // 2, 32 rows each, one a lane (the producer has 24 registers a thread)
@@ -643,14 +684,16 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const bool elected = threadIdx.x % 128 == 0;
   const Score<CAP> sc(P.scale, P.softcap);
-  float dk[64], dv[64];  // D 256: this warpgroup's 128 columns; D 128: its 64 keys, all columns
+  // D 256: this warpgroup's 128 columns; below: its 64 keys, all D columns
+  constexpr int NKV = D == 256 ? 64 : D / 2;
+  float dk[NKV], dv[NKV];
 #pragma unroll
-  for (int j = 0; j < 64; ++j) dk[j] = dv[j] = 0.f;
+  for (int j = 0; j < NKV; ++j) dk[j] = dv[j] = 0.f;
   mbar_wait(kvfull, 0);
   int stage = 0;
   uint32_t phase = 0;
 
-  if constexpr (D == 128) {
+  if constexpr (D != 256) {
     const int kw0 = k0 + TILE * wg;   // this warpgroup's 64 keys
     const int wk0 = kw0 + 16 * warp;  // this warp's keys: wk0 .. wk0 + 15
     const uint32_t myK = sK + wg * T, myV = sV + wg * T;
@@ -691,10 +734,10 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
       // Every pair is computed as if visible; where the warp's tile meets a
       // mask or an edge, selects then set what the masks say (P 0, or 1 / Skv
       // for a row that sees no key; dS 0), so values of masked pairs (inf or
-      // NaN among them) go no further
+      // NaN among them) go no further. The edges past S and Skv need no test
+      // (dkdv_edges)
       const int p0 = c0 + P.qoff;  // the position of q row c0
-      const bool inside = c0 + TILE - 1 < P.S && wk0 + 15 < P.Skv &&
-                          tile_inside(p0, p0 + TILE - 1, wk0, wk0 + 15, P.causal, P.window);
+      const bool inside = tile_inside(p0, p0 + TILE - 1, wk0, wk0 + 15, P.causal, P.window);
       uint32_t pa[4][4], da[4][4];  // P^T and dS^T as bf16 A fragments, 16 q rows each
 #pragma unroll
       for (int kq = 0; kq < 4; ++kq) {
@@ -731,14 +774,14 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
         a_fragment(pa[kq], s, kq);
         a_fragment(da[kq], dp, kq);
       }
-      // dV += P^T dO, dK += dS^T Q: all 128 columns, B MN-major
+      // dV += P^T dO, dK += dS^T Q: all D columns, B MN-major
       fence_all(dv);
       fence_all(dk);
       wgmma_fence();
 #pragma unroll
       for (int kq = 0; kq < TILE / 16; ++kq) {
-        wgmma_m64n128k16_rs<1>(dv, pa[kq], mnmajor(so, kq), 1);
-        wgmma_m64n128k16_rs<1>(dk, da[kq], mnmajor(sq, kq), 1);
+        head_rs<D>(dv, pa[kq], mnmajor(so, kq));
+        head_rs<D>(dk, da[kq], mnmajor(sq, kq));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -755,7 +798,7 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
     fence_proxy_async();
     named_barrier_sync(1 + wg, 128);
     if (elected) {
-      for (int j = 0; j < D / 64; ++j) {
+      for (int j = 0; j < boxes(D); ++j) {
         tma_store_4d(&P.dk, myK + j * BOX, 64 * j, hk, kw0, b);
         tma_store_4d(&P.dv, myV + j * BOX, 64 * j, hk, kw0, b);
       }
@@ -794,10 +837,10 @@ __global__ void __launch_bounds__(kThreads, 1) fa_bwd_dkdv_wgmma(const __grid_co
       fence_all(s);
       fence_all(dp);
 
-      // P^T and dS^T of this warp's 16 keys x 32 q rows, as bf16 pairs
+      // P^T and dS^T of this warp's 16 keys x 32 q rows, as bf16 pairs; the
+      // edges past S and Skv need no test (dkdv_edges)
       const int p0 = c0 + P.qoff;  // the position of q row c0
-      const bool inside = c0 + 31 < P.S && wk0 + 15 < P.Skv &&
-                          tile_inside(p0, p0 + 31, wk0, wk0 + 15, P.causal, P.window);
+      const bool inside = tile_inside(p0, p0 + 31, wk0, wk0 + 15, P.causal, P.window);
       uint32_t pw[8], dw[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -925,13 +968,15 @@ extern "C" {
 // (kernel.bwd_wgmma_plan computes the same); -1 for what the engine does
 // not take.
 long long fa_bwd_wgmma_smem_bytes(int D, int launch) {
+  if (D == 64) return launch == 0 ? DqSmem<64>::BYTES : launch == 1 ? DkdvSmem<64>::BYTES : -1;
+  if (D == 80) return launch == 0 ? DqSmem<80>::BYTES : launch == 1 ? DkdvSmem<80>::BYTES : -1;
   if (D == 128) return launch == 0 ? DqSmem<128>::BYTES : launch == 1 ? DkdvSmem<128>::BYTES : -1;
   if (D == 256) return launch == 0 ? DqSmem<256>::BYTES : launch == 1 ? DkdvSmem<256>::BYTES : -1;
   return -1;
 }
 
-// q, o, dout, dq (B, S, Hq, D) and k, v, dk, dv (B, Skv, Hkv, D) bf16, D 128
-// or 256; lse (B, Hq, S) f32, the forward's; delta (B, Hq, S) f32 scratch;
+// q, o, dout, dq (B, S, Hq, D) and k, v, dk, dv (B, Skv, Hkv, D) bf16, D 64,
+// 80, 128 or 256; lse (B, Hq, S) f32, the forward's; delta (B, Hq, S) f32 scratch;
 // all contiguous, every base a 16-byte multiple. window <= 0: none; softcap
 // <= 0: none; q_offset >= 0: the position of q's first row. Two launches on
 // `stream`, dQ (which writes Delta) then dK/dV. Returns a cudaError_t, or
@@ -951,6 +996,10 @@ int fa_backward_wgmma(const void* q, const void* k, const void* v, const void* o
   P.qoff = qoff, P.softcap = softcap, P.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
+  if (D == 64 && cap) return launch<64, true>(P, q, k, v, dout, dq, dk, dv, B, st);
+  if (D == 64) return launch<64, false>(P, q, k, v, dout, dq, dk, dv, B, st);
+  if (D == 80 && cap) return launch<80, true>(P, q, k, v, dout, dq, dk, dv, B, st);
+  if (D == 80) return launch<80, false>(P, q, k, v, dout, dq, dk, dv, B, st);
   if (D == 128 && cap) return launch<128, true>(P, q, k, v, dout, dq, dk, dv, B, st);
   if (D == 128) return launch<128, false>(P, q, k, v, dout, dq, dk, dv, B, st);
   if (D == 256 && cap) return launch<256, true>(P, q, k, v, dout, dq, dk, dv, B, st);

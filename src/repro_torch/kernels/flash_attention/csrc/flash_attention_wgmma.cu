@@ -1,5 +1,5 @@
-// Flash attention forward at head dims 80, 128 and 256 on Hopper, bf16, on
-// wgmma fed by TMA. It computes what flash_attention.cu computes (the reference's
+// Flash attention forward at head dims 64, 80, 128 and 256 on Hopper, bf16,
+// on wgmma fed by TMA. It computes what flash_attention.cu computes (the reference's
 // `_fa_kernel` of src/repro/kernels/flash_attention/kernel.py): FA2
 // online-softmax attention with GQA (q head h reads kv head h / (Hq / Hkv)),
 // the causal, sliding-window and tanh-softcap masks, f32 running max, sum and
@@ -19,11 +19,18 @@
 // against 0.010 ms for its 33.6 MB. At stablelm-3b's prefill (B1 S2048, 32
 // heads of 80, causal) the mask keeps 67.1 M pairs, 21.5 GFLOP: 0.0217 ms;
 // there the exponent comes close to the products, one ex2 a pair at 16 a
-// clock an SM, about 0.017 ms at 1.83 GHz. At gemma2-2b's prefill (B1 S4608, 8 / 4
-// heads of 256, causal, window 4096, softcap 50) 86 GFLOP: 0.087 ms; there
-// the softcap's tanh adds two special-function results a pair to the
-// exponent's one, about 0.065 ms of the SFU's 16 results a clock an SM,
-// which the tensor cores' time hides only if the two overlap.
+// clock an SM, about 0.017 ms at 1.83 GHz. At head dim 64 the two are
+// equal: a pair's 256 FLOP take 0.26 ps of the card at the bf16 peak, and
+// its ex2 0.26 ps of 132 SMs' 16 a clock at 1.83 GHz; whisper-base's
+// encoder (B1 S1500, 8 heads of 64, no mask) keeps 18.0 M pairs, 4.6 GFLOP,
+// 0.0047 ms either way, and hymba-1.5b's global layer (B1 S1528, 25 / 5
+// heads of 64, causal) 29.2 M pairs, 7.5 GFLOP, 0.0076 ms. So this
+// instance reaches its bound only as far as the ping-pong below hides one
+// consumer's exponents under the other's products. At gemma2-2b's prefill
+// (B1 S4608, 8 / 4 heads of 256, causal, window 4096, softcap 50) 86 GFLOP:
+// 0.087 ms; there the softcap's tanh adds two special-function results a
+// pair to the exponent's one, about 0.065 ms of the SFU's 16 results a clock
+// an SM, which the tensor cores' time hides only if the two overlap.
 //
 // Layout, loads, products. q, k, v and o are read and written in the model
 // layout, (B, S, H, D) contiguous, through 4-D tensor maps over (D, heads,
@@ -42,9 +49,13 @@
 // product: S walks 5 k steps of 16 (the fifth in the second box), PV is one
 // m64n80k16 whose N crosses from the first box into the second's first 16
 // columns. Tiles of BN = 128 keys as at D 128; O is 40 registers a thread.
+// D 64: one box a row, tiles of BN = 128 keys, m64n128k16 for S and
+// m64n64k16 for PV; O is 32 registers a thread.
 // K and V tiles stream through a two-stage ring with their own full and
-// empty mbarriers (160 KB of shared memory at D 80 and 128, 193 KB at D
-// 256).
+// empty mbarriers (81 KB of shared memory at D 64, 160 KB at D 80 and 128,
+// 193 KB at D 256). A CTA keeps a whole SM all the same (its 384 threads
+// take 168 registers each at launch): whisper-base's encoder grid of 96
+// CTAs leaves 36 of the 132 SMs idle.
 //
 // Knobs and walk. The CUDA grid is (B Hq, ceil(S / bq)): a CTA owns bq =
 // min(block_q, S) q rows and walks them in sub-blocks of 128 (rows of a
@@ -66,7 +77,10 @@
 // are nearly equal: a tile's two products are 2.6 MFLOP a warpgroup, 0.35 us
 // of an SM's share of the bf16 peak, and its 8192 exponents take 0.28 us of
 // the SM's special-function unit, so while one consumer's products run the
-// other's exponents do; neither waits long for the other's turn.
+// other's exponents do; neither waits long for the other's turn. At D 64 a
+// tile's products (2.1 MFLOP a warpgroup, 0.28 us) and exponents (0.28 us)
+// are equal, so the turns hide the exponent only where both consumers'
+// work interleaves perfectly.
 //
 // ptxas injects a warpgroup.arrive (its C7519 note) where a product is
 // issued on one path only, or where the compiler sinks the packing of a
@@ -235,7 +249,9 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[Geo<D>
   using G = Geo<D>;
 #pragma unroll
   for (int kq = 0; kq < G::BN / 16; ++kq) {
-    if constexpr (D == 80)
+    if constexpr (D == 64)
+      wgmma_m64n64k16_rs<1>(o, p[kq], mnmajor(v, kq, G::KBOX), 1);
+    else if constexpr (D == 80)
       wgmma_m64n80k16_rs<1>(o, p[kq], mnmajor(v, kq, G::KBOX), 1);
     else if constexpr (D == 128)
       wgmma_m64n128k16_rs<1>(o, p[kq], mnmajor(v, kq, G::KBOX), 1);
@@ -369,31 +385,34 @@ __global__ void __launch_bounds__(kThreads, 1) fa_fwd_wgmma(const __grid_constan
 
       // scores in log2 units; a warp whose 16 rows see all BN keys of the
       // tile skips the position tests (and, without a softcap, keeps the
-      // raw products: mul folds the scale into the exponent's FFMA)
-      const bool inside =
-          k0 + BN <= e && tile_inside(wp0, wp0 + 15, k0, k0 + BN - 1, P.causal, P.window);
+      // raw products: mul folds the scale into the exponent's FFMA). The
+      // softcap's test stays outside the loops: inside them, a softcap-free
+      // tile on a mask edge also computed the tanh for the selects to throw
+      // away. A tile whose only edge is its step's end tests that alone
+      const bool seen = tile_inside(wp0, wp0 + 15, k0, k0 + BN - 1, P.causal, P.window);
+      const bool inside = k0 + BN <= e && seen;
+      // key kj of score x; x after the masks: -inf past its step's end, the
+      // reference's masked value where they hide the pair, else y
+      auto key = [&](int x) { return k0 + 8 * (x / 4) + 2 * (lane % 4) + x % 2; };
+      auto masked = [&](int x, float y) {
+        const int kj = key(x), pos = wp0 + lane / 4 + 8 * ((x / 2) % 2);
+        return kj >= e ? -INFINITY : visible(pos, kj, P.causal, P.window) ? y : MASKED * LOG2E;
+      };
       float mul = mul0;
-      if (!inside || capped) {
+      if (capped) {
         mul = 1.f;
 #pragma unroll
-        for (int jn = 0; jn < NS / 4; ++jn)
+        for (int x = 0; x < NS; ++x) {
+          const float y = cap2 * fmaf(-2.f, __fdividef(1.f, ex2(s[x] * mul0) + 1.f), 1.f);
+          s[x] = inside ? y : masked(x, y);
+        }
+      } else if (seen && !inside) {  // raw products kept, as inside
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
+        for (int x = 0; x < NS; ++x) s[x] = key(x) >= e ? -INFINITY : s[x];
+      } else if (!inside) {
+        mul = 1.f;
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int x = 4 * jn + 2 * i + c;
-              const int kj = k0 + 8 * jn + 2 * (lane % 4) + c, pos = wp0 + lane / 4 + 8 * i;
-              float y;
-              if (!inside && kj >= e)
-                y = -INFINITY;
-              else if (!inside && !visible(pos, kj, P.causal, P.window))
-                y = MASKED * LOG2E;
-              else if (capped)
-                y = cap2 * fmaf(-2.f, __fdividef(1.f, ex2(s[x] * mul0) + 1.f), 1.f);
-              else
-                y = s[x] * mul0;
-              s[x] = y;
-            }
+        for (int x = 0; x < NS; ++x) s[x] = masked(x, s[x] * mul0);
       }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -526,14 +545,15 @@ extern "C" {
 // Shared bytes a CTA takes at head dim D (kernel.fwd_wgmma_plan computes
 // the same); -1 for a head dim the engine does not take.
 long long fa_fwd_wgmma_smem_bytes(int D) {
-  return D == 80    ? Geo<80>::BYTES
+  return D == 64    ? Geo<64>::BYTES
+         : D == 80  ? Geo<80>::BYTES
          : D == 128 ? Geo<128>::BYTES
          : D == 256 ? Geo<256>::BYTES
                     : -1;
 }
 
 // q, o (B, S, Hq, D) and k, v (B, Skv, Hkv, D) bf16, contiguous, every base
-// a 16-byte multiple, D 80, 128 or 256; lse: null, or (B, Hq, S) f32. window <=
+// a 16-byte multiple, D 64, 80, 128 or 256; lse: null, or (B, Hq, S) f32. window <=
 // 0: none; softcap <= 0: none; bq, bk: q rows a CTA owns and keys a step
 // takes (already clamped to S and Skv); q_offset >= 0: the position of q's
 // first row. One launch on `stream`. Returns a cudaError_t, or 100000 + a
@@ -550,6 +570,7 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o, void*
   P.S = S, P.Skv = Skv, P.Hq = Hq, P.Hkv = Hkv, P.bq = bq, P.bk = bk;
   P.causal = causal, P.window = window, P.qoff = qoff, P.softcap = softcap, P.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch<64>(P, q, k, v, B, st);
   if (D == 80) return launch<80>(P, q, k, v, B, st);
   if (D == 128) return launch<128>(P, q, k, v, B, st);
   if (D == 256) return launch<256>(P, q, k, v, B, st);

@@ -10,14 +10,14 @@ launch raises; nothing falls back to another engine.
 The forward has two engines, each its own library, and ``fwd_engine``
 chooses between them from the type, the head dim and the bases alone:
 
-- ``csrc/flash_attention_wgmma.cu`` (bf16 at head dims 80, 128 and 256
-  whose bases are 16-byte multiples: stablelm-3b's prefill at 80,
-  qwen3-0.6b's, dbrx-132b's and llama-3.2-vision's prefill and training at
-  128, gemma2-2b's at 256):
+- ``csrc/flash_attention_wgmma.cu`` (bf16 at head dims 64, 80, 128 and
+  256 whose bases are 16-byte multiples: whisper-base's and hymba-1.5b's
+  prefill at 64, stablelm-3b's at 80, qwen3-0.6b's, dbrx-132b's and
+  llama-3.2-vision's prefill and training at 128, gemma2-2b's at 256):
   ``wgmma`` fed by TMA, one producer and two consumer warpgroups that take
   turns issuing their products; ``fwd_wgmma_plan`` gives its geometry and
   ``fwd_wgmma_tiles`` the key tiles each sub-block of rows walks;
-- ``csrc/flash_attention.cu`` (f32, the other head dims 8-64, and bf16
+- ``csrc/flash_attention.cu`` (f32, the other head dims 8-32, and bf16
   bases TMA cannot address): ``mma.sync`` fed by ``cp.async`` for bf16, the
   FMA units for f32.
 
@@ -41,12 +41,13 @@ The backward has two engines, each its own library so that the builds run
 side by side, and ``bwd_engine`` chooses between them from the type, the
 head dim and the bases alone:
 
-- ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at head dims 128 and 256
-  whose bases are 16-byte multiples: qwen3-0.6b's, dbrx-132b's and
+- ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at head dims 64, 80, 128
+  and 256 whose bases are 16-byte multiples: whisper-base's and
+  hymba-1.5b's at 64, stablelm-3b's at 80, qwen3-0.6b's, dbrx-132b's and
   llama-3.2-vision's training at 128, gemma2-2b's at 256): ``wgmma`` fed by
   TMA through mbarrier rings, two consumer warpgroups a CTA;
   ``bwd_wgmma_plan`` gives its geometry at each head dim;
-- ``csrc/flash_attention_bwd.cu`` (f32, head dims 8-80, and bf16 bases TMA
+- ``csrc/flash_attention_bwd.cu`` (f32, head dims 8-32, and bf16 bases TMA
   cannot address): ``mma.sync`` fed by ``cp.async``.
 
 Each engine counts its own calls (``bwd_wgmma_launches``,
@@ -188,12 +189,14 @@ def bwd_launch_plan(
 #: the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``): its head dims;
 #: at each, for dQ the q rows of a CTA (64 a consumer warpgroup), the keys of
 #: a step and the slots of its K and V rings; for dK/dV the keys of a CTA
-#: (D 256: 64, each consumer warpgroup 128 of the columns; D 128: 128, 64 a
-#: consumer warpgroup), the q rows of a step and the stages of its q/dO ring;
-#: consumer warpgroups a CTA (one more loads)
-WGMMA_HEAD_DIMS = (128, 256)
-WGMMA_DQ = {128: (128, 64, (3, 2)), 256: (128, 64, (2, 1))}
-WGMMA_DKDV = {128: (128, 64, (3,)), 256: (64, 64, (2,))}
+#: (D 256: 64, each consumer warpgroup 128 of the columns; D 64, 80, 128:
+#: 128, 64 a consumer warpgroup), the q rows of a step and the stages of its
+#: q/dO ring; consumer warpgroups a CTA (one more loads)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
+WGMMA_DQ = {64: (128, 64, (3, 2)), 80: (128, 64, (3, 2)), 128: (128, 64, (3, 2)),
+            256: (128, 64, (2, 1))}
+WGMMA_DKDV = {64: (128, 64, (3,)), 80: (128, 64, (3,)), 128: (128, 64, (3,)),
+              256: (64, 64, (2,))}
 WGMMA_WARPGROUPS = 2
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 #: the wgmma library returns this plus a CUresult where a tensor map could
@@ -202,10 +205,9 @@ _ENCODE_ERROR = 100000
 
 
 def bwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
-    """Which engine runs the backward: ``"wgmma"`` for bf16 at head dim 128
-    or 256 whose bases (``aligned``) are 16-byte multiples, as TMA addresses
-    them; ``"mma_sync"`` otherwise (f32, head dims 8-80: whisper's, hymba's,
-    stablelm's)."""
+    """Which engine runs the backward: ``"wgmma"`` for bf16 at head dim 64,
+    80, 128 or 256 whose bases (``aligned``) are 16-byte multiples, as TMA
+    addresses them; ``"mma_sync"`` otherwise (f32, head dims 8-32)."""
     return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and aligned
             else "mma_sync")
 
@@ -227,20 +229,21 @@ def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int
     ``csrc/flash_attention_bwd_wgmma.cu`` launches them at head dim ``D``.
     dQ: a CTA owns 128 q rows of one head, 64 a consumer warpgroup, with Q
     and dO resident and K and V tiles streaming through rings (D 256: 2 and
-    1 slots; D 128: 3 and 2); heaviest causal block first
+    1 slots; D 64, 80, 128: 3 and 2); heaviest causal block first
     (``_heavy_first``). dK/dV: a CTA owns keys of one KV head (D 256: 64,
     each consumer warpgroup owning 128 of the 256 columns of dK and dV; D
-    128: 128, 64 a consumer warpgroup over all columns), K and V resident,
-    walking its group's q heads and tiles with the q and dO tiles in a ring
-    (D 256: two stages; D 128: three). Shared bytes: 1 KB of alignment
-    slack, the bf16 tiles (a 64-row tile is 64 D 2 bytes), at D 256 P^T and
-    dS^T (8 KB each, twice: even and odd steps), at D 128 each stage's lse
-    and Delta (64 f32 each), and 8 bytes a barrier. Raises on a shape the
-    engine does not take."""
+    64, 80, 128: 128, 64 a consumer warpgroup over all columns), K and V
+    resident, walking its group's q heads and tiles with the q and dO tiles
+    in a ring (D 256: two stages; below: three). Shared bytes: 1 KB of
+    alignment slack, the bf16 tiles (a 64-row tile in boxes of 64 columns,
+    64 x 64 x 2 bytes a box: D 80 takes two, as D 128 does), at D 256 P^T
+    and dS^T (8 KB each, twice: even and odd steps), below it each stage's
+    lse and Delta (64 f32 each), and 8 bytes a barrier. Raises on a shape
+    the engine does not take."""
     if D not in WGMMA_HEAD_DIMS or min(B, S, Skv, Hkv) <= 0 or Hq % Hkv:
         raise ValueError(f"flash_attention wgmma backward: B={B} S={S} Skv={Skv} "
                          f"Hq={Hq} Hkv={Hkv} D={D}; it takes head dims {WGMMA_HEAD_DIMS}")
-    tile = 64 * D * 2
+    tile = 64 * -(-D // 64) * 64 * 2
     (q_rows, tk, (k_slots, v_slots)), (kv_rows, tq, (st,)) = WGMMA_DQ[D], WGMMA_DKDV[D]
     nq, nk = -(-S // q_rows), -(-Skv // kv_rows)
     dq_smem = 1024 + 2 * (q_rows // 64) * tile + (k_slots + v_slots) * tile \
@@ -258,19 +261,18 @@ def bwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int
 #: the forward wgmma engine (``csrc/flash_attention_wgmma.cu``): its head
 #: dims, the keys of a tile at each, the q rows of a sub-block (64 a
 #: consumer warpgroup) and the stages of its K/V ring. A row of D values is
-#: loaded in boxes of 64 columns: at D 80 two, the second's last 48 columns
-#: zeros (``fwd_wgmma_plan`` counts the padded boxes' bytes)
-FWD_WGMMA_HEAD_DIMS = (80, 128, 256)
-FWD_WGMMA_TILE_KEYS = {80: 128, 128: 128, 256: 64}
+#: loaded in boxes of 64 columns: at D 64 one, at D 80 two, the second's
+#: last 48 columns zeros (``fwd_wgmma_plan`` counts the padded boxes' bytes)
+FWD_WGMMA_HEAD_DIMS = (64, 80, 128, 256)
+FWD_WGMMA_TILE_KEYS = {64: 128, 80: 128, 128: 128, 256: 64}
 FWD_WGMMA_SUB_ROWS = 64 * WGMMA_WARPGROUPS
 FWD_WGMMA_STAGES = 2
 
 
 def fwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
-    """Which engine runs the forward: ``"wgmma"`` for bf16 at head dim 80,
-    128 or 256 whose bases (``aligned``) are 16-byte multiples, as TMA
-    addresses them; ``"mma_sync"`` otherwise (f32, head dims 8-64:
-    whisper's, hymba's)."""
+    """Which engine runs the forward: ``"wgmma"`` for bf16 at head dim 64,
+    80, 128 or 256 whose bases (``aligned``) are 16-byte multiples, as TMA
+    addresses them; ``"mma_sync"`` otherwise (f32, head dims 8-32)."""
     return ("wgmma" if dtype == torch.bfloat16 and D in FWD_WGMMA_HEAD_DIMS and aligned
             else "mma_sync")
 
@@ -293,10 +295,10 @@ def fwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, *,
     """The forward wgmma engine's launch, as ``csrc/flash_attention_wgmma.cu``
     makes it, after the reference's ``min(block, dim)`` clamp: a CTA owns
     ``block_q`` q rows of one head and walks them 128 at a time; each step
-    of ``block_k`` keys is cut into tiles of 128 keys (D 80, 128) or 64 (D
-    256). Shared bytes: 1 KB of alignment slack, each consumer's Q tile (64
-    rows), the ring's K and V tiles (rows in boxes of 64 columns: D 80 takes
-    128), 8 bytes a barrier. Raises on a shape the
+    of ``block_k`` keys is cut into tiles of 128 keys (D 64, 80, 128) or 64
+    (D 256). Shared bytes: 1 KB of alignment slack, each consumer's Q tile
+    (64 rows), the ring's K and V tiles (rows in boxes of 64 columns: D 80
+    takes 128), 8 bytes a barrier. Raises on a shape the
     engine does not take."""
     plan = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
     if D not in FWD_WGMMA_HEAD_DIMS or min(B, S, Skv) <= 0:
@@ -445,7 +447,7 @@ def _fwd_check(name: str, q, k, v, window, softcap, q_offset) -> tuple:
 def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
                                block_q=128, block_k=128, return_lse=False, q_offset=0):
     """The forward on the wgmma engine (``csrc/flash_attention_wgmma.cu``):
-    bf16 at head dim 80, 128 or 256 whose bases are 16-byte multiples;
+    bf16 at head dim 64, 80, 128 or 256 whose bases are 16-byte multiples;
     raises otherwise, and where a launch or a tensor map fails."""
     global wgmma_launches, last_grid
     name = "flash_attention_wgmma_cuda"
@@ -568,8 +570,8 @@ def flash_attention_bwd_cuda(
 def flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, *, causal=True, window=None,
                                    softcap=None, scale=None, q_offset=0):
     """The backward on the wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``):
-    bf16 at head dim 128 or 256 whose bases are 16-byte multiples; raises
-    otherwise, and where a launch or a tensor map fails."""
+    bf16 at head dim 64, 80, 128 or 256 whose bases are 16-byte multiples;
+    raises otherwise, and where a launch or a tensor map fails."""
     global bwd_wgmma_launches
     name = "flash_attention_bwd_wgmma_cuda"
     B, S, Skv, Hq, Hkv, D = _bwd_check(name, q, k, v, out, lse, dout, window, softcap, q_offset)

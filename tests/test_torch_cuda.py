@@ -135,12 +135,13 @@ def _attention_f64(q, k, v, *, causal, window, softcap):
 
 
 #: (B, S, Skv, Hq, Hkv, D, causal, window, softcap, q_offset) for the
-#: forward's wgmma engine: FA_CASES at head dims 128 and 256, then GQA with
-#: ragged lengths, a window whose last rows see no key (S != Skv), a
+#: forward's wgmma engine: FA_CASES at head dims 64, 128 and 256 (whisper-
+#: base's encoder, cross attention and one-row decode among them), then GQA
+#: with ragged lengths, a window whose last rows see no key (S != Skv), a
 #: softcap with more keys than rows, query offsets (a rank's block of rows),
-#: the serving path's main shape, and the same at head dim 80 with
-#: stablelm-3b's prefill
-FWD_WGMMA_CASES = [(*c, 0) for c in FA_CASES if c[5] in (128, 256)] + [
+#: the serving path's main shape, the same at head dim 80 with stablelm-3b's
+#: prefill, and at head dim 64 with hymba-1.5b's global layer (25/5 heads)
+FWD_WGMMA_CASES = [(*c, 0) for c in FA_CASES if c[5] in (64, 128, 256)] + [
     (2, 300, 300, 8, 2, 128, True, None, None, 0),
     (2, 300, 300, 8, 2, 256, True, None, None, 0),
     (1, 200, 50, 2, 1, 128, False, 10, None, 0),
@@ -159,6 +160,11 @@ FWD_WGMMA_CASES = [(*c, 0) for c in FA_CASES if c[5] in (128, 256)] + [
     (1, 64, 192, 4, 2, 80, True, None, None, 64),
     (1, 130, 200, 2, 1, 80, False, 64, None, 40),
     (1, 2048, 2048, 32, 32, 80, True, None, None, 0),
+    (2, 300, 300, 8, 2, 64, True, None, None, 0),
+    (1, 130, 130, 2, 1, 64, True, 64, 50.0, 0),
+    (1, 64, 192, 4, 2, 64, True, None, None, 64),
+    (1, 130, 200, 2, 1, 64, False, 64, None, 40),
+    (1, 1528, 1528, 25, 5, 64, True, None, None, 0),
 ]
 
 
@@ -204,7 +210,7 @@ def test_flash_attention_fwd_wgmma_matches_plain_and_mma_sync(dev, case):
 
 @pytest.mark.parametrize("blocks", [(64, 32, 512), (512, 512, 512), (256, 96, 768),
                                     (128, 64, 512)], ids=lambda b: f"q{b[0]}-k{b[1]}-S{b[2]}")
-@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_flash_attention_fwd_wgmma_blocks_reach_the_launch(dev, blocks, D):
     """block_q and block_k reach the wgmma engine's launch (the grid the
     reference names, at lengths the blocks divide; steps cut into tiles, a
@@ -225,11 +231,11 @@ def test_flash_attention_fwd_wgmma_blocks_reach_the_launch(dev, blocks, D):
 
 
 def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
-    """f32, head dims other than 80, 128 and 256, and a base that is not a
-    16-byte multiple are not the wgmma engine's: it raises, and
+    """f32, head dims other than 64, 80, 128 and 256, and a base that is not
+    a 16-byte multiple are not the wgmma engine's: it raises, and
     ``flash_attention_cuda`` takes the mma.sync engine for them."""
     rng = np.random.default_rng(8)
-    for dtype, D, shift in ((torch.float32, 128, 0), (torch.bfloat16, 64, 0),
+    for dtype, D, shift in ((torch.float32, 128, 0), (torch.bfloat16, 32, 0),
                             (torch.bfloat16, 128, 1), (torch.bfloat16, 256, 4)):
         q = _randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
         k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
@@ -242,12 +248,12 @@ def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
         _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu()), dtype)
 
 
-@pytest.mark.parametrize("D", [80, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_flash_attention_trains_through_the_wgmma_forward(dev, D):
-    """``ops.attention`` under grad in bf16 at head dims 80, 128 and 256:
-    the forward on the wgmma engine feeds its output and lse to the
-    backward engine ``bwd_engine`` picks (the wgmma engine at 128 and 256,
-    the mma.sync engine at 80), whose gradients equal
+    """``ops.attention`` under grad in bf16 at head dims 64, 80, 128 and
+    256: the forward on the wgmma engine feeds its output and lse to the
+    backward engine ``bwd_engine`` picks (the wgmma engine at each of these
+    head dims), whose gradients equal
     ``attention_bwd_ref``'s within bf16 2e-2 of each gradient's max|ref|,
     with gemma2's masks at 256 and GQA at each."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -725,7 +731,7 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
     dout = _randn(rng, (B, S, Hq, D), dtype, dev)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    # bf16 at head dim 128 runs on the wgmma engine (bwd_engine); only its count moves
+    # bf16 at head dims 64-256 runs on the wgmma engine (bwd_engine); only its count moves
     count = "bwd_wgmma_launches" if fa_kernel.bwd_engine(dtype, D) == "wgmma" else "bwd_launches"
     other = "bwd_launches" if count == "bwd_wgmma_launches" else "bwd_wgmma_launches"
     n0, o0 = getattr(fa_kernel, count), getattr(fa_kernel, other)
@@ -790,7 +796,8 @@ def test_flash_attention_trains_at_head_dim_256(dev, dtype):
 #: alone and together, rows that see no key, S != Skv, a group of 6, query
 #: offsets (a rank's block of rows), then each head dim's training shapes:
 #: gemma2-2b's with and without its masks at 256; qwen3-0.6b's (16/8) and
-#: dbrx-132b's (48/8) at 128
+#: dbrx-132b's (48/8) at 128; stablelm-3b's (32/32) at 80; hymba-1.5b's
+#: global layer (25/5, causal) and whisper-base's encoder (8/8, no mask) at 64
 _FA_WGMMA_SMALL = [
     (1, 64, 64, 2, 2, True, None, None, 0),
     (2, 130, 130, 4, 2, True, None, None, 0),
@@ -804,19 +811,22 @@ _FA_WGMMA_SMALL = [
     (1, 64, 192, 4, 2, True, None, None, 64),
     (1, 130, 200, 6, 1, False, 64, None, 40),
 ]
-FA_WGMMA_CASES = [(*c, D) for D in (128, 256) for c in _FA_WGMMA_SMALL] + [
+FA_WGMMA_CASES = [(*c, D) for D in (64, 80, 128, 256) for c in _FA_WGMMA_SMALL] + [
     (1, 4096, 4096, 8, 4, True, 4096, 50.0, 0, 256),
     (1, 4096, 4096, 8, 4, True, None, None, 0, 256),
     (1, 4096, 4096, 8, 4, False, None, None, 0, 256),
     (4, 2048, 2048, 16, 8, True, None, None, 0, 128),
     (1, 2048, 2048, 48, 8, True, None, None, 0, 128),
+    (1, 2048, 2048, 32, 32, True, None, None, 0, 80),
+    (1, 1528, 1528, 25, 5, True, None, None, 0, 64),
+    (1, 1500, 1500, 8, 8, False, None, None, 0, 64),
 ]
 
 
 @pytest.mark.parametrize("case", FA_WGMMA_CASES)
 def test_flash_attention_bwd_wgmma_matches_plain_and_mma_sync(dev, case):
     """The wgmma engine (``csrc/flash_attention_bwd_wgmma.cu``) at head dims
-    128 and 256: each gradient within bf16 2e-2 of ``attention_bwd_ref``'s
+    64, 80, 128 and 256: each gradient within bf16 2e-2 of ``attention_bwd_ref``'s
     max|ref| and of the mma.sync engine's on the same inputs, bit-equal on a
     rerun; its count moves by one a call and the mma.sync engine's not at
     all; each launch's shared bytes are the plan's."""
@@ -886,7 +896,7 @@ def _attention_bwd_f64(q, k, v, dout, **kw):
 
 @pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
 def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev, D):
-    """f32, a base that is not a 16-byte multiple and (bf16) head dim 80
+    """f32, a base that is not a 16-byte multiple and (bf16) head dim 32
     are not the wgmma engine's: it raises, and ``flash_attention_bwd_cuda``
     takes the mma.sync engine for them, whose gradients are held to the
     function's float64 backward (f32, 2e-5 of each gradient's max|ref|) or to
@@ -895,7 +905,7 @@ def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev, D):
 
     rng = np.random.default_rng(4)
     for dtype, d, shift in ((torch.float32, D, 0), (torch.bfloat16, D, 1),
-                            (torch.bfloat16, 80, 0)):
+                            (torch.bfloat16, 32, 0)):
         q, dout = (_randn(rng, (1, 64 * 2 * d + shift), dtype, dev)[:, shift:].view(1, 64, 2, d)
                    for _ in range(2))
         k, v = (_randn(rng, (1, 64, 1, d), dtype, dev) for _ in range(2))
@@ -954,16 +964,19 @@ def test_flash_attention_q_offset_forward_and_backward(dev, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_trains_at_head_dim_80(dev, dtype):
     """stablelm-3b's head dim 80 trains on the card: ``ops.attention``'s
-    gradients through the backward kernel equal autograd's through the plain
-    version on the CPU, on the same inputs."""
+    gradients through the backward engine ``bwd_engine`` picks (bf16: wgmma;
+    f32: mma.sync), only its count moving, equal autograd's through the
+    plain version on the CPU, on the same inputs."""
     rng = np.random.default_rng(0)
     shapes = [(2, 96, 4, 80), (2, 96, 2, 80), (2, 96, 2, 80)]
     host = [_randn(rng, s, dtype, "cpu").float().requires_grad_() for s in shapes]
     card = [t.detach().to(dev, dtype).requires_grad_() for t in host]
     g = _randn(rng, shapes[0], dtype, "cpu")
-    n0 = fa_kernel.bwd_launches
+    count = "bwd_wgmma_launches" if fa_kernel.bwd_engine(dtype, 80) == "wgmma" else "bwd_launches"
+    other = "bwd_launches" if count == "bwd_wgmma_launches" else "bwd_wgmma_launches"
+    n0, o0 = getattr(fa_kernel, count), getattr(fa_kernel, other)
     got = torch.autograd.grad(fa_ops.attention(*card, window=64), card, g.to(dev))
-    assert fa_kernel.bwd_launches == n0 + 1
+    assert (getattr(fa_kernel, count), getattr(fa_kernel, other)) == (n0 + 1, o0)
     want = torch.autograd.grad(fa_ops.attention(*host, window=64), host, g.float())
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype

@@ -144,14 +144,14 @@ WGMMA_SHAPES = [(1, 4096, 4096, 8, 4), (2, 130, 130, 4, 2), (1, 200, 50, 2, 1), 
 @pytest.mark.parametrize("shape", WGMMA_SHAPES)
 def test_wgmma_plan_covers_every_block_once(shape, D):
     """dQ (which writes Delta) launches first, then dK/dV; each grid takes
-    every q block (128 rows) or key block (64 keys at D 256, 128 at D 128)
-    of every head exactly once, dQ's heaviest causal block first, a ragged
+    every q block (128 rows) or key block (64 keys at D 256, 128 at D 64,
+    80 and 128) of every head exactly once, dQ's heaviest causal block first, a ragged
     last block last. Shapes: gemma2-2b's, qwen3-0.6b's and dbrx-132b's
     training, ragged S, S != Skv, groups of 1 to 6."""
     B, S, Skv, Hq, Hkv = shape
     dq, dkdv = fa_kernel.bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)
     assert (dq.name, dkdv.name) == ("dq", "dkdv")
-    assert (dq.rows, dkdv.rows) == (128, 128 if D == 128 else 64)
+    assert (dq.rows, dkdv.rows) == (128, 64 if D == 256 else 128)
     for kern, heads, length in ((dq, Hq, S), (dkdv, Hkv, Skv)):
         n = kern.grid[1]
         assert kern.grid[0] == B * heads and sorted(kern.order) == list(range(n))
@@ -183,19 +183,30 @@ WGMMA_GEOMETRY = {
               # K and V of two consumers, a 3-stage q/dO ring, each stage's lse
               # and Delta (64 f32 each), 7 barriers
               dkdv_smem=1024 + 4 * 16384 + 6 * 16384 + 3 * 2 * 64 * 4 + 8 * 7),
+    # D 80: a row in two boxes of 64 columns (the second's last 48 TMA's
+    # zeros), so a 64-row tile takes 16 KB and the bytes are D 128's
+    80: dict(dq=(128, 64, (3, 2)), dkdv=(128, 64, (3,)), grids=((8, 32), (4, 32)),
+             grids_qwen3=((64, 16), (32, 16)),
+             dq_smem=1024 + 4 * 16384 + 5 * 16384 + 8 * 11,
+             dkdv_smem=1024 + 4 * 16384 + 6 * 16384 + 3 * 2 * 64 * 4 + 8 * 7),
+    # D 64: one box a row, 8 KB a 64-row tile
+    64: dict(dq=(128, 64, (3, 2)), dkdv=(128, 64, (3,)), grids=((8, 32), (4, 32)),
+             grids_qwen3=((64, 16), (32, 16)),
+             dq_smem=1024 + 4 * 8192 + 5 * 8192 + 8 * 11,
+             dkdv_smem=1024 + 4 * 8192 + 6 * 8192 + 3 * 2 * 64 * 4 + 8 * 7),
 }
 
 
 @pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
 def test_wgmma_plan_tiles_rings_and_shared_bytes(D):
     """Two consumer warpgroups a CTA, 64 rows each. dQ: 128 q rows, steps
-    of 64 keys through K and V rings (D 256: 2 and 1 slots; D 128: 3 and
-    2). dK/dV: steps of 64 q rows through a ring (D 256: 64 keys a CTA, 2
-    stages, P^T and dS^T for even and odd steps; D 128: 128 keys a CTA, 3
-    stages, each with its lse and Delta). All within the 232448 shared bytes
-    a CTA may take: 1 KB alignment slack, a 64-row tile of 64 D 2 bytes,
-    8 bytes a barrier. Any other head dim, a group that does not divide or
-    an empty batch raises."""
+    of 64 keys through K and V rings (D 256: 2 and 1 slots; D 64, 80 and
+    128: 3 and 2). dK/dV: steps of 64 q rows through a ring (D 256: 64 keys
+    a CTA, 2 stages, P^T and dS^T for even and odd steps; D 64, 80 and 128:
+    128 keys a CTA, 3 stages, each with its lse and Delta). All within the
+    232448 shared bytes a CTA may take: 1 KB alignment slack, a 64-row tile
+    in boxes of 64 columns (8 KB a box), 8 bytes a barrier. Any other head
+    dim, a group that does not divide or an empty batch raises."""
     want = WGMMA_GEOMETRY[D]
     dq, dkdv = fa_kernel.bwd_wgmma_plan(1, 4096, 4096, 8, 4, D)
     assert (dq.rows, dq.step, dq.stages, dq.warpgroups) == (*want["dq"], 2)
@@ -206,21 +217,21 @@ def test_wgmma_plan_tiles_rings_and_shared_bytes(D):
     assert tuple(k.grid for k in qwen3) == want["grids_qwen3"]
     assert tuple(k.smem for k in qwen3) == (dq.smem, dkdv.smem)
     assert max(dq.smem, dkdv.smem) <= fa_kernel.SMEM_LIMIT == 232448
-    for bad in ((1, 64, 64, 2, 2, 80), (1, 64, 64, 2, 2, 64), (1, 64, 64, 3, 2, D),
+    for bad in ((1, 64, 64, 2, 2, 32), (1, 64, 64, 2, 2, 48), (1, 64, 64, 3, 2, D),
                 (0, 64, 64, 2, 2, D)):
         with pytest.raises(ValueError):
             fa_kernel.bwd_wgmma_plan(*bad)
 
 
 def test_bwd_engine_follows_type_head_dim_and_bases():
-    """The wgmma engine takes bf16 at head dims 128 and 256 with 16-byte
-    bases (TMA's rule); f32, head dims 8-80 and an unaligned base stay on
-    the mma.sync engine."""
+    """The wgmma engine takes bf16 at head dims 64, 80, 128 and 256 with
+    16-byte bases (TMA's rule); f32, head dims 8-32 and an unaligned base
+    stay on the mma.sync engine."""
     engine = fa_kernel.bwd_engine
-    for D in (128, 256):
+    for D in (64, 80, 128, 256):
         assert engine(torch.bfloat16, D) == "wgmma"
         assert engine(torch.bfloat16, D, aligned=False) == "mma_sync"
         assert engine(torch.float32, D) == "mma_sync"
-    for D in set(fa_kernel.BWD_HEAD_DIMS) - {128, 256}:
+    for D in set(fa_kernel.BWD_HEAD_DIMS) - {64, 80, 128, 256}:
         assert engine(torch.bfloat16, D) == "mma_sync"
         assert engine(torch.float32, D) == "mma_sync"

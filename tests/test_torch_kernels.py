@@ -374,17 +374,19 @@ def test_flash_attention_plain_version_stays_near_float64(case):
 
 
 def test_flash_attention_fwd_engine_follows_type_head_dim_and_alignment():
-    """bf16 at head dims 80, 128 and 256 whose bases are 16-byte multiples
-    takes the wgmma engine; f32, head dims 8-64 and other bases take the
-    mma.sync engine."""
+    """bf16 at head dims 64, 80, 128 and 256 whose bases are 16-byte
+    multiples takes the wgmma engine; f32, head dims 8-32 and other bases
+    take the mma.sync engine."""
     engine = fa_kernel.fwd_engine
     bf16 = torch.bfloat16
-    assert engine(bf16, 80) == engine(bf16, 128) == engine(bf16, 256) == "wgmma"
-    for D in (8, 16, 32, 64):
+    assert engine(bf16, 64) == engine(bf16, 80) == engine(bf16, 128) == engine(bf16, 256)
+    assert engine(bf16, 64) == "wgmma"
+    for D in (8, 16, 32):
         assert engine(bf16, D) == "mma_sync"
     for D in fa_kernel.HEAD_DIMS:
         assert engine(torch.float32, D) == "mma_sync"
-    assert engine(bf16, 80, False) == engine(bf16, 128, False) == "mma_sync"
+    assert engine(bf16, 64, False) == engine(bf16, 80, False) == "mma_sync"
+    assert engine(bf16, 128, False) == "mma_sync"
     assert engine(bf16, 256, False) == "mma_sync"
     assert engine(torch.float16, 128) == "mma_sync"
 
@@ -397,10 +399,10 @@ def test_flash_attention_fwd_wgmma_plan_fits_and_launches_heaviest_first(D):
     each head dim; the last q block, whose rows see the most causal keys,
     launches first, a ragged one last; the grid is the reference's first
     two grid dims; a step of block_k keys takes whole tiles of 128 keys at
-    D 80 and 128 and 64 at D 256."""
-    bn = {80: 128, 128: 128, 256: 64}[D]
+    D 64, 80 and 128 and 64 at D 256."""
+    bn = {64: 128, 80: 128, 128: 128, 256: 64}[D]
     assert fa_kernel.FWD_WGMMA_TILE_KEYS[D] == bn
-    padded = {80: 128, 128: 128, 256: 256}[D]
+    padded = {64: 64, 80: 128, 128: 128, 256: 256}[D]
     plan = fa_kernel.fwd_wgmma_plan(4, 2048, 2048, 16, 8, D)
     assert plan.smem == 1024 + 2 * 64 * padded * 2 + 2 * 2 * bn * padded * 2 + 8 * 10
     assert plan.smem <= fa_kernel.SMEM_LIMIT
@@ -412,7 +414,7 @@ def test_flash_attention_fwd_wgmma_plan_fits_and_launches_heaviest_first(D):
     other = fa_kernel.fwd_wgmma_plan(1, 512, 512, 2, 1, D, block_q=64, block_k=96)
     assert other.grid == (2, 8) and other.tiles_per_step == -(-96 // bn)
     with pytest.raises(ValueError):
-        fa_kernel.fwd_wgmma_plan(1, 64, 64, 2, 1, 64)
+        fa_kernel.fwd_wgmma_plan(1, 64, 64, 2, 1, 32)
 
 
 FA_LATTICE_CASES = [c for c in LATTICE_CASES if c[0] == "flash_attention"]
@@ -421,7 +423,7 @@ FA_LATTICE_CASES = [c for c in LATTICE_CASES if c[0] == "flash_attention"]
 @pytest.mark.parametrize("kernel, name, kw", FA_LATTICE_CASES, ids=[n for _, n, _ in FA_LATTICE_CASES])
 @pytest.mark.parametrize("D", fa_kernel.FWD_WGMMA_HEAD_DIMS)
 def test_flash_attention_fwd_wgmma_grid_is_the_reference_grid(kernel, name, kw, D):
-    """Over every config the tuner's prefilter passes, at both of the
+    """Over every config the tuner's prefilter passes, at each of the
     wgmma engine's head dims, its CUDA grid is the reference's
     ``grid_shape`` less the KV axis (which its CTAs walk) and its blocks
     are the knobs after the ``min(block, dim)`` clamp."""

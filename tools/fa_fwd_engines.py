@@ -2,34 +2,42 @@
 """Flash attention's two forward engines side by side on one NVIDIA card.
 
     python3 tools/fa_fwd_engines.py [--src DIR] [--quick] [--iters N]
+                                    [--shapes NAME ...]
 
 Builds the port's forward libraries from the sources under DIR (default:
-this checkout's ``src``), logs ptxas's registers, spills and warnings of the
-wgmma engine (``csrc/flash_attention_wgmma.cu``) and its SASS instruction
-counts, then checks it against the plain version (``ref.attention_ref`` and
-``ref.lse_ref``) and the mma.sync engine at head dims 80, 128 and 256:
-small, ragged, GQA, each mask, rows that see no key, query offsets, S !=
-Skv and other blocks; bf16 within 2e-2 of max|ref|, the lse within 2e-2,
-bit-equal reruns. A head dim the wgmma engine of DIR does not take is
-skipped (an older tree's). Without ``--quick`` it then times both engines
-in turns (wgmma, mma.sync, mma.sync, wgmma; CUDA events around ``--iters``
-calls each) at the serving path's main shape (B4 S2048, 16/8 heads of
-128, causal), at gemma2-2b's prefill (B1 S4608, 8/4 heads of 256, causal,
-window 4096, softcap 50) and at stablelm-3b's (B1 S2048, 32/32 heads of
-80, causal), each against its bound and SDPA (causal only at D 256: SDPA
-takes no softcap). To time two trees against each other, run the tool on
-each in turns in one session (parent, change, change, parent). Prints the
-card's name and power limit first. Exits non-zero on any mismatch. Needs a
-card.
+this checkout's ``src``), logs ptxas's registers, spills and notes of the
+wgmma engine (``csrc/flash_attention_wgmma.cu``; ``chip_smoke.py``'s
+``serialization_notes``: a C7515, C7519 or C7520 note fails) and its SASS
+instruction counts (``wgmma_sass``), then checks it against the plain
+version (``ref.attention_ref`` and ``ref.lse_ref``) and the mma.sync
+engine at head dims 64, 80, 128 and 256: small, ragged, GQA, each mask,
+rows that see no key, query offsets, S != Skv, other blocks and the models'
+shapes (whisper-base's encoder and cross attention, hymba-1.5b's global
+layer); bf16 within 2e-2 of max|ref|, the lse within 2e-2, bit-equal
+reruns. A head dim the wgmma engine of DIR does not take is skipped (an
+older tree's). Without ``--quick`` it then times both engines in turns
+(wgmma, mma.sync, mma.sync, wgmma; ``chip_smoke.cuda_ms``: ``--iters``
+calls replayed from one CUDA graph) at the serving path's main shape (B4
+S2048, 16/8 heads of 128, causal), gemma2-2b's prefill (B1 S4608, 8/4
+heads of 256, causal, window 4096, softcap 50), stablelm-3b's (B1 S2048,
+32/32 heads of 80, causal), whisper-base's encoder (B1 S1500, 8/8 heads of
+64, no mask) and hymba-1.5b's global layer (B1 S1528, 25/5 heads of 64,
+causal), each against its bound (``chip_smoke.bound`` at the card's bf16
+peak) and SDPA (causal only at D 256: SDPA takes no softcap).
+``--shapes`` times only the named ones. To time two trees against each
+other, run the tool on each in turns on one card (parent, change,
+change, parent). Prints the card's name and power limit first. Exits
+non-zero on any mismatch. Needs a card.
 """
 import argparse
 import collections
-import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
 
 #: (B, S, offset, Skv, Hq, Hkv, D, causal, window, softcap, block_q, block_k)
 CASES = [
@@ -61,7 +69,26 @@ CASES = [
     (2, 512, 0, 512, 4, 2, 80, True, 100, None, 64, 32),
     (2, 512, 0, 512, 4, 2, 80, True, None, None, 512, 512),
     (1, 2048, 0, 2048, 32, 32, 80, True, None, None, 128, 128),
+    (1, 64, 0, 64, 2, 2, 64, True, None, None, 128, 128),
+    (2, 300, 0, 300, 8, 2, 64, True, None, None, 128, 128),
+    (1, 130, 0, 130, 2, 1, 64, True, 64, 50.0, 128, 128),
+    (1, 200, 0, 50, 2, 1, 64, False, 10, None, 128, 128),
+    (1, 77, 0, 200, 4, 1, 64, False, 50, 20.0, 128, 128),
+    (1, 64, 64, 192, 4, 2, 64, True, None, None, 128, 128),
+    (1, 130, 40, 200, 2, 1, 64, False, 64, None, 128, 128),
+    (2, 512, 0, 512, 4, 2, 64, True, 100, None, 64, 32),
+    (2, 512, 0, 512, 4, 2, 64, True, None, None, 512, 512),
+    (1, 1500, 0, 1500, 8, 8, 64, False, None, None, 128, 128),
+    (1, 64, 0, 1500, 8, 8, 64, False, None, None, 128, 128),
+    (1, 1, 0, 1500, 8, 8, 64, False, None, None, 128, 128),
+    (1, 1528, 0, 1528, 25, 5, 64, True, None, None, 128, 128),
 ]
+#: the timed shapes: (name, (B, S, Hq, Hkv, D), masks)
+SHAPES = [("main", (4, 2048, 16, 8, 128), dict(causal=True)),
+          ("gemma2-2b", (1, 4608, 8, 4, 256), dict(causal=True, window=4096, softcap=50.0)),
+          ("stablelm-3b", (1, 2048, 32, 32, 80), dict(causal=True)),
+          ("whisper-base", (1, 1500, 8, 8, 64), dict(causal=False)),
+          ("hymba-1.5b", (1, 1528, 25, 5, 64), dict(causal=True))]
 
 
 def main() -> int:
@@ -69,6 +96,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent.parent / "src"))
     ap.add_argument("--quick", action="store_true", help="build and check; no timing")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--shapes", nargs="*", default=[name for name, _, _ in SHAPES])
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -78,9 +106,12 @@ def main() -> int:
         print("fa_fwd_engines: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, args.src)
-    from repro_torch.kernels._build import _nvcc, build_log, library_path
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels._build import build_log
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
+    from repro_torch.roofline.analysis import card_peaks
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
@@ -90,14 +121,10 @@ def main() -> int:
             f.result()
     print(f"built in {time.perf_counter() - t0:.1f}s", flush=True)
     for line in build_log("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES).splitlines():
-        if any(w in line for w in ("Compiling entry", "spill", "Used", "arning", "serializ",
-                                   "C75")):
+        if any(w in line for w in ("Compiling entry", "spill", "Used", "arning")):
             print("  ptxas", line.strip()[:200], flush=True)
-    so = library_path("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES)
-    sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "--dump-sass", str(so)],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    ops = collections.Counter(re.findall(r"\b(HGMMA|UTMALDG|UTMASTG|SYNCS|MUFU)\b", sass))
-    print(f"  SASS {dict(sorted(ops.items()))}", flush=True)
+    ok = not any(cs.serialization_notes("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES).values())
+    cs.wgmma_sass("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     rng = np.random.default_rng(0)
@@ -114,7 +141,6 @@ def main() -> int:
             return float("inf")
         return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
 
-    ok = True
     for B, S, off, Skv, Hq, Hkv, D, causal, window, softcap, bq, bk in CASES:
         if D not in fa_k.FWD_WGMMA_HEAD_DIMS:
             continue
@@ -142,45 +168,34 @@ def main() -> int:
     if not ok or args.quick:
         return 0 if ok else 1
 
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    def ms_of(fn, inputs):
-        for _ in range(3):
-            fn(*inputs)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(args.iters):
-            fn(*inputs)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / args.iters
-
-    shapes = [("main shape B4 S2048 16/8x128 causal", (4, 2048, 16, 8, 128), dict(causal=True)),
-              ("gemma2-2b prefill B1 S4608 8/4x256 causal w4096 cap50", (1, 4608, 8, 4, 256),
-               dict(causal=True, window=4096, softcap=50.0)),
-              ("stablelm-3b prefill B1 S2048 32/32x80 causal", (1, 2048, 32, 32, 80),
-               dict(causal=True))]
-    for label, (B, S, Hq, Hkv, D), kw in shapes:
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    for label, (B, S, Hq, Hkv, D), kw in SHAPES:
+        if label not in args.shapes:
+            continue
         q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         W = kw.get("window") or S
-        flops = 4 * D * B * Hq * sum(min(i + 1, W) for i in range(S))
-        bound = 1e3 * flops / 989e12
+        pairs = sum(min(i + 1, W) for i in range(S)) if kw["causal"] else S * S
+        flops = 4 * D * B * Hq * pairs
+        nbytes = 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        bound, by = cs.bound(peaks, nbytes, flops, "bfloat16")
         turns = collections.defaultdict(list)
         engines = ("wgmma", "mma_sync", "mma_sync", "wgmma")
         if D not in fa_k.FWD_WGMMA_HEAD_DIMS:
             engines = ("mma_sync", "mma_sync")
         for engine in engines:
             fn = getattr(fa_k, f"flash_attention_{engine}_cuda")
-            turns[engine].append(ms_of(lambda a, b, c: fn(a, b, c, **kw), (q, k, v)))
+            turns[engine].append(cs.cuda_ms(torch, lambda a, b, c, fn=fn: fn(a, b, c, **kw),
+                                            [(q, k, v)], args.iters)[0])
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        sdpa = ms_of(lambda a, b, c: F.scaled_dot_product_attention(
-            a, b, c, is_causal=True, enable_gqa=True), (qt, kt, vt))
+        sdpa, _ = cs.cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=kw["causal"], enable_gqa=True), [(qt, kt, vt)], args.iters)
         for engine, ts in turns.items():
             m = float(np.mean(ts))
-            print(f"{label}, {engine}: {m:.4f} ms a call (turns {[f'{t:.4f}' for t in ts]}), "
-                  f"bound {bound:.4f} ms, {bound / m:.4f} of it, {flops / m / 1e9:.1f} TFLOP/s",
-                  flush=True)
-        print(f"{label}: SDPA (causal only) {sdpa:.4f} ms", flush=True)
+            print(f"{label} B{B} S{S} {Hq}/{Hkv}x{D} {kw}, {engine}: {m:.4f} ms a call (turns "
+                  f"{[f'{t:.4f}' for t in ts]}), bound {bound:.4f} ms by {by}, {bound / m:.4f} "
+                  f"of it, {flops / m / 1e9:.1f} TFLOP/s", flush=True)
+        print(f"{label}: SDPA ({'causal' if kw['causal'] else 'no mask'} only) {sdpa:.4f} ms",
+              flush=True)
         del q, k, v, qt, kt, vt
     return 0
 
