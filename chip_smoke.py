@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: compile the CUDA sources (flash attention's two forward and two
-   backward engines, fused MoE's three forward and three backward engines,
+1. build: compile the CUDA sources (flash attention's three forward and
+   three backward engines, fused MoE's three forward and three backward engines,
    scaled_mm) with nvcc, one
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
@@ -14,8 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused MoE's mma.sync, wgmma and 3xTF32 wgmma engines; flash attention's
    wgmma backward at head dims 64, 80 and 128 and fused MoE's 3xTF32
    engines with no spill) and of the forward wgmma engines (flash
-   attention's at head dims 64, 80, 128 and 256 with no spill); flash
-   attention's forward and backward wgmma engines and fused MoE's two
+   attention's at head dims 64, 80, 128 and 256 with no spill), flash
+   attention's 3xTF32 engines with no spill; flash attention's forward and
+   backward wgmma and 3xTF32 engines and fused MoE's two
    3xTF32 engines with no C7515 note
    (ptxas serialized wgmma instructions) and no C7519 or C7520 note (it
    injected a ``warpgroup.arrive``); each library's notes are logged; the
@@ -31,7 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    2e-2 of each row's max|ref| plus one ulp); flash attention on the
    engine ``fwd_engine`` picks (bf16 at head dims 64, 80, 128 and 256: the
    wgmma engine, its lse against ``lse_ref`` too, then the mma.sync engine
-   on the same inputs; f32 on the mma.sync engine, its main path), with
+   on the same inputs; f32 at 64, 80 and 128: the 3xTF32 engine, its lse
+   too, then the FMA engine on the same inputs; f32 at 256 and head dims
+   8-32: the mma.sync engine, whose f32 main path is gemma2-2b's), with
    query offsets at head dim 64, at the lattice's block corners (bf16, the main
    shape) with its launched grid, and rows that see no key; fused MoE and
    scaled_mm at every
@@ -65,8 +68,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 6, dbrx-132b's training shape (B1 S2048 48/8 heads of 128),
    gemma2-2b's unmasked at B1 S4096, hymba-1.5b's global layer (B1 S1528
    25/5 heads of 64) and whisper-base's encoder (B1 S1500 8/8 heads of 64,
-   no mask), each also held to the mma.sync engine's gradients; the
-   mma.sync engine's main path is f32), query offsets (a rank's
+   no mask), each also held to the mma.sync engine's gradients; f32 at 80
+   and 128 runs the 3xTF32 engine, at qwen3-0.6b's, stablelm-3b's and
+   dbrx-132b's phase 10 (a) shapes too, held to the FMA engine's gradients;
+   the mma.sync engine's main path is f32 at 256), query offsets (a rank's
    block of rows: forward and backward on both engines, f32 and bf16), the
    reference's kernel test shapes (causal and not, a window, a softcap,
    GQA, rows that see no key) and fused MoE's small, ragged, dbrx-132b-wide (2 experts,
@@ -119,10 +124,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    its turns on the same inputs; and bf16) and at phase 10 (e)'s 640 rows
    (bf16, and f32 logged), each shape also on the mma.sync engine in turns
    on the same inputs, with each wgmma and 3xTF32 launch under the
-   profiler beside its own bound; the mma.sync forward at a shape its main
-   path runs, f32 at qwen3-0.6b's phase 10 (a) (B2 S256 16/8 heads of 128,
-   causal; its bound at the f32 peak) beside SDPA in f32 (its in-turns
-   times at the bf16 shapes above are logged); silu_mul
+   profiler beside its own bound; flash attention's f32 forward on its
+   3xTF32 engine in turns with the FMA engine on the same inputs, beside
+   SDPA in f32, at qwen3-0.6b's phase 10 (a) (B2 S256 16/8 heads of 128,
+   causal: its JSON row), the tuner's workload (B2 S512) and stablelm-3b's
+   phase 10 (a) (B2 S256 32/32 heads of 80), each bounded as 3xTF32 (three
+   TF32 products for each of its own; the bound at the f32 peak logged);
+   the FMA forward's JSON row at the shape its main path runs, gemma2-2b's
+   phase 10 (a) (B1 S256 8/4 heads of 256, window 4096, softcap 50, f32;
+   its bound at the f32 peak; no library: SDPA takes no softcap; its
+   in-turns times at the shapes above are logged); silu_mul
    also at phase 4's prompt lengths,
    scaled_mm also at the tuner's default workload beside
    ``torch._int_mm``; the three backward kernels at qwen3-0.6b's training
@@ -134,8 +145,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    dbrx-132b's (B1 S2048 48/8), stablelm-3b's (B1 S2048 32/32 heads of 80)
    and hymba-1.5b's global layer (B1 S1528 25/5 heads of 64) (logged),
    each wgmma launch under the profiler beside the bound of its products;
-   the mma.sync backward at a shape its main path runs, f32 at
-   qwen3-0.6b's phase 10 (a), beside SDPA's backward in f32;
+   the f32 backward on its 3xTF32 engine in turns with the FMA engine at
+   qwen3-0.6b's phase 10 (a) (its JSON row) and stablelm-3b's, beside SDPA's
+   backward in f32, each 3xTF32 launch under the profiler, and the FMA
+   backward's JSON row at gemma2-2b's phase 10 (a);
    at gemma2-2b's training shape on the wgmma engine (logged; no library:
    SDPA takes no softcap), in turns with the mma.sync engine, each launch
    under the profiler, and causal only beside SDPA's backward; fused
@@ -392,15 +405,25 @@ def moe_fwd_engine(cfg):
     return fwd_engine(getattr(torch, cfg.compute_dtype), 1, cfg.d_model, cfg.moe_hidden)
 
 
-def fa_fwd_wgmma(cfg):
-    """Whether ``cfg``'s flash-attention forward runs on the wgmma engine:
-    what ``fwd_engine`` gives its compute type and head dim (the models'
-    q, k and v are fresh tensors, whose bases are 16-byte multiples)."""
+#: the count (a key of ``main``'s ``kinds`` and ``kernel_counts``) of each
+#: flash-attention engine, forward and backward
+FA_FWD_COUNT = {"wgmma": "flash_attention_wgmma", "tf32": "flash_attention_tf32",
+                "mma_sync": "flash_attention"}
+FA_BWD_COUNT = {"wgmma": "flash_attention_bwd_wgmma", "tf32": "flash_attention_bwd_tf32",
+                "mma_sync": "flash_attention_bwd"}
+
+
+def model_fa_engines(cfg):
+    """The engines ``cfg``'s flash attention runs on, ``(forward,
+    backward)``: what ``fwd_engine`` and ``bwd_engine`` give its compute type
+    and head dim (the models' q, k and v are fresh tensors, whose bases are
+    16-byte multiples)."""
     import torch
 
-    from repro_torch.kernels.flash_attention.kernel import fwd_engine
+    from repro_torch.kernels.flash_attention.kernel import bwd_engine, fwd_engine
 
-    return fwd_engine(getattr(torch, cfg.compute_dtype), cfg.resolved_head_dim) == "wgmma"
+    dtype, D = getattr(torch, cfg.compute_dtype), cfg.resolved_head_dim
+    return fwd_engine(dtype, D), bwd_engine(dtype, D)
 
 
 @contextlib.contextmanager
@@ -421,16 +444,17 @@ def fwd_on_mma_sync(D):
 def on_engines(cfg, counts):
     """``counts``, whose fused MoE and flash attention forward calls stand
     under ``fused_moe`` and ``flash_attention``, with those calls under the
-    engine that runs them for ``cfg`` (``moe_fwd_engine``, ``fa_fwd_wgmma``):
-    the mma.sync engine's name, the wgmma engine's (``..._wgmma``) or fused
-    MoE's 3xTF32 engine's (``fused_moe_tf32``)."""
+    engine that runs them for ``cfg`` (``moe_fwd_engine``, ``model_fa_engines``):
+    the mma.sync engine's name, the wgmma engine's (``..._wgmma``) or the
+    3xTF32 engine's (``..._tf32``)."""
     out = dict(counts)
     n = counts.get("fused_moe", 0)
     engine = moe_fwd_engine(cfg) or "mma_sync"
     for name in MOE_FWD_COUNT.values():
         out[name] = n * (name == MOE_FWD_COUNT[engine])
-    n, wgmma = counts.get("flash_attention", 0), fa_fwd_wgmma(cfg)
-    out["flash_attention"], out["flash_attention_wgmma"] = n * (not wgmma), n * wgmma
+    n, engine = counts.get("flash_attention", 0), model_fa_engines(cfg)[0]
+    for e, name in FA_FWD_COUNT.items():
+        out[name] = n * (e == engine)
     return out
 
 
@@ -473,13 +497,16 @@ def main():
     kinds = {"rmsnorm": rms_k, "silu_mul": silu_k, "flash_attention": fa_k, "fused_moe": moe_k,
              "fused_moe_wgmma": EngineCount(moe_k, "wgmma_launches"),
              "fused_moe_tf32": EngineCount(moe_k, "tf32_launches"),
-             "flash_attention_wgmma": EngineCount(fa_k, "wgmma_launches")}
+             "flash_attention_wgmma": EngineCount(fa_k, "wgmma_launches"),
+             "flash_attention_tf32": EngineCount(fa_k, "tf32_launches"),
+             "flash_attention_bwd_tf32": EngineCount(fa_k, "bwd_tf32_launches")}
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(11) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(13) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.fwd_wgmma_library, fa_k.bwd_library,
-                                           fa_k.wgmma_library, moe_k.library,
+                                           fa_k.wgmma_library, fa_k.fwd_tf32_library,
+                                           fa_k.bwd_tf32_library, moe_k.library,
                                            moe_k.fwd_wgmma_library, moe_k.fwd_tf32_library,
                                            moe_k.bwd_library, moe_k.wgmma_library,
                                            moe_k.tf32_library, smm_k.library)]
@@ -548,6 +575,7 @@ def main():
     tuned = tuner(torch, dev)
     launches["scaled_mm"] = tuned["scaled_mm"]  # the tuner is scaled_mm's main path
     launches["fused_moe_tf32"] += tuned["fused_moe_tf32"]  # and f32 fused MoE's
+    launches["flash_attention_tf32"] += tuned["flash_attention_tf32"]  # and f32 attention's
     log(f"[7 tuner] passed in {time.perf_counter() - t0:.1f}s; launches {tuned}")
 
     # ---------------------------------------------------------------- 8
@@ -603,6 +631,9 @@ def main():
         "flash_attention_wgmma": (
             "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/flash_attention/kernel.py:30"),
+        "flash_attention_tf32": (
+            "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tf32.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30"),
         "fused_moe": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe.cu",
                       "src/repro/kernels/fused_moe/kernel.py:27"),
         "fused_moe_wgmma": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_wgmma.cu",
@@ -623,6 +654,9 @@ def main():
             "src/repro/kernels/flash_attention/kernel.py:30"),
         "flash_attention_bwd_wgmma": (
             "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30"),
+        "flash_attention_bwd_tf32": (
+            "cuda", "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_tf32.cu",
             "src/repro/kernels/flash_attention/kernel.py:30"),
         "fused_moe_bwd": ("cuda", "src/repro_torch/kernels/fused_moe/csrc/fused_moe_bwd.cu",
                           "src/repro/kernels/fused_moe/kernel.py:27"),
@@ -718,7 +752,9 @@ def ptxas_report(fa_k, moe_k=None):
 
     logs = [("flash_attention_bwd", fa_k.BWD_SOURCES),
             ("flash_attention_bwd_wgmma", fa_k.WGMMA_SOURCES),
-            ("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES)]
+            ("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES),
+            ("flash_attention_tf32", fa_k.FWD_TF32_SOURCES),
+            ("flash_attention_bwd_tf32", fa_k.BWD_TF32_SOURCES)]
     if moe_k is not None:
         logs += [("fused_moe_bwd", moe_k.BWD_SOURCES),
                  ("fused_moe_bwd_wgmma", moe_k.WGMMA_SOURCES),
@@ -729,13 +765,15 @@ def ptxas_report(fa_k, moe_k=None):
         kernel = None
         notes = serialization_notes(lib, sources)
         assert not (any(notes.values()) and lib in (
-            "flash_attention_wgmma", "flash_attention_bwd_wgmma", "fused_moe_bwd_tf32",
-            "fused_moe_tf32")), f"{lib}: ptxas serialized its wgmma or injected arrives: {notes}"
+            "flash_attention_wgmma", "flash_attention_bwd_wgmma", "flash_attention_tf32",
+            "flash_attention_bwd_tf32", "fused_moe_bwd_tf32", "fused_moe_tf32")), (
+            f"{lib}: ptxas serialized its wgmma or injected arrives: {notes}")
         for line in build_log(lib, sources).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 # the Itanium mangling keeps each name and template argument readable
                 name = re.search(r"((?:fa_bwd_\w+?_kernel)|fa_bwd_dq_wgmma|fa_bwd_dkdv_wgmma|"
+                                 r"fa_bwd_dq_tf32|fa_bwd_dkdv_tf32|fa_fwd_tf32|"
                                  r"fa_fwd_wgmma|moe_bwd_gemm|moe_bwd_wgmma|moe_bwd_tf32|"
                                  r"moe_fwd_wgmma|moe_fwd_tf32)"
                                  r"(?:I(.*?)EEv)?",
@@ -752,7 +790,8 @@ def ptxas_report(fa_k, moe_k=None):
                 spill = re.search(r"(\d+) bytes spill stores", line)
                 assert spill is None or int(spill.group(1)) <= 1024, f"{kernel} spills: {line}"
                 assert spill is None or not re.match(
-                    r"fa_bwd_\w+_wgmma<(64|80|128)\b|moe_bwd_tf32|moe_fwd_tf32|fa_fwd_wgmma",
+                    r"fa_bwd_\w+_wgmma<(64|80|128)\b|fa_bwd_\w+_tf32|fa_fwd_tf32|moe_bwd_tf32|"
+                    r"moe_fwd_tf32|fa_fwd_wgmma",
                     kernel) or (
                     int(spill.group(1)) == 0), f"{kernel} spills: {line}"
     for kern in fa_k.bwd_launch_plan(4, 2048, 2048, 16, 8, 128):
@@ -777,6 +816,22 @@ def ptxas_report(fa_k, moe_k=None):
             f"{p.block_k} keys in {p.tiles_per_step} tile(s) of {p.tile_keys}, {p.stages} stages, "
             f"{p.warpgroups} consumer warpgroups, {p.smem} shared bytes")
     wgmma_sass("flash_attention_wgmma", fa_k.FWD_WGMMA_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
+    # the 3xTF32 engines at the f32 paths' shapes: phase 10 (a)'s qwen3-0.6b,
+    # stablelm-3b and dbrx-132b gradient runs, the tuner's workload
+    for D, shape in ((128, (2, 256, 256, 16, 8)), (80, (2, 256, 256, 32, 32)),
+                     (128, (1, 128, 128, 48, 8)), (128, (2, 512, 512, 16, 8))):
+        p = fa_k.fwd_tf32_plan(*shape, D)
+        log(f"  forward plan (3xTF32), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} f32: grid "
+            f"{p.grid}, {p.block_q} q rows a CTA in sub-blocks of {p.sub_rows}, steps of "
+            f"{p.block_k} keys in {p.tiles_per_step} tile(s) of {p.tile_keys}, {p.stages} stages, "
+            f"{p.warpgroups} consumer warpgroup, {p.smem} shared bytes")
+        for kern in fa_k.bwd_tf32_plan(*shape, D, torch.cuda.get_device_properties(
+                0).multi_processor_count):
+            log(f"  backward plan (3xTF32), B{shape[0]} S{shape[1]} {shape[3]}/{shape[4]}x{D} "
+                f"f32: {kern.name} grid {kern.grid}, {kern.rows} rows a CTA, steps of "
+                f"{kern.step}, ring slots and lo buffers {kern.stages}, {kern.smem} shared bytes")
+    wgmma_sass("flash_attention_tf32", fa_k.FWD_TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
+    wgmma_sass("flash_attention_bwd_tf32", fa_k.BWD_TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
     if moe_k is not None:
         for kern in moe_k.bwd_launch_plan(16, 640, 6144, 10752, torch.float32):
             log(f"  fused_moe backward plan (mma.sync), E16 C640 D6144 F10752 f32: {kern.name} "
@@ -852,7 +907,7 @@ def kernel_parity(torch, dev):
             max_err[kname] = max(max_err[kname], err)
 
     max_err = {"rmsnorm": 0.0, "silu_mul": 0.0, "flash_attention": 0.0,
-               "flash_attention_wgmma": 0.0}
+               "flash_attention_wgmma": 0.0, "flash_attention_tf32": 0.0}
     for shape, xd, wd, main in [
         ((8192, 1024), bf16, f32, True), ((8192, 1024), bf16, bf16, True),
         ((8192 * 16, 128), bf16, bf16, True), ((8192, 1024), f32, f32, False),
@@ -872,10 +927,15 @@ def kernel_parity(torch, dev):
                   silu_mul_ref(g, u, act=act), dt, main and (act == "silu" or shape[1] == 9216))
     fa_cases = [(*c, 0) for c in [
         # (B, S, Skv, Hq, Hkv, D, causal, window, softcap, dtype, main path),
-        # then q_offset; an f32 case is the mma.sync engine's main path where
-        # phases 9 and 10 (a) run its shape
+        # then q_offset; an f32 case is its engine's main path where phases
+        # 3, 9 and 10 (a) run its shape (3xTF32 at 64, 80 and 128; the FMA
+        # engine at 256: gemma2-2b's)
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),
         (2, 256, 256, 16, 8, 128, True, None, None, f32, True),  # qwen3's phase 10 (a)
+        (2, 256, 256, 32, 32, 80, True, None, None, f32, True),  # stablelm-3b's
+        (1, 128, 128, 48, 8, 128, True, None, None, f32, True),  # dbrx-132b's
+        (1, 256, 256, 8, 4, 256, True, 4096, 50.0, f32, True),  # gemma2-2b's (FMA)
+        (2, 512, 512, 16, 8, 128, True, None, None, f32, True),  # the tuner's
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, False),
         (1, 1000, 1000, 16, 8, 128, True, None, None, bf16, True),
         (2, 512, 512, 16, 8, 128, True, 256, None, bf16, False),
@@ -914,29 +974,32 @@ def kernel_parity(torch, dev):
         (1, 130, 200, 2, 1, 64, False, 64, None, bf16, False, 40),
     ]
     # each case on the engine fwd_engine picks (the wgmma engine for bf16 at
-    # head dims 64, 80, 128 and 256: its lse too; then the mma.sync engine on
-    # the same inputs, whose main path is f32), the other engine's count not
-    # moving
+    # head dims 64, 80, 128 and 256, the 3xTF32 engine for f32 at 64, 80 and
+    # 128: its lse too; then the mma.sync engine on the same inputs, whose
+    # main path is f32 at 256), the other engines' counts not moving
+    counts = {e: EngineCount(fa_k, a) for e, a in (
+        ("wgmma", "wgmma_launches"), ("tf32", "tf32_launches"), ("mma_sync", "launches"))}
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in fa_cases:
         q, k, v = randn((B, S, Hq, D), dt), randn((B, Skv, Hkv, D), dt), randn((B, Skv, Hkv, D), dt)
         kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
         ref = attention_ref(q, k, v, **kw)
-        wgmma = fa_k.fwd_engine(dt, D) == "wgmma"
+        engine = fa_k.fwd_engine(dt, D)
         label = (f"flash_attention B{B} S{S} Skv{Skv} H{Hq}/{Hkv} D{D} causal={causal} "
                  f"window={window} softcap={softcap} q_offset={off} {dt}")
-        n0, w0 = fa_k.launches, fa_k.wgmma_launches
-        check(f"{label} ({'wgmma' if wgmma else 'mma_sync'})",
-              "flash_attention_wgmma" if wgmma else "flash_attention",
+        n0 = {e: c.launches for e, c in counts.items()}
+        check(f"{label} ({engine})", FA_FWD_COUNT[engine],
               lambda: flash_attention_cuda(q, k, v, **kw), ref, dt, main, per_row=main)
-        assert (fa_k.launches - n0, fa_k.wgmma_launches - w0) == (2 * (not wgmma), 2 * wgmma)
-        if wgmma:
+        assert {e: c.launches - n0[e] for e, c in counts.items()} == {
+            e: 2 * (e == engine) for e in counts}, label
+        if engine != "mma_sync":
             lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)[1]
             want = lse_ref(q, k, v, **kw)
             fin = torch.isfinite(want)
             assert torch.equal(fin, torch.isfinite(lse)), f"{label}: lse's -inf rows differ"
             lerr = float((lse[fin] - want[fin]).abs().max())
-            assert lerr <= BF16_TOL, f"{label}: lse off by {lerr:.3g}"
-            log(f"  {label} (wgmma) lse: max abs err {lerr:.3g} (tol {BF16_TOL})")
+            ltol = BF16_TOL if dt == bf16 else F32_TOL * (1 + float(want[fin].abs().max()))
+            assert lerr <= ltol, f"{label}: lse off by {lerr:.3g}"
+            log(f"  {label} ({engine}) lse: max abs err {lerr:.3g} (tol {ltol:.3g})")
             check(f"{label} (mma_sync)", "flash_attention",
                   lambda: fa_k.flash_attention_mma_sync_cuda(q, k, v, **kw), ref, dt, False,
                   per_row=main)
@@ -1116,10 +1179,14 @@ def tuner_kernel_parity(torch, dev):
         args = make_inputs(kernel, kw, device="cuda")
         ref = fa_ref(*args) if kernel == "flash_attention" else silu_ref(*args)
         worst = 0.0
+        kname = kernel
+        if kernel == "flash_attention":  # the tuner's f32 inputs: the 3xTF32 engine
+            assert mod.fwd_engine(args[0].dtype, kw["D"]) == "tf32"
+            kname = "flash_attention_tf32"
         for c in survivors:
             out = kernel_entry(kernel)(*args, **c.blocks)
             assert mod.last_grid == ops.grid_shape(**kw, **c.blocks), (kernel, c.blocks)
-            same_after_poison(torch, kernel, f"{kernel} {kw} {c.blocks}",
+            same_after_poison(torch, kname, f"{kernel} {kw} {c.blocks}",
                               lambda: kernel_entry(kernel)(*args, **c.blocks), out)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, ref, rtol=F32_TOL, atol=F32_TOL,
@@ -1236,7 +1303,8 @@ def backward_parity(torch, dev):
     rng = np.random.default_rng(SEED + 7)
     f32, bf16 = torch.float32, torch.bfloat16
     max_err = {"rmsnorm_bwd": 0.0, "silu_mul_bwd": 0.0, "flash_attention_bwd": 0.0,
-               "flash_attention_bwd_wgmma": 0.0, "fused_moe_bwd": 0.0,
+               "flash_attention_bwd_wgmma": 0.0, "flash_attention_bwd_tf32": 0.0,
+               "fused_moe_bwd": 0.0,
                "fused_moe_bwd_wgmma": 0.0, "fused_moe_bwd_tf32": 0.0}
 
     def randn(shape, dtype, scale=1.0):
@@ -1281,14 +1349,21 @@ def backward_parity(torch, dev):
     # dims 64, 80, 128 and 256 runs the wgmma engine, and is also checked
     # against the mma.sync engine's gradients on the same inputs; the last
     # cases take a query offset (a rank's block of rows under ops.row_split),
-    # whose forward is checked against the plain version too. The main
-    # paths: qwen3's and gemma2's bf16 training (wgmma), the f32 gradient
-    # runs of phase 10 (a) (mma.sync)
+    # whose forward is checked against the plain version too; f32 at head
+    # dims 80 and 128 runs the 3xTF32 engine, also held to the FMA engine's
+    # gradients. The main paths: qwen3's and gemma2's bf16 training (wgmma),
+    # the f32 gradient runs of phase 10 (a) (3xTF32 at qwen3-0.6b's,
+    # stablelm-3b's and dbrx-132b's shapes; the FMA engine at gemma2-2b's)
     fa_grads = ("dq", "dk", "dv")
     for B, S, Skv, Hq, Hkv, D, causal, window, softcap, dt, main, off in [(*c, 0) for c in [
         (4, 2048, 2048, 16, 8, 128, True, None, None, bf16, True),  # qwen3-0.6b training
         (4, 2048, 2048, 16, 8, 128, True, None, None, f32, True),
         (2, 256, 256, 16, 8, 128, True, None, None, f32, True),  # its phase 10 (a)
+        (2, 256, 256, 32, 32, 80, True, None, None, f32, True),  # stablelm-3b's
+        (1, 128, 128, 48, 8, 128, True, None, None, f32, True),  # dbrx-132b's
+        (1, 256, 256, 8, 4, 256, True, 4096, 50.0, f32, True),  # gemma2-2b's (FMA)
+        (2, 130, 130, 4, 2, 80, True, 64, 50.0, f32, False),
+        (1, 77, 200, 4, 1, 128, False, 50, 20.0, f32, False),
         # stablelm-3b's training shape on the wgmma engine's head-dim-80
         # instances, also ragged with a window and a softcap, and with more
         # keys than rows; hymba-1.5b's global layer (25/5, causal) and
@@ -1347,6 +1422,8 @@ def backward_parity(torch, dev):
         (1, 1024, 4096, 8, 4, 256, True, 4096, 50.0, bf16, False, 3072),
         (1, 130, 200, 2, 1, 256, False, 64, None, bf16, False, 40),
         (1, 130, 200, 6, 1, 128, False, 64, None, bf16, False, 40),
+        (1, 130, 200, 6, 1, 128, False, 64, None, f32, False, 40),
+        (1, 64, 192, 4, 2, 80, True, None, None, f32, False, 64),
         (1, 64, 192, 4, 2, 80, True, None, None, bf16, False, 64),
         (1, 130, 200, 2, 1, 64, False, 64, None, bf16, False, 40),
         (1, 100, 200, 4, 2, 64, True, 48, 30.0, bf16, False, 60),
@@ -1363,15 +1440,14 @@ def backward_parity(torch, dev):
             err = float((out.float() - ref_out.float()).abs().max())
             tol = F32_TOL if dt == f32 else BF16_TOL
             assert err <= tol * float(ref_out.float().abs().max()), f"{label}: forward {err:.3g}"
-            same_after_poison(torch, "flash_attention", label + " forward",
+            same_after_poison(torch, FA_FWD_COUNT[fa_k.fwd_engine(dt, D)], label + " forward",
                               lambda: flash_attention_cuda(q, k, v, **kw), out)
             log(f"  {label}: forward {err:.3g} of max|ref| (tol {tol})")
         refs = attention_bwd_ref(q, k, v, dout, **kw)
         engine = fa_k.bwd_engine(dt, D)
-        kname = "flash_attention_bwd_wgmma" if engine == "wgmma" else "flash_attention_bwd"
-        check(f"{label} ({engine})", (kname, fa_grads),
+        check(f"{label} ({engine})", (FA_BWD_COUNT[engine], fa_grads),
               lambda: flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw), refs, main)
-        if engine == "wgmma":
+        if engine != "mma_sync":
             new = flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
             check(f"{label} (mma_sync)", ("flash_attention_bwd", fa_grads),
                   lambda: fa_k.flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, **kw),
@@ -1379,8 +1455,9 @@ def backward_parity(torch, dev):
             old = fa_k.flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, **kw)
             gaps = [float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
                     for a, b in zip(new, old)]
-            assert max(gaps) <= BF16_TOL, f"{label}: wgmma against mma_sync {gaps}"
-            log(f"  {label}: wgmma against mma_sync engine, of max|mma_sync|: "
+            tol = BF16_TOL if dt == bf16 else F32_TOL
+            assert max(gaps) <= tol, f"{label}: {engine} against mma_sync {gaps}"
+            log(f"  {label}: {engine} against mma_sync engine, of max|mma_sync|: "
                 + ", ".join(f"{n} {g:.3g}" for n, g in zip(fa_grads, gaps)))
             del new, old
         del q, k, v, dout, out, lse, refs
@@ -1679,10 +1756,11 @@ def serve(torch, dev, params, kinds):
     torch.cuda.empty_cache()
     # dbrx's bf16 serving runs fused MoE's forward on the wgmma engine, its
     # decode ticks too, and both models' prefill attention (head dim 128) runs
-    # flash attention's wgmma engine (f32 goes to fused MoE's 3xTF32 engine
-    # and flash attention's mma.sync one: phases 3 and 10 (a); flash
-    # attention's head dim 64 to mma.sync too: phase 9)
-    idle = ("fused_moe", "fused_moe_tf32", "flash_attention")
+    # flash attention's wgmma engine (f32 goes to the 3xTF32 engines: phases
+    # 3, 7 and 10 (a); flash attention's f32 at head dim 256 to mma.sync:
+    # phase 10 (a); serving runs no backward)
+    idle = ("fused_moe", "fused_moe_tf32", "flash_attention", "flash_attention_tf32",
+            "flash_attention_bwd_tf32")
     assert all(v > 0 for k, v in totals.items() if k not in idle), totals
     assert not any(totals[k] for k in idle), totals
     assert bool(finite), "non-finite logits on the serving path"
@@ -1812,7 +1890,7 @@ def remaining_families(torch, dev, kinds):
         eng = ServeEngine(cfg, params=params, max_batch=2, recorder=TraceRecorder(), device="cuda")
         run(label, eng, prompts, 8, served)
         del eng
-        if cfg.resolved_head_dim == 64 and fa_fwd_wgmma(cfg):
+        if cfg.resolved_head_dim == 64 and model_fa_engines(cfg)[0] == "wgmma":
             both_forwards(torch, cfg, params, prompts, served, label, run)
         del params
         torch.cuda.empty_cache()
@@ -1989,26 +2067,28 @@ def kernel_times(torch, dev, peaks):
     # flash attention's forward, bf16: the wgmma engine's row and the
     # mma.sync engine's on the same inputs, the two in turns (wgmma,
     # mma.sync, mma.sync, wgmma; kernel times drift as the card heats), each
-    # row's ms the mean of its two turns
+    # row's ms the mean of its two turns; f32 the same with the 3xTF32
+    # engine (``engine``) and the FMA engine, each with its own bound
     from repro_torch.kernels.flash_attention import kernel as fa_k
 
-    def fa_engines(label, kw, inputs, plain, library, bnd):
-        names = {"wgmma": "flash_attention_wgmma" + label, "mma_sync": "flash_attention" + label}
+    def fa_engines(label, kw, inputs, plain, library, bnd, engine="wgmma", old_bnd=None):
+        names = {engine: f"flash_attention_{engine}" + label, "mma_sync": "flash_attention" + label}
         turns = {}
-        for engine in ("wgmma", "mma_sync", "mma_sync", "wgmma"):
-            fn = getattr(fa_k, f"flash_attention_{engine}_cuda")
+        for e in (engine, "mma_sync", "mma_sync", engine):
+            fn = getattr(fa_k, f"flash_attention_{e}_cuda")
             call = lambda a, b, c, fn=fn: fn(a, b, c, **kw)
-            if names[engine] not in rows:
-                row(names[engine], call, plain, library, inputs, 20, *bnd)
-                turns[engine] = [rows[names[engine]]["ms"]]
+            if names[e] not in rows:
+                row(names[e], call, plain, library, inputs, 20,
+                    *(old_bnd if e == "mma_sync" and old_bnd else bnd))
+                turns[e] = [rows[names[e]]["ms"]]
             else:
-                turns[engine].append(cuda_ms(torch, call, inputs, 20)[0])
-        for engine, name in names.items():
-            rows[name]["ms"] = float(np.mean(turns[engine]))
-        w, m = rows[names["wgmma"]], rows[names["mma_sync"]]
+                turns[e].append(cuda_ms(torch, call, inputs, 20)[0])
+        for e, name in names.items():
+            rows[name]["ms"] = float(np.mean(turns[e]))
+        w, m = rows[names[engine]], rows[names["mma_sync"]]
         lib = "n/a" if w["library_ms"] is None else f"{w['library_ms']:.4f}"
-        log(f"  flash_attention{label} in turns (ms): wgmma {turns['wgmma']}, mma.sync "
-            f"{turns['mma_sync']}; wgmma {w['bound_ms'] / w['ms']:.4f} of the bound, "
+        log(f"  flash_attention{label} in turns (ms): {engine} {turns[engine]}, mma.sync "
+            f"{turns['mma_sync']}; {engine} {w['bound_ms'] / w['ms']:.4f} of the bound, "
             f"{m['ms'] / w['ms']:.2f}x faster than mma.sync, library {lib}")
         return w
 
@@ -2067,25 +2147,52 @@ def kernel_times(torch, dev, peaks):
             f"{w['bound_ms'] / w['ms']:.4f} of the bound, {w['ms'] / w['library_ms']:.2f}x "
             f"SDPA's {w['library_ms']:.4f}")
         del q, k, v, qt, kt, vt
-    # the mma.sync engine's row at a shape its main path runs: f32 (on the
-    # FMA units: its bound at the f32 peak) at qwen3-0.6b's gradient run of
-    # phase 10 (a), B=2, S=256, 16/8 heads of 128, causal, beside SDPA in
-    # f32; 16 input sets, 64 MB, so that every call reads from device memory
-    B, S, Hq, Hkv, D = 2, 256, 16, 8, 128
+    # f32: the 3xTF32 engine in turns with the FMA engine on the same inputs
+    # (tf32, mma.sync, mma.sync, tf32), beside SDPA in f32, bounded as 3xTF32
+    # (three TF32 products for each of its own, at the TF32 peak; the FMA
+    # engine at the f32 peak), at qwen3-0.6b's gradient run of phase 10 (a)
+    # (B2 S256 16/8 heads of 128, causal: the 3xTF32 engine's JSON row; 16
+    # input sets, 64 MB, so that every call reads from device memory), the
+    # tuner's flash-attention workload (B2 S512, the same heads) and
+    # stablelm-3b's gradient run (B2 S256 32/32 heads of 80)
+    for label, (B, S, Hq, Hkv, D), n_sets in (("", (2, 256, 16, 8, 128), 16),
+                                              (" (tuner, B2 S512)", (2, 512, 16, 8, 128), 8),
+                                              (" (stablelm-3b f32, D80)", (2, 256, 32, 32, 80), 8)):
+        sets = [(randn(B, S, Hq, D, dtype=f32), randn(B, S, Hkv, D, dtype=f32),
+                 randn(B, S, Hkv, D, dtype=f32)) for _ in range(n_sets)]
+        flops = 4 * D * B * Hq * S * (S + 1) // 2
+        nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        f32_bound = bound(peaks, nbytes, flops, "float32")
+        w = fa_engines(label, dict(causal=True), sets,
+                       lambda a, b, c: attention_ref(a, b, c, causal=True),
+                       (sdpa, [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]),
+                       bound(peaks, nbytes, 3 * flops, "tf32"), "tf32", f32_bound)
+        m = rows["flash_attention" + label]
+        log(f"  flash_attention f32{label or ' (qwen3-0.6b, phase 10 (a))'}, B{B} S{S} "
+            f"{Hq}/{Hkv}x{D} causal: {flops / 1e9:.3f} GFLOP; 3xTF32 {w['ms']:.4f} ms, "
+            f"{w['bound_ms'] / w['ms']:.4f} of its 3xTF32 bound {w['bound_ms']:.4f}, "
+            f"{f32_bound[0] / w['ms']:.4f} of the f32-peak bound {f32_bound[0]:.4f}; FMA "
+            f"{m['ms']:.4f} ms ({m['ms'] / w['ms']:.2f}x the 3xTF32 engine's); SDPA "
+            f"{w['library_ms']:.4f}")
+        del sets
+    rows["flash_attention (qwen3-0.6b f32, FMA in turns)"] = rows.pop("flash_attention")
+    # the FMA engine's row at the shape its main path runs: gemma2-2b's
+    # gradient run of phase 10 (a), B1 S256 8/4 heads of 256, causal, window
+    # 4096, softcap 50, f32 (its bound at the f32 peak; no library call: SDPA
+    # takes no softcap); 16 input sets
+    B, S, Hq, Hkv, D = 1, 256, 8, 4, 256
+    gkw = dict(causal=True, window=4096, softcap=50.0)
     sets = [(randn(B, S, Hq, D, dtype=f32), randn(B, S, Hkv, D, dtype=f32),
              randn(B, S, Hkv, D, dtype=f32)) for _ in range(16)]
     flops = 4 * D * B * Hq * S * (S + 1) // 2
     nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
-    row("flash_attention",
-        lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, causal=True),
-        lambda a, b, c: attention_ref(a, b, c, causal=True),
-        (sdpa, [tuple(t.transpose(1, 2).contiguous() for t in x) for x in sets]), sets,
-        40, *bound(peaks, nbytes, flops, "float32"))
+    row("flash_attention", lambda a, b, c: fa_k.flash_attention_mma_sync_cuda(a, b, c, **gkw),
+        lambda a, b, c: attention_ref(a, b, c, **gkw), None, sets, 40,
+        *bound(peaks, nbytes, flops, "float32"))
     r = rows["flash_attention"]
-    log(f"  flash_attention (mma.sync) at qwen3-0.6b's phase 10 (a) shape, B2 S256 16/8x128 "
-        f"causal f32: {r['ms']:.4f} ms, {flops / 1e9:.3f} GFLOP, "
-        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the f32 bound, "
-        f"SDPA {r['library_ms']:.4f}")
+    log(f"  flash_attention (FMA) at gemma2-2b's phase 10 (a) shape, B1 S256 8/4x256 causal "
+        f"window 4096 softcap 50 f32: {r['ms']:.4f} ms, {flops / 1e9:.3f} GFLOP, "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.4f} of the f32 bound")
     del sets
     # gemma2-2b's prefill: B=1, S=4608, 8/4 heads of 256, causal, window
     # 4096, softcap 50. A row past the window sees 4096 keys. SDPA takes no
@@ -2371,31 +2478,34 @@ def tf32_fwd_launch_times(torch, moe_k, peaks, args, block_m=128, block_f=256):
     log(f"  fused_moe_tf32: the three launches {total:.4f} ms under the profiler")
 
 
-def fa_launch_times(torch, fa_k, peaks, args, kw, pairs):
-    """Each of flash attention's wgmma backward launches at these inputs:
-    its device ms under ``torch.profiler`` (the mean of 5 calls) beside the
-    bound of the products it computes (dQ: S, dP and dS K, ``6 D`` a
-    visible pair; dK/dV: S^T, dP^T, P^T dO and dS^T Q, ``8 D``) at the bf16
-    peak."""
+def fa_launch_times(torch, fa_k, peaks, args, kw, pairs, engine="wgmma"):
+    """Each of flash attention's backward launches on ``engine`` (``wgmma``
+    or ``tf32``) at these inputs: its device ms under ``torch.profiler``
+    (the mean of 5 calls) beside the bound of the products it computes (dQ:
+    S, dP and dS K, ``6 D`` a visible pair; dK/dV: S^T, dP^T, P^T dO and
+    dS^T Q, ``8 D``) at the bf16 peak, or for ``tf32`` three times those at
+    the TF32 peak (3xTF32)."""
     from torch.profiler import ProfilerActivity, profile
 
     D = args[0].shape[-1]
-    fa_k.flash_attention_bwd_wgmma_cuda(*args, **kw)
+    fn = getattr(fa_k, f"flash_attention_bwd_{engine}_cuda")
+    fn(*args, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            fa_k.flash_attention_bwd_wgmma_cuda(*args, **kw)
+            fn(*args, **kw)
         torch.cuda.synchronize()
     times = {e.key: e.device_time_total / 1e3 / e.count for e in prof.key_averages()
-             if "_wgmma" in e.key and e.device_time_total > 0}
+             if f"_{engine}" in e.key and e.device_time_total > 0}
     total = 0.0
+    ops, kind = (3, "tf32") if engine == "tf32" else (1, "bfloat16")
     for name, per_pair in (("dq", 6), ("dkdv", 8)):
-        ms = sum(v for k, v in times.items() if f"fa_bwd_{name}_wgmma" in k)
-        b = 1e3 * per_pair * D * pairs / peaks["bfloat16"]
+        ms = sum(v for k, v in times.items() if f"fa_bwd_{name}_{engine}" in k)
+        b = 1e3 * ops * per_pair * D * pairs / peaks[kind]
         total += ms
-        log(f"  flash_attention_bwd_wgmma launch {name}: {ms:.4f} ms, bound {b:.4f} "
+        log(f"  flash_attention_bwd_{engine} launch {name}: {ms:.4f} ms, bound {b:.4f} "
             f"(operations), {b / ms:.4f} of it")
-    log(f"  flash_attention_bwd_wgmma: the two launches {total:.4f} ms under the profiler")
+    log(f"  flash_attention_bwd_{engine}: the two launches {total:.4f} ms under the profiler")
 
 
 def library_bwd_ms(torch, fwd, inputs, iters, kname):
@@ -2530,29 +2640,70 @@ def backward_times(torch, dev, peaks):
         fa_launch_times(torch, fa_k, peaks, f_in[0], dict(causal=True), pairs)
         del q, k, v, dout, out, lse, qt, kt, vt, f_in
         torch.cuda.empty_cache()
-    # the mma.sync engine's row at a shape its main path runs: f32 at
-    # qwen3-0.6b's gradient run of phase 10 (a), B2 S256 16/8 heads of 128,
-    # causal, its bound at the f32 peak, beside SDPA's backward in f32; 16
-    # input sets, 80 MB, so that every call reads from device memory
-    B, S, Hq, Hkv, D = 2, 256, 16, 8, 128
+    # f32, phase 10 (a)'s gradient runs: the 3xTF32 engine's row at
+    # qwen3-0.6b's (B2 S256 16/8 heads of 128, causal; 16 input sets, 80 MB,
+    # so that every call reads from device memory) and stablelm-3b's (B2 S256
+    # 32/32 heads of 80, a logged row), each in turns with the FMA engine on
+    # the same inputs (tf32, mma.sync, mma.sync, tf32), bounded as 3xTF32
+    # (the FMA engine at the f32 peak), beside SDPA's backward in f32, each
+    # 3xTF32 launch under the profiler
+    f32 = torch.float32
+    for label, (B, S, Hq, Hkv, D), n_sets in (("qwen3-0.6b", (2, 256, 16, 8, 128), 16),
+                                              ("stablelm-3b", (2, 256, 32, 32, 80), 8)):
+        sets = []
+        for _ in range(n_sets):
+            q, k, v = (randn(B, S, h, D, dtype=f32) for h in (Hq, Hkv, Hkv))
+            dout = randn(B, S, Hq, D, dtype=f32)
+            sets.append((q, k, v, *flash_attention_cuda(q, k, v, causal=True, return_lse=True),
+                         dout))
+        pairs = B * Hq * S * (S + 1) // 2
+        nbytes = 4 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
+        main = label == "qwen3-0.6b"  # the 3xTF32 engine's JSON row
+        name = "flash_attention_bwd_tf32" + ("" if main else f" ({label} f32)")
+        row(name, lambda *a: fa_k.flash_attention_bwd_tf32_cuda(*a, causal=True),
+            lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
+            (sdpa, [(*(t.transpose(1, 2).contiguous().requires_grad_() for t in x[:3]),
+                     x[5].transpose(1, 2).contiguous()) for x in sets]), sets, 20,
+            *bound(peaks, nbytes, 3 * 10 * D * pairs, "tf32"), into=rows if main else logged)
+        r = (rows | logged)[name]
+        turns = {"tf32": [r["ms"]], "mma_sync": []}
+        for engine in ("mma_sync", "mma_sync", "tf32"):
+            fn = getattr(fa_k, f"flash_attention_bwd_{engine}_cuda")
+            turns[engine].append(cuda_ms(torch, lambda *a, fn=fn: fn(*a, causal=True), sets,
+                                         20)[0])
+        r["ms"] = float(np.mean(turns["tf32"]))
+        b32, by32 = bound(peaks, nbytes, 10 * D * pairs, "float32")
+        old = dict(r, ms=float(np.mean(turns["mma_sync"])), bound_ms=b32, bound_by=by32)
+        logged[f"flash_attention_bwd ({label} f32, FMA in turns)"] = old
+        log(f"  flash_attention_bwd at {label}'s f32 gradient shape, B{B} S{S} {Hq}/{Hkv}x{D} "
+            f"causal, in turns (ms): 3xTF32 {turns['tf32']}, FMA {turns['mma_sync']}; 3xTF32 "
+            f"{r['bound_ms'] / r['ms']:.4f} of its 3xTF32 bound {r['bound_ms']:.4f}, "
+            f"{b32 / r['ms']:.4f} of the f32-peak bound {b32:.4f}, {old['ms'] / r['ms']:.2f}x "
+            f"faster than the FMA engine; SDPA's backward {r['library_ms']:.4f}")
+        fa_launch_times(torch, fa_k, peaks, sets[0], dict(causal=True), pairs, "tf32")
+        del sets
+        torch.cuda.empty_cache()
+    # the FMA engine's row at the shape its main path runs: gemma2-2b's
+    # gradient run of phase 10 (a), B1 S256 8/4 heads of 256, causal, window
+    # 4096, softcap 50, f32, its bound at the f32 peak (no library call: SDPA
+    # takes no softcap); 16 input sets
+    B, S, Hq, Hkv, D = 1, 256, 8, 4, 256
+    gkw32 = dict(causal=True, window=4096, softcap=50.0)
     sets = []
     for _ in range(16):
-        q, k, v = (randn(B, S, h, D, dtype=torch.float32) for h in (Hq, Hkv, Hkv))
-        dout = randn(B, S, Hq, D, dtype=torch.float32)
-        sets.append((q, k, v, *fa_k.flash_attention_mma_sync_cuda(q, k, v, causal=True,
-                                                                  return_lse=True), dout))
+        q, k, v = (randn(B, S, h, D, dtype=f32) for h in (Hq, Hkv, Hkv))
+        dout = randn(B, S, Hq, D, dtype=f32)
+        sets.append((q, k, v, *flash_attention_cuda(q, k, v, return_lse=True, **gkw32), dout))
     pairs = B * Hq * S * (S + 1) // 2
     nbytes = 4 * (4 * B * S * Hq * D + 4 * B * S * Hkv * D) + 4 * B * Hq * S
-    row("flash_attention_bwd", lambda *a: fa_k.flash_attention_bwd_mma_sync_cuda(*a, causal=True),
-        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, causal=True),
-        (sdpa, [(*(t.transpose(1, 2).contiguous().requires_grad_() for t in x[:3]),
-                 x[5].transpose(1, 2).contiguous()) for x in sets]), sets, 20,
+    row("flash_attention_bwd", lambda *a: fa_k.flash_attention_bwd_mma_sync_cuda(*a, **gkw32),
+        lambda q_, k_, v_, o_, l_, d_: attention_bwd_ref(q_, k_, v_, d_, **gkw32), None, sets, 20,
         *bound(peaks, nbytes, 10 * D * pairs, "float32"))
     r = rows["flash_attention_bwd"]
-    log(f"  flash_attention_bwd (mma.sync) at qwen3-0.6b's phase 10 (a) shape, B2 S256 "
-        f"16/8x128 causal f32: {r['ms']:.4f} ms, {10 * D * pairs / r['ms'] / 1e9:.1f} TFLOP/s "
-        f"of the 5 products, {r['bound_ms'] / r['ms']:.4f} of the f32 bound, SDPA's backward "
-        f"{r['library_ms']:.4f}")
+    log(f"  flash_attention_bwd (FMA) at gemma2-2b's phase 10 (a) shape, B1 S256 8/4x256 "
+        f"causal window 4096 softcap 50 f32: {r['ms']:.4f} ms, "
+        f"{10 * D * pairs / r['ms'] / 1e9:.1f} TFLOP/s of the 5 products, "
+        f"{r['bound_ms'] / r['ms']:.4f} of the f32 bound")
     del sets
     torch.cuda.empty_cache()
     # gemma2-2b's training shape, B1 S4096 8/4 heads of 256, window 4096,
@@ -2863,10 +3014,11 @@ def tuner(torch, dev):
     hw = REGISTRY["tpu-v4"]
     predictor = get_predictor("roofline", hw)
     # each kernel's module, ops and the count of the engine its f32 inputs
-    # take (fused MoE's: the 3xTF32 engine, asserted below)
+    # take (fused MoE's and flash attention's: the 3xTF32 engine, asserted
+    # below)
     kernels = {"fused_moe": (moe_k, moe_ops, "tf32_launches"),
                "scaled_mm": (smm_k, smm_ops, "launches"),
-               "flash_attention": (fa_k, fa_ops, "launches"),
+               "flash_attention": (fa_k, fa_ops, "tf32_launches"),
                "silu_mul": (silu_k, silu_ops, "launches")}
     runs = [(k, kw) for k in ("fused_moe", "scaled_mm")
             for kw in (DEFAULT_WORKLOADS[k], arch_workload(k, "dbrx-132b"))]
@@ -2877,10 +3029,13 @@ def tuner(torch, dev):
     for mod, _, count in kernels.values():
         setattr(mod, count, 0)
     moe_k.launches = 0  # fused MoE's mma.sync engine, which the tuner must not reach
+    fa_k.launches = 0  # nor flash attention's FMA engine
     for (kernel, kw), args in zip(runs, inputs):
         mod, ops, count = kernels[kernel]
         if kernel == "fused_moe":
             assert moe_k.fwd_engine(args[0].dtype, kw["C"], kw["D"], kw["F"]) == "wgmma_tf32"
+        if kernel == "flash_attention":
+            assert fa_k.fwd_engine(args[0].dtype, kw["D"]) == "tf32"
         grids = []
 
         def timed(kernel, kw, blocks, *, args=None, repeats, device, _args=args, _mod=mod):
@@ -2914,9 +3069,12 @@ def tuner(torch, dev):
     launches = {k: getattr(mod, count) for k, (mod, _, count) in kernels.items()}
     assert all(v > 0 for v in launches.values()), launches
     assert moe_k.launches == 0, "the tuner's f32 fused MoE reached the mma.sync engine"
-    log(f"    launches in the tuner's runs: {launches} (fused_moe's on its 3xTF32 engine)")
-    # the JSON line's counts: the tuner is the main path of these two
-    return {"fused_moe_tf32": launches["fused_moe"], "scaled_mm": launches["scaled_mm"]}
+    assert fa_k.launches == 0, "the tuner's f32 flash attention reached the FMA engine"
+    log(f"    launches in the tuner's runs: {launches} (fused_moe's and flash_attention's on "
+        f"their 3xTF32 engines)")
+    # the JSON line's counts: the tuner is the main path of these three
+    return {"fused_moe_tf32": launches["fused_moe"], "scaled_mm": launches["scaled_mm"],
+            "flash_attention_tf32": launches["flash_attention"]}
 
 
 # ======================================================================
@@ -3117,6 +3275,8 @@ def kernel_counts(zero=False):
     counters["fused_moe_bwd_tf32"] = (moe_k, "bwd_tf32_launches")
     counters["flash_attention_bwd_wgmma"] = (fa_k, "bwd_wgmma_launches")
     counters["flash_attention_wgmma"] = (fa_k, "wgmma_launches")
+    counters["flash_attention_tf32"] = (fa_k, "tf32_launches")
+    counters["flash_attention_bwd_tf32"] = (fa_k, "bwd_tf32_launches")
     if zero:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -3135,7 +3295,6 @@ def training_launches(cfg):
     ``bwd_engine`` pick for the compute type and head dim."""
     import torch
 
-    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.fused_moe.kernel import bwd_engine
 
     n = cfg.n_layers
@@ -3147,15 +3306,11 @@ def training_launches(cfg):
     dense = n if not moe or cfg.dense_residual else 0
     engine = moe and bwd_engine(getattr(torch, cfg.compute_dtype), cfg.d_model, cfg.moe_hidden)
     fwd = moe_fwd_engine(cfg)
-    fa_wgmma = fa_k.bwd_engine(getattr(torch, cfg.compute_dtype),
-                               cfg.resolved_head_dim) == "wgmma"
-    fa_fwd = fa_fwd_wgmma(cfg)
+    fa_fwd, fa_bwd = model_fa_engines(cfg)
     return {"rmsnorm": twice * norms * n + final, "rmsnorm_bwd": norms * n + final,
             "silu_mul": twice * dense, "silu_mul_bwd": dense,
-            "flash_attention": twice * n * (not fa_fwd),
-            "flash_attention_wgmma": twice * n * fa_fwd,
-            "flash_attention_bwd": n * (not fa_wgmma),
-            "flash_attention_bwd_wgmma": n * fa_wgmma,
+            **{name: twice * n * (fa_fwd == e) for e, name in FA_FWD_COUNT.items()},
+            **{name: n * (fa_bwd == e) for e, name in FA_BWD_COUNT.items()},
             **{name: twice * n * (fwd == e) for e, name in MOE_FWD_COUNT.items()},
             "fused_moe_bwd": n * moe * (engine == "mma_sync"),
             "fused_moe_bwd_wgmma": n * moe * (engine == "wgmma"),

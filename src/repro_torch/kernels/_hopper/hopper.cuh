@@ -152,6 +152,35 @@ inline int encode_bf16_4d(CUtensorMap* map, const void* base, const uint64_t (&d
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// Encode an f32 tensor map over a 4-D array as encode_bf16_4d does (box[0] *
+// 4 at most 128: a swizzle row holds 32 f32 values). Returns a CUresult.
+// Host only.
+inline int encode_f32_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                         const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  if (const CUresult bound = bind_primary_context(); bound != CUDA_SUCCESS) return bound;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), d, st, bx,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Encode an f32 tensor map over a (B, rows, heads, D) array, the model
+// layout of attention's q, k and v, in boxes of 32 columns x `box_rows` rows
+// of one head: dims (D, heads, rows, B). Returns a CUresult. Host only.
+inline int encode_f32_heads(CUtensorMap* map, const void* base, int D, int B, int rows,
+                            int heads, int box_rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)heads, (uint64_t)rows, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)D * 4, (uint64_t)heads * D * 4,
+                               (uint64_t)rows * heads * D * 4};
+  const uint32_t box[4] = {32, 1, (uint32_t)box_rows, 1};
+  return encode_f32_4d(map, base, dims, strides, box);
+}
+
 // one TMA load of the box at (c0, c1, c2, c3) of a 4-D map into `dst`
 // (1024-byte aligned for the swizzle), completing its bytes on barrier `bar`
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -520,7 +549,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
 // block, row lane / 4, column lane % 4) B (8 x N, tf32, through its
 // descriptor: K-major, the only major-ness tf32 takes) + (scale_d ? d : 0).
 // An f32 word given as tf32 is read as its top 19 bits. The registers of `a`
-// stay unchanged until the group is waited for. N is 64 or 128.
+// stay unchanged until the group is waited for. N is 64, 80 or 128.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                            int scale_d);
@@ -561,12 +590,66 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, f32) = A (64 x 8, tf32) B (8 x N, tf32) + (scale_d ? d : 0),
+// both through descriptors, both K-major (the only major-ness tf32 takes from
+// shared memory). N is 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // ------------------------------------------------------------ 3xTF32
 
-// 3xTF32 on wgmma (fused MoE's f32 engines): a b = a_hi b_hi + a_lo b_hi +
-// a_hi b_lo, with hi the top 19 bits of the f32 word (its tf32 truncation,
-// which is how the tensor cores read an f32 word given as tf32) and lo = x -
-// hi exactly. A stage is 32 k deep: one 128-byte swizzle row of f32.
+// 3xTF32 on wgmma (fused MoE's and flash attention's f32 engines): a b =
+// a_hi b_hi + a_lo b_hi + a_hi b_lo, with hi the top 19 bits of the f32 word
+// (its tf32 truncation, which is how the tensor cores read an f32 word given
+// as tf32) and lo = x - hi exactly. A stage is 32 k deep: one 128-byte
+// swizzle row of f32.
 constexpr uint32_t kTf32Hi = 0xffffe000u;  // tf32's 19 bits of an f32 word
 constexpr int kTf32BoxMN = 32 * 32 * 4;    // an MN-major A box: 32 k-rows of 32 values
 
@@ -592,6 +675,15 @@ __device__ __forceinline__ uint4 tf32_lo(uint4 v) {
   l.z = __float_as_uint(__uint_as_float(v.z) - __uint_as_float(v.z & kTf32Hi));
   l.w = __float_as_uint(__uint_as_float(v.w) - __uint_as_float(v.w & kTf32Hi));
   return l;
+}
+
+// the lo parts of `bytes` of landed f32 words at src into dst at the same
+// offsets (the split is elementwise, so a tile's swizzle carries over), 16
+// bytes at a time over `threads` threads of which this is `tid`
+__device__ __forceinline__ void split_lo(uint32_t src, uint32_t dst, int bytes, int tid,
+                                         int threads) {
+  for (int c = tid; c < bytes / 16; c += threads)
+    st_shared_v4(dst + 16 * c, tf32_lo(ld_shared_v4(src + 16 * c)));
 }
 
 // This thread's A fragments of a 32-deep stage, split: for the k8 step kk,

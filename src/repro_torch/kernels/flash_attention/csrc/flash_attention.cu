@@ -56,21 +56,24 @@
 // shared-memory reads: with 16 rows a warp, each K or V fragment feeds
 // two products, so at 128 keys a step the fragment loads take about as
 // long as the products (about 0.33 ms at the main shape on an H100 SXM).
-// So bf16 at head dims 128 and 256 runs on flash_attention_wgmma.cu
+// So bf16 at head dims 64, 80, 128 and 256 runs on flash_attention_wgmma.cu
 // (wgmma fed by TMA, which reads B from shared memory itself); this file
-// keeps f32, head dims 8-80 and bf16 bases that are not 16-byte multiples
-// (kernel.fwd_engine chooses).
+// keeps head dims 8-32, bf16 bases that are not 16-byte multiples and
+// f32's remainder below (kernel.fwd_engine chooses).
 //
 // Log-sum-exp for the backward (flash_attention_bwd.cu): where `lse` is not
 // null, each row's natural-log log-sum-exp of its scores, lse = m + log l,
 // is written as f32 at lse[(b * Hq + h) * S + q]; a row that sees no key
 // gets -inf. The serving path passes null and writes nothing.
 //
-// f32 path (the tuner's inputs and the f32 model): the reference's 2e-5
-// rules out TF32, so every product is an IEEE f32 FMA on the FMA units.
-// 256 threads own 64 q rows; each thread holds a 4x4 patch of the 64x64
-// score tile and a 4 x ceil(D/16) patch of the output rows; tiles sit in
-// shared memory as f32 (q and k transposed, read as float4).
+// f32 path: every product is an IEEE f32 FMA on the FMA units. 256
+// threads own 64 q rows; each thread holds a 4x4 patch of the 64x64 score
+// tile and a 4 x ceil(D/16) patch of the output rows; tiles sit in shared
+// memory as f32 (q and k transposed, read as float4). It keeps f32 at head
+// dims 8-32 and 256 (gemma2-2b's gradient run) and bases TMA cannot
+// address: f32 at 64, 80 and 128 (the tuner's inputs, the other models'
+// f32 paths) runs on flash_attention_tf32.cu, 3xTF32 on the tensor cores
+// (kernel.fwd_engine chooses).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -68,11 +68,13 @@
 //   measured slower. Rows are padded by 16 bytes in shared memory
 //   (conflict-free ldmatrix); head dims below 16 are zero-padded to 16.
 //
-// f32 path (the f32 model): the reference's 2e-5 rules out bf16 and TF32
-// products, so every product is an IEEE f32 FMA, the forward's f32 design:
+// f32 path: every product is an IEEE f32 FMA, the forward's f32 design:
 // 256 threads, each a 4 x 4 patch of the 64 x 64 score tile, tiles
 // transposed in shared memory as f32 and read as float4; a Delta kernel,
-// then dK/dV, then dQ, one stage.
+// then dK/dV, then dQ, one stage. It keeps f32 at head dims 8-64 and 256
+// (gemma2-2b's gradient run) and bases TMA cannot address: f32 at 80 and
+// 128 runs on flash_attention_bwd_tf32.cu, 3xTF32 on the tensor cores
+// (kernel.bwd_engine chooses).
 //
 // Head dim 256 (gemma2-2b). Registers are the constraint: a warp's 16 rows
 // of dK and dV over all 256 columns would take 256 registers a thread

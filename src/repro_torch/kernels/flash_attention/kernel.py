@@ -7,7 +7,7 @@ what bounds it and how it is laid out. Each library is compiled with
 ctypes on PyTorch's current stream. A failed build, tensor-map encode or
 launch raises; nothing falls back to another engine.
 
-The forward has two engines, each its own library, and ``fwd_engine``
+The forward has three engines, each its own library, and ``fwd_engine``
 chooses between them from the type, the head dim and the bases alone:
 
 - ``csrc/flash_attention_wgmma.cu`` (bf16 at head dims 64, 80, 128 and
@@ -17,16 +17,22 @@ chooses between them from the type, the head dim and the bases alone:
   ``wgmma`` fed by TMA, one producer and two consumer warpgroups that take
   turns issuing their products; ``fwd_wgmma_plan`` gives its geometry and
   ``fwd_wgmma_tiles`` the key tiles each sub-block of rows walks;
-- ``csrc/flash_attention.cu`` (f32, the other head dims 8-32, and bf16
-  bases TMA cannot address): ``mma.sync`` fed by ``cp.async`` for bf16, the
-  FMA units for f32.
+- ``csrc/flash_attention_tf32.cu`` (f32 at head dims 64, 80 and 128 whose
+  bases are 16-byte multiples: the tuner's f32 workloads, f32 training and
+  serving of every model but gemma2-2b): 3xTF32 on ``wgmma`` fed by TMA, one
+  consumer warpgroup of 64 q rows and a warpgroup that loads and splits, v
+  first copied transposed; ``fwd_tf32_plan`` gives its geometry;
+- ``csrc/flash_attention.cu`` (f32 at head dims 8-32 and 256, the other
+  head dims 8-32 in bf16, and bases TMA cannot address): ``mma.sync`` fed by
+  ``cp.async`` for bf16, the FMA units for f32.
 
-Each counts its own calls (``wgmma_launches``, ``launches``).
+Each counts its own calls (``wgmma_launches``, ``tf32_launches``,
+``launches``).
 
 ``launch_plan`` computes the launch geometry in Python, so the CPU tests
 reach it: ``block_q`` sets the q rows a CTA owns and ``block_k`` the keys of
 one online-softmax step, after the reference's ``min(block, dim)`` clamp;
-both engines launch its grid.
+every engine launches its grid.
 
 With ``return_lse=True`` the forward also writes each row's log-sum-exp,
 ``(B, Hq, S)`` f32, which ``flash_attention_bwd_cuda`` takes: the backward
@@ -37,9 +43,9 @@ does the forward's: the kernels in launch order, their grids, the block
 each launch position takes, the tiles, the ring's stages and the shared
 bytes; the wrapper passes the plan's tiles to the library.
 
-The backward has two engines, each its own library so that the builds run
-side by side, and ``bwd_engine`` chooses between them from the type, the
-head dim and the bases alone:
+The backward has three engines, each its own library so that the builds
+run side by side, and ``bwd_engine`` chooses between them from the type,
+the head dim and the bases alone:
 
 - ``csrc/flash_attention_bwd_wgmma.cu`` (bf16 at head dims 64, 80, 128
   and 256 whose bases are 16-byte multiples: whisper-base's and
@@ -47,13 +53,21 @@ head dim and the bases alone:
   llama-3.2-vision's training at 128, gemma2-2b's at 256): ``wgmma`` fed by
   TMA through mbarrier rings, two consumer warpgroups a CTA;
   ``bwd_wgmma_plan`` gives its geometry at each head dim;
-- ``csrc/flash_attention_bwd.cu`` (f32, head dims 8-32, and bf16 bases TMA
-  cannot address): ``mma.sync`` fed by ``cp.async``.
+- ``csrc/flash_attention_bwd_tf32.cu`` (f32 at head dims 80 and 128 whose
+  bases are 16-byte multiples: stablelm-3b's, qwen3-0.6b's and dbrx-132b's
+  f32 training): 3xTF32 on ``wgmma`` fed by TMA, the same two launches (a
+  third adds up dK/dV where its q heads are split over CTAs), the products
+  over the step's rows computed transposed; ``bwd_tf32_plan`` gives its
+  geometry;
+- ``csrc/flash_attention_bwd.cu`` (f32 at head dims 8-64 and 256, bf16 at
+  8-32, and bases TMA cannot address): ``mma.sync`` fed by ``cp.async``
+  for bf16, the FMA units for f32.
 
 Each engine counts its own calls (``bwd_wgmma_launches``,
-``bwd_launches``), so a run shows which one ran. ``q_offset``, on every
-entry point, is the position of q's first row for the masks (a rank's
-block of the query rows, ``ops.row_split``); the keys' start at 0.
+``bwd_tf32_launches``, ``bwd_launches``), so a run shows which one ran.
+``q_offset``, on every entry point, is the position of q's first row for
+the masks (a rank's block of the query rows, ``ops.row_split``); the
+keys' start at 0.
 """
 from __future__ import annotations
 
@@ -76,6 +90,11 @@ bwd_launches = 0
 #: backward calls on the ``wgmma`` engine (each launches the two kernels of
 #: ``bwd_wgmma_plan``)
 bwd_wgmma_launches = 0
+#: forward calls on the 3xTF32 engine (``csrc/flash_attention_tf32.cu``)
+tf32_launches = 0
+#: backward calls on the 3xTF32 engine (each launches the two kernels of
+#: ``bwd_tf32_plan``)
+bwd_tf32_launches = 0
 #: ``(B*Hq, ceil(S/bq), ceil(Skv/bk))`` of the last launch: the CUDA grid is
 #: the first two; each CTA walks the third, its softmax steps, in order
 last_grid: tuple | None = None
@@ -84,6 +103,8 @@ SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 BWD_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu"]
 WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd_wgmma.cu"]
 FWD_WGMMA_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_wgmma.cu"]
+FWD_TF32_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_tf32.cu"]
+BWD_TF32_SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention_bwd_tf32.cu"]
 HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
 #: head dims of the backward kernels
 BWD_HEAD_DIMS = (8, 16, 32, 64, 80, 128, 256)
@@ -206,10 +227,16 @@ _ENCODE_ERROR = 100000
 
 def bwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
     """Which engine runs the backward: ``"wgmma"`` for bf16 at head dim 64,
-    80, 128 or 256 whose bases (``aligned``) are 16-byte multiples, as TMA
-    addresses them; ``"mma_sync"`` otherwise (f32, head dims 8-32)."""
-    return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS and aligned
-            else "mma_sync")
+    80, 128 or 256 and ``"tf32"`` for f32 at head dim 80 or 128, whose
+    bases (``aligned``) are 16-byte multiples, as TMA addresses them;
+    ``"mma_sync"`` otherwise (f32 at 8-64 and 256, bf16 at 8-32)."""
+    if not aligned:
+        return "mma_sync"
+    if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and D in BWD_TF32_HEAD_DIMS:
+        return "tf32"
+    return "mma_sync"
 
 
 class WgmmaKernel(NamedTuple):
@@ -271,10 +298,16 @@ FWD_WGMMA_STAGES = 2
 
 def fwd_engine(dtype: torch.dtype, D: int, aligned: bool = True) -> str:
     """Which engine runs the forward: ``"wgmma"`` for bf16 at head dim 64,
-    80, 128 or 256 whose bases (``aligned``) are 16-byte multiples, as TMA
-    addresses them; ``"mma_sync"`` otherwise (f32, head dims 8-32)."""
-    return ("wgmma" if dtype == torch.bfloat16 and D in FWD_WGMMA_HEAD_DIMS and aligned
-            else "mma_sync")
+    80, 128 or 256 and ``"tf32"`` for f32 at head dim 64, 80 or 128, whose
+    bases (``aligned``) are 16-byte multiples, as TMA addresses them;
+    ``"mma_sync"`` otherwise (head dims 8-32, f32 at 256)."""
+    if not aligned:
+        return "mma_sync"
+    if dtype == torch.bfloat16 and D in FWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.float32 and D in FWD_TF32_HEAD_DIMS:
+        return "tf32"
+    return "mma_sync"
 
 
 class FwdWgmmaPlan(NamedTuple):
@@ -313,6 +346,100 @@ def fwd_wgmma_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, *,
     return FwdWgmmaPlan((B * Hq, nq), _heavy_first(nq, plan.block_q, S), plan.block_q,
                         plan.block_k, FWD_WGMMA_SUB_ROWS, bn, -(-plan.block_k // bn),
                         FWD_WGMMA_STAGES, WGMMA_WARPGROUPS, smem)
+
+
+#: the 3xTF32 engines (``csrc/flash_attention_tf32.cu``,
+#: ``csrc/flash_attention_bwd_tf32.cu``): their head dims; the rows one
+#: consumer warpgroup owns (q rows of a forward sub-block or a dQ CTA, keys
+#: of a dK/dV CTA); the forward's keys of a tile and the stages of its
+#: K/V^T ring; the backward's rows of a step (keys for dQ, q rows for dK/dV)
+#: and the slots of the ring its streamed tiles land in, and its buffers for
+#: their lo tiles (two where shared memory has room). A row of D f32 values is
+#: loaded in boxes of 32 columns: D 80 takes three, the third's last 16
+#: columns TMA's zeros
+FWD_TF32_HEAD_DIMS = (64, 80, 128)
+BWD_TF32_HEAD_DIMS = (80, 128)
+TF32_ROWS = 64
+FWD_TF32_TILE_KEYS = {64: 64, 80: 32, 128: 32}
+FWD_TF32_STAGES = 2
+BWD_TF32_STEP = 32
+BWD_TF32_SLOTS = 2
+BWD_TF32_LO_BUFFERS = {80: 2, 128: 1}
+
+
+def fwd_tf32_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, *,
+                  block_q: int = 128, block_k: int = 128) -> FwdWgmmaPlan:
+    """The forward 3xTF32 engine's launch, as ``csrc/flash_attention_tf32.cu``
+    makes it, after the reference's ``min(block, dim)`` clamp, in the terms
+    of ``fwd_wgmma_plan`` (``fwd_wgmma_tiles`` walks it too): a CTA owns
+    ``block_q`` q rows of one head and walks them 64 at a time on one
+    consumer warpgroup; each step of ``block_k`` keys is cut into tiles of
+    64 keys (D 64) or 32 (D 80, 128). Shared bytes: 1 KB of alignment slack,
+    Q and its lo (64 rows), the ring's K, K lo, V^T and V^T lo tiles (K's
+    rows and V^T's D rows of 32-wide boxes), 8 bytes a barrier. Raises on a
+    shape the engine does not take."""
+    plan = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
+    if D not in FWD_TF32_HEAD_DIMS or min(B, S, Skv) <= 0:
+        raise ValueError(f"flash_attention 3xTF32 forward: B={B} S={S} Skv={Skv} D={D}; "
+                         f"it takes head dims {FWD_TF32_HEAD_DIMS}")
+    bn, nb = FWD_TF32_TILE_KEYS[D], -(-D // 32)
+    q_tile, k_tile, v_tile = nb * TF32_ROWS * 128, nb * bn * 128, bn // 32 * D * 128
+    smem = (1024 + 2 * q_tile + FWD_TF32_STAGES * 2 * (k_tile + v_tile)
+            + 8 * (3 + 6 * FWD_TF32_STAGES))
+    nq = plan.grid[1]
+    return FwdWgmmaPlan((B * Hq, nq), _heavy_first(nq, plan.block_q, S), plan.block_q,
+                        plan.block_k, TF32_ROWS, bn, -(-plan.block_k // bn), FWD_TF32_STAGES,
+                        1, smem)
+
+
+def bwd_tf32_splits(B: int, Skv: int, Hq: int, Hkv: int, sms: int = 132) -> int:
+    """The CTAs a key block of the 3xTF32 engine's dK/dV launch (its grid's
+    z), each walking ``Hq / Hkv / splits`` of the group's q heads: the
+    largest divisor of the group that keeps the launch within one CTA an SM
+    of ``sms``, or 1."""
+    ctas, group = B * Hkv * -(-Skv // TF32_ROWS), Hq // Hkv
+    return max(s for s in range(1, group + 1) if group % s == 0 and (s == 1 or ctas * s <= sms))
+
+
+def bwd_tf32_plan(B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int, sms: int = 132
+                  ) -> tuple[WgmmaKernel, ...]:
+    """The 3xTF32 engine's launches in order, as
+    ``csrc/flash_attention_bwd_tf32.cu`` launches them at head dim ``D`` on
+    a card of ``sms`` SMs, each CTA one consumer warpgroup. dQ: 64 q rows of
+    one head, Q and dO resident, K and V tiles of 32 keys streaming,
+    heaviest causal block first (``_heavy_first``). dK/dV: 64 keys of one
+    KV head, K and V resident, walking its share of the group's q heads
+    (grid z: ``bwd_tf32_splits``) in tiles of 32 q rows; where it is split,
+    a third launch ("sum") adds the splits' sums in order. Shared bytes: 1
+    KB of alignment slack, the four resident tiles (each operand and its lo,
+    64 rows in boxes of 32 columns), a ring of two slots of the step's two
+    streamed tiles (32 rows), ``BWD_TF32_LO_BUFFERS`` buffers for their lo
+    tiles, each then holding its step's staged accumulators split (64 x 32
+    f32: dS for dQ; P^T and dS^T for dK/dV), dK/dV's lse and Delta a buffer
+    (32 f32 each), 8 bytes a barrier (resident full and split, full and
+    empty a slot, split and free a lo buffer). ``stages`` gives the slots
+    and the lo buffers. Raises on a shape the engine does not take."""
+    if D not in BWD_TF32_HEAD_DIMS or min(B, S, Skv, Hkv) <= 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention 3xTF32 backward: B={B} S={S} Skv={Skv} "
+                         f"Hq={Hq} Hkv={Hkv} D={D}; it takes head dims {BWD_TF32_HEAD_DIMS}")
+    nb, st, rows, step = -(-D // 32), BWD_TF32_SLOTS, TF32_ROWS, BWD_TF32_STEP
+    los = BWD_TF32_LO_BUFFERS[D]
+    res, stp, staged, bars = nb * rows * 128, nb * step * 128, rows * 128, 8 * (2 + 2 * st + 2 * los)
+    dq_smem = 1024 + 4 * res + st * 2 * stp + los * max(2 * stp, 2 * staged) + bars
+    dkdv_smem = (1024 + 4 * res + st * 2 * stp + los * (max(2 * stp, 4 * staged) + 2 * step * 4)
+                 + bars)
+    nq, nk = -(-S // rows), -(-Skv // rows)
+    splits = bwd_tf32_splits(B, Skv, Hq, Hkv, sms)
+    plan = (
+        WgmmaKernel("dq", (B * Hq, nq), _heavy_first(nq, rows, S), rows, step, (st, los), 1,
+                    dq_smem),
+        WgmmaKernel("dkdv", (B * Hkv, nk, splits), tuple(range(nk)), rows, step, (st, los), 1,
+                    dkdv_smem),
+    )
+    if splits == 1:
+        return plan
+    n = B * Skv * Hkv * D // 4  # 16 bytes a thread
+    return (*plan, WgmmaKernel("sum", (-(-n // 256),), (), 0, 0, (), 0, 0))
 
 
 def fwd_wgmma_tiles(plan: FwdWgmmaPlan, S: int, Skv: int, *, causal: bool = True,
@@ -379,6 +506,32 @@ def fwd_wgmma_library() -> ctypes.CDLL:
     return lib
 
 
+def fwd_tf32_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the forward's
+    3xTF32 engine."""
+    lib = load_cuda_library("flash_attention_tf32", FWD_TF32_SOURCES)
+    lib.fa_forward_tf32.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.fa_forward_tf32.restype = ctypes.c_int
+    lib.fa_fwd_tf32_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fa_fwd_tf32_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def bwd_tf32_library() -> ctypes.CDLL:
+    """Build (once per source and header hash) and load the backward's
+    3xTF32 engine."""
+    lib = load_cuda_library("flash_attention_bwd_tf32", BWD_TF32_SOURCES)
+    lib.fa_backward_tf32.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.fa_backward_tf32.restype = ctypes.c_int
+    lib.fa_bwd_tf32_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fa_bwd_tf32_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
 def wgmma_library() -> ctypes.CDLL:
     """Build (once per source and header hash) and load the wgmma engine."""
     lib = load_cuda_library("flash_attention_bwd_wgmma", WGMMA_SOURCES)
@@ -412,8 +565,11 @@ def flash_attention_cuda(
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, block_q=block_q,
               block_k=block_k, return_lse=return_lse, q_offset=q_offset)
     _fwd_check("flash_attention_cuda", q, k, v, window, softcap, q_offset)
-    if fwd_engine(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in (q, k, v))) == "wgmma":
+    engine = fwd_engine(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if engine == "wgmma":
         return flash_attention_wgmma_cuda(q, k, v, **kw)
+    if engine == "tf32":
+        return flash_attention_tf32_cuda(q, k, v, **kw)
     return flash_attention_mma_sync_cuda(q, k, v, **kw)
 
 
@@ -449,35 +605,70 @@ def flash_attention_wgmma_cuda(q, k, v, *, causal=True, window=None, softcap=Non
     """The forward on the wgmma engine (``csrc/flash_attention_wgmma.cu``):
     bf16 at head dim 64, 80, 128 or 256 whose bases are 16-byte multiples;
     raises otherwise, and where a launch or a tensor map fails."""
-    global wgmma_launches, last_grid
-    name = "flash_attention_wgmma_cuda"
+    global wgmma_launches
+    result = _fwd_tma("flash_attention_wgmma_cuda", "wgmma", q, k, v, causal, window, softcap,
+                      scale, block_q, block_k, return_lse, q_offset)
+    wgmma_launches += 1
+    return result
+
+
+def flash_attention_tf32_cuda(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+                              block_q=128, block_k=128, return_lse=False, q_offset=0):
+    """The forward on the 3xTF32 engine (``csrc/flash_attention_tf32.cu``):
+    f32 at head dim 64, 80 or 128 whose bases are 16-byte multiples; raises
+    otherwise, and where a launch or a tensor map fails."""
+    global tf32_launches
+    result = _fwd_tma("flash_attention_tf32_cuda", "tf32", q, k, v, causal, window, softcap,
+                      scale, block_q, block_k, return_lse, q_offset)
+    tf32_launches += 1
+    return result
+
+
+def _fwd_tma(name, engine, q, k, v, causal, window, softcap, scale, block_q, block_k,
+             return_lse, q_offset):
+    """The output (and lse) on one of the two forward engines fed by TMA
+    (``engine`` ``"wgmma"`` or ``"tf32"``), whose libraries take the same
+    arguments but the 3xTF32 engine's workspace (v transposed, ``(B Hkv, D,
+    Skv rounded up to 4)``): one call after the checks, which raise where
+    the engine does not take the call, where the library's shared bytes
+    differ from its plan's, and where a launch or a tensor map fails."""
+    global last_grid
     B, S, Skv, Hq, Hkv, D = _fwd_check(name, q, k, v, window, softcap, q_offset)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device) if return_lse else None
-    if fwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))) != "wgmma":
+    work = [torch.empty((B * Hkv, D, -(-Skv // 4) * 4), dtype=torch.float32, device=q.device)
+            ] if engine == "tf32" else []
+    if fwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, *work))) != engine:
+        takes = (f"bf16 at head dims {FWD_WGMMA_HEAD_DIMS}" if engine == "wgmma"
+                 else f"float32 at head dims {FWD_TF32_HEAD_DIMS}")
         raise ValueError(f"{name}: {q.dtype} at head dim {D}, or a base that is not a 16-byte "
-                         f"multiple; it takes bf16 at head dims {FWD_WGMMA_HEAD_DIMS}")
+                         f"multiple; it takes {takes}")
     if q.numel() == 0 or Skv == 0:
         return (out, lse) if return_lse else out
-    plan = fwd_wgmma_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
-    lib = fwd_wgmma_library()
-    smem = lib.fa_fwd_wgmma_smem_bytes(D)
+    if engine == "wgmma":
+        plan = fwd_wgmma_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
+        lib = fwd_wgmma_library()
+        smem, forward = lib.fa_fwd_wgmma_smem_bytes(D), lib.fa_forward_wgmma
+    else:
+        plan = fwd_tf32_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k)
+        lib = fwd_tf32_library()
+        smem, forward = lib.fa_fwd_tf32_smem_bytes(D), lib.fa_forward_tf32
     if smem != plan.smem or smem > SMEM_LIMIT:
         raise RuntimeError(f"{name}: the library takes {smem} shared bytes, the plan "
                            f"{plan.smem}, the limit {SMEM_LIMIT}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.fa_forward_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None, B, S, Skv, Hq, Hkv, D, int(causal),
-            window or 0, float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
-            plan.block_q, plan.block_k, q_offset, stream)
+        err = forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *(w.data_ptr() for w in work),
+            out.data_ptr(), lse.data_ptr() if return_lse else None, B, S, Skv, Hq, Hkv, D,
+            int(causal), window or 0, float(softcap or 0.0),
+            scale if scale is not None else 1.0 / math.sqrt(D), plan.block_q, plan.block_k,
+            q_offset, stream)
     if err >= _ENCODE_ERROR:
         raise RuntimeError(f"{name}: a tensor map could not be encoded "
                            f"(CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-    wgmma_launches += 1
     last_grid = launch_plan(B, S, Skv, Hq, Hkv, D, block_q=block_q, block_k=block_k).grid
     return (out, lse) if return_lse else out
 
@@ -562,8 +753,11 @@ def flash_attention_bwd_cuda(
     ``dout``, in q's type, on the engine ``bwd_engine`` picks."""
     args = (q, k, v, out, lse, dout)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale, q_offset=q_offset)
-    if bwd_engine(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in args)) == "wgmma":
+    engine = bwd_engine(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in args))
+    if engine == "wgmma":
         return flash_attention_bwd_wgmma_cuda(*args, **kw)
+    if engine == "tf32":
+        return flash_attention_bwd_tf32_cuda(*args, **kw)
     return flash_attention_bwd_mma_sync_cuda(*args, **kw)
 
 
@@ -573,33 +767,69 @@ def flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout, *, causal=True, wind
     bf16 at head dim 64, 80, 128 or 256 whose bases are 16-byte multiples;
     raises otherwise, and where a launch or a tensor map fails."""
     global bwd_wgmma_launches
-    name = "flash_attention_bwd_wgmma_cuda"
+    grads = _bwd_tma("flash_attention_bwd_wgmma_cuda", "wgmma", q, k, v, out, lse, dout,
+                     causal, window, softcap, scale, q_offset)
+    bwd_wgmma_launches += 1
+    return grads
+
+
+def flash_attention_bwd_tf32_cuda(q, k, v, out, lse, dout, *, causal=True, window=None,
+                                  softcap=None, scale=None, q_offset=0):
+    """The backward on the 3xTF32 engine (``csrc/flash_attention_bwd_tf32.cu``):
+    f32 at head dim 80 or 128 whose bases are 16-byte multiples; raises
+    otherwise, and where a launch or a tensor map fails."""
+    global bwd_tf32_launches
+    grads = _bwd_tma("flash_attention_bwd_tf32_cuda", "tf32", q, k, v, out, lse, dout,
+                     causal, window, softcap, scale, q_offset)
+    bwd_tf32_launches += 1
+    return grads
+
+
+def _bwd_tma(name, engine, q, k, v, out, lse, dout, causal, window, softcap, scale, q_offset):
+    """``(dq, dk, dv)`` on one of the two engines fed by TMA (``engine``
+    ``"wgmma"`` or ``"tf32"``), whose libraries take the same arguments:
+    its two launches after the checks, which raise where the engine does
+    not take the call, where the library's shared bytes differ from its
+    plan's, and where a launch or a tensor map fails."""
     B, S, Skv, Hq, Hkv, D = _bwd_check(name, q, k, v, out, lse, dout, window, softcap, q_offset)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     ts = (q, k, v, out, dout, lse, delta, dq, dk, dv)
-    if bwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in ts)) != "wgmma":
+    if bwd_engine(q.dtype, D, all(t.data_ptr() % 16 == 0 for t in ts)) != engine:
+        takes = (f"bf16 at head dims {WGMMA_HEAD_DIMS}" if engine == "wgmma"
+                 else f"float32 at head dims {BWD_TF32_HEAD_DIMS}")
         raise ValueError(f"{name}: {q.dtype} at head dim {D}, or a base that is not a "
-                         f"16-byte multiple; it takes bf16 at head dims {WGMMA_HEAD_DIMS}")
+                         f"16-byte multiple; it takes {takes}")
     if q.numel() == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lib = wgmma_library()
-    for i, kern in enumerate(bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)):
-        if lib.fa_bwd_wgmma_smem_bytes(D, i) != kern.smem or kern.smem > SMEM_LIMIT:
-            raise RuntimeError(f"{name}: {kern.name} takes {lib.fa_bwd_wgmma_smem_bytes(D, i)} "
+    ptrs, last = [t.data_ptr() for t in ts], (q_offset,)
+    if engine == "wgmma":
+        lib, plan = wgmma_library(), bwd_wgmma_plan(B, S, Skv, Hq, Hkv, D)
+        smem_bytes, backward = lib.fa_bwd_wgmma_smem_bytes, lib.fa_backward_wgmma
+    else:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        lib, plan = bwd_tf32_library(), bwd_tf32_plan(B, S, Skv, Hq, Hkv, D, sms)
+        smem_bytes, backward = lib.fa_bwd_tf32_smem_bytes, lib.fa_backward_tf32
+        splits = plan[1].grid[2]
+        # dK/dV's sums of each split, which its last launch adds up
+        ws = torch.empty((2, splits, *k.shape), dtype=torch.float32,
+                         device=q.device) if splits > 1 else None
+        ptrs, last = ptrs + [ws.data_ptr() if ws is not None else None], (q_offset, splits)
+    for i, kern in enumerate(plan):
+        if smem_bytes(D, i) != kern.smem or kern.smem > SMEM_LIMIT:
+            raise RuntimeError(f"{name}: {kern.name} takes {smem_bytes(D, i)} "
                                f"shared bytes, the plan {kern.smem}, the limit {SMEM_LIMIT}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.fa_backward_wgmma(
-            *(t.data_ptr() for t in ts), B, S, Skv, Hq, Hkv, D, int(causal), window or 0,
+        err = backward(
+            *ptrs, B, S, Skv, Hq, Hkv, D, int(causal), window or 0,
             float(softcap or 0.0), scale if scale is not None else 1.0 / math.sqrt(D),
-            q_offset, stream)
+            *last, stream)
     if err >= _ENCODE_ERROR:
         raise RuntimeError(f"{name}: a tensor map could not be encoded "
                            f"(CUresult {err - _ENCODE_ERROR})")
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
-    bwd_wgmma_launches += 1
     return dq, dk, dv
 
 

@@ -3,12 +3,19 @@ the kernel layout of ``repro.kernels.flash_attention.ref``.
 
 ``q_offset`` is the absolute position of q's first row: row i is masked
 at position ``q_offset + i`` (a rank holding a block of the query rows);
-the keys' positions start at 0. At 0 it is the reference's function."""
+the keys' positions start at 0. At 0 it is the reference's function.
+Each computes in f32, and in float64 for float64 inputs (the card's
+yardstick for the f32 kernels)."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type the oracle computes in: float64 as it is, else f32."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def flash_attention_ref(
@@ -26,9 +33,9 @@ def flash_attention_ref(
     _, S, D = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    kx = k.repeat_interleave(group, dim=0).float()
-    vx = v.repeat_interleave(group, dim=0).float()
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kx) * scale
+    kx = _wide(k.repeat_interleave(group, dim=0))
+    vx = _wide(v.repeat_interleave(group, dim=0))
+    s = torch.einsum("bqd,bkd->bqk", _wide(q), kx) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     mask = visible_mask(S, Skv, causal, window, q_offset, q.device)
@@ -68,12 +75,13 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=None,
 def lse_ref(q, k, v, *, causal=True, window=None, softcap=None, q_offset: int = 0
             ) -> torch.Tensor:
     """Each row's natural-log log-sum-exp of its masked scores, ``(B, Hq,
-    S)`` f32, as the kernels' ``return_lse`` gives it: masked keys score
+    S)`` f32 (float64 for float64 inputs), as the kernels' ``return_lse``
+    gives it: masked keys score
     -1e30, and a row that sees no key gets ``-inf``."""
     B, S, Hq, D = q.shape
     Skv, G = k.shape[1], Hq // k.shape[2]
-    x = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                     k.float().repeat_interleave(G, dim=2)) / math.sqrt(D)
+    x = torch.einsum("bqhd,bkhd->bhqk", _wide(q),
+                     _wide(k).repeat_interleave(G, dim=2)) / math.sqrt(D)
     if softcap is not None:
         x = softcap * torch.tanh(x / softcap)
     mask = visible_mask(S, Skv, causal, window, q_offset, q.device)
@@ -84,7 +92,7 @@ def lse_ref(q, k, v, *, causal=True, window=None, softcap=None, q_offset: int = 
 def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None,
                       q_offset: int = 0):
     """The backward of :func:`attention_ref` as an explicit formula, dense
-    and in f32, on the model layout: ``P = softmax(masked s')``,
+    and in f32 (float64 for float64 inputs), on the model layout: ``P = softmax(masked s')``,
     ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P (dP - rowsum(P dP))`` times
     ``1 - tanh^2(s / c)`` under a softcap ``c`` and the scale, then
     ``dQ = dS K`` and ``dK = dS^T Q``; a masked pair has ``dS = 0``, and
@@ -94,9 +102,9 @@ def attention_bwd_ref(q, k, v, dout, *, causal=True, window=None, softcap=None,
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(D)
-    qf, do = q.float(), dout.float()
-    kf = k.float().repeat_interleave(G, dim=2)
-    vf = v.float().repeat_interleave(G, dim=2)
+    qf, do = _wide(q), _wide(dout)
+    kf = _wide(k).repeat_interleave(G, dim=2)
+    vf = _wide(v).repeat_interleave(G, dim=2)
     x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     dcap = 1.0
     if softcap is not None:

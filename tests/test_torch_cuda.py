@@ -83,8 +83,8 @@ FA_CASES = [
 @pytest.mark.parametrize("case", FA_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, case, dtype):
-    """The call runs on the engine ``fwd_engine`` picks, and only that
-    engine's count moves. f32 is held to the kernels' function in float64
+    """The call runs on the engine ``fwd_engine`` picks (``FWD_COUNTS``),
+    and only that engine's count moves. f32 is held to the kernels' function in float64
     (``_attention_f64``) at the reference's 2e-5: the plain version's own
     f32 products on the card host's CPU have landed 4.27e-5 from it on case
     0, so at f32's tolerance it is no yardstick (``test_torch_kernels.py::
@@ -97,10 +97,10 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     k = _randn(rng, (B, Skv, Hkv, D), dtype, dev)
     v = _randn(rng, (B, Skv, Hkv, D), dtype, dev)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    wgmma = fa_kernel.fwd_engine(dtype, D) == "wgmma"
-    n0, w0 = fa_kernel.launches, fa_kernel.wgmma_launches
+    engine = fa_kernel.fwd_engine(dtype, D)
+    n0 = _counts(FWD_COUNTS)
     out = fa_ops.attention(q, k, v, **kw)
-    assert (fa_kernel.launches, fa_kernel.wgmma_launches) == (n0 + (not wgmma), w0 + wgmma)
+    assert _counts(FWD_COUNTS) == {e: n + (e == engine) for e, n in n0.items()}
     torch.cuda.synchronize()
     if dtype == torch.float32:
         exact = _attention_f64(q, k, v, **kw)  # float64 on the card: no TF32 there
@@ -113,6 +113,17 @@ def test_flash_attention_kernel_matches_plain(dev, case, dtype):
     out = out.cpu()
     assert out.shape == ref.shape and out.dtype == ref.dtype
     torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+#: each engine's count of calls: the forward's and the backward's
+FWD_COUNTS = {"wgmma": "wgmma_launches", "tf32": "tf32_launches", "mma_sync": "launches"}
+BWD_COUNTS = {"wgmma": "bwd_wgmma_launches", "tf32": "bwd_tf32_launches",
+              "mma_sync": "bwd_launches"}
+
+
+def _counts(names):
+    """Each engine's count now, by engine."""
+    return {e: getattr(fa_kernel, a) for e, a in names.items()}
 
 
 def _attention_f64(q, k, v, *, causal, window, softcap):
@@ -233,10 +244,12 @@ def test_flash_attention_fwd_wgmma_blocks_reach_the_launch(dev, blocks, D):
 def test_flash_attention_fwd_wgmma_refuses_what_it_does_not_take(dev):
     """f32, head dims other than 64, 80, 128 and 256, and a base that is not
     a 16-byte multiple are not the wgmma engine's: it raises, and
-    ``flash_attention_cuda`` takes the mma.sync engine for them."""
+    ``flash_attention_cuda`` takes the mma.sync engine for them (f32 at 256,
+    and f32 at 128 off a 16-byte base)."""
     rng = np.random.default_rng(8)
-    for dtype, D, shift in ((torch.float32, 128, 0), (torch.bfloat16, 32, 0),
-                            (torch.bfloat16, 128, 1), (torch.bfloat16, 256, 4)):
+    for dtype, D, shift in ((torch.float32, 128, 1), (torch.float32, 256, 0),
+                            (torch.bfloat16, 32, 0), (torch.bfloat16, 128, 1),
+                            (torch.bfloat16, 256, 4)):
         q = _randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
         k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
         assert fa_kernel.fwd_engine(dtype, D, q.data_ptr() % 16 == 0) == "mma_sync"
@@ -299,17 +312,26 @@ FA_BLOCK_CORNERS = [(32, 32), (32, 512), (512, 32), (512, 512), (128, 256)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_block_corners(dev, blocks, dtype):
     """Each (block_q, block_k) corner of the tuner's lattice launches the
-    grid it names and computes the same function (two-pass steps where
-    block_k is wider than the register tile)."""
+    grid it names on the engine ``fwd_engine`` picks (f32 at head dim 64:
+    the 3xTF32 engine, the tuner's own) and computes the same function:
+    f32 within 2e-5 of float64, bf16 of the plain version."""
     bq, bk = blocks
     B, S, Hq, Hkv, D = 2, 512, 4, 2, 64
     rng = np.random.default_rng(2)
     q = _randn(rng, (B, S, Hq, D), dtype, dev)
     k, v = (_randn(rng, (B, S, Hkv, D), dtype, dev) for _ in range(2))
+    engine = fa_kernel.fwd_engine(dtype, D)
+    assert engine == ("tf32" if dtype == torch.float32 else "wgmma")
     for kw in (dict(causal=True), dict(causal=True, window=100), dict(causal=False)):
+        n0 = _counts(FWD_COUNTS)
         out = fa_ops.attention(q, k, v, block_q=bq, block_k=bk, **kw)
+        assert _counts(FWD_COUNTS) == {e: n + (e == engine) for e, n in n0.items()}
         assert fa_kernel.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq, block_k=bk)
-        _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw), dtype)
+        if dtype == torch.float32:
+            exact = _attention_f64(q, k, v, **{"window": None, "softcap": None, **kw})
+            assert torch.allclose(out.double(), exact, rtol=TOL[dtype], atol=TOL[dtype]), kw
+        else:
+            _close(out.cpu(), fa_ops.attention(q.cpu(), k.cpu(), v.cpu(), **kw), dtype)
 
 
 @pytest.mark.parametrize("shape", [(4, 32, 64), (2, 7, 48), (128, 16), (300, 1024), (33, 128)])
@@ -465,11 +487,11 @@ def test_tuner_times_the_kernels_on_the_card(dev):
 
     hw = REGISTRY["tpu-v4"]
     # each kernel's count of the engine the tuner's f32 inputs take (fused
-    # MoE's: its 3xTF32 engine)
+    # MoE's and flash attention's: their 3xTF32 engines)
     for kernel, mod, count, ops, kw in [
         ("fused_moe", moe_kernel, "tf32_launches", moe_ops, {"E": 2, "C": 64, "D": 64, "F": 128}),
         ("scaled_mm", smm_kernel, "launches", smm_ops, {"M": 128, "K": 256, "N": 128}),
-        ("flash_attention", fa_kernel, "launches", fa_ops,
+        ("flash_attention", fa_kernel, "tf32_launches", fa_ops,
          {"B": 1, "S": 256, "Skv": 256, "Hq": 4, "Hkv": 2, "D": 64}),
         ("silu_mul", silu_kernel, "launches", silu_ops, {"R": 512, "d": 256}),
     ]:
@@ -731,13 +753,16 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, case, dtype):
     dout = _randn(rng, (B, S, Hq, D), dtype, dev)
     kw = dict(causal=causal, window=window, softcap=softcap)
     out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    # bf16 at head dims 64-256 runs on the wgmma engine (bwd_engine); only its count moves
-    count = "bwd_wgmma_launches" if fa_kernel.bwd_engine(dtype, D) == "wgmma" else "bwd_launches"
-    other = "bwd_launches" if count == "bwd_wgmma_launches" else "bwd_wgmma_launches"
-    n0, o0 = getattr(fa_kernel, count), getattr(fa_kernel, other)
+    # on the engine bwd_engine picks (bf16 at head dims 64-256: wgmma; f32 at
+    # 80 and 128: 3xTF32); only its count moves. The 3xTF32 engine is held to
+    # the plain backward run in float64
+    engine = fa_kernel.bwd_engine(dtype, D)
+    n0 = _counts(BWD_COUNTS)
     grads = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
-    assert (getattr(fa_kernel, count), getattr(fa_kernel, other)) == (n0 + 1, o0)
-    for name, got, ref in zip(("dq", "dk", "dv"), grads, attention_bwd_ref(q, k, v, dout, **kw)):
+    assert _counts(BWD_COUNTS) == {e: n + (e == engine) for e, n in n0.items()}
+    wide = (lambda t: t.double()) if engine == "tf32" else (lambda t: t)
+    want = attention_bwd_ref(*(wide(t) for t in (q, k, v, dout)), **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         _rel_close(got, ref, dtype, name)
     again = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
@@ -887,6 +912,187 @@ def test_flash_attention_bwd_wgmma_runs_first_on_a_fresh_thread(dev, D):
         assert torch.equal(a, b), name
 
 
+#: (B, S, Skv, Hq, Hkv, D, causal, window, softcap, q_offset) for the
+#: forward's 3xTF32 engine: FWD_WGMMA_CASES at head dims 64, 80 and 128,
+#: then the f32 paths' shapes: qwen3-0.6b's and stablelm-3b's gradient runs
+#: (B2 S256), dbrx-132b's (B1 S128, 48/8 heads) and the tuner's workload
+#: (B2 S512)
+FWD_TF32_CASES = [c for c in FWD_WGMMA_CASES if c[5] in (64, 80, 128)] + [
+    (2, 256, 256, 16, 8, 128, True, None, None, 0),
+    (2, 256, 256, 32, 32, 80, True, None, None, 0),
+    (1, 128, 128, 48, 8, 128, True, None, None, 0),
+    (2, 512, 512, 16, 8, 128, True, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", FWD_TF32_CASES)
+def test_flash_attention_fwd_tf32_matches_float64_and_fma(dev, case):
+    """The forward's 3xTF32 engine (``csrc/flash_attention_tf32.cu``): its
+    output and lse within f32's 2e-5 (``allclose``) of the plain version run
+    in float64, its output within 2e-5 of max|ref| of the FMA engine's on
+    the same inputs; bit-equal on a rerun; ``flash_attention_cuda`` picks
+    it and only its count moves; the library's shared bytes are the plan's."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
+
+    B, S, Skv, Hq, Hkv, D, causal, window, softcap, off = case
+    f32 = torch.float32
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (B, S, Hq, D), f32, dev)
+    k, v = (_randn(rng, (B, Skv, Hkv, D), f32, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    assert fa_kernel.fwd_engine(f32, D) == "tf32"
+    n0 = _counts(FWD_COUNTS)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    again, lse2 = fa_kernel.flash_attention_tf32_cuda(q, k, v, return_lse=True, **kw)
+    assert _counts(FWD_COUNTS) == {e: n + 2 * (e == "tf32") for e, n in n0.items()}
+    assert fa_kernel.last_grid == fa_kernel.launch_plan(B, S, Skv, Hq, Hkv, D).grid
+    old = fa_kernel.flash_attention_mma_sync_cuda(q, k, v, **kw)
+    wide = [t.double() for t in (q, k, v)]
+    exact, lexact = attention_ref(*wide, **kw), lse_ref(*wide, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == f32 and torch.equal(out, again) and torch.equal(lse, lse2)
+    err = float((out.double() - exact).abs().max())
+    assert torch.allclose(out.double(), exact, rtol=TOL[f32], atol=TOL[f32]), err
+    fin = torch.isfinite(lexact)
+    assert torch.equal(fin, torch.isfinite(lse)) and not bool(torch.isnan(lse).any())
+    assert torch.allclose(lse.double()[fin], lexact[fin], rtol=TOL[f32], atol=TOL[f32])
+    _rel_close(out, old, f32, "out against the FMA engine")
+    plan = fa_kernel.fwd_tf32_plan(B, S, Skv, Hq, Hkv, D)
+    assert fa_kernel.fwd_tf32_library().fa_fwd_tf32_smem_bytes(D) == plan.smem
+
+
+@pytest.mark.parametrize("blocks", [(64, 32, 512), (512, 512, 512), (256, 96, 768),
+                                    (128, 64, 512), (32, 16, 256)],
+                         ids=lambda b: f"q{b[0]}-k{b[1]}-S{b[2]}")
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_attention_fwd_tf32_blocks_reach_the_launch(dev, blocks, D):
+    """block_q and block_k reach the 3xTF32 engine's launch (the grid the
+    reference names; steps cut into tiles, a step shorter than a tile) and
+    leave its function unchanged: within 2e-5 of float64."""
+    bq, bk, S = blocks
+    B, Hq, Hkv = 2, 4, 2
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (B, S, Hq, D), torch.float32, dev)
+    k, v = (_randn(rng, (B, S, Hkv, D), torch.float32, dev) for _ in range(2))
+    for kw in (dict(causal=True, window=None, softcap=None),
+               dict(causal=True, window=100, softcap=30.0),
+               dict(causal=False, window=None, softcap=None)):
+        out = fa_kernel.flash_attention_tf32_cuda(q, k, v, block_q=bq, block_k=bk, **kw)
+        assert fa_kernel.last_grid == fa_ops.grid_shape(B, S, S, Hq, Hkv, D, block_q=bq,
+                                                         block_k=bk)
+        exact = _attention_f64(q, k, v, **kw)
+        assert torch.allclose(out.double(), exact, rtol=TOL[torch.float32],
+                              atol=TOL[torch.float32]), kw
+
+
+def test_flash_attention_tf32_engines_refuse_what_they_do_not_take(dev):
+    """bf16, head dims the 3xTF32 engines do not have (the forward 32 and
+    256; the backward 64 and 256) and a base that is not a 16-byte multiple
+    raise in their wrappers; ``flash_attention_cuda`` and
+    ``flash_attention_bwd_cuda`` take the engine their ``*_engine`` picks,
+    and only its count moves."""
+    rng = np.random.default_rng(8)
+    cases = ((torch.bfloat16, 128, 0), (torch.float32, 32, 0), (torch.float32, 256, 0),
+             (torch.float32, 64, 0), (torch.float32, 128, 1), (torch.float32, 80, 2))
+    for dtype, D, shift in cases:
+        q, dout = (_randn(rng, (1, 64 * 2 * D + shift), dtype, dev)[:, shift:].view(1, 64, 2, D)
+                   for _ in range(2))
+        k, v = (_randn(rng, (1, 64, 1, D), dtype, dev) for _ in range(2))
+        aligned = q.data_ptr() % 16 == 0
+        fwd, bwd = fa_kernel.fwd_engine(dtype, D, aligned), fa_kernel.bwd_engine(dtype, D, aligned)
+        if fwd != "tf32":
+            with pytest.raises(ValueError, match="16-byte|head dim"):
+                fa_kernel.flash_attention_tf32_cuda(q, k, v)
+        n0 = _counts(FWD_COUNTS)
+        out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+        assert _counts(FWD_COUNTS) == {e: n + (e == fwd) for e, n in n0.items()}
+        if bwd != "tf32":
+            with pytest.raises(ValueError, match="16-byte|head dim"):
+                fa_kernel.flash_attention_bwd_tf32_cuda(q, k, v, out, lse, dout)
+        n0 = _counts(BWD_COUNTS)
+        fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        assert _counts(BWD_COUNTS) == {e: n + (e == bwd) for e, n in n0.items()}
+    assert fa_kernel.fwd_engine(torch.float32, 64) == "tf32"
+    assert fa_kernel.bwd_engine(torch.float32, 64) == "mma_sync"
+
+
+#: (B, S, Skv, Hq, Hkv, causal, window, softcap, q_offset, D) for the
+#: backward's 3xTF32 engine: the wgmma engine's small cases at head dims 80
+#: and 128, then the f32 gradient runs' shapes (qwen3-0.6b's B2 S256 16/8,
+#: dbrx-132b's B1 S128 48/8, stablelm-3b's B2 S256 32/32) and a ragged
+#: 1000 rows
+FA_TF32_BWD_CASES = [(*c, D) for D in (80, 128) for c in _FA_WGMMA_SMALL] + [
+    (2, 256, 256, 16, 8, True, None, None, 0, 128),
+    (1, 128, 128, 48, 8, True, None, None, 0, 128),
+    (2, 256, 256, 32, 32, True, None, None, 0, 80),
+    (1, 1000, 1000, 16, 8, True, None, None, 0, 128),
+]
+
+
+@pytest.mark.parametrize("case", FA_TF32_BWD_CASES)
+def test_flash_attention_bwd_tf32_matches_float64_and_fma(dev, case):
+    """The backward's 3xTF32 engine (``csrc/flash_attention_bwd_tf32.cu``) at
+    head dims 80 and 128: each gradient within 2e-5 of the plain backward
+    run in float64 (of each gradient's max|ref|) and of the FMA engine's on
+    the same inputs, bit-equal on a rerun (its dK/dV split over CTAs where
+    the plan splits it, summed in order); ``flash_attention_bwd_cuda`` picks
+    it and only its count moves; each launch's shared bytes are the plan's."""
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    B, S, Skv, Hq, Hkv, causal, window, softcap, off, D = case
+    f32 = torch.float32
+    rng = np.random.default_rng(3)
+    q, dout = (_randn(rng, (B, S, Hq, D), f32, dev) for _ in range(2))
+    k, v = (_randn(rng, (B, Skv, Hkv, D), f32, dev) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert fa_kernel.bwd_engine(f32, D) == "tf32"
+    n0 = _counts(BWD_COUNTS)
+    got = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    again = fa_kernel.flash_attention_bwd_tf32_cuda(q, k, v, out, lse, dout, **kw)
+    assert _counts(BWD_COUNTS) == {e: n + 2 * (e == "tf32") for e, n in n0.items()}
+    old = fa_kernel.flash_attention_bwd_mma_sync_cuda(q, k, v, out, lse, dout, **kw)
+    want = attention_bwd_ref(*(t.double() for t in (q, k, v, dout)), **kw)
+    for name, a, b, o, r in zip(("dq", "dk", "dv"), got, again, old, want):
+        assert a.dtype == f32 and bool(torch.isfinite(a).all()) and torch.equal(a, b), name
+        _rel_close(a, r, f32, name)
+        _rel_close(a, o, f32, name + " against the FMA engine")
+    lib = fa_kernel.bwd_tf32_library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, kern in enumerate(fa_kernel.bwd_tf32_plan(B, S, Skv, Hq, Hkv, D, sms)):
+        assert lib.fa_bwd_tf32_smem_bytes(D, i) == kern.smem <= fa_kernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("D", fa_kernel.BWD_TF32_HEAD_DIMS)
+def test_flash_attention_bwd_tf32_runs_first_on_a_fresh_thread(dev, D):
+    """The 3xTF32 backward as the first CUDA work of a new thread, as
+    autograd's backward thread runs it (its tensor maps encoded there): its
+    gradients equal those of a call on this thread."""
+    import threading
+
+    rng = np.random.default_rng(6)
+    q, dout = (_randn(rng, (1, 130, 4, D), torch.float32, dev) for _ in range(2))
+    k, v = (_randn(rng, (1, 130, 2, D), torch.float32, dev) for _ in range(2))
+    out, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    here = fa_kernel.flash_attention_bwd_tf32_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    there = {}
+
+    def run():
+        try:
+            there["grads"] = fa_kernel.flash_attention_bwd_tf32_cuda(q, k, v, out, lse, dout)
+            torch.cuda.synchronize()
+        except Exception as e:  # handed to the test's thread
+            there["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "error" not in there, there.get("error")
+    for name, a, b in zip(("dq", "dk", "dv"), there["grads"], here):
+        assert torch.equal(a, b), name
+
+
 def _attention_bwd_f64(q, k, v, dout, **kw):
     """``(dq, dk, dv)`` of ``_attention_f64`` for ``dout``, by autograd in
     float64 on q's device."""
@@ -898,7 +1104,8 @@ def _attention_bwd_f64(q, k, v, dout, **kw):
 def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev, D):
     """f32, a base that is not a 16-byte multiple and (bf16) head dim 32
     are not the wgmma engine's: it raises, and ``flash_attention_bwd_cuda``
-    takes the mma.sync engine for them, whose gradients are held to the
+    takes the engine ``bwd_engine`` picks for them (f32 at 80 and 128: the
+    3xTF32 engine; the rest: mma.sync), whose gradients are held to the
     function's float64 backward (f32, 2e-5 of each gradient's max|ref|) or to
     the plain backward (bf16, 2e-2)."""
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -912,9 +1119,11 @@ def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev, D):
         out, lse = fa_kernel.flash_attention_cuda(q.contiguous(), k, v, return_lse=True)
         with pytest.raises(ValueError, match="16-byte|head dim"):
             fa_kernel.flash_attention_bwd_wgmma_cuda(q, k, v, out, lse, dout)
-        b0, w0 = fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches
+        engine = fa_kernel.bwd_engine(dtype, d, q.data_ptr() % 16 == 0)
+        assert engine == ("tf32" if dtype == torch.float32 and d in (80, 128) else "mma_sync")
+        n0 = _counts(BWD_COUNTS)
         got = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
-        assert (fa_kernel.bwd_launches, fa_kernel.bwd_wgmma_launches) == (b0 + 1, w0)
+        assert _counts(BWD_COUNTS) == {e: n + (e == engine) for e, n in n0.items()}
         kw = dict(causal=True, window=None, softcap=None)
         if dtype == torch.float32:
             want = _attention_bwd_f64(q, k, v, dout, **kw)
@@ -929,6 +1138,8 @@ def test_flash_attention_bwd_wgmma_refuses_what_it_does_not_take(dev, D):
 #: window - 1 that see no key among them
 FA_OFFSET_CASES = [
     (1, 64, 64, 192, 4, 2, 128, True, None, None),
+    (2, 100, 60, 200, 4, 2, 80, True, 48, 30.0),
+    (1, 130, 40, 200, 2, 1, 128, False, 64, None),
     (2, 100, 60, 200, 4, 2, 64, True, 48, 30.0),
     (1, 64, 100, 96, 2, 1, 256, True, 32, 50.0),
     (1, 1024, 3072, 4096, 8, 4, 256, True, 4096, 50.0),
@@ -953,8 +1164,9 @@ def test_flash_attention_q_offset_forward_and_backward(dev, case, dtype):
     _rel_close(out, attention_ref(q, k, v, **kw), dtype, "out")
     want = attention_bwd_ref(q, k, v, dout, **kw)
     engines = [fa_kernel.flash_attention_bwd_mma_sync_cuda]
-    if fa_kernel.bwd_engine(dtype, D) == "wgmma":
-        engines.append(fa_kernel.flash_attention_bwd_wgmma_cuda)
+    if fa_kernel.bwd_engine(dtype, D) != "mma_sync":
+        engines.append(getattr(fa_kernel, f"flash_attention_bwd_{fa_kernel.bwd_engine(dtype, D)}"
+                                          f"_cuda"))
     for engine in engines:
         got = engine(q, k, v, out, lse, dout, **kw)
         for name, a, r in zip(("dq", "dk", "dv"), got, want):
@@ -965,18 +1177,18 @@ def test_flash_attention_q_offset_forward_and_backward(dev, case, dtype):
 def test_flash_attention_trains_at_head_dim_80(dev, dtype):
     """stablelm-3b's head dim 80 trains on the card: ``ops.attention``'s
     gradients through the backward engine ``bwd_engine`` picks (bf16: wgmma;
-    f32: mma.sync), only its count moving, equal autograd's through the
+    f32: 3xTF32), only its count moving, equal autograd's through the
     plain version on the CPU, on the same inputs."""
     rng = np.random.default_rng(0)
     shapes = [(2, 96, 4, 80), (2, 96, 2, 80), (2, 96, 2, 80)]
     host = [_randn(rng, s, dtype, "cpu").float().requires_grad_() for s in shapes]
     card = [t.detach().to(dev, dtype).requires_grad_() for t in host]
     g = _randn(rng, shapes[0], dtype, "cpu")
-    count = "bwd_wgmma_launches" if fa_kernel.bwd_engine(dtype, 80) == "wgmma" else "bwd_launches"
-    other = "bwd_launches" if count == "bwd_wgmma_launches" else "bwd_wgmma_launches"
-    n0, o0 = getattr(fa_kernel, count), getattr(fa_kernel, other)
+    engine = fa_kernel.bwd_engine(dtype, 80)
+    assert engine == ("tf32" if dtype == torch.float32 else "wgmma")
+    n0 = _counts(BWD_COUNTS)
     got = torch.autograd.grad(fa_ops.attention(*card, window=64), card, g.to(dev))
-    assert (getattr(fa_kernel, count), getattr(fa_kernel, other)) == (n0 + 1, o0)
+    assert _counts(BWD_COUNTS) == {e: n + (e == engine) for e, n in n0.items()}
     want = torch.autograd.grad(fa_ops.attention(*host, window=64), host, g.float())
     for name, a, r in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype

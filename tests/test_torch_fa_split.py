@@ -225,13 +225,15 @@ def test_wgmma_plan_tiles_rings_and_shared_bytes(D):
 
 def test_bwd_engine_follows_type_head_dim_and_bases():
     """The wgmma engine takes bf16 at head dims 64, 80, 128 and 256 with
-    16-byte bases (TMA's rule); f32, head dims 8-32 and an unaligned base
-    stay on the mma.sync engine."""
+    16-byte bases (TMA's rule), the 3xTF32 engine f32 at 80 and 128; f32 at
+    64 and 256, head dims 8-32 and an unaligned base stay on the mma.sync
+    engine."""
     engine = fa_kernel.bwd_engine
     for D in (64, 80, 128, 256):
         assert engine(torch.bfloat16, D) == "wgmma"
         assert engine(torch.bfloat16, D, aligned=False) == "mma_sync"
-        assert engine(torch.float32, D) == "mma_sync"
+        assert engine(torch.float32, D) == ("tf32" if D in (80, 128) else "mma_sync")
+        assert engine(torch.float32, D, aligned=False) == "mma_sync"
     for D in set(fa_kernel.BWD_HEAD_DIMS) - {64, 80, 128, 256}:
         assert engine(torch.bfloat16, D) == "mma_sync"
         assert engine(torch.float32, D) == "mma_sync"

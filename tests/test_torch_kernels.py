@@ -375,8 +375,9 @@ def test_flash_attention_plain_version_stays_near_float64(case):
 
 def test_flash_attention_fwd_engine_follows_type_head_dim_and_alignment():
     """bf16 at head dims 64, 80, 128 and 256 whose bases are 16-byte
-    multiples takes the wgmma engine; f32, head dims 8-32 and other bases
-    take the mma.sync engine."""
+    multiples takes the wgmma engine, f32 at 64, 80 and 128 the 3xTF32
+    engine; head dims 8-32, f32 at 256 and other bases take the mma.sync
+    engine."""
     engine = fa_kernel.fwd_engine
     bf16 = torch.bfloat16
     assert engine(bf16, 64) == engine(bf16, 80) == engine(bf16, 128) == engine(bf16, 256)
@@ -384,11 +385,64 @@ def test_flash_attention_fwd_engine_follows_type_head_dim_and_alignment():
     for D in (8, 16, 32):
         assert engine(bf16, D) == "mma_sync"
     for D in fa_kernel.HEAD_DIMS:
-        assert engine(torch.float32, D) == "mma_sync"
+        assert engine(torch.float32, D) == ("tf32" if D in (64, 80, 128) else "mma_sync")
+        assert engine(torch.float32, D, False) == "mma_sync"
     assert engine(bf16, 64, False) == engine(bf16, 80, False) == "mma_sync"
     assert engine(bf16, 128, False) == "mma_sync"
     assert engine(bf16, 256, False) == "mma_sync"
     assert engine(torch.float16, 128) == "mma_sync"
+
+
+#: the engine table: (dtype, D, aligned) -> (forward engine, backward engine)
+ENGINE_TABLE = {
+    (dt, D, aligned): (
+        "mma_sync" if not aligned else
+        ("wgmma" if D in (64, 80, 128, 256) else "mma_sync") if dt == torch.bfloat16 else
+        ("tf32" if D in (64, 80, 128) else "mma_sync"),
+        "mma_sync" if not aligned else
+        ("wgmma" if D in (64, 80, 128, 256) else "mma_sync") if dt == torch.bfloat16 else
+        ("tf32" if D in (80, 128) else "mma_sync"))
+    for dt in (torch.float32, torch.bfloat16) for D in fa_kernel.HEAD_DIMS
+    for aligned in (True, False)}
+
+
+@pytest.mark.parametrize("key", list(ENGINE_TABLE), ids=lambda k: f"{k[0]}-D{k[1]}-{k[2]}")
+def test_flash_attention_engines_follow_the_table(key):
+    """Both directions' engines for every (type, head dim, alignment): bf16
+    at 64, 80, 128 and 256 on wgmma; f32 forward at 64, 80 and 128 and f32
+    backward at 80 and 128 on 3xTF32; the rest (head dims 8-32, f32 at 256,
+    the f32 backward at 64, unaligned bases) on mma.sync."""
+    dt, D, aligned = key
+    assert (fa_kernel.fwd_engine(dt, D, aligned), fa_kernel.bwd_engine(dt, D, aligned)) == \
+        ENGINE_TABLE[key]
+
+
+@pytest.mark.parametrize("D", fa_kernel.FWD_TF32_HEAD_DIMS)
+def test_flash_attention_fwd_tf32_plan_fits_and_launches_heaviest_first(D):
+    """The forward 3xTF32 engine's shared bytes (alignment slack, Q and its
+    lo of 64 rows, a two-stage ring of K, K lo, V^T and V^T lo tiles,
+    fifteen barriers; a row of K in boxes of 32 f32 columns, so D 80 takes
+    96, and V^T's D rows in boxes of 32 keys) fit a Hopper block; the last
+    q block launches first, a ragged one last; the grid is the reference's
+    first two grid dims; a step of block_k keys takes tiles of 64 keys at D
+    64 and 32 at 80 and 128, one consumer warpgroup walking 64 q rows."""
+    bn = {64: 64, 80: 32, 128: 32}[D]
+    assert fa_kernel.FWD_TF32_TILE_KEYS[D] == bn
+    padded = -(-D // 32) * 32
+    plan = fa_kernel.fwd_tf32_plan(4, 2048, 2048, 16, 8, D)
+    assert plan.smem == (1024 + 2 * 64 * padded * 4 + 2 * 2 * (bn * padded * 4 + bn * D * 4)
+                         + 8 * 15)
+    assert plan.smem <= fa_kernel.SMEM_LIMIT
+    assert (plan.sub_rows, plan.tile_keys, plan.stages, plan.warpgroups) == (64, bn, 2, 1)
+    assert plan.grid == (64, 16) and plan.order == tuple(range(15, -1, -1))
+    assert plan.tiles_per_step == 128 // bn
+    ragged = fa_kernel.fwd_tf32_plan(1, 4600, 4600, 8, 4, D)
+    assert ragged.order == (*range(34, -1, -1), 35)
+    other = fa_kernel.fwd_tf32_plan(1, 512, 512, 2, 1, D, block_q=64, block_k=96)
+    assert other.grid == (2, 8) and other.tiles_per_step == -(-96 // bn)
+    for bad in (32, 256):
+        with pytest.raises(ValueError):
+            fa_kernel.fwd_tf32_plan(1, 64, 64, 2, 1, bad)
 
 
 @pytest.mark.parametrize("D", fa_kernel.FWD_WGMMA_HEAD_DIMS)
@@ -440,6 +494,29 @@ def test_flash_attention_fwd_wgmma_grid_is_the_reference_grid(kernel, name, kw, 
                                                 min(c.blocks["block_k"], kw["Skv"]))
 
 
+@pytest.mark.parametrize("kernel, name, kw", FA_LATTICE_CASES, ids=[n for _, n, _ in FA_LATTICE_CASES])
+@pytest.mark.parametrize("D", fa_kernel.FWD_TF32_HEAD_DIMS)
+def test_flash_attention_fwd_tf32_grid_is_the_reference_grid(kernel, name, kw, D):
+    """Over every config the tuner's prefilter passes (the tuner, which
+    times f32 inputs, is this engine's main user), at each of the 3xTF32
+    engine's head dims, its CUDA grid is the reference's ``grid_shape``
+    less the KV axis and ``launch_plan``'s, its blocks the knobs after the
+    ``min(block, dim)`` clamp, and its shared bytes fit a block."""
+    from repro_torch.tune import enumerate_candidates, prefilter
+
+    survivors, _ = prefilter(kernel, kw, enumerate_candidates(kernel))
+    assert survivors
+    shape = {**kw, "D": D}
+    for c in survivors:
+        plan = fa_kernel.fwd_tf32_plan(**shape, **c.blocks)
+        grid = ref_fa.grid_shape(**shape, **c.blocks)
+        assert plan.grid == grid[:2] == fa_kernel.launch_plan(
+            **shape, **c.blocks, dtype=torch.float32).grid[:2], (shape, c.blocks)
+        assert (plan.block_q, plan.block_k) == (min(c.blocks["block_q"], kw["S"]),
+                                                min(c.blocks["block_k"], kw["Skv"]))
+        assert plan.smem <= fa_kernel.SMEM_LIMIT
+
+
 #: (S, Skv, causal, window, q_offset, block_q, block_k): square and not,
 #: each mask, rows that see no key, an offset, ragged lengths, knobs that
 #: cut a step into several tiles or a tile at a step's end
@@ -477,6 +554,143 @@ def test_flash_attention_fwd_wgmma_tiles_cover_every_visible_pair_once(case, D):
             seen[k0:k0 + nk] += 1
         assert (seen <= 1).all() and (seen[need] == 1).all()
     assert (rows == 1).all()
+
+
+@pytest.mark.parametrize("case", FWD_WALKS)
+@pytest.mark.parametrize("D", fa_kernel.FWD_TF32_HEAD_DIMS)
+def test_flash_attention_fwd_tf32_tiles_cover_every_visible_pair_once(case, D):
+    """The 3xTF32 forward walks the source's ``Walk`` over its own plan (64
+    rows a sub-block, tiles of 64 or 32 keys): every row lies in one
+    sub-block; a sub-block's tiles are disjoint, each inside one step and
+    at most ``tile_keys`` wide; every key a row sees lies in one of them, and
+    every key where a row sees none; every tile holds a key that a row of its
+    sub-block sees (or the sub-block holds a row that sees none)."""
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    S, Skv, causal, window, off, bq, bk = case
+    plan = fa_kernel.fwd_tf32_plan(1, S, Skv, 2, 1, D, block_q=bq, block_k=bk)
+    assert plan.sub_rows == 64 and plan.tile_keys == fa_kernel.FWD_TF32_TILE_KEYS[D]
+    mask = visible_mask(S, Skv, causal, window, off, "cpu").numpy()
+    rows = np.zeros(S, dtype=np.int64)
+    for r0, n, tiles in fa_kernel.fwd_wgmma_tiles(plan, S, Skv, causal=causal, window=window,
+                                                  q_offset=off):
+        rows[r0:r0 + n] += 1
+        sub = mask[r0:r0 + n]
+        need = sub.any(axis=0) | (~sub.any(axis=1)).any()
+        seen = np.zeros(Skv, dtype=np.int64)
+        for k0, nk in tiles:
+            assert 0 < nk <= plan.tile_keys
+            assert k0 // plan.block_k == (k0 + nk - 1) // plan.block_k
+            assert need[k0:k0 + nk].any()
+            seen[k0:k0 + nk] += 1
+        assert (seen <= 1).all() and (seen[need] == 1).all()
+    assert (rows == 1).all()
+
+
+#: (B, S, Skv, Hq, Hkv, q_offset, causal, window): the backward's walks
+#: over ragged lengths, each mask, rows that see no key and offsets
+BWD_TF32_WALKS = [(2, 256, 256, 16, 8, 0, True, None), (1, 300, 300, 4, 2, 0, True, 64),
+                  (1, 200, 50, 2, 1, 0, False, 10), (1, 200, 50, 6, 1, 0, True, 10),
+                  (1, 77, 200, 2, 1, 0, False, 50), (1, 64, 96, 2, 1, 100, True, 32),
+                  (1, 130, 200, 2, 1, 40, False, 64), (1, 128, 128, 48, 8, 0, True, None)]
+
+
+def _bwd_tf32_walks(plan, B, S, Skv, Hq, Hkv, causal, window, q_offset):
+    """The pairs the 3xTF32 backward's two launches cover, as its source's
+    ``KeyWalk`` (dQ) and ``QWalk`` (dK/dV, its grid's z splitting each
+    group's q heads) walk them: two ``(B, Hq, S, Skv)`` counts."""
+    dq, dkdv = plan[0], plan[1]
+    step, rows, w = dq.step, dq.rows, window or 0
+
+    def sees(p0, p1, k0, k1):
+        return (not causal or k0 <= p1) and (w <= 0 or k1 > p0 - w)
+
+    def no_key(p):
+        return w > 0 and p >= Skv + w - 1
+
+    cq = np.zeros((B, Hq, S, Skv), dtype=np.int64)
+    ck = np.zeros_like(cq)
+    for x in range(dq.grid[0]):
+        b, h = divmod(x, Hq)
+        for q0 in (blk * rows for blk in dq.order):
+            q1 = min(q0 + rows, S) - 1
+            for t in range(-(-Skv // step)):
+                if sees(q0 + q_offset, q1 + q_offset, t * step, min(t * step + step, Skv) - 1):
+                    cq[b, h, q0:q1 + 1, t * step:t * step + step] += 1
+    group, splits = Hq // Hkv, dkdv.grid[2]
+    for x in range(dkdv.grid[0]):
+        b, hk = divmod(x, Hkv)
+        for k0 in (blk * rows for blk in dkdv.order):
+            k1 = min(k0 + rows, Skv) - 1
+            for z in range(splits):
+                for g in range(z * group // splits, (z + 1) * group // splits):
+                    for i in range(-(-S // step)):
+                        p0, p1 = i * step + q_offset, min(i * step + step, S) - 1 + q_offset
+                        if sees(p0, p1, k0, k1) or no_key(p1):
+                            ck[b, hk * group + g, i * step:i * step + step, k0:k1 + 1] += 1
+    return cq, ck
+
+
+@pytest.mark.parametrize("case", BWD_TF32_WALKS)
+@pytest.mark.parametrize("D", fa_kernel.BWD_TF32_HEAD_DIMS)
+def test_flash_attention_bwd_tf32_walks_cover_every_visible_pair_once(case, D):
+    """The 3xTF32 backward's grids take every q block (dQ) and key block
+    (dK/dV) once; dQ's walk covers every pair whose row sees its key once,
+    and dK/dV's (with the q heads of each group split over its grid's z)
+    every such pair once and every pair of a row that sees no key once."""
+    from repro_torch.kernels.flash_attention.ref import visible_mask
+
+    B, S, Skv, Hq, Hkv, off, causal, window = case
+    plan = fa_kernel.bwd_tf32_plan(B, S, Skv, Hq, Hkv, D)
+    dq, dkdv = plan[0], plan[1]
+    assert sorted(dq.order) == list(range(dq.grid[1])) and dq.grid[0] == B * Hq
+    assert sorted(dkdv.order) == list(range(dkdv.grid[1])) and dkdv.grid[0] == B * Hkv
+    assert (Hq // Hkv) % dkdv.grid[2] == 0
+    mask = visible_mask(S, Skv, causal, window, off, "cpu").numpy()
+    blind = ~mask.any(axis=1)
+    cq, ck = _bwd_tf32_walks(plan, B, S, Skv, Hq, Hkv, causal, window, off)
+    assert (cq <= 1).all() and (ck <= 1).all()
+    assert (cq[..., mask] == 1).all()
+    assert (ck[..., mask] == 1).all() and (ck[:, :, blind, :] == 1).all()
+
+
+def test_flash_attention_bwd_tf32_plan_rings_splits_and_shared_bytes():
+    """dQ launches first (it writes Delta), then dK/dV, then (where dK/dV is
+    split) the sum of its splits; one consumer warpgroup of 64 rows a CTA,
+    steps of 32; the streamed tiles in a ring of two slots, their lo tiles
+    in buffers that also hold the staged accumulators, two at D 80 and one
+    at 128 (the resident tiles and their lo take 128 KB); every launch fits the 232448
+    shared bytes a CTA may take; dK/dV's q heads split over CTAs only while
+    the key blocks leave SMs idle, by a divisor of the group."""
+    for D in fa_kernel.BWD_TF32_HEAD_DIMS:
+        nb = -(-D // 32)
+        st, los = 2, {80: 2, 128: 1}[D]
+        plan = fa_kernel.bwd_tf32_plan(2, 256, 256, 16, 8, D)
+        assert [k.name for k in plan] == ["dq", "dkdv", "sum"]
+        dq, dkdv, total = plan
+        assert dq.grid == (32, 4) and dq.order == (3, 2, 1, 0)
+        assert dkdv.grid == (16, 4, 2) and dkdv.order == (0, 1, 2, 3)
+        assert all((k.rows, k.step, k.stages, k.warpgroups) == (64, 32, (st, los), 1)
+                   for k in (dq, dkdv))
+        res, stp, staged = nb * 64 * 128, nb * 32 * 128, 64 * 128
+        bars = 8 * (2 + 2 * st + 2 * los)
+        assert dq.smem == 1024 + 4 * res + 2 * st * stp + los * max(2 * stp, 2 * staged) + bars
+        assert dkdv.smem == (1024 + 4 * res + 2 * st * stp + los * (max(2 * stp, 4 * staged) + 256)
+                             + bars)
+        assert 0 < dq.smem <= fa_kernel.SMEM_LIMIT and 0 < dkdv.smem <= fa_kernel.SMEM_LIMIT
+        assert total.smem == 0 and total.grid == (-(-2 * 256 * 8 * D // 4 // 256),)
+        # dbrx-132b's f32 shape: 16 key-block CTAs, its group of 6 split 6 ways
+        assert fa_kernel.bwd_tf32_plan(1, 128, 128, 48, 8, D)[1].grid == (8, 2, 6)
+        # stablelm-3b's (no GQA) and a card-filling shape: no split, no sum
+        assert [k.name for k in fa_kernel.bwd_tf32_plan(2, 256, 256, 32, 32, D)] == ["dq", "dkdv"]
+        big = fa_kernel.bwd_tf32_plan(4, 2048, 2048, 16, 8, D)
+        assert len(big) == 2 and big[1].grid == (32, 32, 1)
+    assert fa_kernel.bwd_tf32_splits(1, 128, 48, 8, sms=16) == 1
+    assert fa_kernel.bwd_tf32_splits(1, 128, 48, 8, sms=48) == 3
+    for bad in ((1, 64, 64, 2, 2, 64), (1, 64, 64, 2, 2, 256), (1, 64, 64, 3, 2, 128),
+                (0, 64, 64, 2, 2, 128)):
+        with pytest.raises(ValueError):
+            fa_kernel.bwd_tf32_plan(*bad)
 
 
 def test_fused_moe_plan_fills_the_card_at_dbrx_width():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Flash attention's two forward engines side by side on one NVIDIA card.
+"""Flash attention's forward engines side by side on one NVIDIA card.
 
     python3 tools/fa_fwd_engines.py [--src DIR] [--quick] [--iters N]
-                                    [--shapes NAME ...]
+                                    [--shapes NAME ...] [--f32]
 
 Builds the port's forward libraries from the sources under DIR (default:
 this checkout's ``src``), logs ptxas's registers, spills and notes of the
@@ -28,6 +28,17 @@ peak) and SDPA (causal only at D 256: SDPA takes no softcap).
 other, run the tool on each in turns on one card (parent, change,
 change, parent). Prints the card's name and power limit first. Exits
 non-zero on any mismatch. Needs a card.
+
+``--f32`` does the same for the f32 engines: the 3xTF32 engine
+(``csrc/flash_attention_tf32.cu``, at head dims 64, 80 and 128) against
+the plain version run in float64 (output and lse within 2e-5 of 1 +
+|ref|, as ``allclose`` holds them) and against the FMA engine of
+``csrc/flash_attention.cu`` at the cases above and f32's own shapes, then
+both in turns at qwen3-0.6b's f32 gradient shape (B2 S256, 16/8 heads of
+128, causal), the tuner's flash-attention workload (B2 S512, the same
+heads) and stablelm-3b's (B2 S256, 32/32 heads of 80), beside SDPA in
+f32, each against its 3xTF32 bound (three TF32 products for each of its
+own, at the TF32 peak) and its bound at f32's peak.
 """
 import argparse
 import collections
@@ -83,6 +94,19 @@ CASES = [
     (1, 1, 0, 1500, 8, 8, 64, False, None, None, 128, 128),
     (1, 1528, 0, 1528, 25, 5, 64, True, None, None, 128, 128),
 ]
+#: f32's own cases: the timed shapes, dbrx-132b's f32 gradient shape, the
+#: tuner's blocks and a step shorter than a tile
+F32_CASES = [
+    (2, 256, 0, 256, 16, 8, 128, True, None, None, 128, 128),
+    (2, 512, 0, 512, 16, 8, 128, True, None, None, 64, 256),
+    (2, 256, 0, 256, 32, 32, 80, True, None, None, 128, 128),
+    (1, 128, 0, 128, 48, 8, 128, True, None, None, 128, 128),
+    (2, 256, 0, 256, 16, 8, 64, True, None, None, 32, 16),
+]
+#: the f32 timed shapes: (name, (B, S, Hq, Hkv, D), masks)
+F32_SHAPES = [("qwen3-0.6b", (2, 256, 16, 8, 128), dict(causal=True)),
+              ("tuner", (2, 512, 16, 8, 128), dict(causal=True)),
+              ("stablelm-3b", (2, 256, 32, 32, 80), dict(causal=True))]
 #: the timed shapes: (name, (B, S, Hq, Hkv, D), masks)
 SHAPES = [("main", (4, 2048, 16, 8, 128), dict(causal=True)),
           ("gemma2-2b", (1, 4608, 8, 4, 256), dict(causal=True, window=4096, softcap=50.0)),
@@ -96,7 +120,8 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent.parent / "src"))
     ap.add_argument("--quick", action="store_true", help="build and check; no timing")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--shapes", nargs="*", default=[name for name, _, _ in SHAPES])
+    ap.add_argument("--shapes", nargs="*", default=None)
+    ap.add_argument("--f32", action="store_true", help="the f32 engines")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -115,6 +140,9 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    if args.f32:
+        return f32_engines(args, cs, fa_k)
+    args.shapes = args.shapes or [name for name, _, _ in SHAPES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         for f in [pool.submit(g) for g in (fa_k.library, fa_k.fwd_wgmma_library)]:
@@ -196,6 +224,95 @@ def main() -> int:
                   f"of it, {flops / m / 1e9:.1f} TFLOP/s", flush=True)
         print(f"{label}: SDPA ({'causal' if kw['causal'] else 'no mask'} only) {sdpa:.4f} ms",
               flush=True)
+        del q, k, v, qt, kt, vt
+    return 0
+
+
+def f32_engines(args, cs, fa_k) -> int:
+    """``--f32``: the 3xTF32 engine against float64 and the FMA engine,
+    then both timed in turns (the module's head says where)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels._build import build_log
+    from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
+    from repro_torch.roofline.analysis import card_peaks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(g) for g in (fa_k.library, fa_k.fwd_tf32_library)]:
+            f.result()
+    print(f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    for line in build_log("flash_attention_tf32", fa_k.FWD_TF32_SOURCES).splitlines():
+        if any(w in line for w in ("Compiling entry", "spill", "Used", "arning")):
+            print("  ptxas", line.strip()[:200], flush=True)
+    ok = not any(cs.serialization_notes("flash_attention_tf32", fa_k.FWD_TF32_SOURCES).values())
+    cs.wgmma_sass("flash_attention_tf32", fa_k.FWD_TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    for B, S, off, Skv, Hq, Hkv, D, causal, window, softcap, bq, bk in CASES + F32_CASES:
+        if D not in fa_k.FWD_TF32_HEAD_DIMS:
+            continue
+        q, k, v = randn(B, S, Hq, D), randn(B, Skv, Hkv, D), randn(B, Skv, Hkv, D)
+        mask = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+        kw = dict(mask, block_q=bq, block_k=bk)
+        t0 = fa_k.tf32_launches
+        out, lse = fa_k.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        moved = fa_k.tf32_launches - t0
+        again, lse2 = fa_k.flash_attention_tf32_cuda(q, k, v, return_lse=True, **kw)
+        old = fa_k.flash_attention_mma_sync_cuda(q, k, v, **kw)
+        wide = [t.double() for t in (q, k, v)]
+        ref, lref = attention_ref(*wide, **mask), lse_ref(*wide, **mask)
+        err = float(((out.double() - ref).abs() / (1 + ref.abs())).max())
+        gap = float((out - old).abs().max())
+        fin = torch.isfinite(lref)
+        lerr = (float(((lse.double() - lref)[fin].abs() / (1 + lref[fin].abs())).max())
+                if bool(fin.any()) else 0.0)
+        lerr = lerr if torch.equal(fin, torch.isfinite(lse)) else float("inf")
+        same = torch.equal(out, again) and torch.equal(lse, lse2)
+        good = (max(err, lerr) <= 2e-5 and same and moved == 1
+                and bool(torch.isfinite(out).all()))
+        ok &= good
+        print(f"{'ok  ' if good else 'FAIL'} f32 B{B} S{S}+{off} Skv{Skv} {Hq}/{Hkv}x{D} "
+              f"causal={causal} window={window} softcap={softcap} blocks ({bq}, {bk}): "
+              f"from float64 {err:.3g} (of 1 + |ref|), lse {lerr:.3g}, against the FMA engine "
+              f"{gap:.3g}, rerun bit-equal {same}, tf32 launches {moved}", flush=True)
+        del q, k, v, out, lse, again, lse2, old, ref, lref, wide
+    if not ok or args.quick:
+        return 0 if ok else 1
+
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    for label, (B, S, Hq, Hkv, D), kw in F32_SHAPES:
+        if args.shapes and label not in args.shapes:
+            continue
+        q, k, v = randn(B, S, Hq, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        pairs = B * Hq * (S * (S + 1) // 2 if kw["causal"] else S * S)
+        flops = 4 * D * pairs
+        nbytes = 4 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+        bound, by = cs.bound(peaks, nbytes, 3 * flops, "tf32")
+        bound32, by32 = cs.bound(peaks, nbytes, flops, "float32")
+        turns = collections.defaultdict(list)
+        for engine in ("tf32", "mma_sync", "mma_sync", "tf32"):
+            fn = getattr(fa_k, f"flash_attention_{engine}_cuda")
+            turns[engine].append(cs.cuda_ms(torch, lambda a, b, c, fn=fn: fn(a, b, c, **kw),
+                                            [(q, k, v)], args.iters)[0])
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa, _ = cs.cuda_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=kw["causal"], enable_gqa=True), [(qt, kt, vt)], args.iters)
+        for engine, ts in turns.items():
+            m = float(np.mean(ts))
+            print(f"{label} f32 B{B} S{S} {Hq}/{Hkv}x{D} {kw}, {engine}: {m:.4f} ms a call "
+                  f"(turns {[f'{t:.4f}' for t in ts]}), 3xTF32 bound {bound:.4f} ms by {by}, "
+                  f"f32-peak bound {bound32:.4f} ms by {by32}", flush=True)
+        print(f"{label} f32: SDPA {sdpa:.4f} ms", flush=True)
         del q, k, v, qt, kt, vt
     return 0
 
