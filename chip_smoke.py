@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. build: compile the CUDA sources (flash attention's three forward and
    three backward engines, fused MoE's three forward and three backward engines,
-   scaled_mm) with nvcc, one
+   scaled_mm's two) with nvcc, one
    process each, all at once, and the Triton kernels (rmsnorm, silu_mul
    and their backwards), from the sources in this checkout; ptxas's
    registers and spills of each backward instance (flash attention's and
@@ -24,6 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and each wgmma engine's SASS
    instruction counts (HGMMA, TMA loads and stores, mbarrier waits, all
    asserted present; the forward engines store no tile by TMA) are logged;
+   scaled_mm's wgmma engine with no spill and no C75xx note in any
+   instance (registers logged), its SASS held to IGMMA, UTMALDG and SYNCS;
 2. kernel parity: each kernel against its plain PyTorch version on the
    card, at the reference's test shapes and the main paths' shapes
    (f32 2e-5, bf16 2e-2, scaled_mm 1e-2 and an exact int32 sum, the
@@ -44,8 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the mma.sync engine; the reference's 150-wide F blocks on the
    mma.sync engine), flash attention and silu_mul at every config it passes
    on their qwen3-0.6b workloads, and fused MoE and scaled_mm at dbrx-132b
-   width (scaled_mm also with 32-deep steps, and at shapes it stages byte
-   by byte); fused MoE in bf16 at dbrx-132b's serving shapes, through the
+   width (scaled_mm also with 32-deep steps; every scaled_mm case on the
+   engine ``engine`` picks, the wgmma engine's bf16 output bit-equal to the
+   plain version's, and at the shapes the mma.sync engine stages byte by
+   byte and the nearest the wgmma engine takes); fused MoE in bf16 at dbrx-132b's serving shapes, through the
    model's ``expert_ffn``: a decode tick of 4 slots (4 rows an expert) and
    the prefill of a prime-length prompt (8012 rows, padded to 8064); fused
    MoE's forward wgmma engine (bf16 with 16-byte rows at any rows and
@@ -135,8 +139,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    its bound at the f32 peak; no library: SDPA takes no softcap; its
    in-turns times at the shapes above are logged); silu_mul
    also at phase 4's prompt lengths,
-   scaled_mm also at the tuner's default workload beside
-   ``torch._int_mm``; the three backward kernels at qwen3-0.6b's training
+   scaled_mm at dbrx-132b width on its wgmma engine and its mma.sync
+   engine on the same inputs, in turns, beside ``torch._int_mm`` with the
+   same epilogue, and so at the tuner's default workload (logged); the three backward kernels at qwen3-0.6b's training
    shapes, beside their plain backward formulas and the backward of
    ``F.rms_norm`` and of SDPA (rows logged beside them: rmsnorm's at the q
    and k norms' (131072, 128) and (65536, 128)); flash attention's
@@ -171,8 +176,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. the tuner, the second main path: ``repro_torch.tune.tune`` ranks
    configs with the roofline predictor for a registry TPU and times the
    top 4 and the default on the card: fused MoE (f32: its 3xTF32 wgmma
-   engine, never the mma.sync one) and scaled_mm at the tuner's default
-   workloads and at dbrx-132b width, flash attention and silu_mul at their
+   engine, never the mma.sync one) and scaled_mm (its wgmma engine, never
+   the mma.sync one) at the tuner's default workloads and at dbrx-132b width, flash attention and silu_mul at their
    qwen3-0.6b workloads; every measured config's launched grid must equal
    its ``grid_shape`` and the launch counts must move by exactly (1 +
    repeats) per measured config;
@@ -289,12 +294,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    to the ``nbytes`` of the train state and batch phase 10 (b) held on the
    card.
 
-It prints one ``{"kernels": [...]}`` line (fifteen entries: the five
-kernels, flash attention's and fused MoE's forward wgmma engines, fused
-MoE's 3xTF32 forward, and the backwards of rmsnorm, silu_mul, flash
-attention's two engines and fused MoE's three; fused MoE's mma.sync
-forward and backward, which no model path reaches, have 0 launches and
-their calls in phases 2 and 5 as ``parity_launches``),
+It prints one ``{"kernels": [...]}`` line (eighteen entries: the five
+kernels, flash attention's and fused MoE's forward wgmma engines, flash
+attention's and fused MoE's 3xTF32 forwards, scaled_mm's wgmma engine, and
+the backwards of rmsnorm, silu_mul, flash attention's three engines and
+fused MoE's three; fused MoE's mma.sync forward and backward and
+scaled_mm's mma.sync engine, which no main path reaches, have 0 launches
+and their calls in phases 2 and 5 as ``parity_launches``),
 the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 ``src/repro_torch`` package beside it, it exits non-zero and prints no
@@ -503,13 +509,14 @@ def main():
 
     # ---------------------------------------------------------------- 1
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(13) as pool:  # one nvcc per CUDA source, all at once
+    with ThreadPoolExecutor(14) as pool:  # one nvcc per CUDA source, all at once
         builds = [pool.submit(f) for f in (fa_k.library, fa_k.fwd_wgmma_library, fa_k.bwd_library,
                                            fa_k.wgmma_library, fa_k.fwd_tf32_library,
                                            fa_k.bwd_tf32_library, moe_k.library,
                                            moe_k.fwd_wgmma_library, moe_k.fwd_tf32_library,
                                            moe_k.bwd_library, moe_k.wgmma_library,
-                                           moe_k.tf32_library, smm_k.library)]
+                                           moe_k.tf32_library, smm_k.library,
+                                           smm_k.wgmma_library)]
         x = torch.ones(4, 1024, device=dev, dtype=torch.bfloat16)
         rms_k.rmsnorm_cuda(x, torch.zeros(1024, device=dev))
         rms_k.rmsnorm_bwd_cuda(x, x, torch.zeros(1024, device=dev))
@@ -520,13 +527,15 @@ def main():
     torch.cuda.synchronize()
     log(f"[1 build] nvcc + triton: {time.perf_counter() - t0:.1f}s")
     ptxas_report(fa_k, moe_k)
+    smm_ptxas_report(smm_k)
 
     # ---------------------------------------------------------------- 2
     t0 = time.perf_counter()
-    # the mma.sync engines of fused MoE's forward and backward, which no
-    # model path reaches: their calls in phases 2 and 5
+    # the mma.sync engines of fused MoE's forward and backward and of
+    # scaled_mm, which no main path reaches: their calls in phases 2 and 5
     off_counts = {"fused_moe": EngineCount(moe_k, "launches"),
-                  "fused_moe_bwd": EngineCount(moe_k, "bwd_launches")}
+                  "fused_moe_bwd": EngineCount(moe_k, "bwd_launches"),
+                  "scaled_mm": EngineCount(smm_k, "launches")}
     compared = {k: -c.launches for k, c in off_counts.items()}
     max_err = kernel_parity(torch, dev)
     max_err.update(tuner_kernel_parity(torch, dev))
@@ -573,7 +582,7 @@ def main():
     # ---------------------------------------------------------------- 7
     t0 = time.perf_counter()
     tuned = tuner(torch, dev)
-    launches["scaled_mm"] = tuned["scaled_mm"]  # the tuner is scaled_mm's main path
+    launches["scaled_mm_wgmma"] = tuned["scaled_mm_wgmma"]  # the tuner is scaled_mm's main path
     launches["fused_moe_tf32"] += tuned["fused_moe_tf32"]  # and f32 fused MoE's
     launches["flash_attention_tf32"] += tuned["flash_attention_tf32"]  # and f32 attention's
     log(f"[7 tuner] passed in {time.perf_counter() - t0:.1f}s; launches {tuned}")
@@ -642,6 +651,8 @@ def main():
                            "src/repro/kernels/fused_moe/kernel.py:27"),
         "scaled_mm": ("cuda", "src/repro_torch/kernels/scaled_mm/csrc/scaled_mm.cu",
                       "src/repro/kernels/scaled_mm/kernel.py:20"),
+        "scaled_mm_wgmma": ("cuda", "src/repro_torch/kernels/scaled_mm/csrc/scaled_mm_wgmma.cu",
+                            "src/repro/kernels/scaled_mm/kernel.py:20"),
         # the backwards of the kernels training runs through; the TPU kernels
         # have none (the reference differentiates its plain path), so each
         # names the forward TPU kernel whose backward it is
@@ -673,6 +684,8 @@ def main():
     # PR 30, the forward since) no model path reaches them. Their main-path
     # launches are 0; the calls of phases 2 and 5, where they are held
     # against their plain versions and timed, go in a field of their own
+    # (scaled_mm's mma.sync engine too: it serves only K or N off 16,
+    # unaligned bases and block_k off 32, which no tuner workload or block gives)
     off_path = tuple(off_counts)
     assert not any(launches.get(k) for k in off_path), f"a model path reached {off_path}"
     idle = [k for k in sources if not launches.get(k) and k not in off_path]
@@ -695,8 +708,9 @@ def main():
 
 def wgmma_sass(lib, sources, held=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")):
     """What a wgmma engine's library holds, from ``cuobjdump --dump-sass``:
-    its kernels hold warpgroup products (HGMMA), TMA loads and stores
-    (UTMALDG, UTMASTG) and mbarrier waits (SYNCS), each of ``held``."""
+    its kernels hold warpgroup products (HGMMA; IGMMA for int8), TMA loads
+    and stores (UTMALDG, UTMASTG) and mbarrier waits (SYNCS), each of
+    ``held``."""
     import collections
     import re
 
@@ -705,7 +719,7 @@ def wgmma_sass(lib, sources, held=("HGMMA", "UTMALDG", "UTMASTG", "SYNCS")):
     so = library_path(lib, sources)
     sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "--dump-sass", str(so)],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    ops = collections.Counter(re.findall(r"\b(HGMMA|UTMALDG|UTMASTG|SYNCS)\b", sass))
+    ops = collections.Counter(re.findall(r"\b(HGMMA|IGMMA|UTMALDG|UTMASTG|SYNCS)\b", sass))
     log(f"  {lib} SASS: {dict(sorted(ops.items()))}")
     assert all(ops[k] for k in held), ops
 
@@ -856,6 +870,41 @@ def ptxas_report(fa_k, moe_k=None):
                 f"(M, N, K) {kern.products}, tiles {kern.tile}, {kern.tiles_e} an expert, "
                 f"{kern.ctas} persistent CTAs, {kern.stages} stages, {kern.smem} shared bytes")
         wgmma_sass("fused_moe_tf32", moe_k.FWD_TF32_SOURCES, ("HGMMA", "UTMALDG", "SYNCS"))
+
+
+def smm_ptxas_report(smm_k):
+    """Phase 1's record of scaled_mm's wgmma engine: ptxas's registers and
+    spills of each instance (none may spill), no C7515, C7519 or C7520
+    note, its SASS held to IGMMA, UTMALDG and SYNCS, and its plan at
+    dbrx-132b width and the tuner's default workload."""
+    import re
+
+    from repro_torch.kernels._build import build_log
+
+    notes = serialization_notes("scaled_mm_wgmma", smm_k.WGMMA_SOURCES)
+    assert not any(notes.values()), (
+        f"scaled_mm_wgmma: ptxas serialized its wgmma or injected arrives: {notes}")
+    types = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    kernel, spills = None, []
+    for line in build_log("scaled_mm_wgmma", smm_k.WGMMA_SOURCES).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"smm_wgmmaILi(\d+)E(f|13__nv_bfloat16|6__half)E", m.group(1))
+            kernel = f"smm_wgmma<{name.group(1)}, {types[name.group(2)]}>" if name else None
+        elif kernel and ("spill" in line or "Used" in line):
+            log(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill and spill.groups() != ("0", "0"):
+                spills.append(kernel)
+    assert not spills, f"scaled_mm_wgmma instances that spill: {spills}"
+    for M, K, N in ((1024, 6144, 10752), (1024, 512, 512)):
+        for blocks in ({}, dict(block_m=512, block_n=512, block_k=512),
+                       dict(block_m=128, block_n=128, block_k=32)):
+            p = smm_k.wgmma_plan(M, K, N, **blocks)
+            log(f"  scaled_mm plan (wgmma), M{M} K{K} N{N} {blocks or 'default blocks'}: grid "
+                f"{p.grid}, {p.ctas} CTAs of {p.threads} threads, sub-tiles {p.sub_tiles} of "
+                f"{p.tile}, stages {p.stages} of {p.stage_k} k, {p.smem_bytes} shared bytes")
+    wgmma_sass("scaled_mm_wgmma", smm_k.WGMMA_SOURCES, ("IGMMA", "UTMALDG", "SYNCS"))
 
 
 # ======================================================================
@@ -1039,7 +1088,8 @@ def tuner_kernel_parity(torch, dev):
 
     f32, bf16 = torch.float32, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    max_err = {"fused_moe": 0.0, "fused_moe_wgmma": 0.0, "fused_moe_tf32": 0.0, "scaled_mm": 0.0}
+    max_err = {"fused_moe": 0.0, "fused_moe_wgmma": 0.0, "fused_moe_tf32": 0.0, "scaled_mm": 0.0,
+               "scaled_mm_wgmma": 0.0}
 
     def randn(shape, dtype, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
@@ -1100,12 +1150,18 @@ def tuner_kernel_parity(torch, dev):
             max_err[kname] = max(max_err[kname], err)
 
     def smm(label, kw, blocks, args, main=False):
-        """One launch against the plain version; the int32 sum is read
-        through unit scales into f32, exact while |acc| < 2**24."""
+        """One launch on the engine ``engine`` picks against the plain
+        version; the int32 sum is read through unit scales into f32, exact
+        while |acc| < 2**24; the wgmma engine's bf16 output must equal the
+        plain version's bit for bit."""
         x, w, sx, sw = args
+        eng = smm_k.engine(**kw, **blocks)
+        counts = (smm_k.wgmma_launches, smm_k.launches)
         out = smm_k.scaled_mm_cuda(x, w, sx, sw, **blocks)
+        moved = (smm_k.wgmma_launches - counts[0], smm_k.launches - counts[1])
+        assert moved == ((1, 0) if eng == "wgmma" else (0, 1)), (label, eng, moved)
         assert smm_k.last_grid == smm_ops.grid_shape(**kw, **blocks), (label, smm_k.last_grid)
-        same_after_poison(torch, "scaled_mm", label,
+        same_after_poison(torch, "scaled_mm_wgmma" if eng == "wgmma" else "scaled_mm", label,
                           lambda: smm_k.scaled_mm_cuda(x, w, sx, sw, **blocks), out)
         unit = smm_k.scaled_mm_cuda(x, w, torch.ones_like(sx), torch.ones_like(sw),
                                     out_dtype=f32, **blocks)
@@ -1116,9 +1172,12 @@ def tuner_kernel_parity(torch, dev):
         err = float((out.float() - ref.float()).abs().max())
         torch.testing.assert_close(out.float(), ref.float(), rtol=SMM_TOL, atol=SMM_TOL,
                                    msg=lambda m: f"{label}: {m}")
+        same = torch.equal(out, ref)
+        assert same or eng != "wgmma", f"{label}: the wgmma engine's bf16 output is not the plain one"
+        kname = "scaled_mm_wgmma" if eng == "wgmma" else "scaled_mm"
         if main:
-            max_err["scaled_mm"] = max(max_err["scaled_mm"], err)
-        return torch.equal(out, ref), err
+            max_err[kname] = max(max_err[kname], err)
+        return same, err
 
     # the reference's cases (tests/test_kernels.py), f32 and bf16
     for E, C, D, F, bm, bf in [(4, 32, 64, 128, 16, 64), (2, 64, 32, 64, 32, 32),
@@ -1134,18 +1193,23 @@ def tuner_kernel_parity(torch, dev):
         for bm, bn, bk in [(32, 32, 64), (64, 64, 32)]:
             same, err = smm(f"scaled_mm M{M} K{K} N{N}", dict(M=M, K=K, N=N),
                             dict(block_m=bm, block_n=bn, block_k=bk), (x, wq.t().contiguous(), sx, sw))
-            log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}): int32 sum exact, "
+            log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}), wgmma: int32 sum "
+                f"exact, max abs err {err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
+    # rows or blocks that are not 16-byte multiples: the mma.sync engine
+    # stages them byte by byte; then the wgmma engine at the nearest shapes
+    # it takes (N 48 with 24-wide blocks; K 96 and N 16 with blocks of 1 x 4 x 32)
+    for unaligned, nearest in [((64, 96, 50, 32, 25, 32), (64, 96, 48, 32, 25, 32)),
+                               ((7, 100, 13, 3, 5, 7), (7, 96, 16, 3, 5, 32))]:
+        for (M, K, N, bm, bn, bk), eng in ((unaligned, "mma_sync"), (nearest, "wgmma")):
+            x, sx = quantize_rowwise(randn((M, K), f32))
+            wq, sw = quantize_rowwise(randn((N, K), f32))
+            blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+            assert smm_k.engine(M, K, N, **blocks) == eng, (M, K, N, blocks)
+            assert eng == "wgmma" or not smm_k.launch_plan(M, K, N, **blocks).vectorized
+            same, err = smm(f"scaled_mm M{M} K{K} N{N}", dict(M=M, K=K, N=N), blocks,
+                            (x, wq.t().contiguous(), sx, sw))
+            log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}), {eng}: int32 sum exact, "
                 f"max abs err {err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
-    # rows or blocks that are not 16-byte multiples: the kernel stages them byte by byte
-    for M, K, N, bm, bn, bk in [(64, 96, 50, 32, 25, 32), (7, 100, 13, 3, 5, 7)]:
-        x, sx = quantize_rowwise(randn((M, K), f32))
-        wq, sw = quantize_rowwise(randn((N, K), f32))
-        blocks = dict(block_m=bm, block_n=bn, block_k=bk)
-        assert not smm_k.launch_plan(M, K, N, **blocks).vectorized
-        same, err = smm(f"scaled_mm M{M} K{K} N{N}", dict(M=M, K=K, N=N), blocks,
-                        (x, wq.t().contiguous(), sx, sw))
-        log(f"  scaled_mm M{M} K{K} N{N} blocks ({bm}, {bn}, {bk}), byte-by-byte staging: int32 "
-            f"sum exact, max abs err {err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
 
     # the tuner's default workloads, every config its prefilter passes
     for kernel in ("fused_moe", "scaled_mm"):
@@ -1161,8 +1225,10 @@ def tuner_kernel_parity(torch, dev):
                 same, err = smm(label, kw, c.blocks, args, main=True)
                 equal, worst = equal + same, max(worst, err)
         if kernel == "scaled_mm":
-            log(f"  scaled_mm {kw}: {len(survivors)} configs, int32 sums exact, max abs err "
-                f"{worst:.3g}, bf16 output bit-equal in {equal} of {len(survivors)}")
+            assert all(smm_k.engine(**kw, **c.blocks) == "wgmma" for c in survivors)
+            log(f"  scaled_mm {kw}: {len(survivors)} configs on the wgmma engine, int32 sums "
+                f"exact, max abs err {worst:.3g}, bf16 output bit-equal in {equal} of "
+                f"{len(survivors)}")
         del args
     # the bf16 tensor-core path at the default workload's lattice corners
     kw = DEFAULT_WORKLOADS["fused_moe"]
@@ -1226,8 +1292,21 @@ def tuner_kernel_parity(torch, dev):
                    dict(block_m=32, block_n=64, block_k=32),
                    dict(block_m=128, block_n=128, block_k=32)):
         same, err = smm(f"scaled_mm {kw} {blocks}", kw, blocks, args, main=True)
-        log(f"  scaled_mm {kw} {blocks or 'default blocks'}: int32 sum exact, max abs err "
+        log(f"  scaled_mm {kw} {blocks or 'default blocks'}, wgmma: int32 sum exact, max abs err "
             f"{err:.3g} (tol {SMM_TOL}), bf16 output bit-equal: {same}")
+    # the mma.sync engine on the same inputs at the default blocks, the
+    # shape phase 5 times it at: its own error, and its output against the
+    # wgmma engine's
+    out = smm_k.scaled_mm_wgmma_cuda(*args)
+    old = smm_k.scaled_mm_mma_sync_cuda(*args)
+    ref = scaled_mm_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(old.float(), ref.float(), rtol=SMM_TOL, atol=SMM_TOL)
+    max_err["scaled_mm"] = max(max_err["scaled_mm"],
+                               float((old.float() - ref.float()).abs().max()))
+    log(f"  scaled_mm {kw} default blocks, mma.sync: max abs err {max_err['scaled_mm']:.3g}, "
+        f"bit-equal to the plain version: {torch.equal(old, ref)}, to the wgmma engine: "
+        f"{torch.equal(old, out)}")
     return max_err
 
 
@@ -2005,7 +2084,6 @@ def kernel_times(torch, dev, peaks):
     from repro_torch.kernels.fused_moe.ref import fused_moe_ref
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    from repro_torch.kernels.scaled_mm.kernel import scaled_mm_cuda
     from repro_torch.kernels.scaled_mm.ref import scaled_mm_ref
     from repro_torch.kernels.silu_mul.kernel import silu_mul_cuda
     from repro_torch.kernels.silu_mul.ref import silu_mul_ref
@@ -2299,7 +2377,9 @@ def kernel_times(torch, dev, peaks):
         torch.cuda.empty_cache()
 
     # scaled_mm at dbrx-132b width (its FFN projection), default blocks, bf16
-    # out; library yardstick: torch._int_mm and the same epilogue
+    # out: the wgmma engine and the mma.sync engine on the same inputs in
+    # turns (``smm_engines_in_turns``), each row's ms the mean of its two;
+    # library yardstick: torch._int_mm and the same epilogue
     M, K, N = (arch_workload("scaled_mm", "dbrx-132b")[k] for k in "MKN")
 
     def int8(*shape):
@@ -2308,27 +2388,31 @@ def kernel_times(torch, dev, peaks):
     def scales(n):
         return 0.5 + 1.5 * torch.rand(n, generator=gen, device=dev)
 
-    def int_mm(x, w, sx, sw):
-        return (torch._int_mm(x, w).float() * sx[:, None] * sw[None, :]).to(bf16)
-
     smm_args = [(int8(M, K), int8(K, N), scales(M), scales(N)) for _ in range(2)]  # 2 x 72 MB > L2
-    nbytes = M * K + K * N + 4 * (M + N) + 2 * M * N
-    row("scaled_mm", scaled_mm_cuda, scaled_mm_ref, (int_mm, smm_args), smm_args, 10,
-        *bound(peaks, nbytes, 2 * M * K * N, "int8"))
-    r = rows["scaled_mm"]
-    log(f"  scaled_mm M{M} K{K} N{N}: {2 * M * K * N / 1e12:.4f} Tops, {nbytes / 1e6:.1f} MB; "
-        f"{2 * M * K * N / r['ms'] / 1e9:.1f} TOPS achieved, {r['bound_ms'] / r['ms']:.3f} of the "
-        f"bound, {r['library_ms'] / r['ms']:.2f}x faster than _int_mm + epilogue")
+    turns, eager_t = smm_engines_in_turns(torch, smm_args, 10)
+    plain_ms, eager["scaled_mm plain"] = cuda_ms(torch, scaled_mm_ref, smm_args, 2)
+    lib_ms, eager["scaled_mm library"] = cuda_ms(torch, smm_library, smm_args, 10)
+    bound_ms, bound_by = smm_bound(peaks, M, K, N)
+    for e, kname in (("wgmma", "scaled_mm_wgmma"), ("mma_sync", "scaled_mm")):
+        eager[kname] = eager_t[e]
+        rows[kname] = {"ms": float(np.mean(turns[e])), "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms}
+    r, old = rows["scaled_mm_wgmma"], rows["scaled_mm"]
+    log(f"  scaled_mm M{M} K{K} N{N}: {2 * M * K * N / 1e12:.4f} Tops; in turns (ms): wgmma "
+        f"{turns['wgmma']}, mma.sync {turns['mma_sync']}; wgmma {2 * M * K * N / r['ms'] / 1e9:.1f} "
+        f"TOPS, {r['bound_ms'] / r['ms']:.3f} of the bound, {old['ms'] / r['ms']:.2f}x faster than "
+        f"mma.sync, {r['library_ms'] / r['ms']:.2f}x faster than _int_mm + epilogue")
     del smm_args
     # the tuner's default workload, where its inputs stay in L2 as they do in tune()
     M, K, N = (DEFAULT_WORKLOADS["scaled_mm"][k] for k in "MKN")
     small = [(int8(M, K), int8(K, N), scales(M), scales(N)) for _ in range(2)]
-    ms, _ = cuda_ms(torch, scaled_mm_cuda, small, 100)
-    lib_ms, _ = cuda_ms(torch, int_mm, small, 100)
-    b_ms, b_by = bound(peaks, M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N, "int8")
-    log(f"  scaled_mm M{M} K{K} N{N} (tuner default), default blocks: {ms:.4f} ms, "
-        f"_int_mm + epilogue {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; "
-        f"{2 * M * K * N / ms / 1e9:.1f} TOPS")
+    turns, _ = smm_engines_in_turns(torch, small, 100)
+    lib_ms, _ = cuda_ms(torch, smm_library, small, 100)
+    b_ms, b_by = smm_bound(peaks, M, K, N)
+    ms = float(np.mean(turns["wgmma"]))
+    log(f"  scaled_mm M{M} K{K} N{N} (tuner default), default blocks, in turns (ms): wgmma "
+        f"{turns['wgmma']}, mma.sync {turns['mma_sync']}; _int_mm + epilogue {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by}; wgmma {2 * M * K * N / ms / 1e9:.1f} TOPS")
     for kname, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {kname}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library {lib}, "
@@ -2525,6 +2609,35 @@ def library_bwd_ms(torch, fwd, inputs, iters, kname):
     only, _ = cuda_ms(torch, fwd_only, inputs, iters)
     log(f"  {kname} library: forward and backward {both:.4f} ms, forward {only:.4f} ms")
     return both - only, both_eager
+
+
+def smm_library(x, w, sx, sw):
+    """scaled_mm as one library product computes it: ``torch._int_mm`` and
+    the same epilogue, a bf16 output (a yardstick; the port never calls it)."""
+    import torch
+
+    return (torch._int_mm(x, w).float() * sx[:, None] * sw[None, :]).to(torch.bfloat16)
+
+
+def smm_bound(peaks, M, K, N):
+    """scaled_mm's ``(bound_ms, bound_by)``: int8 x and w and the f32 scales
+    read once, a bf16 output written once, 2 M K N int8 operations."""
+    return bound(peaks, M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N, "int8")
+
+
+def smm_engines_in_turns(torch, inputs, iters, **blocks):
+    """scaled_mm's two engines on the same inputs, in turns (wgmma, mma.sync,
+    mma.sync, wgmma), each turn ``cuda_ms`` over ``iters`` calls:
+    ``({engine: [device ms of each turn]}, {engine: eager ms of its first})``."""
+    from repro_torch.kernels.scaled_mm import kernel as smm_k
+
+    turns, eager = {"wgmma": [], "mma_sync": []}, {}
+    for e in ("wgmma", "mma_sync", "mma_sync", "wgmma"):
+        fn = getattr(smm_k, f"scaled_mm_{e}_cuda")
+        ms, eg = cuda_ms(torch, lambda *a, fn=fn: fn(*a, **blocks), inputs, iters)
+        turns[e].append(ms)
+        eager.setdefault(e, eg)
+    return turns, eager
 
 
 def moe_library(x, w_gate, w_up, w_down):
@@ -3013,11 +3126,11 @@ def tuner(torch, dev):
 
     hw = REGISTRY["tpu-v4"]
     predictor = get_predictor("roofline", hw)
-    # each kernel's module, ops and the count of the engine its f32 inputs
-    # take (fused MoE's and flash attention's: the 3xTF32 engine, asserted
-    # below)
+    # each kernel's module, ops and the count of the engine its inputs take
+    # (fused MoE's and flash attention's f32: the 3xTF32 engine; scaled_mm's:
+    # the wgmma engine; asserted below)
     kernels = {"fused_moe": (moe_k, moe_ops, "tf32_launches"),
-               "scaled_mm": (smm_k, smm_ops, "launches"),
+               "scaled_mm": (smm_k, smm_ops, "wgmma_launches"),
                "flash_attention": (fa_k, fa_ops, "tf32_launches"),
                "silu_mul": (silu_k, silu_ops, "launches")}
     runs = [(k, kw) for k in ("fused_moe", "scaled_mm")
@@ -3030,12 +3143,15 @@ def tuner(torch, dev):
         setattr(mod, count, 0)
     moe_k.launches = 0  # fused MoE's mma.sync engine, which the tuner must not reach
     fa_k.launches = 0  # nor flash attention's FMA engine
+    smm_k.launches = 0  # nor scaled_mm's mma.sync engine
     for (kernel, kw), args in zip(runs, inputs):
         mod, ops, count = kernels[kernel]
         if kernel == "fused_moe":
             assert moe_k.fwd_engine(args[0].dtype, kw["C"], kw["D"], kw["F"]) == "wgmma_tf32"
         if kernel == "flash_attention":
             assert fa_k.fwd_engine(args[0].dtype, kw["D"]) == "tf32"
+        if kernel == "scaled_mm":
+            assert smm_k.engine(**kw) == "wgmma"
         grids = []
 
         def timed(kernel, kw, blocks, *, args=None, repeats, device, _args=args, _mod=mod):
@@ -3070,10 +3186,11 @@ def tuner(torch, dev):
     assert all(v > 0 for v in launches.values()), launches
     assert moe_k.launches == 0, "the tuner's f32 fused MoE reached the mma.sync engine"
     assert fa_k.launches == 0, "the tuner's f32 flash attention reached the FMA engine"
+    assert smm_k.launches == 0, "the tuner's scaled_mm reached the mma.sync engine"
     log(f"    launches in the tuner's runs: {launches} (fused_moe's and flash_attention's on "
-        f"their 3xTF32 engines)")
+        f"their 3xTF32 engines, scaled_mm's on its wgmma engine)")
     # the JSON line's counts: the tuner is the main path of these three
-    return {"fused_moe_tf32": launches["fused_moe"], "scaled_mm": launches["scaled_mm"],
+    return {"fused_moe_tf32": launches["fused_moe"], "scaled_mm_wgmma": launches["scaled_mm"],
             "flash_attention_tf32": launches["flash_attention"]}
 
 

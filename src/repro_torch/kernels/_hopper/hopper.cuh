@@ -181,6 +181,39 @@ inline int encode_f32_heads(CUtensorMap* map, const void* base, int D, int B, in
   return encode_f32_4d(map, base, dims, strides, box);
 }
 
+// Encode an int8 tensor map over a row-major (rows, cols) array whose rows
+// are 16-byte multiples, in boxes of `box_cols` x `box_rows`, with `swizzle`
+// bytes of swizzle (32, 64 or 128; box_cols at most that). Out-of-bounds
+// parts of a box load as zeros. Returns a CUresult. Host only.
+inline int encode_s8_2d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                        uint32_t box_cols, uint32_t box_rows, int swizzle) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  if (swizzle != 32 && swizzle != 64 && swizzle != 128) return CUDA_ERROR_INVALID_VALUE;
+  if (const CUresult bound = bind_primary_context(); bound != CUDA_SUCCESS) return bound;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};  // bytes, dim 1
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUtensorMapSwizzle mode = swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, mode, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// one TMA load of the box at (c0 = column, c1 = row) of a 2-D map into `dst`
+// (aligned to its swizzle's 8-row span), completing its bytes on barrier `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // one TMA load of the box at (c0, c1, c2, c3) of a 4-D map into `dst`
 // (1024-byte aligned for the swizzle), completing its bytes on barrier `bar`
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -328,6 +361,18 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);  // 128-byte swizzle
 }
+// Descriptor of a K-major operand tile that a TMA load with ROW_BYTES of
+// swizzle (128, 64 or 32: CU_TENSOR_MAP_SWIZZLE_128B, _64B, _32B) wrote:
+// rows of ROW_BYTES bytes of k, 8-row groups 8 ROW_BYTES apart (sbo); lbo is
+// unused. The tile is aligned to its 8-row span; `addr` may step by 32 bytes
+// of k inside a row. wgmma_desc(addr, 16, 1024) is the 128-byte case.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t wgmma_desc_k(uint32_t addr) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64 || ROW_BYTES == 32, "swizzle row bytes");
+  constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * ROW_BYTES) >> 4) << 32) | (layout << 62);
+}
 // order earlier register and shared-memory accesses before the next wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -348,6 +393,39 @@ __device__ __forceinline__ void fence_operand(float& r) {
 // sink between the wgmmas that read it
 __device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
+}
+// the same for an int32 accumulator
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// d (64 x 128, s32: 64 values a thread, in the layout of the f32
+// accumulator fragments) = A (64 x 32, s8, from registers: a[0..3] hold four
+// consecutive k of this thread's rows, row lane / 4 of its warp's 16 x 32
+// block + 0 / + 8 and k 4 (lane % 4) + 0 / + 16, as mma.sync's m16n8k32 A
+// fragment) B (32 x 128, s8, through its descriptor: K-major, the only
+// major-ness 8-bit types take) + (scale_d ? d : 0). The sums wrap as int32
+// does (no .satfinite). The registers of `a` stay unchanged until the group
+// is waited for.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // d (64 x 256, f32, the warpgroup's fragment: 128 values a thread) = A (64 x

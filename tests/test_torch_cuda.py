@@ -433,20 +433,32 @@ SMM_CASES = [
 ]
 
 
+def _smm_counts():
+    """Each scaled_mm engine's count, by ``engine``'s name."""
+    return {"wgmma": smm_kernel.wgmma_launches, "mma_sync": smm_kernel.launches}
+
+
+def _smm_operands(dev, M, K, N, seed, lo=0.5, hi=2.0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
+    sx = torch.from_numpy(rng.uniform(lo, hi, M).astype(np.float32)).to(dev)
+    sw = torch.from_numpy(rng.uniform(lo, hi, N).astype(np.float32)).to(dev)
+    return x, w, sx, sw
+
+
 @pytest.mark.parametrize("case", SMM_CASES)
 def test_scaled_mm_kernel_matches_plain(dev, case):
     """The int32 sum is exact (read through unit scales and an f32 output,
-    exact below 2**24), and the bf16 output equals the plain version's."""
+    exact below 2**24), and the bf16 output equals the plain version's, on
+    the engine ``engine`` picks, whose count alone moves."""
     M, K, N, bm, bn, bk = case
-    rng = np.random.default_rng(7)
-    x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
-    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
-    sx = torch.from_numpy(rng.uniform(0.5, 2.0, M).astype(np.float32)).to(dev)
-    sw = torch.from_numpy(rng.uniform(0.5, 2.0, N).astype(np.float32)).to(dev)
+    x, w, sx, sw = _smm_operands(dev, M, K, N, 7)
     blocks = dict(block_m=bm, block_n=bn, block_k=bk)
-    n0 = smm_kernel.launches
+    engine = smm_kernel.engine(M, K, N, **blocks)
+    before = _smm_counts()
     out = smm_ops.scaled_mm(x, w, sx, sw, **blocks)
-    assert smm_kernel.launches == n0 + 1
+    assert _smm_counts() == {e: n + (e == engine) for e, n in before.items()}
     assert smm_kernel.last_grid == smm_ops.grid_shape(M, K, N, **blocks)
     unit = smm_ops.scaled_mm(x, w, torch.ones_like(sx), torch.ones_like(sw),
                              out_dtype=torch.float32, **blocks)
@@ -458,18 +470,61 @@ def test_scaled_mm_kernel_matches_plain(dev, case):
     torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("engine", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("case", SMM_CASES)
+def test_scaled_mm_engine_matches_plain(dev, case, engine):
+    """Each engine forced on each case: the int32 sum exact, the bf16 output
+    equal to the plain version's bit for bit, the engine's count alone
+    moving by one; the wgmma engine refuses, and launches nothing for, the
+    cases it does not take (``engine``)."""
+    M, K, N, bm, bn, bk = case
+    x, w, sx, sw = _smm_operands(dev, M, K, N, 9)
+    blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+    fn = getattr(smm_kernel, f"scaled_mm_{engine}_cuda")
+    before = _smm_counts()
+    if engine == "wgmma" and smm_kernel.engine(M, K, N, **blocks) != "wgmma":
+        with pytest.raises(ValueError):
+            fn(x, w, sx, sw, **blocks)
+        assert _smm_counts() == before
+        return
+    out = fn(x, w, sx, sw, **blocks)
+    assert _smm_counts() == {e: n + (e == engine) for e, n in before.items()}
+    assert smm_kernel.last_grid == smm_ops.grid_shape(M, K, N, **blocks)
+    unit = fn(x, w, torch.ones_like(sx), torch.ones_like(sw), out_dtype=torch.float32, **blocks)
+    torch.cuda.synchronize()
+    acc = scaled_mm_acc_ref(x.cpu(), w.cpu())
+    assert int(acc.abs().max()) < 2**24
+    assert torch.equal(unit.cpu(), acc.float())
+    ref = smm_ops.scaled_mm(x.cpu(), w.cpu(), sx.cpu(), sw.cpu())
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_scaled_mm_wgmma_float32_and_bfloat16_outputs(dev, out_dtype):
+    """f32 and bf16 outputs on the wgmma engine, blocks whose columns start
+    off a 16-column multiple (N = 16 x 31, block_n 31): equal to the plain
+    version bit for bit."""
+    M, K, N = 100, 160, 496
+    x, w, sx, sw = _smm_operands(dev, M, K, N, 10)
+    blocks = dict(block_m=50, block_n=32, block_k=32)
+    assert smm_kernel.engine(M, K, N, **blocks) == "wgmma"
+    n0 = smm_kernel.wgmma_launches
+    out = smm_ops.scaled_mm(x, w, sx, sw, out_dtype=out_dtype, **blocks)
+    assert smm_kernel.wgmma_launches == n0 + 1
+    ref = smm_ops.scaled_mm(x.cpu(), w.cpu(), sx.cpu(), sw.cpu(), out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dtype and torch.equal(out.cpu(), ref)
+
+
 def test_scaled_mm_kernel_float16_output(dev):
     """An f16 output, scales small enough to keep it finite: within 1e-2 of
-    the plain version, through one launch of the reference's grid."""
+    the plain version, through one launch of the reference's grid on the
+    wgmma engine."""
     M, K, N = 256, 512, 384
-    rng = np.random.default_rng(8)
-    x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
-    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8)).to(dev)
-    sx = torch.from_numpy(rng.uniform(0.5e-3, 2e-3, M).astype(np.float32)).to(dev)
-    sw = torch.from_numpy(rng.uniform(0.5e-3, 2e-3, N).astype(np.float32)).to(dev)
-    n0 = smm_kernel.launches
+    x, w, sx, sw = _smm_operands(dev, M, K, N, 8, 0.5e-3, 2e-3)
+    n0 = smm_kernel.wgmma_launches
     out = smm_ops.scaled_mm(x, w, sx, sw, out_dtype=torch.float16)
-    assert smm_kernel.launches == n0 + 1
+    assert smm_kernel.wgmma_launches == n0 + 1
     assert smm_kernel.last_grid == smm_ops.grid_shape(M, K, N)
     ref = smm_ops.scaled_mm(x.cpu(), w.cpu(), sx.cpu(), sw.cpu(), out_dtype=torch.float16)
     torch.cuda.synchronize()
@@ -486,11 +541,11 @@ def test_tuner_times_the_kernels_on_the_card(dev):
     from repro_torch.tune import measure, tune
 
     hw = REGISTRY["tpu-v4"]
-    # each kernel's count of the engine the tuner's f32 inputs take (fused
-    # MoE's and flash attention's: their 3xTF32 engines)
+    # each kernel's count of the engine the tuner's inputs take (fused MoE's
+    # and flash attention's f32: their 3xTF32 engines; scaled_mm's: wgmma)
     for kernel, mod, count, ops, kw in [
         ("fused_moe", moe_kernel, "tf32_launches", moe_ops, {"E": 2, "C": 64, "D": 64, "F": 128}),
-        ("scaled_mm", smm_kernel, "launches", smm_ops, {"M": 128, "K": 256, "N": 128}),
+        ("scaled_mm", smm_kernel, "wgmma_launches", smm_ops, {"M": 128, "K": 256, "N": 128}),
         ("flash_attention", fa_kernel, "tf32_launches", fa_ops,
          {"B": 1, "S": 256, "Skv": 256, "Hq": 4, "Hkv": 2, "D": 64}),
         ("silu_mul", silu_kernel, "launches", silu_ops, {"R": 512, "d": 256}),

@@ -746,6 +746,106 @@ def test_scaled_mm_plan_stages_unaligned_rows_byte_by_byte():
         smm_kernel.launch_plan(64, 64, 64, out_dtype=torch.int32)
 
 
+@pytest.mark.parametrize("M, K, N", SMM_PLAN_SHAPES, ids=lambda v: str(v))
+def test_scaled_mm_engine_takes_every_lattice_point_on_wgmma(M, K, N):
+    """At the default, qwen3-0.6b and dbrx-132b workloads every point of
+    the block lattice, so every survivor of the tuner's prefilter there,
+    runs on the wgmma engine; its plan keeps the reference's grid, fits the
+    H100's 227 KB of shared memory a block and stages a depth that divides
+    block_k."""
+    from repro_torch.tune import enumerate_candidates, prefilter
+    from repro_torch.tune.space import BLOCK_VALUES
+
+    survivors, _ = prefilter("scaled_mm", dict(M=M, K=K, N=N), enumerate_candidates("scaled_mm"))
+    assert survivors
+    assert all(smm_kernel.engine(M, K, N, **c.blocks) == "wgmma" for c in survivors)
+    for bm in BLOCK_VALUES:
+        for bn in BLOCK_VALUES:
+            for bk in BLOCK_VALUES:
+                blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+                assert smm_kernel.engine(M, K, N, **blocks) == "wgmma"
+                plan = smm_kernel.wgmma_plan(M, K, N, **blocks)
+                assert plan.grid == ref_smm.grid_shape(M, K, N, **blocks)
+                assert plan.smem_bytes <= smm_kernel.SMEM_LIMIT
+                assert plan.block_k % plan.stage_k == 0 and plan.stage_k in (32, 64, 128)
+                assert plan.ctas == plan.grid[0] * plan.grid[1]
+
+
+SMM_ENGINE_CASES = [
+    # (M, K, N, blocks, aligned bases, engine)
+    (7, 100, 13, dict(block_m=3, block_n=5, block_k=7), True, "mma_sync"),  # K and N off 16
+    (64, 96, 50, dict(block_m=32, block_n=25, block_k=32), True, "mma_sync"),  # N off 16
+    (64, 100, 48, dict(block_k=100), True, "mma_sync"),  # K off 16
+    (64, 96, 48, dict(block_k=48), True, "mma_sync"),  # block_k not whole 32-deep steps
+    (64, 96, 48, dict(block_k=32), False, "mma_sync"),  # a base off 16 bytes
+    (64, 96, 48, dict(block_m=32, block_n=25, block_k=32), True, "wgmma"),
+    (7, 96, 16, dict(block_m=3, block_n=5, block_k=32), True, "wgmma"),
+    (1024, 6144, 10752, {}, True, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("M, K, N, blocks, aligned, want", SMM_ENGINE_CASES)
+def test_scaled_mm_engine_routes_what_tma_cannot_address_to_mma_sync(M, K, N, blocks, aligned,
+                                                                      want):
+    """``engine`` answers wgmma where K and N are multiples of 16, the bases
+    16-byte multiples and block_k whole 32-deep steps, else mma_sync; the
+    wgmma plan refuses what the engine does not take."""
+    assert smm_kernel.engine(M, K, N, aligned=aligned, **blocks) == want
+    if smm_kernel.engine(M, K, N, **blocks) == "mma_sync":
+        with pytest.raises(ValueError):
+            smm_kernel.wgmma_plan(M, K, N, **blocks)
+
+
+SMM_WGMMA_COVER_CASES = [
+    (1024, 512, 512, {}), (1024, 512, 512, dict(block_m=512, block_n=512, block_k=512)),
+    (1024, 512, 512, dict(block_m=32, block_n=32, block_k=32)),
+    (7, 96, 16, dict(block_m=3, block_n=5, block_k=32)),  # 1-row, 4-column blocks
+    (100, 160, 496, dict(block_m=50, block_n=32, block_k=32)),  # bn 31: blocks off 16 columns
+    (200, 288, 272, dict(block_m=100, block_n=136, block_k=96)),  # stages of 32, 2 column sub-tiles
+    (300, 1024, 384, dict(block_m=300, block_n=384, block_k=128)),  # 3 x 3 sub-tiles, ragged
+]
+
+
+@pytest.mark.parametrize("M, K, N, blocks", SMM_WGMMA_COVER_CASES)
+def test_scaled_mm_wgmma_plan_covers_every_output_once(M, K, N, blocks):
+    """The wgmma engine's CTAs (one a block) and the sub-tiles each walks
+    (``wgmma_walk``, the source's walk) store every output exactly once;
+    the plan keeps the reference's grid, which the wrapper records as
+    ``last_grid``, and fits 227 KB."""
+    plan = smm_kernel.wgmma_plan(M, K, N, **blocks)
+    assert plan.grid == ref_smm.grid_shape(M, K, N, **blocks)
+    assert plan.smem_bytes <= smm_kernel.SMEM_LIMIT
+    stored = np.zeros((M, N), np.int32)
+    for cta in range(plan.ctas):
+        for m0, rows, n0, cols in smm_kernel.wgmma_walk(plan, M, cta):
+            assert 0 < rows <= plan.tile[0] and 0 < cols <= plan.tile[1]
+            stored[m0:m0 + rows, n0:n0 + cols] += 1
+    assert (stored == 1).all()
+
+
+def test_scaled_mm_wgmma_plan_at_dbrx_width():
+    """The default blocks at dbrx-132b width: 672 CTAs of a consumer and a
+    producer warpgroup, one 128 x 128 sub-tile each, a ring of three
+    128-deep stages in 99376 bytes (two CTAs an SM)."""
+    plan = smm_kernel.wgmma_plan(1024, 6144, 10752)
+    assert plan.grid == (8, 84, 24) and plan.ctas == 672
+    assert (plan.tile, plan.sub_tiles, plan.threads) == ((128, 128), (1, 1), 256)
+    assert (plan.stage_k, plan.stages) == (128, 3)
+    assert plan.smem_bytes == 1024 + 3 * 2 * 128 * 128 + 2 * 3 * 8
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    deep = smm_kernel.wgmma_plan(1024, 6144, 10752, block_m=512, block_n=512, block_k=32)
+    assert (deep.sub_tiles, deep.stage_k, deep.stages, deep.ctas) == ((4, 4), 32, 4, 42)
+
+
+def test_scaled_mm_wgmma_source_is_a_library_of_its_own():
+    """The wgmma engine is its own source and library, built beside the
+    mma.sync engine's."""
+    assert all(p.is_file() and p.suffix == ".cu" for p in smm_kernel.WGMMA_SOURCES)
+    assert not set(smm_kernel.WGMMA_SOURCES) & set(smm_kernel.SOURCES)
+    assert (_build.library_path("scaled_mm_wgmma", smm_kernel.WGMMA_SOURCES)
+            != _build.library_path("scaled_mm", smm_kernel.SOURCES))
+
+
 def test_silu_mul_plan_owns_whole_row_blocks():
     """A program owns whole rows; its chunk is the span rounded up to a
     power of two, within MIN_BLOCK and MAX_BLOCK, so one-row programs (a prime prompt

@@ -77,6 +77,7 @@ def test_port_files_exist():
         assert mod in names
     assert (ROOT / "chip_smoke.py").is_file()
     for cu in ("kernels/fused_moe/csrc/fused_moe.cu", "kernels/scaled_mm/csrc/scaled_mm.cu",
+               "kernels/scaled_mm/csrc/scaled_mm_wgmma.cu",
                "kernels/flash_attention/csrc/flash_attention_bwd.cu",
                "kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu",
                "kernels/flash_attention/csrc/flash_attention_wgmma.cu",
